@@ -1,0 +1,15 @@
+"""kyverno_tpu_torch — the PyTorch/CUDA port of the device plane.
+
+The port runs the validate scan of a compiled policy set on an NVIDIA
+H100: the host closure (policy loading, IR lowering, row encoding) is
+carried over from ``kyverno_tpu`` as copies, and the device half is
+rewritten as PyTorch code around hand-written CUDA kernels
+(``csrc/*.cu``, loaded by ``kernels.py``).
+
+Entry point: ``kyverno_tpu_torch.tpu.engine.TorchEngine``. It runs on
+``device="cuda"`` unless the caller asks for ``device="cpu"``, where
+every kernel is replaced by its plain PyTorch twin.
+
+This package imports ``torch`` and ``numpy``, never ``jax`` and
+nothing of ``kyverno_tpu``.
+"""

@@ -1,0 +1,440 @@
+"""TorchEngine — batch policy evaluation on a CUDA device (the port of
+kyverno_tpu/tpu/engine.py:TpuEngine, validate scan only).
+
+``TorchEngine(policies).scan(resources)`` encodes the resources on the
+host (NumPy, tpu/flatten.py + tpu/metadata.py), pads the batch to a
+power-of-two bucket, moves the lane dict to the device in ONE copy from
+pinned memory, runs the compiled program (evaluator.build_program) and
+reads back the verdict table and the per-rule verdict-class counts,
+with the bucket-pad columns subtracted from the counts.
+
+The table holds the device rules only (``CompiledPolicySet.device_programs``
+order) and its cells are what the device program computed: HOST (5)
+and CONFIRM (6) cells are returned as they are. Completing them on the
+scalar engine (kyverno_tpu/tpu/engine.py:TpuEngine.assemble) needs the
+scalar engine and its closure in the port; that is the next slice.
+
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; without CUDA they raise instead of running elsewhere.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..api.policy import ClusterPolicy
+from ..engine.context import Context
+from ..engine.match import RequestInfo
+from .compiler import CompiledPolicySet, compile_policy_set
+from .evaluator import NUM_VERDICT_CLASSES, batch_to_host
+from .flatten import EncodeConfig, encode_resources
+from .metadata import MetaConfig, encode_metadata
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA. A CUDA device without CUDA raises: the port
+    never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "kyverno_tpu_torch runs on CUDA by default and no CUDA device "
+            "is available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def class_counts(table: np.ndarray) -> np.ndarray:
+    """(rules, N) verdict table -> (rules, 7) int64 per-class counts on
+    the host (one bincount)."""
+    table = np.asarray(table)
+    d = table.shape[0]
+    if table.size == 0:
+        return np.zeros((d, NUM_VERDICT_CLASSES), dtype=np.int64)
+    idx = (table.astype(np.int64)
+           + np.arange(d, dtype=np.int64)[:, None] * NUM_VERDICT_CLASSES)
+    return np.bincount(idx.ravel(), minlength=d * NUM_VERDICT_CLASSES
+                       ).reshape(d, NUM_VERDICT_CLASSES)
+
+
+def lanes_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The host lane dict as tensors on ``device``. uint32 hash lanes
+    become int32 bit patterns (torch's uint32 supports no ordering and
+    the program only tests them for equality). On CUDA every lane is
+    packed into ONE pinned host buffer (16-byte aligned slices) and
+    moved with one asynchronous copy on the current stream; the lanes
+    are views into the device buffer."""
+    device = torch.device(device)
+    arrs = {}
+    for k, v in batch.items():
+        a = np.ascontiguousarray(v)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        elif a.dtype == np.bool_:
+            a = a.view(np.uint8)
+        arrs[k] = a
+    if device.type == "cpu":
+        return {k: torch.from_numpy(a) for k, a in arrs.items()}
+    offsets = {}
+    total = 0
+    for k, a in arrs.items():
+        offsets[k] = total
+        total += -(-a.nbytes // 16) * 16
+    host = torch.empty((max(total, 16),), dtype=torch.uint8, pin_memory=True)
+    hview = host.numpy()
+    for k, a in arrs.items():
+        o = offsets[k]
+        hview[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    out = {}
+    for k, a in arrs.items():
+        o = offsets[k]
+        t = dev[o:o + a.nbytes].view(_TORCH_DTYPES[a.dtype.str])
+        out[k] = t.view(a.shape)
+    # the caching host allocator keeps the pinned buffer alive until
+    # the asynchronous copy has run
+    return out
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.uint8).str: torch.uint8,
+    np.dtype(np.int8).str: torch.int8,
+    np.dtype(np.int16).str: torch.int16,
+    np.dtype(np.int32).str: torch.int32,
+    np.dtype(np.int64).str: torch.int64,
+    np.dtype(np.float32).str: torch.float32,
+}
+
+
+# The JSON context of a scanned resource and the dynamic-operand lane
+# encoding below are copied from kyverno_tpu/tpu/engine.py.
+
+
+def _scan_json_context(resource: Dict[str, Any], operation: str = "",
+                       admission_info: Optional[RequestInfo] = None) -> Context:
+    """The JSON context both engines evaluate against for one scanned
+    resource: request.object/namespace/operation/userInfo + images.*
+    (policy_context.go:257)."""
+    ctx = Context()
+    ctx.add_resource(resource)
+    ns = (resource.get("metadata") or {}).get("namespace", "")
+    if ns:
+        ctx.add_namespace(ns)
+    if operation:
+        ctx.add_operation(operation)
+    info = admission_info or RequestInfo()
+    ctx.add_user_info({"username": info.username, "uid": info.uid,
+                       "groups": info.groups})
+    try:
+        from ..images import extract_images
+
+        extracted = extract_images(resource)
+        if extracted:
+            ctx.add_image_infos({
+                group: {key: info_.to_dict() for key, info_ in entries.items()}
+                for group, entries in extracted.items()})
+    except Exception:
+        pass  # malformed image strings must not break context building
+    return ctx
+
+
+
+def _walk_values(node, segs, i=0):
+    """Yield the values at a PathState segment chain over a raw
+    resource dict (ARRAY_SEG iterates list elements)."""
+    from .hashing import ARRAY_SEG
+
+    if i == len(segs):
+        yield node
+        return
+    seg = segs[i]
+    if seg == ARRAY_SEG:
+        if isinstance(node, list):
+            for el in node:
+                yield from _walk_values(el, segs, i + 1)
+    elif isinstance(node, dict) and seg in node:
+        yield from _walk_values(node[seg], segs, i + 1)
+
+
+@dataclass
+class ScanResult:
+    """(device rules, N) int32 verdict table, the (policy, rule) of each
+    row, and the (device rules, 7) int32 verdict-class counts over the
+    N live columns."""
+
+    verdicts: np.ndarray
+    rules: List[Tuple[str, str]]
+    counts: np.ndarray
+
+
+class TorchEngine:
+    """Compile once, scan many, on one device."""
+
+    # batch sizes bucket to powers of two, as the reference's do
+    MIN_BUCKET = 16
+    DYN_LIST_L = 32  # padded list-operand lanes per slot
+
+    def __init__(
+        self,
+        policies: Sequence[ClusterPolicy] = (),
+        device=None,
+        encode_cfg: Optional[EncodeConfig] = None,
+        meta_cfg: Optional[MetaConfig] = None,
+        cps: Optional[CompiledPolicySet] = None,
+    ):
+        self.device = resolve_device(device)
+        self.cps: CompiledPolicySet = cps if cps is not None \
+            else compile_policy_set(policies, encode_cfg, meta_cfg)
+        # context loaders reach no external data source in this slice
+        self.data_sources = None
+
+    @property
+    def rules(self) -> List[Tuple[str, str]]:
+        """(policy, rule) of each device-table row."""
+        out: List[Tuple[str, str]] = [("", "")] * len(self.cps.device_programs)
+        for e in self.cps.rules:
+            if e.device_row is not None:
+                out[e.device_row] = (e.policy_name, e.rule_name)
+        return out
+
+    def coverage(self) -> Tuple[int, int]:
+        return self.cps.coverage()
+
+    # -- encoding (host NumPy)
+
+    def encode(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ):
+        rows = encode_resources(resources, self.cps.encode_cfg,
+                                self.cps.byte_paths, self.cps.key_byte_paths)
+        meta = encode_metadata(resources, namespace_labels, operations,
+                               admission_infos, self.cps.meta_cfg)
+        batch = batch_to_host(rows, meta)
+        if self.cps.dyn_slots:
+            batch.update(self._encode_dyn_lanes(resources, operations,
+                                                admission_infos))
+        return batch, rows, meta
+
+    def _encode_dyn_lanes(self, resources, operations, admission_infos):
+        """Host-resolved context operands (SURVEY §7 context-dependent
+        rules): per (slot, resource), load the slot's context entries
+        through the REAL loaders (apiCall/configMap I/O included,
+        exactly the scalar engine's path) and encode the queried value
+        as canonical lanes the device program compares against.
+        Load results cache on the substituted entry spec, so
+        request-independent entries (static urlPaths, configMaps)
+        resolve once per batch."""
+        S, N, L = len(self.cps.dyn_slots), len(resources), self.DYN_LIST_L
+        lanes = {
+            # type: 0=load-error 1=null 2=bool 3=num 4=str 5=list 6=other
+            "dyn_type": np.zeros((S, N), np.int8),
+            "dyn_bool": np.zeros((S, N), np.int8),
+            # 0/1 = the value coerces to that bool ("true"/"false"
+            # strings included, equal.go), 2 = no bool coercion
+            "dyn_as_bool": np.full((S, N), 2, np.int8),
+            "dyn_num": np.zeros((S, N), np.float32),
+            "dyn_has_num": np.zeros((S, N), np.int8),
+            # canonical number hash (rows carry canon hashes, not floats)
+            "dyn_num_h": np.zeros((S, N, 2), np.uint32),
+            "dyn_sprint": np.zeros((S, N, 2), np.uint32),
+            "dyn_list_h": np.zeros((S, N, L, 2), np.uint32),
+            "dyn_list_n": np.zeros((S, N), np.int32),
+            # string value that decodes as a JSON string-array
+            "dyn_json_list": np.zeros((S, N), np.int8),
+            # host-completion flag: list overflow, glob/unit-bearing
+            # values, or glob-bearing guarded resource values —
+            # anything hash lanes can't compare the way the oracle does
+            "dyn_host": np.zeros((S, N), np.int8),
+        }
+        cache: Dict[Any, Tuple[bool, Any]] = {}
+        # scope backend-failure poisoning to this batch: a dead backend
+        # costs ONE retry budget here, not one per (slot, resource)
+        begin_batch = getattr(self.data_sources, "begin_batch", None)
+        if begin_batch is not None:
+            begin_batch()
+        try:
+            return self._encode_dyn_cells(resources, operations,
+                                          admission_infos, lanes, cache)
+        finally:
+            end_batch = getattr(self.data_sources, "end_batch", None)
+            if end_batch is not None:
+                end_batch()
+
+    def _encode_dyn_cells(self, resources, operations, admission_infos,
+                          lanes, cache):
+        import json as _json
+
+        from ..engine.contextloaders import load_context_entries
+        from ..utils.wildcard import contains_wildcard
+
+        L = self.DYN_LIST_L
+        for ci, res in enumerate(resources):
+            op = (operations[ci] if operations else "") or ""
+            info = admission_infos[ci] if admission_infos else None
+            # ONE context build per resource (image extraction is the
+            # expensive part); every slot loads into a shallow fork so
+            # entries one slot resolves never leak into another slot's
+            # substitution or query
+            base_ctx = _scan_json_context(res, op, info)
+            for si, slot in enumerate(self.cps.dyn_slots):
+                ctx = base_ctx.shallow_fork()
+                key = None
+                try:
+                    from ..engine.variables import substitute_all
+
+                    key = (si, _json.dumps(
+                        substitute_all(ctx, slot.entries), sort_keys=True,
+                        default=str))
+                except Exception:  # noqa: BLE001
+                    key = None  # request-dependent substitution failed
+                if key is not None and key in cache:
+                    ok, val = cache[key]
+                else:
+                    try:
+                        load_context_entries(ctx, slot.entries,
+                                             self.data_sources)
+                        val = ctx.query(slot.query)
+                        ok = True
+                    except Exception:  # noqa: BLE001
+                        ok, val = False, None
+                    if key is not None:
+                        cache[key] = (ok, val)
+                if not ok:
+                    lanes["dyn_type"][si, ci] = 0
+                    continue
+                self._fill_dyn_value(lanes, si, ci, val, L)
+                # guarded resource paths: glob-bearing string values
+                # defeat hash membership -> host completes the cell
+                for segs in slot.guard_paths:
+                    for v in _walk_values(res, segs):
+                        if isinstance(v, str) and contains_wildcard(v):
+                            lanes["dyn_host"][si, ci] = 1
+        return lanes
+
+    @staticmethod
+    def _fill_dyn_value(lanes, si, ci, val, L):
+        from ..engine.pattern import go_parse_float
+        from ..utils.duration import parse_duration
+        from ..utils.quantity import parse_quantity
+        from ..utils.wildcard import contains_wildcard
+        from .flatten import go_sprint
+        from .hashing import canon_number, hash_str, split32
+
+        if isinstance(val, bool):
+            lanes["dyn_type"][si, ci] = 2
+            lanes["dyn_bool"][si, ci] = 1 if val else 0
+            lanes["dyn_as_bool"][si, ci] = 1 if val else 0
+        elif isinstance(val, (int, float)):
+            lanes["dyn_type"][si, ci] = 3
+            lanes["dyn_num"][si, ci] = float(val)
+            lanes["dyn_has_num"][si, ci] = 1
+            lanes["dyn_num_h"][si, ci] = split32(canon_number(val))
+        elif isinstance(val, str):
+            lanes["dyn_type"][si, ci] = 4
+            lanes["dyn_sprint"][si, ci] = split32(hash_str(val, tag="s"))
+            if val in ("true", "false"):
+                lanes["dyn_as_bool"][si, ci] = 1 if val == "true" else 0
+            f = go_parse_float(val)
+            if f is not None:
+                lanes["dyn_num"][si, ci] = f
+                lanes["dyn_has_num"][si, ci] = 1
+                lanes["dyn_num_h"][si, ci] = split32(canon_number(f))
+            # globs act as patterns, unit strings coerce, and range
+            # expressions compare structurally in the oracle — hash
+            # equality can't see any of those
+            from ..engine.operator import (Operator,
+                                           get_operator_from_string_pattern)
+
+            if contains_wildcard(val):
+                lanes["dyn_host"][si, ci] = 1
+            if (val != "0" and parse_duration(val) is not None) or \
+                    (f is None and parse_quantity(val) is not None):
+                lanes["dyn_host"][si, ci] = 1
+            if get_operator_from_string_pattern(val) in (
+                    Operator.IN_RANGE, Operator.NOT_IN_RANGE):
+                lanes["dyn_host"][si, ci] = 1
+            # a valid-JSON string-array value decodes for membership
+            # (in.go keyExistsInArray / anyin.go _value_as_string_list)
+            from ..engine.conditions import _value_as_string_list
+
+            arr = _value_as_string_list(val)
+            if arr is not None:
+                lanes["dyn_json_list"][si, ci] = 1
+                if len(arr) > L:
+                    lanes["dyn_host"][si, ci] = 1
+                n = 0
+                for v in arr[:L]:
+                    if contains_wildcard(v):
+                        lanes["dyn_host"][si, ci] = 1
+                    lanes["dyn_list_h"][si, ci, n] = split32(
+                        hash_str(v, tag="s"))
+                    n += 1
+                lanes["dyn_list_n"][si, ci] = n
+        elif val is None:
+            lanes["dyn_type"][si, ci] = 1
+        elif isinstance(val, list):
+            lanes["dyn_type"][si, ci] = 5
+            if len(val) > L:
+                lanes["dyn_host"][si, ci] = 1
+            n = 0
+            for v in val[:L]:
+                s = go_sprint(v)
+                if s is None:
+                    lanes["dyn_host"][si, ci] = 1
+                    continue
+                if contains_wildcard(s):
+                    lanes["dyn_host"][si, ci] = 1
+                lanes["dyn_list_h"][si, ci, n] = split32(hash_str(s, tag="s"))
+                n += 1
+            lanes["dyn_list_n"][si, ci] = n
+        else:
+            lanes["dyn_type"][si, ci] = 6
+
+
+    # -- evaluation
+
+    def bucket_size(self, n: int) -> int:
+        b = self.MIN_BUCKET
+        while b < n:
+            b *= 2
+        return b
+
+    def pad(self, resources, operations=None, admission_infos=None):
+        """Pad the batch to its bucket with empty resources."""
+        n = len(resources)
+        padded_n = self.bucket_size(max(n, 1))
+        padded = list(resources) + [{} for _ in range(padded_n - n)]
+        ops = (list(operations) + [""] * (padded_n - n)) if operations else None
+        infos = (list(admission_infos) + [None] * (padded_n - n)) \
+            if admission_infos else None
+        return padded, ops, infos
+
+    def run(self, lanes: Dict[str, torch.Tensor]):
+        """The compiled program on device lanes -> (table, counts)
+        tensors on the device (asynchronous on CUDA)."""
+        return self.cps.device_fn()(lanes)
+
+    def scan(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> ScanResult:
+        n = len(resources)
+        padded, ops, infos = self.pad(resources, operations, admission_infos)
+        batch, _, _ = self.encode(padded, namespace_labels, ops, infos)
+        table, counts = self.run(lanes_to_device(batch, self.device))
+        table = table.cpu().numpy()
+        counts = counts.cpu().numpy().astype(np.int64)
+        # bucket-pad columns are encoded empties, not workload
+        counts = (counts - class_counts(table[:, n:])).astype(np.int32)
+        return ScanResult(verdicts=np.ascontiguousarray(table[:, :n]),
+                          rules=self.rules, counts=counts)

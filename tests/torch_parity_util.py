@@ -1,0 +1,180 @@
+"""Shared helpers of the tests/test_torch_*.py files: the same inputs go
+through the JAX package (the reference) and the PyTorch port.
+
+The corpora of the JAX parity modules are taken as those modules build
+them: a module's test function runs with ``TpuEngine.scan`` wrapped so
+that every scan it makes is recorded (engine, resources, namespace
+labels, operations, user infos) and then carried out as before."""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, List, Optional
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from kyverno_tpu.tpu import engine as jengine
+from kyverno_tpu_torch.api.policy import ClusterPolicy as PortPolicy
+from kyverno_tpu_torch.engine.match import RequestInfo as PortRequestInfo
+from kyverno_tpu_torch.tpu.engine import TorchEngine, class_counts
+
+# the functions of the JAX parity modules that scan, by module
+CORPORA = {
+    "test_tpu_parity": [
+        "test_equality_anchor_pattern",
+        "test_array_of_maps_anchors",
+        "test_or_alternatives_leaf",
+        "test_deny_multiselect_capabilities",
+        "test_deny_keys_projection",
+        "test_negation_and_anypattern",
+        "test_match_exclude_selectors_namespaces",
+        "test_glob_leaf_operand",
+        "test_operator_leaves",
+        "test_host_fallback_rules_complete",
+        "test_static_context_folding",
+        "test_literal_key_condition_constant_folds",
+        "test_deprecated_in_notin_device_parity",
+        "test_deprecated_in_operation_key_and_nonstring_values",
+        "test_wildcard_label_selector_device_parity",
+        "test_wildcard_selector_invalid_label_syntax_goes_host",
+        "test_value_only_wildcard_multi_entries_lower",
+        "test_userinfo_key_membership_parity",
+        "test_not_null_defaults_loader_semantics_parity",
+    ],
+    "test_tpu_foreach": [
+        "test_foreach_deny_parity",
+        "test_foreach_mixed_drop_lists_parity",
+        "test_membership_glob_resource_value_falls_back_to_host",
+        "test_double_flatten_nested_arrays_parity",
+        "test_scalar_chain_glob_value_falls_back",
+    ],
+    "test_tpu_nested_wildcard": [
+        "test_nested_array_of_maps_parity",
+        "test_wildcard_metadata_key_parity",
+        "test_existence_anchor_depth_accounting",
+        "test_wildcard_metadata_key_in_array_scope_falls_back",
+        "test_wildcard_key_in_labels_parity",
+    ],
+}
+
+CORPUS_PARAMS = [pytest.param(mod, name, id=f"{mod}::{name}")
+                 for mod, names in CORPORA.items() for name in names]
+
+
+class Recorded:
+    def __init__(self, engine, resources, namespace_labels, operations,
+                 admission_infos):
+        self.engine = engine
+        self.resources = list(resources)
+        self.namespace_labels = copy.deepcopy(namespace_labels)
+        self.operations = list(operations) if operations else None
+        self.admission_infos = list(admission_infos) if admission_infos \
+            else None
+
+
+def record_corpus(monkeypatch, module: str, name: str) -> List[Recorded]:
+    """Run ``module.name()`` and return every scan it made."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    seen: List[Recorded] = []
+    real = jengine.TpuEngine.scan
+
+    def scan(self, resources, namespace_labels=None, operations=None,
+             admission_infos=None, live_n=None):
+        seen.append(Recorded(self, resources, namespace_labels, operations,
+                             admission_infos))
+        return real(self, resources, namespace_labels, operations,
+                    admission_infos, live_n=live_n)
+
+    monkeypatch.setattr(jengine.TpuEngine, "scan", scan)
+    getattr(mod, name)()
+    monkeypatch.setattr(jengine.TpuEngine, "scan", real)
+    assert seen, f"{module}.{name} made no scan"
+    return seen
+
+
+def port_policies(policies) -> List[PortPolicy]:
+    return [PortPolicy.from_dict(copy.deepcopy(p.raw)) for p in policies]
+
+
+def port_infos(infos) -> Optional[List[Any]]:
+    if infos is None:
+        return None
+    return [None if i is None else PortRequestInfo(
+        roles=list(i.roles), cluster_roles=list(i.cluster_roles),
+        username=i.username, uid=i.uid, groups=list(i.groups))
+        for i in infos]
+
+
+def padded_args(jeng, rec: Recorded):
+    n = len(rec.resources)
+    padded_n = jeng.bucket_size(max(n, 1))
+    pad = padded_n - n
+    resources = rec.resources + [{} for _ in range(pad)]
+    ops = rec.operations + [""] * pad if rec.operations else None
+    infos = rec.admission_infos + [None] * pad if rec.admission_infos \
+        else None
+    return resources, ops, infos
+
+
+def jax_encode(jeng, rec: Recorded) -> Dict[str, np.ndarray]:
+    resources, ops, infos = padded_args(jeng, rec)
+    return jeng.encode(resources, rec.namespace_labels, ops, infos)[0]
+
+
+def jax_device_scan(jeng, rec: Recorded):
+    """The JAX package's device program on the recorded scan, as
+    TpuEngine._dispatch runs it: (table[:, :n], counts less the pad
+    columns), both int32."""
+    n = len(rec.resources)
+    batch = jax_encode(jeng, rec)
+    table, counts = jeng.cps.device_fn()(jax.device_put(batch))
+    table, counts = np.asarray(table), np.asarray(counts)
+    counts = (counts.astype(np.int64) - class_counts(table[:, n:])
+              ).astype(np.int32)
+    return table[:, :n], counts
+
+
+def port_engine(jeng) -> TorchEngine:
+    return TorchEngine(port_policies(jeng.cps.policies), device="cpu")
+
+
+def port_scan(teng: TorchEngine, rec: Recorded):
+    return teng.scan(rec.resources, rec.namespace_labels, rec.operations,
+                     port_infos(rec.admission_infos))
+
+
+def assert_same_program(jeng, teng: TorchEngine) -> None:
+    """Both compilers lowered the same rules to the same device rows."""
+    jrows = [(e.policy_name, e.rule_name, e.device_row) for e in jeng.cps.rules]
+    trows = [(e.policy_name, e.rule_name, e.device_row) for e in teng.cps.rules]
+    assert jrows == trows
+
+
+def assert_scan_equal(jeng, teng: TorchEngine, rec: Recorded) -> None:
+    want_table, want_counts = jax_device_scan(jeng, rec)
+    got = port_scan(teng, rec)
+    assert got.verdicts.dtype == np.int32 and got.counts.dtype == np.int32
+    assert got.verdicts.shape == want_table.shape
+    assert np.array_equal(got.verdicts, want_table)
+    assert np.array_equal(got.counts, want_counts)
+
+
+def assert_lanes_equal(want: Dict[str, np.ndarray],
+                       got: Dict[str, np.ndarray]) -> None:
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        g = got[k]
+        assert g.dtype == v.dtype, (k, g.dtype, v.dtype)
+        assert g.shape == v.shape, (k, g.shape, v.shape)
+        assert np.array_equal(g, v), k
+
+
+def port_lanes_cpu(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    return lanes_to_device(batch, "cpu")
