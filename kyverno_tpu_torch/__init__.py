@@ -6,9 +6,12 @@ carried over from ``kyverno_tpu`` as copies, and the device half is
 rewritten as PyTorch code around hand-written CUDA kernels
 (``csrc/*.cu``, loaded by ``kernels.py``).
 
-Entry point: ``kyverno_tpu_torch.tpu.engine.TorchEngine``. It runs on
-``device="cuda"`` unless the caller asks for ``device="cpu"``, where
-every kernel is replaced by its plain PyTorch twin.
+Entry points: ``kyverno_tpu_torch.tpu.engine.TorchEngine`` (a batch
+scan, dense lanes, completed on the scalar engine) and
+``kyverno_tpu_torch.parallel.ShardedScanner`` (the tiled background
+scan over the vocabulary form). They run on ``device="cuda"`` unless
+the caller asks for ``device="cpu"``, where every kernel is replaced by
+its plain PyTorch twin.
 
 This package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``kyverno_tpu``.

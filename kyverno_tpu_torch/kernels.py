@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the port, their loader, and their plain
-PyTorch twins.
+PyTorch twins: K1 ``dfa_scan``, K3 ``instance_count``, K4
+``verdict_counts`` (and its uint8-table entry), K5 ``vocab_gather``,
+K6 ``hash_match``, K7 ``pool_rows`` and K8 ``first_true_take``.
 
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 The first launch builds all sources at once (one ``nvcc`` per source,
@@ -30,8 +32,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 NUM_VERDICT_CLASSES = 7
@@ -39,7 +42,8 @@ NUM_VERDICT_CLASSES = 7
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "build", "kernels")
-SOURCES = ("dfa_scan", "instance_count", "verdict_counts")
+SOURCES = ("dfa_scan", "instance_count", "verdict_counts", "vocab_gather",
+           "hash_match", "pool_rows", "first_true_take")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +54,12 @@ LAUNCHES: Dict[str, int] = {
     "instance_count": 0,
     "instance_count2": 0,
     "verdict_counts": 0,
+    "verdict_counts_u8": 0,
+    "vocab_gather": 0,
+    "vocab_gather_rows": 0,
+    "hash_match": 0,
+    "pool_rows": 0,
+    "first_true_take": 0,
 }
 
 _P = ctypes.c_void_p
@@ -61,7 +71,13 @@ _SIGNATURES = {
     "dfa_scan_stride1": ("dfa_scan",
                          [_P, _P, _L, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]),
     "instance_count": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
-    "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P]),
+    "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P, _P]),
+    "vocab_gather": ("vocab_gather", [_P, _P, _P, _P, _I, _P, _I, _L, _L, _P]),
+    "vocab_gather_rows": ("vocab_gather",
+                          [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P]),
+    "hash_match": ("hash_match", [_P, _P, _P, _L, _P, _I, _P, _P]),
+    "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _P, _P]),
+    "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -381,8 +397,313 @@ def verdict_counts(table: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rules, NUM_VERDICT_CLASSES), dtype=torch.int32,
                       device=table.device)
     if rules and N:
-        _call("verdict_counts", _ptr(table), rules, N, _ptr(out))
+        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), None)
         LAUNCHES["verdict_counts"] += 1
     elif rules:
         out.zero_()
     return out
+
+
+def verdict_counts_u8_plain(table: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rules, N) int32 -> ((rules, N) uint8 table, (rules, 7) int32
+    counts taken on the int32 table)."""
+    return table.to(torch.uint8), verdict_counts_plain(table)
+
+
+def verdict_counts_u8(table: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 with its uint8 output: the background scan's step writes the
+    uint8 verdict table in the same pass as the counts."""
+    if table.device.type == "cpu":
+        return verdict_counts_u8_plain(table)
+    _check(table, "table", torch.int32, table.device, 2)
+    rules, N = table.shape
+    out = torch.empty((rules, NUM_VERDICT_CLASSES), dtype=torch.int32,
+                      device=table.device)
+    out8 = torch.empty((rules, N), dtype=torch.uint8, device=table.device)
+    if rules and N:
+        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), _ptr(out8))
+        LAUNCHES["verdict_counts_u8"] += 1
+    elif rules:
+        out.zero_()
+    return out8, out
+
+
+# ---------------------------------------------------------------------------
+# K5 vocab_gather (csrc/vocab_gather.cu): replaces
+# kyverno_tpu/tpu/evaluator.py LaneView.__getitem__, the vocabulary
+# gathers (jnp.take). Bound by the bytes of the index table and the
+# dense cells written; the vocabularies stay in L2.
+
+VOCAB_GATHER_MAX_LANES = 40  # kMaxLanes in csrc/vocab_gather.cu
+
+# jnp.take's fill for an index outside [-V, V), by the lane's dtype in
+# the encoded batch (a bit pattern of the element's size)
+TAKE_FILL = {np.dtype(np.uint8): 0xFF, np.dtype(np.uint32): 0xFFFFFFFF,
+             np.dtype(np.int32): 0x80000000,
+             np.dtype(np.float32): 0x7FC00000}
+
+
+def _index_plain(idx: torch.Tensor) -> torch.Tensor:
+    """A uint8 / uint16 / int32 index table as int64 values; uint16 is
+    widened through its int16 bits (no ordering op on uint16)."""
+    if idx.dtype == torch.uint16:
+        return idx.view(torch.int16).to(torch.int64) & 0xFFFF
+    return idx.to(torch.int64)
+
+
+def _take_index(idx: torch.Tensor, V: int):
+    """jnp.take's index rule: [-V, 0) wraps, outside [-V, V) fills.
+    -> (safe int64 index, in-range mask)."""
+    j = _index_plain(idx)
+    j = torch.where(j < 0, j + V, j)
+    ok = (j >= 0) & (j < V)
+    return torch.where(ok, j, torch.zeros_like(j)), ok
+
+
+def _fill_value(dtype: torch.dtype, bits: int, device) -> torch.Tensor:
+    """A 0-dim tensor of ``dtype`` holding the bit pattern ``bits``."""
+    if dtype.itemsize == 1:
+        return torch.full((), bits & 0xFF, dtype=torch.uint8,
+                          device=device).view(dtype)
+    v = int(bits) & 0xFFFFFFFF
+    v = v - (1 << 32) if v >= (1 << 31) else v
+    return torch.full((), v, dtype=torch.int32, device=device).view(dtype)
+
+
+def vocab_gather_plain(src: torch.Tensor, idx: torch.Tensor,
+                       fill: int) -> torch.Tensor:
+    """(V,) lane by (n, Rb) index -> (n, Rb): ``jnp.take(src, idx)``."""
+    V = src.shape[0]
+    safe, ok = _take_index(idx, V)
+    got = src[safe] if V else torch.zeros(idx.shape, dtype=src.dtype,
+                                          device=src.device)
+    return torch.where(ok, got, _fill_value(src.dtype, fill, src.device))
+
+
+def vocab_gather_rows_plain(svocab: Optional[torch.Tensor],
+                            slen: Optional[torch.Tensor],
+                            idx: torch.Tensor):
+    """(Sv, W) uint8 rows and (Sv,) int32 lengths by (n, K) index ->
+    ((n, K, W) uint8 or None, (n, K) int32 or None)."""
+    V = (svocab if svocab is not None else slen).shape[0]
+    safe, ok = _take_index(idx, V)
+    rows = lens = None
+    if svocab is not None:
+        rows = torch.where(ok[..., None], svocab[safe],
+                           _fill_value(torch.uint8, 0xFF, svocab.device))
+    if slen is not None:
+        lens = torch.where(ok, slen[safe],
+                           _fill_value(torch.int32, 0x80000000, slen.device))
+    return rows, lens
+
+
+def _index_width(idx: torch.Tensor) -> int:
+    widths = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+    if idx.dtype not in widths:
+        raise TypeError(f"index dtype {idx.dtype}, want uint8, uint16 "
+                        f"or int32")
+    return widths[idx.dtype]
+
+
+def vocab_gather(srcs: List[torch.Tensor], idx: torch.Tensor,
+                 fills: List[int]) -> List[torch.Tensor]:
+    """K5, many lanes in one launch: each (V,) lane (1- or 4-byte
+    elements) gathered by the (n, Rb) index table -> (n, Rb) each."""
+    if idx.device.type == "cpu":
+        return [vocab_gather_plain(s, idx, f) for s, f in zip(srcs, fills)]
+    dev = idx.device
+    if len(srcs) != len(fills) or not 0 < len(srcs) <= VOCAB_GATHER_MAX_LANES:
+        raise ValueError(f"vocab_gather: {len(srcs)} lanes, {len(fills)} "
+                         f"fills (1..{VOCAB_GATHER_MAX_LANES})")
+    width = _index_width(idx)
+    _check(idx, "row_idx", idx.dtype, dev)
+    V = srcs[0].shape[0]
+    outs, elems = [], []
+    for s in srcs:
+        _check(s, "vocab lane", s.dtype, dev, 1)
+        if s.shape[0] != V or s.element_size() not in (1, 4):
+            raise ValueError(f"vocab lane {tuple(s.shape)} {s.dtype}: want "
+                             f"({V},) with 1- or 4-byte elements")
+        outs.append(torch.empty(tuple(idx.shape), dtype=s.dtype, device=dev))
+        elems.append(s.element_size())
+    cells = idx.numel()
+    if cells:
+        n = len(srcs)
+        src_a = (ctypes.c_void_p * n)(*[s.data_ptr() for s in srcs])
+        dst_a = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+        elem_a = (ctypes.c_int * n)(*elems)
+        fill_a = (ctypes.c_uint32 * n)(*[int(f) & 0xFFFFFFFF for f in fills])
+        _call("vocab_gather", ctypes.cast(src_a, _P), ctypes.cast(dst_a, _P),
+              ctypes.cast(elem_a, _P), ctypes.cast(fill_a, _P), n, _ptr(idx),
+              width, cells, V)
+        LAUNCHES["vocab_gather"] += 1
+    return outs
+
+
+def vocab_gather_rows(svocab: Optional[torch.Tensor],
+                      slen: Optional[torch.Tensor], idx: torch.Tensor):
+    """K5, pool rows: ``pool_svocab[pool_sidx]`` (n, K, W) uint8 and
+    ``pool_slen[pool_sidx]`` (n, K) int32 in one launch (either source
+    may be None, and its output is then None)."""
+    if idx.device.type == "cpu":
+        return vocab_gather_rows_plain(svocab, slen, idx)
+    dev = idx.device
+    if svocab is None and slen is None:
+        raise ValueError("vocab_gather_rows: no source")
+    width = _index_width(idx)
+    _check(idx, "pool_sidx", idx.dtype, dev)
+    rows = lens = None
+    V, W = -1, 0
+    if svocab is not None:
+        _check(svocab, "pool_svocab", torch.uint8, dev, 2)
+        V, W = svocab.shape
+        rows = torch.empty(tuple(idx.shape) + (W,), dtype=torch.uint8,
+                           device=dev)
+    if slen is not None:
+        _check(slen, "pool_slen", torch.int32, dev, 1)
+        if V >= 0 and slen.shape[0] != V:
+            raise ValueError(f"pool_slen {tuple(slen.shape)} vs pool_svocab "
+                             f"{tuple(svocab.shape)}")
+        V = slen.shape[0]
+        lens = torch.empty(tuple(idx.shape), dtype=torch.int32, device=dev)
+    cells = idx.numel()
+    if cells and (rows is None or W):
+        _call("vocab_gather_rows", _ptr(svocab), _ptr(slen), _ptr(idx), width,
+              cells, V, W, _ptr(rows), _ptr(lens))
+        LAUNCHES["vocab_gather_rows"] += 1
+    return rows, lens
+
+
+# ---------------------------------------------------------------------------
+# K6 hash_match (csrc/hash_match.cu): replaces
+# kyverno_tpu/tpu/evaluator.py Ctx._mask / heq / hset. Bound by the
+# bytes of the two hash lanes (and valid) read and the mask written.
+
+
+def hash_consts(pairs: Sequence[Tuple[int, int]],
+                device: torch.device) -> torch.Tensor:
+    """The (k, 2) int32 constant table of K6 and its twin, on
+    ``device``. A CUDA table is copied from pinned memory without
+    waiting, so a caller that keeps it (the evaluator keeps one per
+    compiled program and constant set) makes a step that never syncs."""
+    t = torch.tensor([[int(h), int(l)] for h, l in pairs],
+                     dtype=torch.int32).reshape(-1, 2)
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def hash_match_plain(hi: torch.Tensor, lo: torch.Tensor,
+                     consts: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(n, R) int32 hash lanes, (k, 2) int32 (hi, lo) constants on the
+    same device -> (n, R) bool: OR over the constants of the pair's
+    equality, AND ``valid``."""
+    out = torch.zeros(tuple(hi.shape), dtype=torch.bool, device=hi.device)
+    for q in range(consts.shape[0]):
+        out |= (hi == consts[q, 0]) & (lo == consts[q, 1])
+    if valid is not None:
+        out = out & valid
+    return out
+
+
+def hash_match(hi: torch.Tensor, lo: torch.Tensor, consts: torch.Tensor,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: one launch for heq (one pair), hset (any number of pairs;
+    none gives all false) and _mask (one pair AND valid)."""
+    if hi.device.type == "cpu":
+        return hash_match_plain(hi, lo, consts, valid)
+    dev = hi.device
+    _check(hi, "hi", torch.int32, dev)
+    _check(lo, "lo", torch.int32, dev)
+    _check(consts, "consts", torch.int32, dev, 2)
+    if hi.shape != lo.shape:
+        raise ValueError(f"hi {tuple(hi.shape)} vs lo {tuple(lo.shape)}")
+    if consts.shape[1] != 2:
+        raise ValueError(f"consts {tuple(consts.shape)}: want (k, 2)")
+    if valid is not None:
+        _check(valid, "valid", torch.bool, dev)
+        if valid.shape != hi.shape:
+            raise ValueError(f"valid {tuple(valid.shape)} vs {tuple(hi.shape)}")
+    out = torch.empty(tuple(hi.shape), dtype=torch.bool, device=dev)
+    cells = hi.numel()
+    if cells:
+        _call("hash_match", _ptr(hi), _ptr(lo), _ptr(valid), cells,
+              _ptr(consts), consts.shape[0], _ptr(out))
+        LAUNCHES["hash_match"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7 pool_rows (csrc/pool_rows.cu): replaces
+# kyverno_tpu/tpu/evaluator.py Ctx._rows_from_pool. Bound by the bytes
+# of the slot lane read and the row mask written.
+
+
+def pool_rows_plain(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """(n, K) bool plane, (n, R) int32 slot -> (n, R) bool:
+    ``plane[n, clip(slot, 0, K - 1)] & (slot >= 0)``."""
+    N = slot.shape[0]
+    safe = torch.clamp(slot, 0, plane.shape[1] - 1).to(torch.int64)
+    got = torch.gather(plane, 1, safe.reshape(N, -1)).reshape(slot.shape)
+    return got & (slot >= 0)
+
+
+def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """K7: the plane may have any strides (a column of the bank's
+    accepts); the slot lane is contiguous."""
+    if plane.device.type == "cpu":
+        return pool_rows_plain(plane, slot)
+    dev = plane.device
+    if plane.dtype != torch.bool or plane.ndim != 2 or plane.device != dev:
+        raise TypeError(f"plane {tuple(plane.shape)} {plane.dtype}: want "
+                        f"(n, K) bool")
+    _check(slot, "slot", torch.int32, dev, 2)
+    N, R = slot.shape
+    K = plane.shape[1]
+    if plane.shape[0] != N or K < 1:
+        raise ValueError(f"plane {tuple(plane.shape)} vs slot {tuple(slot.shape)}")
+    out = torch.empty((N, R), dtype=torch.bool, device=dev)
+    if N * R:
+        _call("pool_rows", _ptr(plane), plane.stride(0), plane.stride(1), K,
+              _ptr(slot), N, R, _ptr(out))
+        LAUNCHES["pool_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8 first_true_take (csrc/first_true_take.cu): replaces the argmax /
+# take_along_axis pair of kyverno_tpu/tpu/evaluator.py
+# _eval_wildcard_anchor. Bound by the bytes of the two masks.
+
+
+def first_true_take_plain(accept: torch.Tensor, pred: torch.Tensor):
+    """(n, R) bool, (n, R) bool -> (has (n,), val_ok (n,)): any true
+    row, and ``pred`` at the first true row (row 0 when none)."""
+    has = accept.any(dim=-1)
+    # argmax returns the first maximum (bool cast to uint8)
+    idx = accept.to(torch.uint8).argmax(dim=-1)
+    val_ok = torch.gather(pred, -1, idx[:, None])[:, 0]
+    return has, val_ok
+
+
+def first_true_take(accept: torch.Tensor, pred: torch.Tensor):
+    """K8: one warp per resource."""
+    if accept.device.type == "cpu":
+        return first_true_take_plain(accept, pred)
+    dev = accept.device
+    _check(accept, "accept", torch.bool, dev, 2)
+    _check(pred, "pred", torch.bool, dev, 2)
+    if accept.shape != pred.shape or accept.shape[1] < 1:
+        raise ValueError(f"accept {tuple(accept.shape)} vs pred "
+                         f"{tuple(pred.shape)}")
+    N, R = accept.shape
+    has = torch.empty((N,), dtype=torch.bool, device=dev)
+    val_ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        _call("first_true_take", _ptr(accept), _ptr(pred), N, R, _ptr(has),
+              _ptr(val_ok))
+        LAUNCHES["first_true_take"] += 1
+    return has, val_ok

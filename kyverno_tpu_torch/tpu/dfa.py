@@ -1172,11 +1172,24 @@ def _subjects(bytes_, lens):
     return b, ln
 
 
-def _select(tab, idx: np.ndarray, device):
+def _index(tabs, idx: np.ndarray, device):
+    """``idx`` as an int64 tensor on ``device``, made once per bank and
+    device and kept with its tables: a later batch copies nothing to
+    the device (an H2D copy from pageable memory would wait for it)."""
     import torch
 
-    return tab[torch.as_tensor(idx, dtype=torch.int64, device=device)
-               ].contiguous()
+    key = ("\x00index", tuple(int(i) for i in idx))
+    if key not in tabs:
+        tabs[key] = torch.as_tensor(idx, dtype=torch.int64, device=device)
+    return tabs[key]
+
+
+def _select(tabs, name: str, idx: np.ndarray, device):
+    """Rows ``idx`` of table ``name``, made once per bank and device."""
+    key = ("\x00select", name, tuple(int(i) for i in idx))
+    if key not in tabs:
+        tabs[key] = tabs[name][_index(tabs, idx, device)].contiguous()
+    return tabs[key]
 
 
 def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
@@ -1202,13 +1215,13 @@ def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
 
     def run_stride1(sub):
         out = stride1(b, ln, tabs["trans"], int(bank.trans.shape[1]),
-                      _select(tabs["class_map"], sub, dev),
-                      _select(tabs["start"], sub, dev), tabs["accept"])
+                      _select(tabs, "class_map", sub, dev),
+                      _select(tabs, "start", sub, dev), tabs["accept"])
         return out if plain else out[0]
 
     def run_fused(sub, chain):
         out = fused(b, ln, tabs["fused_trans"], tabs["fused_pairs"],
-                    _select(tabs["fused_start"], sub, dev),
+                    _select(tabs, "fused_start", sub, dev),
                     tabs["fused_accept"], int(bank.fused_pitch), chain)
         return out if plain else out[0]
 
@@ -1229,8 +1242,7 @@ def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
         else:
             full = torch.cat(parts, dim=-1)
             inv = np.argsort(np.concatenate(order))
-            full = full[:, torch.as_tensor(inv, dtype=torch.int64,
-                                           device=dev)]
+            full = full[:, _index(tabs, inv, dev)]
     return full.reshape(lead + (len(idx),))
 
 

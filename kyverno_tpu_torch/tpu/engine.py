@@ -1,18 +1,24 @@
 """TorchEngine — batch policy evaluation on a CUDA device (the port of
-kyverno_tpu/tpu/engine.py:TpuEngine, validate scan only).
+kyverno_tpu/tpu/engine.py:TpuEngine, validate scan).
 
 ``TorchEngine(policies).scan(resources)`` encodes the resources on the
 host (NumPy, tpu/flatten.py + tpu/metadata.py), pads the batch to a
 power-of-two bucket, moves the lane dict to the device in ONE copy from
-pinned memory, runs the compiled program (evaluator.build_program) and
-reads back the verdict table and the per-rule verdict-class counts,
-with the bucket-pad columns subtracted from the counts.
+pinned memory, runs the compiled program (evaluator.build_program),
+reads back the verdict table and completes it on the scalar engine
+(``assemble``): rules the compiler kept on the host, rules named by a
+PolicyException, and HOST (5) / CONFIRM (6) cells are evaluated by the
+scalar engine, so the returned ``ScanResult`` covers every rule with
+codes 0..4 only, as the reference's does.
 
-The table holds the device rules only (``CompiledPolicySet.device_programs``
-order) and its cells are what the device program computed: HOST (5)
-and CONFIRM (6) cells are returned as they are. Completing them on the
-scalar engine (kyverno_tpu/tpu/engine.py:TpuEngine.assemble) needs the
-scalar engine and its closure in the port; that is the next slice.
+``scan_device`` returns the device layer alone: the (device rules, N)
+int32 table as the program computed it (HOST and CONFIRM cells left
+in) and the per-rule verdict-class counts with the bucket-pad columns
+subtracted.
+
+Not ported: the guarded dispatch ladder, the breaker and the encode
+quarantine (a device or encode error raises), the verdict and encode
+caches, the encoder pool, and the rule analytics fold.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of running elsewhere.
@@ -28,11 +34,21 @@ import torch
 
 from ..api.policy import ClusterPolicy
 from ..engine.context import Context
+from ..engine.engine import Engine as ScalarEngine
 from ..engine.match import RequestInfo
+from ..engine.policycontext import PolicyContext
+from ..engine.response import EngineResponse
 from .compiler import CompiledPolicySet, compile_policy_set
-from .evaluator import NUM_VERDICT_CLASSES, batch_to_host
+from .evaluator import (ERROR, FAIL, HOST, NOT_MATCHED,
+                        NUM_VERDICT_CLASSES, PASS, SKIP, batch_to_host)
 from .flatten import EncodeConfig, encode_resources
 from .metadata import MetaConfig, encode_metadata
+
+VERDICT_NAMES = {PASS: "pass", SKIP: "skip", FAIL: "fail",
+                 NOT_MATCHED: "not_matched", ERROR: "error"}
+
+_STATUS_TO_CODE = {"pass": PASS, "skip": SKIP, "fail": FAIL, "error": ERROR}
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. A CUDA device without CUDA raises: the port
@@ -60,13 +76,20 @@ def class_counts(table: np.ndarray) -> np.ndarray:
                        ).reshape(d, NUM_VERDICT_CLASSES)
 
 
-def lanes_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+def lanes_to_device(batch: Dict[str, np.ndarray], device,
+                    keep: Optional[list] = None) -> Dict[str, torch.Tensor]:
     """The host lane dict as tensors on ``device``. uint32 hash lanes
     become int32 bit patterns (torch's uint32 supports no ordering and
-    the program only tests them for equality). On CUDA every lane is
-    packed into ONE pinned host buffer (16-byte aligned slices) and
-    moved with one asynchronous copy on the current stream; the lanes
-    are views into the device buffer."""
+    the program only tests them for equality). uint16 lanes (the
+    vocabulary index tables) cross as their raw bytes in a
+    ``torch.uint16`` tensor: the program only gathers through them
+    (kernel K5 reads them as unsigned short; its plain twin widens
+    them through int16 without any ordering op on uint16). On CUDA
+    every lane is packed into ONE pinned host buffer (16-byte aligned
+    slices) and moved with one asynchronous copy on the current
+    stream; the lanes are views into the device buffer. ``keep``, when
+    given, receives the pinned buffer so the caller can hold it until
+    the copy has run."""
     device = torch.device(device)
     arrs = {}
     for k, v in batch.items():
@@ -77,7 +100,8 @@ def lanes_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
             a = a.view(np.uint8)
         arrs[k] = a
     if device.type == "cpu":
-        return {k: torch.from_numpy(a) for k, a in arrs.items()}
+        return {k: torch.from_numpy(a).view(_TORCH_DTYPES[a.dtype.str])
+                for k, a in arrs.items()}
     offsets = {}
     total = 0
     for k, a in arrs.items():
@@ -89,6 +113,8 @@ def lanes_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
         o = offsets[k]
         hview[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
     dev = host.to(device, non_blocking=True)
+    if keep is not None:
+        keep.append(host)
     out = {}
     for k, a in arrs.items():
         o = offsets[k]
@@ -103,6 +129,7 @@ _TORCH_DTYPES = {
     np.dtype(np.uint8).str: torch.uint8,
     np.dtype(np.int8).str: torch.int8,
     np.dtype(np.int16).str: torch.int16,
+    np.dtype(np.uint16).str: torch.uint16,
     np.dtype(np.int32).str: torch.int32,
     np.dtype(np.int64).str: torch.int64,
     np.dtype(np.float32).str: torch.float32,
@@ -159,15 +186,59 @@ def _walk_values(node, segs, i=0):
         yield from _walk_values(node[seg], segs, i + 1)
 
 
+def build_scan_context(
+    policy: ClusterPolicy,
+    resource: Dict[str, Any],
+    namespace_labels: Optional[Dict[str, str]],
+    operation: str = "",
+    admission_info: Optional[RequestInfo] = None,
+) -> PolicyContext:
+    """Background-scan PolicyContext (kyverno_tpu/tpu/engine.py:91):
+    request.operation stays absent unless a real admission operation
+    exists; match-gating still defaults to CREATE."""
+    ctx = _scan_json_context(resource, operation, admission_info)
+    info = admission_info or RequestInfo()
+    return PolicyContext(
+        policy=policy,
+        new_resource=resource,
+        admission_info=info,
+        namespace_labels=namespace_labels or {},
+        operation=operation or "CREATE",
+        json_context=ctx,
+    )
+
+
 @dataclass
 class ScanResult:
-    """(device rules, N) int32 verdict table, the (policy, rule) of each
-    row, and the (device rules, 7) int32 verdict-class counts over the
-    N live columns."""
+    """(num_rules_total, N) verdict table + rule metadata (the
+    reference's ScanResult)."""
 
     verdicts: np.ndarray
-    rules: List[Tuple[str, str]]
-    counts: np.ndarray
+    rules: List[Tuple[str, str]]  # (policy_name, rule_name) per row
+
+    def counts(self) -> Dict[str, int]:
+        return {name: int((self.verdicts == code).sum())
+                for code, name in VERDICT_NAMES.items()}
+
+    def violations(self) -> List[Tuple[int, int]]:
+        """(rule_row, resource_idx) pairs with FAIL verdicts."""
+        rows, cols = np.nonzero(self.verdicts == FAIL)
+        return list(zip(rows.tolist(), cols.tolist()))
+
+
+def _scalar_rule_verdicts(
+    engine: ScalarEngine, policy: ClusterPolicy, pctx: PolicyContext
+) -> Dict[str, int]:
+    """Run the scalar engine for one (policy, resource); map each
+    validate rule to a verdict code (absent response = not matched)."""
+    response: EngineResponse = engine.validate(pctx)
+    got = {rr.name: _STATUS_TO_CODE.get(rr.status, ERROR)
+           for rr in response.policy_response.rules}
+    out: Dict[str, int] = {}
+    for rule in policy.get_rules():
+        if rule.has_validate():
+            out[rule.name] = got.get(rule.name, NOT_MATCHED)
+    return out
 
 
 class TorchEngine:
@@ -184,16 +255,35 @@ class TorchEngine:
         encode_cfg: Optional[EncodeConfig] = None,
         meta_cfg: Optional[MetaConfig] = None,
         cps: Optional[CompiledPolicySet] = None,
+        exceptions: Sequence[Any] = (),
+        data_sources=None,
     ):
         self.device = resolve_device(device)
         self.cps: CompiledPolicySet = cps if cps is not None \
-            else compile_policy_set(policies, encode_cfg, meta_cfg)
-        # context loaders reach no external data source in this slice
-        self.data_sources = None
+            else compile_policy_set(policies, encode_cfg, meta_cfg,
+                                    data_sources)
+        self.data_sources = data_sources  # runtime dyn-operand loading
+        self.scalar = ScalarEngine(exceptions=list(exceptions),
+                                   background=True,
+                                   data_sources=data_sources)
+        # rules named by any PolicyException evaluate on the host: the
+        # exception's match/conditions are per-resource dynamic state
+        # the compiled program does not model (engine/exceptions.go)
+        self._exception_rules: set = set()
+        if exceptions:
+            from ..api.exception import PolicyException
+
+            typed = [e if isinstance(e, PolicyException)
+                     else PolicyException.from_dict(e) for e in exceptions]
+            for ri, entry in enumerate(self.cps.rules):
+                if any(t.contains(entry.policy_name, entry.rule_name)
+                       for t in typed):
+                    self._exception_rules.add(ri)
 
     @property
     def rules(self) -> List[Tuple[str, str]]:
-        """(policy, rule) of each device-table row."""
+        """(policy, rule) of each device-table row (``scan_device``);
+        ``scan`` returns every rule, in ``cps.rules`` order."""
         out: List[Tuple[str, str]] = [("", "")] * len(self.cps.device_programs)
         for e in self.cps.rules:
             if e.device_row is not None:
@@ -421,13 +511,17 @@ class TorchEngine:
         tensors on the device (asynchronous on CUDA)."""
         return self.cps.device_fn()(lanes)
 
-    def scan(
+    def scan_device(
         self,
         resources: Sequence[Dict[str, Any]],
         namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
-    ) -> ScanResult:
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Device layer only: the (device rules, n) int32 table as the
+        program computed it (HOST and CONFIRM cells left in, host rules
+        absent) and the (device rules, 7) int32 class counts over the
+        n live columns (bucket-pad columns subtracted)."""
         n = len(resources)
         padded, ops, infos = self.pad(resources, operations, admission_infos)
         batch, _, _ = self.encode(padded, namespace_labels, ops, infos)
@@ -436,5 +530,116 @@ class TorchEngine:
         counts = counts.cpu().numpy().astype(np.int64)
         # bucket-pad columns are encoded empties, not workload
         counts = (counts - class_counts(table[:, n:])).astype(np.int32)
-        return ScanResult(verdicts=np.ascontiguousarray(table[:, :n]),
-                          rules=self.rules, counts=counts)
+        return np.ascontiguousarray(table[:, :n]), counts
+
+    def scan(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> ScanResult:
+        """The complete ScanResult over ALL rules: the device table
+        completed on the scalar engine (``assemble``)."""
+        table, _ = self.scan_device(resources, namespace_labels, operations,
+                                    admission_infos)
+        return self.assemble(table, resources, namespace_labels, operations,
+                             admission_infos)
+
+    def assemble(
+        self,
+        device_table: np.ndarray,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> ScanResult:
+        """Merge device verdicts with host completions (host rules,
+        exception-named rules, HOST and CONFIRM cells) —
+        kyverno_tpu/tpu/engine.py:TpuEngine.assemble without the
+        analytics fold."""
+        from ..engine.match import matches_resource_description
+
+        n = len(resources)
+        total = np.full((len(self.cps.rules), n), NOT_MATCHED, dtype=np.int32)
+        ns_labels = namespace_labels or {}
+
+        # requests whose identity strings carry globs defeat the
+        # device's hash-equality userInfo lanes (_set_in matches
+        # wildcards in either direction) -> per-cell host completion
+        glob_identity_cis: List[int] = []
+        if admission_infos:
+            from ..utils.wildcard import contains_wildcard
+
+            for ci in range(n):
+                info = admission_infos[ci] if ci < len(admission_infos) else None
+                if info is not None and any(
+                        contains_wildcard(g) for g in (info.groups or [])):
+                    glob_identity_cis.append(ci)
+
+        # which (policy, resource) pairs need the scalar engine? HOST
+        # and CONFIRM cells both resolve there
+        host_cells: Dict[Tuple[int, int], None] = {}
+        for ri, entry in enumerate(self.cps.rules):
+            if entry.device_row is None or ri in self._exception_rules:
+                for ci in range(n):
+                    host_cells[(entry.policy_idx, ci)] = None
+            else:
+                row = device_table[entry.device_row].copy()
+                if glob_identity_cis and self.cps.device_programs[
+                        entry.device_row].uses_userinfo:
+                    row[glob_identity_cis] = HOST
+                total[ri] = row
+                for ci in np.nonzero(row >= HOST)[0]:
+                    host_cells[(entry.policy_idx, int(ci))] = None
+
+        cache: Dict[Tuple[int, int], Optional[Dict[str, int]]] = {}
+        for (pi, ci) in host_cells:
+            policy = self.cps.policies[pi]
+            res = resources[ci]
+            try:
+                kind = res.get("kind", "")
+                ns = (res.get("metadata") or {}).get("namespace", "")
+                nsl = ns_labels.get((res.get("metadata") or {}).get("name", "")
+                                    if kind == "Namespace" else ns, {})
+                op = (operations[ci] if operations else "") or ""
+                info = admission_infos[ci] if admission_infos else None
+                # pre-screen with the (cheap) matcher before paying for
+                # context construction + full validation
+                if not any(
+                        not matches_resource_description(
+                            res, rule, info, nsl,
+                            policy_namespace=policy.namespace,
+                            operation=op or "CREATE")
+                        for rule in policy.get_rules() if rule.has_validate()):
+                    cache[(pi, ci)] = {}  # every rule NOT_MATCHED
+                    continue
+                pctx = build_scan_context(policy, res, nsl, op, info)
+                cache[(pi, ci)] = _scalar_rule_verdicts(self.scalar, policy,
+                                                        pctx)
+            except Exception:
+                # the scalar engine itself choked on this (policy,
+                # resource): the cell reports per-rule ERROR, as the
+                # reference's does
+                cache[(pi, ci)] = None
+        # merge indexed by policy: each rule row only visits its own
+        # policy's completed cells
+        by_policy: Dict[int, List[Tuple[int, Optional[Dict[str, int]]]]] = {}
+        for (pi, ci), verdicts in cache.items():
+            by_policy.setdefault(pi, []).append((ci, verdicts))
+        for ri, entry in enumerate(self.cps.rules):
+            cells = by_policy.get(entry.policy_idx)
+            if not cells:
+                continue
+            host_rule = (entry.device_row is None
+                         or ri in self._exception_rules)
+            for ci, verdicts in cells:
+                if host_rule or total[ri, ci] >= HOST:
+                    # pre-screened cells carry no verdict rows: the
+                    # whole policy was unmatched (HOST must not escape)
+                    total[ri, ci] = ERROR if verdicts is None \
+                        else verdicts.get(entry.rule_name, NOT_MATCHED)
+        return ScanResult(
+            verdicts=total,
+            rules=[(e.policy_name, e.rule_name) for e in self.cps.rules],
+        )

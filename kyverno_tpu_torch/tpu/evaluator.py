@@ -8,14 +8,24 @@ against every resource in a batch:
 
 The rule-by-rule walk over the IR happens in Python, as the reference
 unrolls it at trace time, and every step is a PyTorch tensor operation
-on the batch's device. Three pieces are kernels (``kernels.py``):
+on the batch's device. These pieces are kernels (``kernels.py``):
 
 - the DFA bank scan (K1) behind ``dfa.bank_match`` / ``nonascii_mask``;
 - per-instance counts (K3) behind ``InstScope.count`` and
   ``Inst2Scope.count`` — integer counts where the reference takes f32
   one-hot einsums; sums below 2**24 are exact in f32, so ``> 0`` and
   ``==`` on the integers give the reference's booleans;
-- the verdict-class histogram (K4) of ``build_program``.
+- the verdict-class histogram (K4) of ``build_program``, with the
+  uint8 table of the background scan's step;
+- the vocabulary gathers (K5) behind ``LaneView``;
+- the hash-equality row masks (K6) behind ``Ctx.heq/hset/_mask``;
+- the pool-slot row gather (K7) behind ``Ctx._rows_from_pool``;
+- the first-true-row take (K8) of ``_eval_wildcard_anchor``.
+
+The program has no data-dependent Python branch (no ``.item()``,
+``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
+every lane that any run would, which ``LaneView(record=True)`` relies
+on.
 
 ``plain=True`` runs the kernels' plain PyTorch twins whatever the
 device (the reference program ``chip_smoke.py`` compares against).
@@ -119,14 +129,121 @@ def batch_to_host(rows: RowBatch, meta: MetaBatch) -> Dict[str, Any]:
     return out
 
 
-def densify(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Dense batches pass through. Vocabulary batches (``row_idx``
-    lanes, kyverno_tpu/tpu/evaluator.py:LaneView) are not part of the
-    port yet."""
-    if "row_idx" in batch:
-        raise NotImplementedError(
-            "vocabulary batches (LaneView) are not ported; encode dense lanes")
-    return batch
+class LaneView:
+    """Lazy dense view over a vocabulary batch (flatten.VocabBatch
+    .to_host on the device) — kyverno_tpu/tpu/evaluator.py:LaneView.
+    A dense (n, Rb) row lane is ``vocab_<lane>[row_idx]``, ``pool`` is
+    ``pool_svocab[pool_sidx]`` and ``pool_len`` is
+    ``pool_slen[pool_sidx]``, all with jnp.take's index rule (kernel K5
+    and its plain twin).
+
+    Lanes are gathered on first access. With ``record`` the view notes
+    every batch key it reads (``used_keys``), one lane at a time, so a
+    recording run learns which lanes a program reads and callers can
+    PRUNE the rest from the host dict before transfer. Without
+    ``record`` the first row-lane access gathers every vocabulary lane
+    the (pruned) batch holds in ONE K5 launch; the pool rows and their
+    lengths come together in one launch too. The lanes are the same
+    either way.
+
+    A vocabulary lane absent from the (pruned) batch densifies to
+    zeros — sound only because pruning is driven by a recording run of
+    the same program, which by construction never reads them."""
+
+    def __init__(self, batch: Dict[str, torch.Tensor], record: bool = False,
+                 plain: bool = False):
+        from .flatten import _ROW_LANE_DTYPES, _ROW_LANES
+
+        self._b = batch
+        self._cache: Dict[str, torch.Tensor] = {}
+        self._row_lanes = tuple(_ROW_LANES)
+        self._row_set = set(_ROW_LANES)
+        self._dtypes = _ROW_LANE_DTYPES
+        self._plain = plain
+        self.used_keys: Optional[set] = set() if record else None
+        self._shape = tuple(batch["row_idx"].shape)  # (n, Rb)
+        self.device = batch["row_idx"].device
+
+    def _note(self, *keys: str) -> None:
+        if self.used_keys is not None:
+            self.used_keys.update(keys)
+
+    def _fill(self, name: str) -> int:
+        return kernels.TAKE_FILL[np.dtype(self._dtypes[name])]
+
+    def _gather_lanes(self, names: Sequence[str]) -> None:
+        b = self._b
+        srcs = [b["vocab_" + n] for n in names]
+        fills = [self._fill(n) for n in names]
+        if self._plain:
+            outs = [kernels.vocab_gather_plain(t, b["row_idx"], f)
+                    for t, f in zip(srcs, fills)]
+        else:
+            outs = kernels.vocab_gather(srcs, b["row_idx"], fills)
+        self._cache.update(zip(names, outs))
+
+    def _gather_pool(self, names: Sequence[str]) -> None:
+        b = self._b
+        fn = kernels.vocab_gather_rows_plain if self._plain \
+            else kernels.vocab_gather_rows
+        rows, lens = fn(b["pool_svocab"] if "pool" in names else None,
+                        b["pool_slen"] if "pool_len" in names else None,
+                        b["pool_sidx"])
+        if rows is not None:
+            self._cache["pool"] = rows
+        if lens is not None:
+            self._cache["pool_len"] = lens
+
+    def _zeros(self, name: str) -> torch.Tensor:
+        dt = np.dtype(self._dtypes[name])
+        tdt = {np.dtype(np.uint8): torch.uint8,
+               np.dtype(np.uint32): torch.int32,  # hash lanes: int32 bits
+               np.dtype(np.int32): torch.int32,
+               np.dtype(np.float32): torch.float32}[dt]
+        return torch.zeros(self._shape, dtype=tdt, device=self.device)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        out = self._cache.get(name)
+        if out is not None:
+            return out
+        b = self._b
+        if name in self._row_set:
+            vkey = "vocab_" + name
+            self._note("row_idx", vkey)
+            if vkey not in b:
+                out = self._zeros(name)
+            else:
+                # recording: this lane alone; else every lane held
+                self._gather_lanes([name] if self.used_keys is not None
+                                   else [n for n in self._row_lanes
+                                         if "vocab_" + n in b
+                                         and n not in self._cache])
+                return self._cache[name]
+        elif name in ("pool", "pool_len"):
+            src = "pool_svocab" if name == "pool" else "pool_slen"
+            self._note("pool_sidx", src)
+            if src not in b:
+                raise KeyError(src)
+            # recording: this lane alone; else the rows and lengths held
+            self._gather_pool([name] if self.used_keys is not None
+                              else [n for n, k in (("pool", "pool_svocab"),
+                                                   ("pool_len", "pool_slen"))
+                                    if k in b])
+            return self._cache[name]
+        else:  # meta_*, n_rows, fallback — pass through
+            self._note(name)
+            out = b[name]
+        self._cache[name] = out
+        return out
+
+
+def densify(batch: Dict[str, torch.Tensor], record: bool = False,
+            plain: bool = False):
+    """Dense batches pass through; vocabulary batches wrap in a lazy
+    LaneView (gather-on-access, see LaneView)."""
+    if "row_idx" not in batch:
+        return batch
+    return LaneView(batch, record=record, plain=plain)
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +252,8 @@ def densify(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 class Ctx:
     def __init__(self, batch: Dict[str, torch.Tensor], max_instances: int,
-                 dfa: Optional[DfaBank] = None, plain: bool = False):
+                 dfa: Optional[DfaBank] = None, plain: bool = False,
+                 hash_consts: Optional[Dict[Any, torch.Tensor]] = None):
         self.b = batch
         self.I = max_instances
         self.plain = plain
@@ -145,6 +263,9 @@ class Ctx:
         self.N, self.R = n, r
         self.dev = batch["norm_hi"].device
         self._row_masks: Dict[Tuple[int, str], torch.Tensor] = {}
+        # K6 constant tables by (device, pairs); build_program passes
+        # one dict for the life of the compiled program
+        self._hash_consts = {} if hash_consts is None else hash_consts
         self._glob_cache: Dict[Tuple[str, str], Any] = {}
         self._valid = batch["valid"] != 0
         # per-rule host-fallback masks appended during evaluation
@@ -171,20 +292,28 @@ class Ctx:
     def _mask(self, h: int, lane: str) -> torch.Tensor:
         key = (h, lane)
         if key not in self._row_masks:
-            self._row_masks[key] = self.heq(lane, h) & self._valid
+            self._row_masks[key] = self._hash_match(lane, (h,), self._valid)
         return self._row_masks[key]
 
     def heq(self, lane: str, h: int) -> torch.Tensor:
-        hi, lo = split32(h)
-        return (self.b[lane + "_hi"] == _i32(hi)) & (self.b[lane + "_lo"] == _i32(lo))
+        return self._hash_match(lane, (h,))
 
     def hset(self, lane: str, hashes: Sequence[int]) -> torch.Tensor:
-        if not hashes:
-            return self.false((self.N, self.R))
-        acc = self.heq(lane, hashes[0])
-        for h in hashes[1:]:
-            acc = acc | self.heq(lane, h)
-        return acc
+        return self._hash_match(lane, hashes)
+
+    def _hash_match(self, lane: str, hashes: Sequence[int],
+                    valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """OR over ``hashes`` of the 64-bit equality on the lane's
+        hi/lo pair, AND ``valid`` (kernel K6; the empty set is all
+        false)."""
+        pairs = tuple((_i32(hi), _i32(lo)) for hi, lo in map(split32, hashes))
+        key = (str(self.dev), pairs)
+        consts = self._hash_consts.get(key)
+        if consts is None:
+            consts = self._hash_consts[key] = kernels.hash_consts(pairs,
+                                                                  self.dev)
+        fn = kernels.hash_match_plain if self.plain else kernels.hash_match
+        return fn(self.b[lane + "_hi"], self.b[lane + "_lo"], consts, valid)
 
     def type_is(self, t: int) -> torch.Tensor:
         return self.b["type_tag"] == t
@@ -293,11 +422,9 @@ class Ctx:
     def _rows_from_pool(self, plane: torch.Tensor,
                         lane: str = "byte_slot") -> torch.Tensor:
         """Gather a (N, K) pool-slot plane to (N, R) rows via the
-        row->slot lane (False when the row has no slot)."""
-        slot = self.b[lane]
-        safe = torch.clamp(slot, 0, plane.shape[1] - 1).to(torch.int64)
-        got = torch.gather(plane, 1, safe.reshape(self.N, -1)).reshape(slot.shape)
-        return got & (slot >= 0)
+        row->slot lane (False when the row has no slot) — kernel K7."""
+        fn = kernels.pool_rows_plain if self.plain else kernels.pool_rows
+        return fn(plane, self.b[lane])
 
     def glob_rows(self, pattern: str, lane: str = "byte_slot") -> torch.Tensor:
         """(N, R) glob accept per row via its byte-pool slot (False when
@@ -532,11 +659,13 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
     is_map = (map_rows & ctx.type_is(T_MAP)).any(dim=-1)
     nonstring = (children & ~ctx.type_is(T_STR)).any(dim=-1)
     accept = children & ctx.glob_key_rows(wc.glob)
-    has = accept.any(dim=-1)
-    # first matching row: argmax returns the first maximum (bool cast)
-    idx = accept.to(torch.uint8).argmax(dim=-1)
     pred = leaf_row_pred(ctx, wc.leaf)
-    val_ok = torch.gather(pred, -1, idx[:, None])[:, 0]
+    # any matching row, and the leaf at the FIRST matching row (row 0
+    # when none matches, as jnp.argmax gives) — kernel K8
+    fn = kernels.first_true_take_plain if ctx.plain \
+        else kernels.first_true_take
+    has, val_ok = fn(accept.contiguous(),
+                     pred.expand(ctx.N, ctx.R).contiguous())
     if kind == "condition":
         m_cls = torch.where(val_ok, PASS, SKIP)
     elif kind == "negation":  # expanded key exists -> negation fails
@@ -1823,19 +1952,30 @@ def eval_rule(ctx: Ctx, prog: RuleProgram) -> torch.Tensor:
 
 def build_program(programs: Sequence[RuleProgram], max_instances: int,
                   dfa: Optional[DfaBank] = None,
-                  plain: bool = False) -> Callable:
+                  plain: bool = False,
+                  verdicts_u8: bool = False) -> Callable:
     """Returns fn(batch dict of tensors) -> ((num_rules, N) int32 table,
     (num_rules, NUM_VERDICT_CLASSES) int32 counts) — the reference's
     ``build_program(..., with_counts=True)``. The counts are kernel K4
-    (its plain twin with ``plain=True`` or on the CPU)."""
+    (its plain twin with ``plain=True`` or on the CPU). With
+    ``verdicts_u8`` the table comes back as uint8, written by K4 in the
+    same pass as the counts (the background scan's step,
+    kyverno_tpu/parallel/sharding.py:101-111). Dense and vocabulary
+    (``row_idx``) batches both run."""
+
+    hash_consts: Dict[Any, torch.Tensor] = {}
 
     def run(batch: Dict[str, torch.Tensor]):
-        ctx = Ctx(densify(batch), max_instances, dfa=dfa, plain=plain)
+        ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
+                  plain=plain, hash_consts=hash_consts)
         outs = [eval_rule(ctx, p).to(torch.int32) for p in programs]
         if not outs:
             table = torch.zeros((0, ctx.N), dtype=torch.int32, device=ctx.dev)
         else:
             table = torch.stack(outs, dim=0).contiguous()
+        if verdicts_u8:
+            return kernels.verdict_counts_u8_plain(table) if plain \
+                else kernels.verdict_counts_u8(table)
         counts = kernels.verdict_counts_plain(table) if plain \
             else kernels.verdict_counts(table)
         return table, counts

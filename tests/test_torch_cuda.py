@@ -4,7 +4,7 @@ PyTorch twins, and the port's scan on the card against its CPU run.
 These need an NVIDIA GPU with nvcc (kernels build at first use into
 build/kernels/): they carry the ``cuda`` marker and skip elsewhere.
 On a machine with the card: ``python -m pytest tests/test_torch_cuda.py``.
-Bool and int32 outputs: tolerance 0."""
+Bool, uint8, int32 and float-bit outputs: tolerance 0."""
 
 import random
 
@@ -16,6 +16,7 @@ from kyverno_tpu_torch import kernels
 from kyverno_tpu_torch.policies import load_pss_policies
 from kyverno_tpu_torch.policy.autogen import expand_policy
 from kyverno_tpu_torch.tpu import dfa as tdfa
+from kyverno_tpu_torch.parallel.sharding import ShardedScanner
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
 pytestmark = pytest.mark.cuda
@@ -83,10 +84,143 @@ def test_pss_scan_on_the_card_equals_cpu(cuda):
                      "spec": {"containers": [{"name": "c", "image": "nginx",
                                               "securityContext": sc}]}})
     kernels.reset_launches()
-    got = eng.scan(pods)
+    got = eng.scan_device(pods)
     assert kernels.LAUNCHES["dfa_scan_fused"] > 0
     assert kernels.LAUNCHES["instance_count"] > 0
     assert kernels.LAUNCHES["verdict_counts"] == 1
-    want = TorchEngine(cps=eng.cps, device="cpu").scan(pods)
-    assert np.array_equal(got.verdicts, want.verdicts)
-    assert np.array_equal(got.counts, want.counts)
+    assert kernels.LAUNCHES["hash_match"] > 0
+    assert kernels.LAUNCHES["pool_rows"] > 0
+    assert kernels.LAUNCHES["first_true_take"] > 0
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    want = cpu.scan_device(pods)
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    full, full_cpu = eng.scan(pods), cpu.scan(pods)
+    assert np.array_equal(full.verdicts, full_cpu.verdicts)
+    assert full.rules == full_cpu.rules
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("idx_dtype", ["uint8", "uint16", "int32"])
+def test_vocab_gather_kernel_equals_plain(cuda, idx_dtype):
+    """All lane element types in one launch, over uint8 / uint16 /
+    int32 index tables with out-of-range and negative (int32) indices."""
+    g = torch.Generator().manual_seed(7)
+    V, N, R = 1000, 257, 64
+    srcs = [torch.randint(0, 256, (V,), generator=g, dtype=torch.uint8),
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (V,), generator=g,
+                          dtype=torch.int32),
+            torch.randn((V,), generator=g)]
+    fills = [0xFF, 0xFFFFFFFF, 0x7FC00000]
+    if idx_dtype == "uint8":
+        idx = torch.randint(0, 256, (N, R), generator=g, dtype=torch.uint8)
+    elif idx_dtype == "uint16":  # built through int16 bits
+        idx = torch.randint(0, 65536, (N, R), generator=g, dtype=torch.int32
+                            ).to(torch.int16).view(torch.uint16)
+    else:
+        idx = torch.randint(-V - 50, V + 50, (N, R), generator=g,
+                            dtype=torch.int32)
+    got = kernels.vocab_gather([s.to(cuda) for s in srcs], idx.to(cuda), fills)
+    for s, f, o in zip(srcs, fills, got):
+        want = kernels.vocab_gather_plain(s, idx, f)
+        assert torch.equal(_bits(o.cpu()), _bits(want))
+
+
+def test_vocab_gather_rows_kernel_equals_plain(cuda):
+    g = torch.Generator().manual_seed(8)
+    Sv, W, N, K = 300, 96, 513, 32
+    svocab = torch.randint(0, 256, (Sv, W), generator=g, dtype=torch.uint8)
+    slen = torch.randint(0, W, (Sv,), generator=g, dtype=torch.int32)
+    idx = torch.randint(-Sv - 5, Sv + 5, (N, K), generator=g,
+                        dtype=torch.int32)
+    rows, lens = kernels.vocab_gather_rows(svocab.to(cuda), slen.to(cuda),
+                                           idx.to(cuda))
+    want_rows, want_lens = kernels.vocab_gather_rows_plain(svocab, slen, idx)
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(lens.cpu(), want_lens)
+    # a row width that is no multiple of 16 takes the byte path
+    odd = svocab[:, :90].contiguous()
+    rows2, _ = kernels.vocab_gather_rows(odd.to(cuda), None, idx.to(cuda))
+    assert torch.equal(rows2.cpu(),
+                       kernels.vocab_gather_rows_plain(odd, None, idx)[0])
+
+
+@pytest.mark.parametrize("k", [0, 1, 5, 40])
+def test_hash_match_kernel_equals_plain(cuda, k):
+    g = torch.Generator().manual_seed(9)
+    N, R = 513, 64
+    pool = torch.tensor([0, 1, -1, -2 ** 31, 2 ** 31 - 1, 77], dtype=torch.int32)
+    hi = pool[torch.randint(0, 6, (N, R), generator=g)]
+    lo = pool[torch.randint(0, 6, (N, R), generator=g)]
+    valid = torch.rand((N, R), generator=g) < 0.7
+    pairs = [(int(pool[a]), int(pool[b])) for a, b in
+             torch.randint(0, 6, (k, 2), generator=g).tolist()]
+    consts = kernels.hash_consts(pairs, "cpu")
+    for v in (None, valid):
+        got = kernels.hash_match(hi.to(cuda), lo.to(cuda),
+                                 kernels.hash_consts(pairs, cuda),
+                                 None if v is None else v.to(cuda))
+        assert torch.equal(got.cpu(), kernels.hash_match_plain(hi, lo, consts, v))
+
+
+def test_pool_rows_kernel_equals_plain(cuda):
+    g = torch.Generator().manual_seed(10)
+    N, K, P, R = 513, 32, 3, 64
+    accepts = torch.rand((N, K, P), generator=g) < 0.3
+    slot = torch.randint(-1, K + 4, (N, R), generator=g, dtype=torch.int32)
+    slot[0, 0] = -2 ** 31
+    for p in range(P):
+        plane = accepts[..., p]
+        got = kernels.pool_rows(accepts.to(cuda)[..., p], slot.to(cuda))
+        assert torch.equal(got.cpu(), kernels.pool_rows_plain(plane, slot))
+
+
+@pytest.mark.parametrize("R", [1, 31, 64, 256, 300])
+def test_first_true_take_kernel_equals_plain(cuda, R):
+    g = torch.Generator().manual_seed(R)
+    N = 1000
+    accept = torch.rand((N, R), generator=g) < 2.0 / R
+    accept[:7] = False
+    pred = torch.rand((N, R), generator=g) < 0.5
+    has, val_ok = kernels.first_true_take(accept.to(cuda), pred.to(cuda))
+    want_has, want_val = kernels.first_true_take_plain(accept, pred)
+    assert torch.equal(has.cpu(), want_has)
+    assert torch.equal(val_ok.cpu(), want_val)
+
+
+def test_verdict_counts_u8_kernel_equals_plain(cuda):
+    g = torch.Generator().manual_seed(11)
+    table = torch.randint(0, 7, (66, 8192), generator=g, dtype=torch.int32)
+    t8, counts = kernels.verdict_counts_u8(table.to(cuda))
+    w8, wc = kernels.verdict_counts_u8_plain(table)
+    assert t8.dtype == torch.uint8 and torch.equal(t8.cpu(), w8)
+    assert torch.equal(counts.cpu(), wc)
+
+
+def test_sharded_scanner_on_the_card_equals_cpu(cuda):
+    policies = [expand_policy(p) for p in load_pss_policies()]
+    sc = ShardedScanner(policies)
+    cpu = ShardedScanner(policies, device="cpu")
+    rng = random.Random(6)
+    pods = []
+    for i in range(70):
+        ann = ({"container.apparmor.security.beta.kubernetes.io/c":
+                rng.choice(["runtime/default", "unconfined"])}
+               if rng.random() < 0.3 else {})
+        pods.append({"apiVersion": "v1", "kind": "Pod",
+                     "metadata": {"name": f"p{i}", "namespace": "d",
+                                  "annotations": ann},
+                     "spec": {"containers": [{"name": "c", "image": "nginx"}]}})
+    kernels.reset_launches()
+    got = sc.scan_device(pods)
+    for name in ("vocab_gather", "vocab_gather_rows", "hash_match",
+                 "pool_rows", "first_true_take", "verdict_counts_u8"):
+        assert kernels.LAUNCHES[name] > 0, name
+    want = cpu.scan_device(pods)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    a, _ = sc.scan_stream(pods, tile=32)
+    b, _ = cpu.scan_stream(pods, tile=32)
+    assert np.array_equal(a.verdicts, b.verdicts)

@@ -1,12 +1,14 @@
 """TorchEngine (kyverno_tpu_torch) against the JAX package's device
 program, end to end on the CPU.
 
-``TorchEngine(device="cpu").scan`` must return the verdict table and
-the per-rule verdict-class counts that ``cps.device_fn()`` of the JAX
-package computes on the same resources (bucket-pad columns subtracted
-from the counts, as TpuEngine._dispatch does): on the autogen-expanded
-PSS library over the seeded PSS generator, and on the corpora of the
-JAX parity modules. Every comparison is exact: int32 outputs."""
+``TorchEngine(device="cpu").scan_device`` must return the verdict table
+and the per-rule verdict-class counts that ``cps.device_fn()`` of the
+JAX package computes on the same resources (bucket-pad columns
+subtracted from the counts, as TpuEngine._dispatch does), and
+``TorchEngine.scan`` the scalar-completed ScanResult that
+``TpuEngine.scan`` returns: on the autogen-expanded PSS library over
+the seeded PSS generator, and on the corpora of the JAX parity modules.
+Every comparison is exact: int32 outputs."""
 
 import os
 import random
@@ -24,7 +26,8 @@ from kyverno_tpu_torch import kernels
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
 from test_tpu_pss_parity import _resource
-from torch_parity_util import (CORPUS_PARAMS, Recorded, assert_same_program,
+from torch_parity_util import (CORPUS_PARAMS, Recorded,
+                               assert_full_scan_equal, assert_same_program,
                                assert_scan_equal, port_engine,
                                port_policies, record_corpus)
 
@@ -70,12 +73,12 @@ def test_pss_scan_equals_reference(pss, seed):
 def test_pss_counts_cover_live_columns_only(pss):
     _, teng = pss
     resources, operations = _pss_batch(99, 37)
-    res = teng.scan(resources, operations=operations)
-    assert res.verdicts.shape == (66, 37)
-    assert res.counts.shape == (66, 7)
-    assert (res.counts.sum(axis=1) == 37).all()
-    want = np.stack([(res.verdicts == c).sum(axis=1) for c in range(7)], 1)
-    assert np.array_equal(res.counts, want)
+    table, counts = teng.scan_device(resources, operations=operations)
+    assert table.shape == (66, 37)
+    assert counts.shape == (66, 7)
+    assert (counts.sum(axis=1) == 37).all()
+    want = np.stack([(table == c).sum(axis=1) for c in range(7)], 1)
+    assert np.array_equal(counts, want)
 
 
 @pytest.mark.parametrize("module,name", CORPUS_PARAMS)
@@ -87,6 +90,7 @@ def test_corpus_scan_equals_reference(monkeypatch, module, name):
             ports[key] = port_engine(rec.engine)
             assert_same_program(rec.engine, ports[key])
         assert_scan_equal(rec.engine, ports[key], rec)
+        assert_full_scan_equal(ports[key], rec)
 
 
 def test_port_loads_no_jax_and_nothing_of_the_reference():
@@ -106,6 +110,15 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         " 'image': 'nginx', 'securityContext': {'privileged': True}}]}}\n"
         "res = eng.scan([pod])\n"
         "assert res.verdicts.shape == (66, 1)\n"
+        "import kyverno_tpu_torch.parallel.sharding\n"
+        "import kyverno_tpu_torch.native\n"
+        "import kyverno_tpu_torch.encode.tasks\n"
+        "import kyverno_tpu_torch.engine.engine\n"
+        "import kyverno_tpu_torch.cluster.snapshot\n"
+        "from kyverno_tpu_torch.parallel import ShardedScanner\n"
+        "sc = ShardedScanner(eng.cps.policies, device='cpu')\n"
+        "out, stats = sc.scan_stream([pod] * 3, tile=16)\n"
+        "assert out.verdicts.shape == (66, 3) and stats['tiles'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"

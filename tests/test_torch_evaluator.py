@@ -137,3 +137,123 @@ def test_hash_constants_fold_to_int32_bit_patterns():
     assert t.dtype == torch.int32
     for v in lane.tolist():
         assert (t == tev._i32(v)).numpy().tolist() == (lane == v).tolist()
+
+
+# --- kernels K6 (hash_match), K7 (pool_rows), K8 (first_true_take) ---
+
+
+def _hash_batch(seed, N=19, R=37):
+    """uint32 hash lanes drawn from a small pool of values (so constants
+    hit), including the bit patterns whose int32 view is negative."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 12345,
+                     0xDEADBEEF, 0x9E3779B9], dtype=np.uint32)
+    hi = pool[rng.integers(0, len(pool), size=(N, R))]
+    lo = pool[rng.integers(0, len(pool), size=(N, R))]
+    valid = (rng.random((N, R)) < 0.7).astype(np.uint8)
+    batch = {"norm_hi": hi, "norm_lo": lo, "repr_hi": lo.copy(),
+             "repr_lo": hi.copy(), "valid": valid}
+    return batch, pool
+
+
+def _ctxs(batch):
+    jctx = jev.Ctx({k: jnp.asarray(v) for k, v in batch.items()}, 4)
+    tctx = tev.Ctx(lanes_to_device(batch, "cpu"), 4)
+    return jctx, tctx
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hash_match_twin_equals_reference_masks(seed):
+    batch, pool = _hash_batch(seed)
+    jctx, tctx = _ctxs(batch)
+    rng = np.random.default_rng(seed + 10)
+    hashes = [int(pool[a]) << 32 | int(pool[b])
+              for a, b in rng.integers(0, len(pool), size=(40, 2))]
+    for lane in ("norm", "repr"):
+        for h in hashes[:6]:
+            assert np.array_equal(tctx.heq(lane, h).numpy(),
+                                  np.asarray(jctx.heq(lane, h)))
+            assert np.array_equal(tctx._mask(h, lane).numpy(),
+                                  np.asarray(jctx._mask(h, lane)))
+        # sets of size 0, 1, a few and many
+        for k in (0, 1, 5, 40):
+            want = np.asarray(jctx.hset(lane, hashes[:k]))
+            got = tctx.hset(lane, hashes[:k]).numpy()
+            assert got.dtype == np.bool_ and np.array_equal(got, want)
+    # one (k, 2) constant table per distinct set, reused on a repeat
+    tables = dict(tctx._hash_consts)
+    tctx.hset("norm", hashes[:5])
+    assert tctx._hash_consts == tables
+    assert {t.shape for t in tables.values()} >= {(0, 2), (1, 2), (40, 2)}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pool_rows_twin_equals_reference(seed):
+    rng = np.random.default_rng(seed)
+    N, R, K = 13, 29, 6
+    # slots -1 (no slot), in range, and past K - 1 (clipped)
+    slot = rng.integers(-1, K + 3, size=(N, R)).astype(np.int32)
+    batch = {"norm_hi": np.zeros((N, R), np.uint32),
+             "valid": np.ones((N, R), np.uint8), "byte_slot": slot,
+             "key_byte_slot": np.flip(slot, axis=1).copy()}
+    jctx, tctx = _ctxs(batch)
+    accepts = rng.random((N, K, 3)) < 0.5  # a bank's (N, K, patterns)
+    for p in range(3):
+        plane = accepts[..., p]
+        tplane = torch.from_numpy(accepts)[..., p]  # a strided column
+        for lane in ("byte_slot", "key_byte_slot"):
+            want = np.asarray(jctx._rows_from_pool(jnp.asarray(plane), lane))
+            got = tctx._rows_from_pool(tplane, lane).numpy()
+            assert np.array_equal(got, want)
+            assert np.array_equal(kernels.pool_rows_plain(
+                tplane.contiguous(), torch.from_numpy(batch[lane])).numpy(),
+                want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_first_true_take_twin_equals_reference(seed):
+    """has / val_ok as _eval_wildcard_anchor computes them: any true
+    row, and pred at jnp.argmax's first true row — row 0 when no row is
+    true (all-false rows included on purpose)."""
+    rng = np.random.default_rng(seed)
+    N, R = 31, 45
+    accept = rng.random((N, R)) < 0.04
+    accept[:5] = False
+    accept[5, -1] = True
+    pred = rng.random((N, R)) < 0.5
+    ja, jp = jnp.asarray(accept), jnp.asarray(pred)
+    want_has = np.asarray(ja.any(axis=-1))
+    idx = jnp.argmax(ja, axis=-1)
+    want_val = np.asarray(jnp.take_along_axis(jp, idx[:, None], axis=-1)[:, 0])
+    has, val_ok = kernels.first_true_take(torch.from_numpy(accept),
+                                          torch.from_numpy(pred))
+    assert np.array_equal(has.numpy(), want_has)
+    assert np.array_equal(val_ok.numpy(), want_val)
+    assert np.array_equal(val_ok.numpy()[:5], pred[:5, 0])
+
+
+def test_wildcard_anchor_program_equals_reference():
+    """The PSS apparmor rule (a wildcard metadata-key anchor, K8's
+    caller) through both programs on resources whose annotations match
+    none, one or several keys."""
+    from kyverno_tpu.policies import load_pss_policies
+    from kyverno_tpu.policy.autogen import expand_policy
+
+    pols = [expand_policy(p) for p in load_pss_policies("restrict-apparmor")]
+    jeng = TpuEngine(cps=jcompile(pols))
+    teng = port_engine(jeng)
+    key = "container.apparmor.security.beta.kubernetes.io/"
+    annots = [{}, {"other": "x"}, {key + "a": "runtime/default"},
+              {key + "a": "unconfined"},
+              {"z": "1", key + "b": "localhost/p", key + "a": "unconfined"},
+              {key + "a": "runtime/default", key + "b": "unconfined"}]
+    pods = [{"apiVersion": "v1", "kind": "Pod",
+             "metadata": {"name": f"p{i}", "namespace": "d",
+                          "annotations": a},
+             "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
+            for i, a in enumerate(annots)]
+    batch = jeng.encode(pods + [{}] * 10)[0]
+    jtab, _ = jeng.cps.device_fn()(batch)
+    ttab, _ = teng.cps.device_fn()(lanes_to_device(batch, "cpu"))
+    assert np.array_equal(ttab.numpy(), np.asarray(jtab))
+    assert len(set(np.asarray(jtab)[:, :6].ravel().tolist())) > 1

@@ -4,7 +4,8 @@ through the JAX package (the reference) and the PyTorch port.
 The corpora of the JAX parity modules are taken as those modules build
 them: a module's test function runs with ``TpuEngine.scan`` wrapped so
 that every scan it makes is recorded (engine, resources, namespace
-labels, operations, user infos) and then carried out as before."""
+labels, operations, user infos, and the ScanResult it returned) and
+then carried out as before."""
 
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ from kyverno_tpu.tpu import engine as jengine
 from kyverno_tpu_torch.api.policy import ClusterPolicy as PortPolicy
 from kyverno_tpu_torch.engine.match import RequestInfo as PortRequestInfo
 from kyverno_tpu_torch.tpu.engine import TorchEngine, class_counts
+
+# The port's CPU program is thousands of small tensor ops; with one
+# intra-op thread each op runs inline instead of waking a thread pool,
+# which matters when several test workers share the cores.
+torch.set_num_threads(1)
 
 # the functions of the JAX parity modules that scan, by module
 CORPORA = {
@@ -73,6 +79,7 @@ class Recorded:
         self.operations = list(operations) if operations else None
         self.admission_infos = list(admission_infos) if admission_infos \
             else None
+        self.result = None  # the reference's ScanResult, once recorded
 
 
 def record_corpus(monkeypatch, module: str, name: str) -> List[Recorded]:
@@ -85,10 +92,12 @@ def record_corpus(monkeypatch, module: str, name: str) -> List[Recorded]:
 
     def scan(self, resources, namespace_labels=None, operations=None,
              admission_infos=None, live_n=None):
-        seen.append(Recorded(self, resources, namespace_labels, operations,
-                             admission_infos))
-        return real(self, resources, namespace_labels, operations,
-                    admission_infos, live_n=live_n)
+        rec = Recorded(self, resources, namespace_labels, operations,
+                       admission_infos)
+        seen.append(rec)
+        rec.result = real(self, resources, namespace_labels, operations,
+                          admission_infos, live_n=live_n)
+        return rec.result
 
     monkeypatch.setattr(jengine.TpuEngine, "scan", scan)
     getattr(mod, name)()
@@ -139,13 +148,44 @@ def jax_device_scan(jeng, rec: Recorded):
     return table[:, :n], counts
 
 
-def port_engine(jeng) -> TorchEngine:
-    return TorchEngine(port_policies(jeng.cps.policies), device="cpu")
+def port_engine(jeng, exceptions=None) -> TorchEngine:
+    """The port's CPU engine over the reference engine's policies and
+    (unless given) its PolicyExceptions."""
+    if exceptions is None:
+        exceptions = jeng.scalar.exceptions
+    docs = [e if isinstance(e, dict) else e.raw for e in exceptions]
+    return TorchEngine(port_policies(jeng.cps.policies), device="cpu",
+                       exceptions=copy.deepcopy(docs))
+
+
+def port_scan_device(teng: TorchEngine, rec: Recorded):
+    """The port's device layer on the recorded scan: (table, counts)."""
+    return teng.scan_device(rec.resources, rec.namespace_labels,
+                            rec.operations, port_infos(rec.admission_infos))
 
 
 def port_scan(teng: TorchEngine, rec: Recorded):
+    """The port's complete scan (scalar-completed ScanResult)."""
     return teng.scan(rec.resources, rec.namespace_labels, rec.operations,
                      port_infos(rec.admission_infos))
+
+
+def assert_result_equal(want, got) -> None:
+    """Two ScanResults (the reference's and the port's) are the same:
+    table (dtype, shape, cells), rules, counts() and violations()."""
+    assert got.verdicts.dtype == want.verdicts.dtype
+    assert got.verdicts.shape == want.verdicts.shape
+    assert np.array_equal(got.verdicts, want.verdicts)
+    assert list(got.rules) == list(want.rules)
+    assert got.counts() == want.counts()
+    assert got.violations() == want.violations()
+    assert not ((got.verdicts >= 5).any())  # HOST / CONFIRM never escape
+
+
+def assert_full_scan_equal(teng: TorchEngine, rec: Recorded) -> None:
+    """The port's TorchEngine.scan equals the recorded TpuEngine.scan."""
+    assert rec.result is not None
+    assert_result_equal(rec.result, port_scan(teng, rec))
 
 
 def assert_same_program(jeng, teng: TorchEngine) -> None:
@@ -156,12 +196,14 @@ def assert_same_program(jeng, teng: TorchEngine) -> None:
 
 
 def assert_scan_equal(jeng, teng: TorchEngine, rec: Recorded) -> None:
+    """The port's device table and counts (``scan_device``) equal the
+    JAX package's device program on the recorded scan."""
     want_table, want_counts = jax_device_scan(jeng, rec)
-    got = port_scan(teng, rec)
-    assert got.verdicts.dtype == np.int32 and got.counts.dtype == np.int32
-    assert got.verdicts.shape == want_table.shape
-    assert np.array_equal(got.verdicts, want_table)
-    assert np.array_equal(got.counts, want_counts)
+    got_table, got_counts = port_scan_device(teng, rec)
+    assert got_table.dtype == np.int32 and got_counts.dtype == np.int32
+    assert got_table.shape == want_table.shape
+    assert np.array_equal(got_table, want_table)
+    assert np.array_equal(got_counts, want_counts)
 
 
 def assert_lanes_equal(want: Dict[str, np.ndarray],
