@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (kyverno_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192] [--seed 0]
+    python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192]
+        [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
+        [--mutate-tile 1024] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -15,8 +17,11 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    scan (its vocabulary lanes and shapes), K5 over index widths uint8,
    uint16 and int32 with hostile indices, K6 with 0, 1, 5 and 40
    constants, K7 on a strided DFA accept column, K8, and K4's uint8
-   output. Each is timed by CUDA-graph replay beside its plain twin and
-   its library yardstick;
+   output; K9 ``glob_nfa`` on the tenant batch's namespace and name
+   lanes, its pool plane and 320-byte seeded subjects (state words 1 to
+   16), over real and hostile lengths and every pattern class, and K1's
+   non-ASCII entry on its own. Each is timed by CUDA-graph replay beside
+   its plain twin and its library yardstick;
 4. the dense path: ``TorchEngine(PSS).scan`` on N seeded resources
    (Pod / Deployment / CronJob / Service): the completed table over all
    rules (codes 0..4), its launch counts, the device table of ``run``
@@ -32,7 +37,23 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    steady-state step time on one resident tile (median of 5), a check
    that the step never waits for the device, and the tile's lane bytes
    against the dense form's;
-6. the ``kernels`` JSON line, then the device JSON line (last line).
+6. the ``kernels`` JSON line (launches by path: dense, background
+   scan, tenant validate, tenant triage, mutate leg), then the device
+   JSON line (last line);
+7. the tenant path: the 18 PSS policies and a tenant policy (a
+   validate and a mutate rule over 3,200 + 64 namespace globs) that
+   fill the DFA bank's 60,000 states, so hundreds of globs run on K9:
+   its bank split, ``TorchEngine.scan`` of 16,384 seeded Pods and
+   Namespaces (equal to the plain-twin program on the same lanes and,
+   on a slice, to the CPU run), and ``triage_mutate`` in batches of
+   1,024, each with its launch counts and times;
+8. bench.py's mutate leg at its own sizes: ``triage_mutate`` over 4,000
+   Pods (1 in 20 in ``prod``) in tiles of 1,024, ``apply_mutations``
+   over every routed resource, every patched output against the port's
+   scalar chain and every negative unchanged, and an all-negative batch
+   of 512 costing one device dispatch and no patcher call.
+
+Phases 7 and 8 run after phase 5; phase 6's lines come last.
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -81,7 +102,13 @@ KERNEL_META = {
                   "kyverno_tpu/tpu/evaluator.py:361"),
     "first_true_take": ("kyverno_tpu_torch/csrc/first_true_take.cu",
                         "kyverno_tpu/tpu/evaluator.py:641"),
+    "nonascii": ("kyverno_tpu_torch/csrc/dfa_scan.cu",
+                 "kyverno_tpu/tpu/dfa.py:1246"),
+    "glob_nfa": ("kyverno_tpu_torch/csrc/glob_nfa.cu",
+                 "kyverno_tpu/tpu/evaluator.py:386"),
 }
+PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
+         "mutate_leg")
 
 # the kernels each path must launch
 DENSE_KERNELS = ("dfa_scan_fused", "instance_count", "instance_count2",
@@ -90,6 +117,15 @@ DENSE_KERNELS = ("dfa_scan_fused", "instance_count", "instance_count2",
 SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
                 "dfa_scan_fused", "instance_count", "instance_count2")
+TENANT_KERNELS = ("glob_nfa", "nonascii")
+
+# the tenant policy's namespace globs, and the split of them between
+# the DFA bank and the NFA route that compile_policy_set gives beside
+# the 18 PSS policies under the default 60,000-state cap (computed on
+# the CPU with the same compiler): (in the bank, on the NFA route)
+TENANT_GLOBS = ([f"tenant-{i:05d}-*-prod" for i in range(3200)]
+                + [f"t{i:03d}-??-*" for i in range(64)])
+TENANT_SPLIT = (2997, 267)
 
 
 def say(phase: str, msg: str) -> None:
@@ -938,6 +974,439 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the tenant set: a namespace glob per tenant, more than the bank holds
+
+
+def tenant_policy():
+    """One validate rule (a ``team`` label on Pods) and one mutate rule
+    (stamp ``+(team)``), both matching the tenant namespace globs."""
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+
+    def match():
+        return {"resources": {"kinds": ["Pod"],
+                              "namespaces": list(TENANT_GLOBS)}}
+
+    return ClusterPolicy.from_dict({
+        "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+        "metadata": {"name": "tenant"},
+        "spec": {"validationFailureAction": "Enforce", "rules": [
+            {"name": "require-team", "match": match(),
+             "validate": {"message": "team label required", "pattern":
+                          {"metadata": {"labels": {"team": "?*"}}}}},
+            {"name": "stamp-team", "match": match(),
+             "mutate": {"patchStrategicMerge":
+                        {"metadata": {"labels": {"+(team)": "core"}}}}}]}})
+
+
+def glob_instance(rng, glob: str, nonascii: bool = False) -> str:
+    """A string the glob accepts: '*' becomes a short token, '?' a
+    letter; ``nonascii`` puts an 'é' (two UTF-8 bytes) in the first '*'
+    or '?' instead."""
+    out = []
+    for c in glob:
+        if c in "*?":
+            tok = (rng.choice("abcxyz") if c == "?" else
+                   "".join(rng.choice("abcxyz0123")
+                           for _ in range(rng.randint(1, 6))))
+            if nonascii:
+                tok, nonascii = "é", False
+            out.append(tok)
+        else:
+            out.append(c)
+    return "".join(out)
+
+
+def tenant_workload(n: int, seed: int, in_bank, nfa):
+    """Seeded Pods (3 in 4) and Namespaces whose namespace (or name)
+    is drawn from globs in the bank, globs on the NFA route ('?' ones
+    among them) and default / kube-system; about 1 in 50 carries a
+    non-ASCII byte."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        r = rng.random()
+        glob = (rng.choice(in_bank) if r < 0.4 else
+                rng.choice(nfa) if r < 0.85 else None)
+        odd = rng.random() < 0.02
+        ns = (rng.choice(["default", "kube-system"]) if glob is None
+              else glob_instance(rng, glob, odd))
+        if rng.random() < 0.25:
+            out.append({"apiVersion": "v1", "kind": "Namespace",
+                        "metadata": {"name": ns}})
+            continue
+        meta = {"name": f"pod-{i}", "namespace": ns}
+        if rng.random() < 0.5:
+            meta["labels"] = {"team": rng.choice(["a", "b", "c"])}
+        out.append({"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+                    "spec": {"containers": [{"name": "c", "image": "nginx"}]}})
+    return out
+
+
+def glob_subjects(torch, rng, pattern: str, S: int, W: int):
+    """(S, W) uint8 / (S,) int32 seeded subjects: half instances of the
+    pattern, half noise over its bytes, NUL and non-ASCII bytes."""
+    import numpy as np
+
+    alpha = np.array(sorted({ord(c) & 0xFF for c in pattern
+                             if c not in "*?"}) + [0, 0x2D, 0x61, 0xE9],
+                     dtype=np.uint8)
+    byt = rng.choice(alpha, size=(S, W)).astype(np.uint8)
+    lens = rng.integers(0, W + 1, size=(S,)).astype(np.int32)
+    # about 16 stars of an instance take bytes, so long patterns fit
+    take = 16 / max(16, pattern.count("*"))
+    for i in range(0, S, 2):
+        inst = []
+        for c in pattern:
+            if c == "*":
+                k = int(rng.integers(0, 3)) if rng.random() < take else 0
+                inst += list(rng.choice(alpha, size=k))
+            elif c == "?":
+                inst.append(int(rng.choice(alpha[alpha != 0])))
+            else:
+                inst.append(ord(c) & 0xFF)
+        inst = inst[:W]
+        byt[i, :len(inst)] = inst
+        lens[i] = len(inst)
+    return torch.from_numpy(byt), torch.from_numpy(lens)
+
+
+def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
+    """K9 against its plain twin on the tenant batch's namespace and
+    name lanes, its pool plane and 320-byte seeded subjects, with real
+    and hostile lengths, over every pattern class; then K9 and K1's
+    non-ASCII entry timed on the namespace lane."""
+    import numpy as np
+
+    dev = lanes["meta_ns_bytes"].device
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    qglob = next(g for g in nfa if "?" in g)
+    classes = [nfa[0], qglob, "", "*", "***", "?", "a*b?c*", "é*", "中?",
+               "a" * 63, "a" * 64, "a" * 65, ("ab*?" * 75)[:299]]
+    planes = [("ns", lanes["meta_ns_bytes"], lanes["meta_ns_len"]),
+              ("name", lanes["meta_name_bytes"], lanes["meta_name_len"]),
+              ("pool", lanes["pool"], lanes["pool_len"])]
+    err = 0.0
+    words = set()
+    for label, byt, ln in planes:
+        W = byt.shape[-1]
+        hostile = torch.randint(-3, W + 6, tuple(ln.shape), generator=gen,
+                                dtype=torch.int32).to(dev)
+        for lname, lens in (("lengths", ln), ("hostile lengths", hostile)):
+            hits = 0
+            for p in classes:
+                got = kernels.glob_nfa(p, byt, lens)
+                err = max(err, exact(torch, f"glob_nfa {p!r} {label} {lname}",
+                                     got, kernels.glob_nfa_plain(p, byt, lens)))
+                hits += int(got.sum())
+            say("3", f"K9 glob_nfa {len(classes)} patterns on {label} "
+                     f"{tuple(byt.shape)} with {lname}: {hits} accepts, max "
+                     f"abs err {err}")
+    # past one state word: 320-byte subjects (the label-key width)
+    for p in ("a" * 65, ("ab*?" * 75)[:299], "a*" * 150, "a*" * 260):
+        byt, lens = glob_subjects(torch, rng, p, 4096, 320)
+        lens[:4] = torch.tensor([-1, 0, 320, 325], dtype=torch.int32)
+        byt, lens = byt.to(dev), lens.to(dev)
+        got = kernels.glob_nfa(p, byt, lens)
+        err = max(err, exact(torch, f"glob_nfa m={len(p)} wide", got,
+                             kernels.glob_nfa_plain(p, byt, lens)))
+        words.add(kernels.glob_words(p))
+        say("3", f"K9 glob_nfa m={len(kernels.glob_chars(p))} "
+                 f"({kernels.glob_words(p)} state words) on {tuple(byt.shape)}"
+                 f": {int(got.sum())} accepts, max abs err {err}")
+    if not {2, 8, 16} <= words:
+        raise AssertionError(f"glob_nfa state words run: {sorted(words)}")
+
+    # timed at the main path's shape: an NFA-route tenant glob over the
+    # batch's namespace lane (one launch per pattern and family)
+    byt, ln = lanes["meta_ns_bytes"], lanes["meta_ns_len"]
+    S, W = byt.shape
+    pat = nfa[0]
+    table = kernels.glob_table(pat, dev)
+    _, steps = kernels.glob_nfa_plain(pat, byt, ln, with_steps=True)
+    need = int(steps.to(torch.int64).sum())
+    nw = kernels.glob_words(pat)
+    results["glob_nfa"] = {
+        "max_abs_err": err,
+        **timed(torch, lambda: kernels.glob_nfa(pat, byt, ln, table),
+                lambda: kernels.glob_nfa_plain(pat, byt, ln)),
+        "bound": bound(need + S * 4 + S + table.numel() * 8, need * nw * 6),
+    }
+    upto = int(torch.where((ln >= 0) & (ln <= W), ln,
+                           torch.zeros_like(ln)).to(torch.int64).sum())
+    say("3", f"K9 bound inputs: {S} subjects of {W} bytes, {need} bytes the "
+             f"NFA reads before its state dies or the length ends ({upto} "
+             f"up to the lengths)")
+
+    # K1's non-ASCII entry alone (what the NFA route's '?' globs launch)
+    na = kernels.nonascii(byt, ln)
+    nerr = exact(torch, "nonascii", na, kernels.nonascii_plain(byt, ln))
+    live = torch.clamp(ln, 0, W).to(torch.int64)
+    pos = torch.arange(W, device=dev)[None, :]
+    high = (byt >= 0x80) & (pos < live[:, None])
+    first = torch.where(high.any(-1), high.to(torch.uint8).argmax(-1) + 1,
+                        live)
+    nbytes = int(first.sum())
+    results["nonascii"] = {
+        "max_abs_err": nerr,
+        **timed(torch, lambda: kernels.nonascii(byt, ln),
+                lambda: kernels.nonascii_plain(byt, ln)),
+        "bound": bound(nbytes + S * 4 + S, nbytes),
+    }
+    say("3", f"K1 nonascii on the namespace lane {tuple(byt.shape)}: "
+             f"{int(na.sum())} non-ASCII subjects, max abs err {nerr}; "
+             f"{nbytes} bytes up to the first non-ASCII byte or the length")
+
+
+def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
+    """Phase 7: the tenant set's scan and mutate triage. Returns the
+    launch counts of the scan and of the triage."""
+    import numpy as np
+
+    from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
+
+    n = len(resources)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.scan(resources)
+    scan_s = time.perf_counter() - t0
+    lv = dict(kernels.LAUNCHES)
+    say("7", f"TorchEngine.scan of {n} tenant resources: {scan_s:.3f} s end "
+             f"to end {tag}; launches {lv}")
+    for name in TENANT_KERNELS:
+        if lv[name] <= 0:
+            raise AssertionError(f"tenant scan never launched {name}")
+    if res.verdicts.shape != (len(eng.cps.rules), n) or not (
+            (res.verdicts >= 0) & (res.verdicts <= 4)).all():
+        raise AssertionError("tenant scan: table not complete")
+    say("7", "completed table over every rule, codes 0..4: "
+             + json.dumps(res.counts()))
+
+    # the program against the same program with the plain twins, on the
+    # same lanes
+    padded, _, _ = eng.pad(resources)
+    t0 = time.perf_counter()
+    batch = eng.encode(padded)[0]
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lanes = lanes_to_device(batch, eng.device)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    table, counts = eng.run(lanes)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    say("7", f"scan parts: encode {encode_s:.4f} s, H2D {h2d_ms:.3f} ms, "
+             f"program {program_s:.4f} s (host clock to a sync) {tag}")
+    t0 = time.perf_counter()
+    ptable, pcounts = eng.cps.device_fn(plain=True)(lanes)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not (torch.equal(ptable, table) and torch.equal(pcounts, counts)):
+        raise AssertionError("tenant program differs from the plain-twin "
+                             "program")
+    dtab = table.cpu().numpy()
+    confirm = int((dtab[:, :n] == 6).sum())
+    host = int((dtab[:, :n] == 5).sum())
+    for ri, e in enumerate(eng.cps.rules):
+        if e.device_row is None:
+            continue
+        d = dtab[e.device_row, :n]
+        keep = d < 5
+        if not (res.verdicts[ri][keep] == d[keep]).all():
+            raise AssertionError(f"tenant row {e.rule_name}: completed table "
+                                 "differs on device-decided cells")
+    if confirm <= 0:
+        raise AssertionError("no CONFIRM cell: the non-ASCII subjects of the "
+                             "'?' globs did not reach the scan")
+    say("7", f"device table and counts equal the plain-twin program "
+             f"({plain_s:.3f} s) on the card; {confirm} CONFIRM and {host} "
+             f"HOST cells completed on the host")
+    del lanes, table, counts, ptable, pcounts
+
+    # mutate triage in batches
+    eng.triage_dispatches = eng.triage_encode_fallbacks = 0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    parts = [eng.triage_mutate(resources[i:i + batch_n])
+             for i in range(0, n, batch_n)]
+    triage_s = time.perf_counter() - t0
+    lt = dict(kernels.LAUNCHES)
+    say("7", f"triage_mutate of {n} in batches of {batch_n}: {triage_s:.3f} s,"
+             f" {n / triage_s:.1f} resources/s {tag}; launches {lt}")
+    for name in TENANT_KERNELS:
+        if lt[name] <= 0:
+            raise AssertionError(f"tenant triage never launched {name}")
+    if eng.triage_dispatches != len(parts) or eng.triage_encode_fallbacks:
+        raise AssertionError(f"{eng.triage_dispatches} device batches, "
+                             f"{eng.triage_encode_fallbacks} encode fallbacks "
+                             f"for {len(parts)} batches")
+    dev_rows, rows = eng.mutate_coverage()
+    if dev_rows != rows or rows == 0:
+        raise AssertionError(f"mutate coverage {dev_rows}/{rows}")
+    tri = np.concatenate([p.verdicts for p in parts], axis=1)
+    counts = {k: sum(p.counts()[k] for p in parts)
+              for k in ("positive", "negative", "host")}
+    if counts["positive"] <= 0 or counts["negative"] <= 0:
+        raise AssertionError(f"triage rows {counts}")
+    say("7", f"triage rows {counts}; mutate coverage {dev_rows}/{rows} on "
+             "the device; no batch took the encode fallback")
+    # one batch against the plain-twin triage program
+    first = resources[:batch_n]
+    padded, _, _ = eng.pad(first)
+    t0 = time.perf_counter()
+    batch = eng.encode(padded)[0]
+    encode_s = time.perf_counter() - t0
+    lanes = lanes_to_device(batch, eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.cps.mutate_device_fn()(lanes)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    want = eng.cps.mutate_device_fn(plain=True)(lanes)
+    if not torch.equal(got, want):
+        raise AssertionError("triage program differs from its plain twins")
+    say("7", f"one triage batch of {len(first)}: encode {encode_s:.4f} s, "
+             f"program {program_s:.4f} s; equal to the plain-twin triage "
+             f"program {tag}")
+    del lanes
+
+    # a slice against the CPU run
+    small = 96
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    t0 = time.perf_counter()
+    if not (cpu.scan(resources[:small]).verdicts == res.verdicts[:, :small]
+            ).all():
+        raise AssertionError(f"tenant scan differs from the CPU on {small}")
+    if not (cpu.triage_mutate(resources[:small]).verdicts == tri[:, :small]
+            ).all():
+        raise AssertionError(f"tenant triage differs from the CPU on {small}")
+    say("7", f"scan and triage of {small} resources equal the CPU run "
+             f"({time.perf_counter() - t0:.3f} s on the host)")
+    say("7", f"compile {compile_s:.3f} s, scan {scan_s:.3f} s, triage "
+             f"{triage_s:.3f} s; glob_nfa launches {lv['glob_nfa']} (scan) + "
+             f"{lt['glob_nfa']} (triage) {tag}")
+    return lv, lt
+
+
+def mutate_leg_phase(torch, kernels, n, tile, tag):
+    """Phase 8: bench.py's mutate leg (bench_mutate) at its own sizes.
+    Returns the launch counts of the triage over the tiles."""
+    import copy
+
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.mutation.coordinator import apply_mutations
+    from kyverno_tpu_torch.tpu.engine import (TorchEngine, build_scan_context,
+                                              lanes_to_device)
+    from kyverno_tpu_torch.tpu.evaluator import ERROR, FAIL, HOST, PASS
+
+    def pol(name, rule, overlay):
+        return ClusterPolicy.from_dict({
+            "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": name},
+            "spec": {"validationFailureAction": "Enforce", "rules": [{
+                "name": rule,
+                "match": {"resources": {"kinds": ["Pod"],
+                                        "namespaces": ["prod"]}},
+                "mutate": {"patchStrategicMerge": overlay}}]}})
+
+    policies = [
+        pol("stamp-labels", "labels",
+            {"metadata": {"labels": {"+(team)": "core", "env": "prod"}}}),
+        pol("stamp-scheduling", "sched",
+            {"spec": {"priority": 100, "dnsPolicy": "ClusterFirst"}})]
+    eng = TorchEngine(policies)
+    nsmap = {"prod": {}, "dev": {}}
+
+    def pod(i, ns):
+        return {"apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": f"bench-{ns}-{i}", "namespace": ns},
+                "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
+
+    resources = [pod(i, "prod" if i % 20 == 0 else "dev") for i in range(n)]
+    tiles = [resources[i:i + tile] for i in range(0, n, tile)]
+    eng.triage_mutate(tiles[0], nsmap)  # first-use costs outside timing
+    padded, _, _ = eng.pad(tiles[0])
+    t0 = time.perf_counter()
+    batch = eng.encode(padded, nsmap)[0]
+    encode_s = time.perf_counter() - t0
+    lanes = lanes_to_device(batch, eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.cps.mutate_device_fn()(lanes)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    del lanes
+    say("8", f"one tile of {len(tiles[0])}: encode {encode_s:.4f} s, program "
+             f"{program_s:.4f} s {tag}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = [eng.triage_mutate(t, nsmap) for t in tiles]
+    triage_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    routed, negatives = [], []
+    for t, res in zip(tiles, results):
+        for ci, r in enumerate(t):
+            rows = res.rows_for(ci)
+            if any(c in (PASS, FAIL, ERROR) or c >= HOST for _, c in rows):
+                routed.append((r, rows))
+            else:
+                negatives.append((r, rows))
+    t0 = time.perf_counter()
+    outs = [apply_mutations(eng, r, rows, namespace_labels={})
+            for r, rows in routed]
+    patch_s = time.perf_counter() - t0
+    say("8", f"triage_mutate of {n} Pods in tiles of {tile}: "
+             f"{triage_s:.4f} s, {n / triage_s:.1f} resources/s {tag}; "
+             f"launches {launches}")
+    say("8", f"apply_mutations over {len(routed)} routed: {patch_s:.4f} s, "
+             f"{len(routed) / patch_s:.1f} patches/s {tag}")
+    if len(routed) != -(-n // 20):
+        raise AssertionError(f"{len(routed)} routed, want {-(-n // 20)}")
+
+    def scalar_chain(resource):
+        patched = copy.deepcopy(resource)
+        for p in policies:
+            pctx = build_scan_context(p, patched, {}, "CREATE", None)
+            resp = eng.scalar.mutate(pctx)
+            if resp.patched_resource is not None:
+                patched = resp.patched_resource
+        return patched
+
+    for (r, _), out in zip(routed, outs):
+        if not out.changed or out.patched != scalar_chain(r):
+            raise AssertionError(f"{r['metadata']['name']}: patched output "
+                                 "differs from the scalar chain")
+    templates = sum(o.template_rules for o in outs)
+    for r, rows in negatives:
+        out = apply_mutations(eng, r, rows, namespace_labels={})
+        if out.changed or out.patched is not r or out.scalar_policies \
+                or out.template_rules or scalar_chain(r) != r:
+            raise AssertionError(f"negative {r['metadata']['name']} was "
+                                 "touched")
+    say("8", f"all {len(routed)} patched outputs equal the scalar chain "
+             f"({templates} template stamps); all {len(negatives)} negatives "
+             "come back unchanged")
+    untouched = [pod(i, "dev") for i in range(10_000, 10_512)]
+    d0 = eng.triage_dispatches
+    t0 = time.perf_counter()
+    ures = eng.triage_mutate(untouched, nsmap)
+    untouched_s = time.perf_counter() - t0
+    calls = 0
+    for ci, r in enumerate(untouched):
+        out = apply_mutations(eng, r, ures.rows_for(ci), namespace_labels={})
+        calls += out.scalar_policies + out.template_rules
+    uc = ures.counts()
+    if eng.triage_dispatches - d0 != 1 or calls or uc["positive"] or uc["host"]:
+        raise AssertionError(f"all-negative batch: "
+                             f"{eng.triage_dispatches - d0} dispatches, "
+                             f"{calls} patcher calls, rows {uc}")
+    say("8", f"all-negative batch of {len(untouched)}: one device dispatch, "
+             f"no patcher call, {untouched_s:.4f} s {tag}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -946,6 +1415,14 @@ def main() -> int:
                     help="resources in the background scan's snapshot")
     ap.add_argument("--tile", type=int, default=8192,
                     help="resources per background-scan tile")
+    ap.add_argument("--tenant-n", type=int, default=16384,
+                    help="resources in the tenant scan and triage")
+    ap.add_argument("--tenant-batch", type=int, default=1024,
+                    help="resources per tenant triage batch")
+    ap.add_argument("--mutate-n", type=int, default=4000,
+                    help="Pods in the mutate leg (bench.py bench_mutate)")
+    ap.add_argument("--mutate-tile", type=int, default=1024,
+                    help="Pods per mutate-leg triage tile")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1005,6 +1482,25 @@ def main() -> int:
     tile_res, tile_ops = workload(args.tile, args.seed + 4)
     tile_host, _ = scanner.encode(tile_res, None, tile_ops)
     tile_lanes = scanner.put(tile_host)
+    # the tenant set: PSS plus a policy whose namespace globs overflow
+    # the DFA bank
+    t0 = time.perf_counter()
+    tenant = TorchEngine(policies + [expand_policy(tenant_policy())])
+    tenant_compile_s = time.perf_counter() - t0
+    in_bank = [g for g in TENANT_GLOBS if g in tenant.cps.dfa.glob_ids]
+    nfa = [g for g in TENANT_GLOBS if g not in tenant.cps.dfa.glob_ids]
+    say("7", f"compiled PSS + tenant ({len(TENANT_GLOBS)} namespace globs) in "
+             f"{tenant_compile_s:.3f} s {tag}: {len(tenant.cps.dfa.patterns)} "
+             f"bank patterns, {sum(p.n_states for p in tenant.cps.dfa.patterns)}"
+             f" states; tenant globs {len(in_bank)} in the bank, {len(nfa)} on "
+             f"the NFA route ({sum('?' in g for g in nfa)} with '?'); coverage "
+             f"{tenant.coverage()}, mutate {tenant.mutate_coverage()}")
+    if (len(in_bank), len(nfa)) != TENANT_SPLIT or len(nfa) < 200:
+        raise AssertionError(f"tenant bank split {(len(in_bank), len(nfa))}, "
+                             f"want {TENANT_SPLIT}")
+    tenant_res = tenant_workload(args.tenant_n, args.seed + 20, in_bank, nfa)
+    tpadded, _, _ = tenant.pad(tenant_res)
+    tenant_lanes = lanes_to_device(tenant.encode(tpadded)[0], tenant.device)
     torch.cuda.synchronize()
 
     # phase 3: every kernel against its plain twin on the card
@@ -1017,7 +1513,8 @@ def main() -> int:
                          len(padded), args.seed + 3, results)
     check_vocab_kernels(torch, kernels, dfa_mod, scanner, tile_lanes,
                         args.seed + 5, results)
-    del lanes, tile_lanes
+    check_glob_nfa(torch, kernels, tenant_lanes, nfa, args.seed + 6, results)
+    del lanes, tile_lanes, tenant_lanes
 
     # phase 4: the dense path through the user's entry point
     dense = dense_phase(torch, kernels, eng, policies, resources, ops, padded,
@@ -1025,17 +1522,24 @@ def main() -> int:
     # phase 5: the background scan through the user's entry point
     scan = scan_phase(torch, kernels, scanner, policies, args.scan_n,
                       args.tile, args.seed + 10, tag)
+    # phase 7: the tenant set's scan and triage
+    tv, tt = tenant_phase(torch, kernels, tenant, tenant_res,
+                          args.tenant_batch, tenant_compile_s, tag)
+    # phase 8: bench.py's mutate leg
+    leg = mutate_leg_phase(torch, kernels, args.mutate_n, args.mutate_tile,
+                           tag)
 
     # phase 6: the kernels line, then the device line
+    by_path = dict(zip(PATHS, (dense, scan, tv, tt, leg)))
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
         b_ms, b_by = r["bound"]
-        n_launch = dense.get(name, 0) + scan.get(name, 0)
+        per = {p: launches.get(name, 0) for p, launches in by_path.items()}
+        n_launch = sum(per.values())
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n_launch,
-                    "launches_by_path": {"dense": dense.get(name, 0),
-                                         "background_scan": scan.get(name, 0)},
+                    "launches_by_path": per,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": r["library_ms"]})
@@ -1044,8 +1548,7 @@ def main() -> int:
                  f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                  f"bound {b_ms:.4f} ms ({b_by}), library "
                  f"{'none' if lib is None else f'{lib:.4f} ms'}, launches "
-                 f"{dense.get(name, 0)} dense + {scan.get(name, 0)} "
-                 f"background scan {tag}")
+                 + ", ".join(f"{p} {k}" for p, k in per.items()) + f" {tag}")
         if n_launch <= 0:
             raise AssertionError(f"{name} was launched on no path")
     print(json.dumps({"kernels": out}), flush=True)

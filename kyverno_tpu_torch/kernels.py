@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, their loader, and their plain
-PyTorch twins: K1 ``dfa_scan``, K3 ``instance_count``, K4
-``verdict_counts`` (and its uint8-table entry), K5 ``vocab_gather``,
-K6 ``hash_match``, K7 ``pool_rows`` and K8 ``first_true_take``.
+PyTorch twins: K1 ``dfa_scan`` (and its non-ASCII entry), K3
+``instance_count``, K4 ``verdict_counts`` (and its uint8-table entry),
+K5 ``vocab_gather``, K6 ``hash_match``, K7 ``pool_rows``, K8
+``first_true_take`` and K9 ``glob_nfa``.
 
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 The first launch builds all sources at once (one ``nvcc`` per source,
@@ -43,7 +44,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "build", "kernels")
 SOURCES = ("dfa_scan", "instance_count", "verdict_counts", "vocab_gather",
-           "hash_match", "pool_rows", "first_true_take")
+           "hash_match", "pool_rows", "first_true_take", "glob_nfa")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +52,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "dfa_scan_fused": 0,
     "dfa_scan_stride1": 0,
+    "nonascii": 0,
     "instance_count": 0,
     "instance_count2": 0,
     "verdict_counts": 0,
@@ -60,6 +62,7 @@ LAUNCHES: Dict[str, int] = {
     "hash_match": 0,
     "pool_rows": 0,
     "first_true_take": 0,
+    "glob_nfa": 0,
 }
 
 _P = ctypes.c_void_p
@@ -78,6 +81,7 @@ _SIGNATURES = {
     "hash_match": ("hash_match", [_P, _P, _P, _L, _P, _I, _P, _P]),
     "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _P, _P]),
     "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
+    "glob_nfa": ("glob_nfa", [_P, _P, _L, _I, _P, _I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -273,7 +277,8 @@ def dfa_scan_fused(bytes_: torch.Tensor, lens: torch.Tensor,
 def dfa_scan_stride1(bytes_: torch.Tensor, lens: torch.Tensor,
                      trans: torch.Tensor, n_classes: int,
                      class_map: torch.Tensor, starts: torch.Tensor,
-                     accept: torch.Tensor, want_nonascii: bool = False):
+                     accept: torch.Tensor, want_nonascii: bool = False,
+                     _count: str = "dfa_scan_stride1"):
     """K1, stride-1 entry: (S, W) subjects -> ((S, K) bool accepts,
     (S,) bool non-ASCII flags or None). ``trans`` is the bank's uint16
     table widened to int32 and flattened; ``class_map`` is (K, 256)."""
@@ -298,18 +303,19 @@ def dfa_scan_stride1(bytes_: torch.Tensor, lens: torch.Tensor,
               _ptr(trans if K else None), n_classes,
               _ptr(class_map if K else None), _ptr(starts if K else None),
               _ptr(accept if K else None), K, _ptr(out), _ptr(na))
-        LAUNCHES["dfa_scan_stride1"] += 1
+        LAUNCHES[_count] += 1
     return out, na
 
 
 def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """K1's non-ASCII output alone (the stride-1 entry with no
-    patterns): (S, W) uint8, (S,) int32 -> (S,) bool."""
+    patterns), counted as ``nonascii``: (S, W) uint8, (S,) int32 ->
+    (S,) bool."""
     if bytes_.device.type == "cpu":
         return nonascii_plain(bytes_, lens)
     empty = torch.empty((0,), dtype=torch.int32, device=bytes_.device)
     return dfa_scan_stride1(bytes_, lens, empty, 1, empty, empty, empty,
-                            want_nonascii=True)[1]
+                            want_nonascii=True, _count="nonascii")[1]
 
 
 # ---------------------------------------------------------------------------
@@ -707,3 +713,149 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor):
               _ptr(val_ok))
         LAUNCHES["first_true_take"] += 1
     return has, val_ok
+
+
+# ---------------------------------------------------------------------------
+# K9 glob_nfa (csrc/glob_nfa.cu): replaces kyverno_tpu/tpu/evaluator.py
+# glob_match, the per-pattern glob NFA of the globs outside the DFA bank.
+# Bound by the bytes of each subject the NFA still needs (up to its
+# length, or until no state is left), the lengths and the output.
+
+GLOB_TABLE_ROWS = 257  # a row of positions per byte value, then the '*' row
+GLOB_MAX_WORDS = 32
+
+
+def glob_chars(pattern: str) -> List[str]:
+    """The pattern's characters with runs of '*' collapsed (the
+    reference's first step). Characters are taken one by one, as the
+    reference does: a literal matches the byte ``ord(char) & 0xFF``."""
+    chars: List[str] = []
+    for c in pattern:
+        if c == "*" and chars and chars[-1] == "*":
+            continue
+        chars.append(c)
+    return chars
+
+
+def glob_words(pattern: str) -> int:
+    """64-bit words of K9's state for ``pattern``: m + 1 bits, rounded
+    up to a power of two."""
+    need = (len(glob_chars(pattern)) + 64) // 64
+    nw = 1
+    while nw < need:
+        nw *= 2
+    return nw
+
+
+def glob_table(pattern: str, device) -> torch.Tensor:
+    """K9's (257, NW) int64 pattern table on ``device``: bit j of row c
+    (c < 256) is set when position j (1..m) consumes byte c (a literal
+    equal to c, or '?' when c != 0); row 256 holds the '*' positions.
+    A CUDA table is copied from pinned memory without waiting; the
+    evaluator keeps one per compiled program and pattern."""
+    chars = glob_chars(pattern)
+    nw = glob_words(pattern)
+    tab = np.zeros((GLOB_TABLE_ROWS, nw), dtype=np.uint64)
+    for j, pc in enumerate(chars, start=1):
+        word, bit = divmod(j, 64)
+        b = np.uint64(1) << np.uint64(bit)
+        if pc == "*":
+            tab[256, word] |= b
+        elif pc == "?":
+            tab[1:256, word] |= b
+        else:
+            tab[ord(pc) & 0xFF, word] |= b
+    t = torch.from_numpy(tab.view(np.int64))
+    if torch.device(device).type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _glob_closure(dp: torch.Tensor, star: torch.Tensor) -> torch.Tensor:
+    """Epsilon moves over '*' on (..., m + 1) bool state columns: a '*'
+    at position j lets dp[j - 1] flow into dp[j]. One pass equals the
+    reference's column-by-column loop because runs of '*' are collapsed
+    (no two '*' positions are adjacent)."""
+    out = dp.clone()
+    out[..., 1:] |= dp[..., :-1] & star
+    return out
+
+
+def glob_nfa_plain(pattern: str, bytes_: torch.Tensor, lens: torch.Tensor,
+                   with_steps: bool = False):
+    """(..., B) uint8 subjects, (...) int32 lengths -> (...) bool: the
+    reference's DP step by step, one byte per step over m + 1 state
+    columns, the answer read where the step equals ``lens`` (so a length
+    outside [0, B] gives False). With ``with_steps`` also the (...)
+    int32 count of bytes the kernel reads for each subject (up to its
+    length while any state is left; none when the length is outside
+    [0, B])."""
+    chars = glob_chars(pattern)
+    m = len(chars)
+    dev = bytes_.device
+    lead = tuple(bytes_.shape[:-1])
+    B = bytes_.shape[-1]
+    # the per-position columns (a literal's byte, '?', '*'), made on
+    # the host and copied from pinned memory (a CUDA graph can hold it)
+    cols = torch.tensor([[(ord(c) & 0xFF) if c not in "*?" else -1,
+                          c == "?", c == "*"] for c in chars],
+                        dtype=torch.int16).reshape(-1, 3)
+    if dev.type != "cpu":
+        cols = cols.pin_memory().to(dev, non_blocking=True)
+    lit, isq, star = cols[:, 0], cols[:, 1] != 0, cols[:, 2] != 0
+    lens = lens.to(torch.int32)
+    dp = torch.zeros(lead + (m + 1,), dtype=torch.bool, device=dev)
+    dp[..., 0] = True
+    dp = _glob_closure(dp, star)
+    acc = dp[..., m] & (lens == 0)
+    steps = torch.zeros(lead, dtype=torch.int32, device=dev)
+    in_range = (lens >= 0) & (lens <= B)
+    for w in range(B):
+        c = bytes_[..., w].to(torch.int16)
+        steps += (in_range & (w < lens) & dp.any(dim=-1)).to(torch.int32)
+        hit = (c[..., None] == lit) | (isq & (c != 0)[..., None])
+        new = torch.zeros_like(dp)
+        new[..., 1:] = torch.where(star, dp[..., 1:], dp[..., :-1] & hit)
+        dp = _glob_closure(new, star)
+        acc |= dp[..., m] & (lens == w + 1)
+    return (acc, steps) if with_steps else acc
+
+
+def glob_nfa(pattern: str, bytes_: torch.Tensor, lens: torch.Tensor,
+             table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9: one launch per (pattern, lane family). (..., B) uint8
+    subjects (contiguous), (...) int32 lengths -> (...) bool. ``table``
+    is ``glob_table(pattern, device)`` (built here when not given). A
+    pattern with more non-'*' characters than B bytes cannot accept any
+    length in [0, B]: it gives all False without a launch."""
+    if bytes_.device.type == "cpu":
+        return glob_nfa_plain(pattern, bytes_, lens)
+    dev = bytes_.device
+    _check(bytes_, "bytes", torch.uint8, dev)
+    _check(lens, "lens", torch.int32, dev)
+    lead = tuple(bytes_.shape[:-1])
+    if bytes_.ndim < 1 or tuple(lens.shape) != lead:
+        raise ValueError(f"lens {tuple(lens.shape)} vs bytes "
+                         f"{tuple(bytes_.shape)}")
+    B = bytes_.shape[-1]
+    chars = glob_chars(pattern)
+    if sum(1 for c in chars if c != "*") > B:
+        return torch.zeros(lead, dtype=torch.bool, device=dev)
+    nw = glob_words(pattern)
+    if nw > GLOB_MAX_WORDS:
+        raise ValueError(f"glob of {len(chars)} positions over {B}-byte "
+                         f"subjects: K9 holds at most "
+                         f"{64 * GLOB_MAX_WORDS - 1}")
+    if table is None:
+        table = glob_table(pattern, dev)
+    _check(table, "table", torch.int64, dev, 2)
+    if tuple(table.shape) != (GLOB_TABLE_ROWS, nw):
+        raise ValueError(f"table {tuple(table.shape)}, want "
+                         f"({GLOB_TABLE_ROWS}, {nw})")
+    out = torch.empty(lead, dtype=torch.bool, device=dev)
+    S = out.numel()
+    if S:
+        _call("glob_nfa", _ptr(bytes_), _ptr(lens), S, B, _ptr(table), nw,
+              len(chars), _ptr(out))
+        LAUNCHES["glob_nfa"] += 1
+    return out

@@ -1,14 +1,17 @@
 """Policy set -> compiled device artifact (the port of
-kyverno_tpu/tpu/compiler.py, validate bank only).
+kyverno_tpu/tpu/compiler.py).
 
 compile_policy_set lowers every validate rule of every policy through
 the IR compiler (ir.py). Rules using constructs outside the device
 subset are recorded as host rules (``RuleEntry.fallback_reason``).
-Every glob and regex a device rule evaluates is registered with one DFA
-bank (dfa.py), finalized for the strided scan.
+The mutate rules' needs-mutation predicates (mutation/triage.py) are
+lowered the same way into a second program, the mutate bank, after
+the validate rules. Every glob and regex a device rule of either bank
+evaluates is registered with one DFA bank (dfa.py), finalized for the
+strided scan.
 
-Not ported yet: the mutate-rule bank and its triage program, the
-verdict-cache identity (``cache_key``) and the observability spans.
+Not ported: the lifecycle quarantine, the verdict-cache identity
+(``cache_key``), the bank-size gauges and the observability spans.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
-from ..api.policy import ClusterPolicy
+from ..api.policy import ClusterPolicy, Rule
 from ..engine.operator import Operator
 from ..utils.wildcard import contains_wildcard
 from .dfa import DfaBank, DfaUnsupported, state_budget
@@ -37,6 +40,11 @@ from .ir import (
     compile_rule,
 )
 from .metadata import MetaConfig
+# the mutation package only pulls api/engine-level modules — no cycle
+from ..mutation.lowering import (PatchTemplate, lower_mutate_rule,
+                                 paths_conflict, rule_read_paths,
+                                 rule_write_paths)
+from ..mutation.triage import triage_rule
 
 
 def _iter_cond_irs(prog: RuleProgram):
@@ -170,7 +178,16 @@ class CompiledPolicySet:
     dyn_slots: List[DynSlot] = field(default_factory=list)
     # the policy set's compiled pattern tables (tpu/dfa.py)
     dfa: Optional[DfaBank] = None
+    # mutate-rule bank (mutation/): one RuleEntry per mutate rule in
+    # policy order, device_row indexing mutate_programs (the compiled
+    # needs-mutation triage predicates), with a parallel list of
+    # lowered patch templates (None = scalar patcher when positive)
+    mutate_entries: List[RuleEntry] = field(default_factory=list)
+    mutate_programs: List[RuleProgram] = field(default_factory=list)
+    mutate_templates: List[Optional[PatchTemplate]] = field(default_factory=list)
     _fns: Dict[bool, Callable] = field(default_factory=dict, repr=False)
+    _mutate_fns: Dict[bool, Callable] = field(default_factory=dict,
+                                              repr=False)
 
     @property
     def host_rule_policies(self) -> List[int]:
@@ -187,9 +204,32 @@ class CompiledPolicySet:
                 dfa=self.dfa, plain=plain)
         return self._fns[plain]
 
+    @property
+    def mutate_rules(self) -> List[Tuple[str, str]]:
+        """Bank-ordered (policy_name, rule_name) idents — the row
+        identity shared by triage verdicts, templates, and the
+        coordinator."""
+        return [(e.policy_name, e.rule_name) for e in self.mutate_entries]
+
+    def mutate_device_fn(self, plain: bool = False) -> Callable:
+        """The triage batch program over the mutate bank, built once
+        per compiled set (and per ``plain``): the same shape contract
+        as device_fn minus the analytics counts, so it returns the
+        int32 verdict table alone."""
+        if plain not in self._mutate_fns:
+            self._mutate_fns[plain] = build_program(
+                self.mutate_programs, self.encode_cfg.max_instances,
+                with_counts=False, dfa=self.dfa, plain=plain)
+        return self._mutate_fns[plain]
+
     def coverage(self) -> Tuple[int, int]:
         dev = sum(1 for e in self.rules if e.device_row is not None)
         return dev, len(self.rules)
+
+    def mutate_coverage(self) -> Tuple[int, int]:
+        dev = sum(1 for e in self.mutate_entries
+                  if e.device_row is not None)
+        return dev, len(self.mutate_entries)
 
 
 def compile_policy_set(
@@ -198,8 +238,8 @@ def compile_policy_set(
     meta_cfg: Optional[MetaConfig] = None,
     data_sources=None,
 ) -> CompiledPolicySet:
-    """Lower the validate rules of ``policies`` (mutate rules are not
-    part of the port yet and are ignored)."""
+    """Lower the validate rules of ``policies``, then the triage
+    predicates of their mutate rules into the mutate bank."""
     encode_cfg = encode_cfg or EncodeConfig()
     meta_cfg = meta_cfg or MetaConfig()
     entries: List[RuleEntry] = []
@@ -240,6 +280,67 @@ def compile_policy_set(
                 entries.append(RuleEntry(pi, policy.name, rule.name, row, None))
             except Unsupported as e:
                 entries.append(RuleEntry(pi, policy.name, rule.name, None, str(e)))
+    # mutate-rule bank: the same lowering ladder for needs-mutation
+    # triage predicates. Pass 1 walks policy order demoting
+    # chain-dependent predicates to host (an earlier mutate rule may
+    # write a path this rule's predicate reads; the scalar chain
+    # evaluates against patched-so-far, device triage against the
+    # ORIGINAL — triaging such a rule on device would be unsound).
+    # Pass 2 compiles the survivors through the same IR path as
+    # validate, sharing the DFA bank and byte-path planning.
+    mutate_entries: List[RuleEntry] = []
+    mutate_programs: List[RuleProgram] = []
+    mutate_templates: List[Optional[PatchTemplate]] = []
+    collected: List[Tuple[int, ClusterPolicy, Rule, bool]] = []
+    writes_so_far: List = []
+    for pi, policy in enumerate(policies):
+        for rule in policy.get_rules():
+            if not rule.has_mutate():
+                continue
+            reads = rule_read_paths(rule)
+            conflict = any(paths_conflict(w, reads) for w in writes_so_far)
+            collected.append((pi, policy, rule, conflict))
+            # demoted rules still WRITE — later predicates must see them
+            writes_so_far.append(rule_write_paths(rule))
+    for pi, policy, rule, conflict in collected:
+        tmpl = lower_mutate_rule(rule)
+        if tmpl is not None:
+            tmpl.policy_name = policy.name
+        mutate_templates.append(tmpl)
+        if conflict:
+            mutate_entries.append(RuleEntry(
+                pi, policy.name, rule.name, None,
+                "chain-dependent: an earlier mutate rule may write a "
+                "path this rule's predicate reads"))
+            continue
+        try:
+            prog = compile_rule(policy, triage_rule(rule),
+                                data_sources, deps)
+            if prog.dyn_slots:
+                # triage must not push operand slots into the shared
+                # slot table — that would flip the validate bank's
+                # cache eligibility. Host-route instead.
+                raise Unsupported("context: dynamic operand slots")
+            try:
+                prog.uses_patterns = _register_program_patterns(
+                    bank, prog, owner=f"{policy.name}/{rule.name}")
+            except DfaUnsupported as e:
+                raise Unsupported(f"pattern: {e}")
+            row = len(mutate_programs)
+            mutate_programs.append(prog)
+            byte_paths |= prog.byte_paths
+            key_byte_paths |= prog.key_byte_paths
+            mutate_entries.append(RuleEntry(pi, policy.name, rule.name,
+                                            row, None))
+        except Unsupported as e:
+            mutate_entries.append(RuleEntry(pi, policy.name, rule.name,
+                                            None, str(e)))
+        except Exception as e:  # noqa: BLE001 — a triage compile crash
+            # must never fail a policy set that compiled before this
+            # bank existed; the rule degrades to host triage
+            mutate_entries.append(RuleEntry(pi, policy.name, rule.name,
+                                            None,
+                                            f"triage compile error: {e}"))
     # dense encodes only pay for label byte lanes when some compiled
     # selector actually globs. The flag lives on a COPY: the caller's
     # MetaConfig may be shared across compiles.
@@ -248,7 +349,7 @@ def compile_policy_set(
     meta_cfg = _copy.copy(meta_cfg)
     meta_cfg.label_bytes_enabled = any(
         getattr(sel, "wild_labels", None)
-        for prog in programs
+        for prog in programs + mutate_programs
         for block in (prog.match, prog.exclude) if block is not None
         for f in block.filters
         for sel in (f.selector, f.ns_selector) if sel is not None)
@@ -267,4 +368,7 @@ def compile_policy_set(
         context_deps=deps,
         dyn_slots=dyn_slots,
         dfa=bank,
+        mutate_entries=mutate_entries,
+        mutate_programs=mutate_programs,
+        mutate_templates=mutate_templates,
     )

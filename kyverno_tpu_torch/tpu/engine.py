@@ -1,5 +1,6 @@
 """TorchEngine — batch policy evaluation on a CUDA device (the port of
-kyverno_tpu/tpu/engine.py:TpuEngine, validate scan).
+kyverno_tpu/tpu/engine.py:TpuEngine: the validate scan and the mutate
+triage).
 
 ``TorchEngine(policies).scan(resources)`` encodes the resources on the
 host (NumPy, tpu/flatten.py + tpu/metadata.py), pads the batch to a
@@ -16,8 +17,14 @@ int32 table as the program computed it (HOST and CONFIRM cells left
 in) and the per-rule verdict-class counts with the bucket-pad columns
 subtracted.
 
+``triage_mutate`` runs the mutate bank's program
+(``CompiledPolicySet.mutate_device_fn``) over a padded batch and
+returns the needs-mutation table (``MutateTriageResult``) that
+``mutation.coordinator.apply_mutations`` routes patches by.
+
 Not ported: the guarded dispatch ladder, the breaker and the encode
-quarantine (a device or encode error raises), the verdict and encode
+quarantine (a device error raises; only triage keeps the reference's
+all-HOST answer to a host encode error), the verdict and encode
 caches, the encoder pool, and the rule analytics fold.
 
 Entry points run on ``device="cuda"`` unless the caller passes
@@ -226,6 +233,30 @@ class ScanResult:
         return list(zip(rows.tolist(), cols.tolist()))
 
 
+@dataclass
+class MutateTriageResult:
+    """(num_mutate_rules, N) needs-mutation verdict table in compiled
+    bank order (the reference's). PASS/FAIL = rule applies;
+    SKIP/NOT_MATCHED = it does not; ERROR/HOST/CONFIRM = undecidable on
+    device, the coordinator routes the policy to the scalar patcher."""
+
+    verdicts: np.ndarray
+    rules: List[Tuple[str, str]]  # (policy_name, rule_name) per row
+
+    def rows_for(self, ci: int) -> List[Tuple[Tuple[str, str], int]]:
+        """One resource's bank-ordered ((policy, rule), code) rows —
+        the coordinator's input shape."""
+        return [(ident, int(self.verdicts[mi, ci]))
+                for mi, ident in enumerate(self.rules)]
+
+    def counts(self) -> Dict[str, int]:
+        pos = int(((self.verdicts == PASS) | (self.verdicts == FAIL)).sum())
+        neg = int(((self.verdicts == SKIP)
+                   | (self.verdicts == NOT_MATCHED)).sum())
+        return {"positive": pos, "negative": neg,
+                "host": int(self.verdicts.size) - pos - neg}
+
+
 def _scalar_rule_verdicts(
     engine: ScalarEngine, policy: ClusterPolicy, pctx: PolicyContext
 ) -> Dict[str, int]:
@@ -270,6 +301,9 @@ class TorchEngine:
         # exception's match/conditions are per-resource dynamic state
         # the compiled program does not model (engine/exceptions.go)
         self._exception_rules: set = set()
+        # same host routing for the mutate triage bank: an excepted
+        # mutate rule's apply decision is per-resource dynamic state
+        self._exception_mutate_rules: set = set()
         if exceptions:
             from ..api.exception import PolicyException
 
@@ -279,6 +313,14 @@ class TorchEngine:
                 if any(t.contains(entry.policy_name, entry.rule_name)
                        for t in typed):
                     self._exception_rules.add(ri)
+            for mi, entry in enumerate(self.cps.mutate_entries):
+                if any(t.contains(entry.policy_name, entry.rule_name)
+                       for t in typed):
+                    self._exception_mutate_rules.add(mi)
+        # triage batches run on the device, and batches whose host
+        # encode raised (answered all-HOST, as the reference does)
+        self.triage_dispatches = 0
+        self.triage_encode_fallbacks = 0
 
     @property
     def rules(self) -> List[Tuple[str, str]]:
@@ -292,6 +334,9 @@ class TorchEngine:
 
     def coverage(self) -> Tuple[int, int]:
         return self.cps.coverage()
+
+    def mutate_coverage(self) -> Tuple[int, int]:
+        return self.cps.mutate_coverage()
 
     # -- encoding (host NumPy)
 
@@ -643,3 +688,64 @@ class TorchEngine:
             verdicts=total,
             rules=[(e.policy_name, e.rule_name) for e in self.cps.rules],
         )
+
+    # -- mutate triage
+
+    def triage_mutate(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> MutateTriageResult:
+        """Needs-mutation triage over the compiled mutate bank, one
+        device batch (kyverno_tpu/tpu/engine.py:TpuEngine.triage_mutate
+        and _triage_uncached; the port has no verdict cache, so every
+        batch takes the uncached path, which gives the same table).
+        Host rows (bank host entries, excepted rules, userinfo globs)
+        stay HOST; a host encode error answers the whole batch HOST, as
+        the reference's does — the coordinator then scalar-patches
+        everything, bit-identically. A device error raises (the
+        reference's guarded dispatch is not ported)."""
+        rules = self.cps.mutate_rules
+        m, n = len(rules), len(resources)
+        if m == 0 or n == 0:
+            return MutateTriageResult(np.zeros((m, n), dtype=np.int32), rules)
+        total = np.full((m, n), HOST, dtype=np.int32)
+        device_table = None
+        if self.cps.mutate_programs:
+            padded, ops, infos = self.pad(resources, operations,
+                                          admission_infos)
+            try:
+                batch, _, _ = self.encode(padded, namespace_labels, ops,
+                                          infos)
+            except Exception:  # hostile resource: everything scalar
+                batch = None
+                self.triage_encode_fallbacks += 1
+            if batch is not None:
+                out = self.cps.mutate_device_fn()(
+                    lanes_to_device(batch, self.device))
+                device_table = out.cpu().numpy()
+                self.triage_dispatches += 1
+        if device_table is not None:
+            glob_cis: List[int] = []
+            if admission_infos:
+                from ..utils.wildcard import contains_wildcard
+
+                for ci in range(n):
+                    info = (admission_infos[ci]
+                            if ci < len(admission_infos) else None)
+                    if info is not None and any(
+                            contains_wildcard(g)
+                            for g in (info.groups or [])):
+                        glob_cis.append(ci)
+            for mi, entry in enumerate(self.cps.mutate_entries):
+                if (entry.device_row is None
+                        or mi in self._exception_mutate_rules):
+                    continue  # stays HOST
+                row = device_table[entry.device_row, :n].copy()
+                if glob_cis and self.cps.mutate_programs[
+                        entry.device_row].uses_userinfo:
+                    row[glob_cis] = HOST
+                total[mi] = row
+        return MutateTriageResult(verdicts=total, rules=rules)

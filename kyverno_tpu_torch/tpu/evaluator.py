@@ -253,7 +253,8 @@ def densify(batch: Dict[str, torch.Tensor], record: bool = False,
 class Ctx:
     def __init__(self, batch: Dict[str, torch.Tensor], max_instances: int,
                  dfa: Optional[DfaBank] = None, plain: bool = False,
-                 hash_consts: Optional[Dict[Any, torch.Tensor]] = None):
+                 hash_consts: Optional[Dict[Any, torch.Tensor]] = None,
+                 glob_tables: Optional[Dict[Any, torch.Tensor]] = None):
         self.b = batch
         self.I = max_instances
         self.plain = plain
@@ -263,9 +264,11 @@ class Ctx:
         self.N, self.R = n, r
         self.dev = batch["norm_hi"].device
         self._row_masks: Dict[Tuple[int, str], torch.Tensor] = {}
-        # K6 constant tables by (device, pairs); build_program passes
-        # one dict for the life of the compiled program
+        # K6 constant tables by (device, pairs) and K9 pattern tables by
+        # (device, pattern); build_program passes one dict of each for
+        # the life of the compiled program
         self._hash_consts = {} if hash_consts is None else hash_consts
+        self._glob_tables = {} if glob_tables is None else glob_tables
         self._glob_cache: Dict[Tuple[str, str], Any] = {}
         self._valid = batch["valid"] != 0
         # per-rule host-fallback masks appended during evaluation
@@ -336,8 +339,8 @@ class Ctx:
 
     # -- pattern matching over byte lanes. Every pattern of a lane
     # family is stepped through the compiled DFA bank (tpu/dfa.py) in
-    # ONE shared scan; patterns outside the bank would need the legacy
-    # per-pattern NFA (glob_match), which is not ported.
+    # ONE shared scan; a glob the bank had no room for runs on the
+    # legacy per-pattern NFA (the reference's glob_match, kernel K9).
 
     _FAMILY_LANES = {
         "pool": ("pool", "pool_len"),
@@ -387,7 +390,13 @@ class Ctx:
         if got is None:
             if kind == "re2":
                 return None, None  # no bank => caller routes to host
-            glob_match(pattern)
+            byt, lens = self._family_tensors(family)
+            acc = self._glob_match(pattern, byt, lens)
+            if "?" in pattern:
+                # legacy NFA consumes one BYTE per '?': confirm
+                # non-ASCII subjects exactly like the bank path
+                return acc, self._family_nonascii(family)
+            return acc, None
         acc, dfa = got
         conf = None
         if not dfa.exact:
@@ -397,8 +406,23 @@ class Ctx:
             conf = na if conf is None else (conf | na)
         return acc, conf
 
+    def _glob_match(self, pattern: str, byt: torch.Tensor,
+                    lens: torch.Tensor) -> torch.Tensor:
+        """One glob outside the bank over a lane family (kernel K9; its
+        pattern table is kept per compiled program)."""
+        if self.plain:
+            return kernels.glob_nfa_plain(pattern, byt, lens)
+        key = (str(self.dev), pattern)
+        table = self._glob_tables.get(key)
+        if table is None:
+            table = self._glob_tables[key] = kernels.glob_table(pattern,
+                                                                self.dev)
+        return kernels.glob_nfa(pattern, byt, lens, table)
+
     def _accept_confirm_cached(self, kind: str, pattern: str, family: str):
-        """One (accepts, confirm) pair per (kind, pattern, family)."""
+        """One (accepts, confirm) pair per (kind, pattern, family) —
+        the legacy NFA fallback runs a full scan per pattern, so the
+        pair MUST be computed once, not once per consumer."""
         key = ("\x00ac", kind, pattern, family)
         if key not in self._glob_cache:
             self._glob_cache[key] = self._accept_confirm(
@@ -439,16 +463,6 @@ class Ctx:
     def glob_key_rows(self, pattern: str) -> torch.Tensor:
         """(N, R) glob accept of each row's map KEY bytes."""
         return self.glob_rows(pattern, "key_byte_slot")
-
-
-def glob_match(pattern: str):
-    """The reference's legacy bit-parallel glob NFA
-    (kyverno_tpu/tpu/evaluator.py:glob_match) serves patterns outside
-    the DFA bank. The port's compiler registers every glob of a device
-    rule with the bank, so reaching this is a compiler bug."""
-    raise NotImplementedError(
-        f"glob {pattern!r} is not in the DFA bank; the legacy glob NFA "
-        f"is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -1953,26 +1967,32 @@ def eval_rule(ctx: Ctx, prog: RuleProgram) -> torch.Tensor:
 def build_program(programs: Sequence[RuleProgram], max_instances: int,
                   dfa: Optional[DfaBank] = None,
                   plain: bool = False,
-                  verdicts_u8: bool = False) -> Callable:
+                  verdicts_u8: bool = False,
+                  with_counts: bool = True) -> Callable:
     """Returns fn(batch dict of tensors) -> ((num_rules, N) int32 table,
     (num_rules, NUM_VERDICT_CLASSES) int32 counts) — the reference's
     ``build_program(..., with_counts=True)``. The counts are kernel K4
     (its plain twin with ``plain=True`` or on the CPU). With
     ``verdicts_u8`` the table comes back as uint8, written by K4 in the
     same pass as the counts (the background scan's step,
-    kyverno_tpu/parallel/sharding.py:101-111). Dense and vocabulary
-    (``row_idx``) batches both run."""
+    kyverno_tpu/parallel/sharding.py:101-111). With ``with_counts``
+    False it returns the int32 table alone (the mutate bank's triage
+    program). Dense and vocabulary (``row_idx``) batches both run."""
 
     hash_consts: Dict[Any, torch.Tensor] = {}
+    glob_tables: Dict[Any, torch.Tensor] = {}
 
     def run(batch: Dict[str, torch.Tensor]):
         ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
-                  plain=plain, hash_consts=hash_consts)
+                  plain=plain, hash_consts=hash_consts,
+                  glob_tables=glob_tables)
         outs = [eval_rule(ctx, p).to(torch.int32) for p in programs]
         if not outs:
             table = torch.zeros((0, ctx.N), dtype=torch.int32, device=ctx.dev)
         else:
             table = torch.stack(outs, dim=0).contiguous()
+        if not with_counts:
+            return table
         if verdicts_u8:
             return kernels.verdict_counts_u8_plain(table) if plain \
                 else kernels.verdict_counts_u8(table)

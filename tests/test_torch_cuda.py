@@ -224,3 +224,98 @@ def test_sharded_scanner_on_the_card_equals_cpu(cuda):
     a, _ = sc.scan_stream(pods, tile=32)
     b, _ = cpu.scan_stream(pods, tile=32)
     assert np.array_equal(a.verdicts, b.verdicts)
+
+
+GLOB_PATTERNS = ["", "*", "***", "?", "a*b?c*", "é*", "中?", "t?-1-*",
+                 "tenant-0*-*-prod", "a" * 63, "a" * 64, "a" * 65,
+                 "a*" * 40 + "?", ("ab*?" * 75)[:299], "a*" * 520]
+
+
+def _glob_subjects(pattern, lead, seed):
+    """Subjects over the pattern's own bytes, NUL and non-ASCII; half
+    are instances of the pattern; lengths include -1, 0, B, B + 3."""
+    rng = np.random.default_rng(seed)
+    alpha = np.array(sorted({ord(c) & 0xFF for c in pattern if c not in "*?"})
+                     + [0, 0x2D, 0x61, 0x62, 0xE9, 0xFF], dtype=np.uint8)
+    B = max(8, len(pattern) + 2 * pattern.count("*") + 12)
+    n = int(np.prod(lead))
+    byt = rng.choice(alpha, size=(n, B)).astype(np.uint8)
+    lens = rng.integers(0, B + 1, size=(n,)).astype(np.int32)
+    for i in range(0, n, 2):
+        inst = []
+        for c in pattern:
+            if c == "*":
+                inst += list(rng.choice(alpha, size=int(rng.integers(0, 4))))
+            elif c == "?":
+                inst.append(int(rng.choice(alpha[alpha != 0])))
+            else:
+                inst.append(ord(c) & 0xFF)
+        inst = inst[:B]
+        byt[i, :len(inst)] = inst
+        lens[i] = len(inst)
+    lens[:4] = [-1, 0, B, B + 3]
+    return (torch.from_numpy(byt.reshape(tuple(lead) + (B,))),
+            torch.from_numpy(lens.reshape(tuple(lead))))
+
+
+@pytest.mark.parametrize("lead", [(3000,), (300, 11)])
+@pytest.mark.parametrize("pattern", GLOB_PATTERNS)
+def test_glob_nfa_kernel_equals_plain(cuda, pattern, lead):
+    byt, lens = _glob_subjects(pattern, lead, seed=len(pattern))
+    want = kernels.glob_nfa_plain(pattern, byt, lens)
+    kernels.reset_launches()
+    got = kernels.glob_nfa(pattern, byt.to(cuda), lens.to(cuda))
+    assert kernels.LAUNCHES["glob_nfa"] == 1
+    assert got.dtype == torch.bool and torch.equal(got.cpu(), want)
+    assert int(want.sum()) > 0
+
+
+def test_glob_nfa_kernel_pattern_longer_than_subjects(cuda):
+    """More non-'*' characters than bytes: all False, no launch."""
+    byt, lens = _glob_subjects("ab", (64,), seed=1)
+    kernels.reset_launches()
+    got = kernels.glob_nfa("x" * (byt.shape[-1] + 1), byt.to(cuda),
+                           lens.to(cuda))
+    assert kernels.LAUNCHES["glob_nfa"] == 0 and not got.any()
+    assert not kernels.glob_nfa_plain("x" * (byt.shape[-1] + 1), byt,
+                                      lens).any()
+
+
+def test_tenant_overflow_on_the_card_equals_cpu(cuda, monkeypatch):
+    """A tenant set whose namespace globs overflow a lowered bank: the
+    scan and the mutate triage on the card launch K9 and the non-ASCII
+    entry, and equal the CPU run."""
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+
+    monkeypatch.setattr(tdfa, "MAX_BANK_STATES", 200)
+    globs = ([f"tenant-{i:03d}-*-prod" for i in range(12)]
+             + [f"t?-{i}-*" for i in range(4)])
+    match = {"resources": {"kinds": ["Pod"], "namespaces": globs}}
+    pol = ClusterPolicy.from_dict({
+        "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+        "metadata": {"name": "tenant"},
+        "spec": {"validationFailureAction": "Enforce", "rules": [
+            {"name": "require-team", "match": match,
+             "validate": {"pattern": {"metadata": {"labels": {"team": "?*"}}}}},
+            {"name": "stamp-team", "match": match,
+             "mutate": {"patchStrategicMerge":
+                        {"metadata": {"labels": {"+(team)": "core"}}}}}]}})
+    eng = TorchEngine([pol])
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    spaces = ["tenant-003-a-prod", "tx-2-foo", "té-1-x", "default",
+              "tenant-011-b-prod", "tq-0-é"]
+    res = [{"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"p{i}", "namespace": spaces[i % 6],
+                         **({"labels": {"team": "a"}} if i % 3 else {})},
+            "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
+           for i in range(60)]
+    kernels.reset_launches()
+    got = eng.scan_device(res)
+    assert kernels.LAUNCHES["glob_nfa"] > 0 and kernels.LAUNCHES["nonascii"] > 0
+    want = cpu.scan_device(res)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert np.array_equal(eng.scan(res).verdicts, cpu.scan(res).verdicts)
+    kernels.reset_launches()
+    tri = eng.triage_mutate(res)
+    assert kernels.LAUNCHES["glob_nfa"] > 0
+    assert np.array_equal(tri.verdicts, cpu.triage_mutate(res).verdicts)

@@ -94,8 +94,8 @@ def test_corpus_scan_equals_reference(monkeypatch, module, name):
 
 
 def test_port_loads_no_jax_and_nothing_of_the_reference():
-    """Importing the port and running a CPU scan loads no jax* and no
-    kyverno_tpu.* module (a fresh interpreter)."""
+    """Importing the port and running a CPU scan and a mutate triage
+    loads no jax* and no kyverno_tpu.* module (a fresh interpreter)."""
     code = (
         "import sys\n"
         "from kyverno_tpu_torch.policies import load_pss_policies\n"
@@ -119,6 +119,10 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "sc = ShardedScanner(eng.cps.policies, device='cpu')\n"
         "out, stats = sc.scan_stream([pod] * 3, tile=16)\n"
         "assert out.verdicts.shape == (66, 3) and stats['tiles'] == 1\n"
+        "from kyverno_tpu_torch.mutation.coordinator import apply_mutations\n"
+        "tri = eng.triage_mutate([pod])\n"
+        "assert tri.verdicts.shape == (0, 1)\n"
+        "assert not apply_mutations(eng, pod, tri.rows_for(0)).changed\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"
