@@ -12,19 +12,24 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 3. every kernel against its plain PyTorch twin on the card, exactly:
    K1 at strides 1, 2 and 4 on the PSS bank and on an approximated
    small-budget bank, over seeded subjects with non-ASCII bytes and
-   lengths that are not multiples of the stride; K3 with scopes -1 and
-   >= I and valid zeros; K4; and, on one encoded tile of the background
-   scan (its vocabulary lanes and shapes), K5 over index widths uint8,
-   uint16 and int32 with hostile indices, K6 with 0, 1, 5 and 40
-   constants, K7 on a strided DFA accept column, K8, and K4's uint8
-   output; K9 ``glob_nfa`` on the tenant batch's namespace and name
-   lanes, its pool plane and 320-byte seeded subjects (state words 1 to
-   16), over real and hostile lengths and every pattern class, and K1's
-   non-ASCII entry on its own. Each is timed by CUDA-graph replay beside
-   its plain twin and its library yardstick;
+   lengths that are not multiples of the stride; K3's one-level entry
+   with 1 and 5 predicates (counts, any, both; contiguous, strided,
+   unaligned and broadcast) and its two-level entry, on the main path's
+   scopes and on hazard scopes (-1, >= I, valid zeros); K4; and, on one
+   encoded tile of the background scan (its vocabulary lanes and
+   shapes), K5 over index widths uint8, uint16 and int32 with hostile
+   indices, K6 with 0, 1, 5 and 40 constants, K7 on a strided DFA
+   accept column, K8, and K4's uint8 output; K9's packed launch over the
+   tenant's NFA-route globs and every pattern class (packs of one 32-bit
+   word and of 1, 2 and 8 64-bit words) on the tenant batch's
+   namespace, name and pool lanes with real and hostile lengths, its
+   pack of one there and on 320-byte seeded subjects (state words 2 to
+   16), and K1's non-ASCII entry on its own. Each is timed by CUDA-graph
+   replay beside its plain twin and its library yardstick;
 4. the dense path: ``TorchEngine(PSS).scan`` on N seeded resources
    (Pod / Deployment / CronJob / Service): the completed table over all
-   rules (codes 0..4), its launch counts, the device table of ``run``
+   rules (codes 0..4), its launch counts and the program's K3 counts,
+   memo hits and launches (at most 1,065), the device table of ``run``
    against the same program with the plain twins, a small input
    against the CPU run, and the time of encode, host-to-device copy,
    program (median of 5) and readback. The stride-1 scan entry runs on
@@ -46,7 +51,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    its bank split, ``TorchEngine.scan`` of 16,384 seeded Pods and
    Namespaces (equal to the plain-twin program on the same lanes and,
    on a slice, to the CPU run), and ``triage_mutate`` in batches of
-   1,024, each with its launch counts and times;
+   1,024, each with its launch counts (K9: at most 4 a program run, no
+   glob outside the compiled packs) and times;
 8. bench.py's mutate leg at its own sizes: ``triage_mutate`` over 4,000
    Pods (1 in 20 in ``prod``) in tiles of 1,024, ``apply_mutations``
    over every routed resource, every patched output against the port's
@@ -118,6 +124,9 @@ SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
                 "dfa_scan_fused", "instance_count", "instance_count2")
 TENANT_KERNELS = ("glob_nfa", "nonascii")
+# one-level K3 launches the dense PSS program may issue: its 1,875
+# counts less the memo's hits on identical row masks
+DENSE_K3_MAX = 1065
 
 # the tenant policy's namespace globs, and the split of them between
 # the DFA bank and the NFA route that compile_policy_set gives beside
@@ -284,11 +293,16 @@ def graph_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return ms
 
 
-def timed(torch, kfn, pfn, lib=None, plain_reps: int = 3):
+def timed(torch, kfn, pfn, lib=None, plain_reps: int = 3,
+          plain_eager: bool = False):
     """The kernel's device time (graph replay) and its eager issue
-    time, the plain version's and the library call's device time."""
+    time, the plain version's device time (its eager time, CUDA events
+    around one call, with ``plain_eager``: a plain version of hundreds
+    of thousands of small ops) and the library call's device time."""
+    plain = eager_ms(torch, pfn, reps=1, warm=1) if plain_eager \
+        else graph_ms(torch, pfn, reps=plain_reps, warm=1)
     return {"ms": graph_ms(torch, kfn), "eager_ms": eager_ms(torch, kfn),
-            "plain_ms": graph_ms(torch, pfn, reps=plain_reps, warm=1),
+            "plain_ms": plain,
             "library_ms": None if lib is None else graph_ms(torch, lib)}
 
 
@@ -312,6 +326,41 @@ def exact(torch, name: str, got, want) -> float:
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max abs err {err})")
     return err
+
+
+def zero_stats(fn):
+    fn.stats.update(dict.fromkeys(fn.stats, 0))
+
+
+def program_stats(fn):
+    """A program's K3 requests, memo hits and kernel calls issued, and
+    the NFA-route globs outside its packs, since ``zero_stats``."""
+    st = dict(fn.stats)
+    return (f"K3 one level {st['inst_calls']} counts, {st['inst_hits']} memo "
+            f"hits, {st['inst_issued']} launches; two levels "
+            f"{st['inst2_calls']} counts, {st['inst2_hits']} hits, "
+            f"{st['inst2_issued']} launches; unrecorded NFA globs "
+            f"{st['nfa_unpacked']}"), st
+
+
+def program_ops(torch, kernels, fn):
+    """Runs ``fn`` once and counts what the host issued for it: the aten
+    operations dispatched (each a kernel launch on the card, or a view)
+    and the launches of the port's own kernels."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    before = sum(kernels.LAUNCHES.values())
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n, sum(kernels.LAUNCHES.values()) - before
 
 
 # ---------------------------------------------------------------------------
@@ -418,31 +467,64 @@ def check_dfa(torch, kernels, dfa_mod, pool, pool_len, seed, results):
 
 
 def check_instance_count(torch, kernels, lanes, n_inst, seed, results):
+    """K3's one-level entry (P = 1 and 5 predicates, counts, any and
+    both, contiguous, strided, unaligned and broadcast predicates) and
+    its two-level entry against their plain twins, on the main path's
+    scopes and on hazard scopes; both timed at the path shape beside
+    scatter_add_."""
     dev = lanes["scope1"].device
     N, R = lanes["scope1"].shape
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    pred = (torch.rand((N, R), generator=gen) < 0.5).to(dev)
+
+    def rand_pred(shape, q):
+        return (torch.rand(shape, generator=gen) < q).to(dev)
+
+    pred = rand_pred((N, R), 0.5)
+    wide = rand_pred((N, R + 8), 0.3)
+    preds = {"contiguous": pred,
+             "strided": wide[:, :R],        # row stride R + 8
+             "unaligned": wide[:, 3:R + 3],  # rows start off 8 bytes
+             "broadcast": rand_pred((1, R), 0.5).expand(N, R),
+             "sparse": rand_pred((N, R), 0.02)}
     hz1 = torch.randint(-1, n_inst + 3, (N, R), generator=gen,
                         dtype=torch.int32).to(dev)
     hz2 = torch.randint(-1, n_inst + 3, (N, R), generator=gen,
                         dtype=torch.int32).to(dev)
-    hzv = (torch.rand((N, R), generator=gen) < 0.8).to(dev)
+    hzv = rand_pred((N, R), 0.8)
     valid = lanes["valid"] != 0
     s1, s2 = lanes["scope1"], lanes["scope2"]
     errs = {"instance_count": 0.0, "instance_count2": 0.0}
+    names = list(preds)
     for label, (a, b, v) in (("main-path lanes", (s1, s2, valid)),
                              ("hazard scopes", (hz1, hz2, hzv))):
-        g1 = kernels.instance_count(pred, a, v, n_inst)
-        w1 = kernels.instance_count_plain(pred, a, v, n_inst)
-        e1 = exact(torch, f"instance_count {label}", g1, w1)
+        sc = kernels.scope8(a, v, n_inst)
+        runs = [([k], w) for k in names for w in ("count", "any")]
+        runs += [(names, "count"), (names, "any"),
+                 (names, ["count", "any", "any", "count", "any"])]
+        for ks, want in runs:
+            ps = [preds[k] for k in ks]
+            got = kernels.instance_count_many(ps, sc, n_inst, want)
+            ref = kernels.instance_count_many_plain(ps, sc, n_inst, want)
+            wants = [want] * len(ks) if isinstance(want, str) else want
+            for k, w, g, r, p in zip(ks, wants, got, ref, ps):
+                e = exact(torch, f"instance_count {label} {k} {w} P={len(ks)}",
+                          g, r)
+                # and the one-hot count on scope1 and valid themselves
+                full = kernels.instance_count_plain(p.contiguous(), a, v,
+                                                    n_inst)
+                e = max(e, exact(torch, f"instance_count {label} {k} {w} "
+                                        "vs one-hot", g,
+                                 full > 0 if w == "any" else full))
+                errs["instance_count"] = max(errs["instance_count"], e)
         g2 = kernels.instance_count2(pred, a, b, v, n_inst)
         w2 = kernels.instance_count_plain(pred, a, v, n_inst, b)
-        e2 = exact(torch, f"instance_count2 {label}", g2, w2)
-        errs["instance_count"] = max(errs["instance_count"], e1)
-        errs["instance_count2"] = max(errs["instance_count2"], e2)
-        say("3", f"K3 instance_count {label}: {tuple(g1.shape)} sum "
-                 f"{int(g1.sum())}, two-level {tuple(g2.shape)} sum "
-                 f"{int(g2.sum())}, max abs err {max(e1, e2)}")
+        errs["instance_count2"] = max(errs["instance_count2"], exact(
+            torch, f"instance_count2 {label}", g2, w2))
+        say("3", f"K3 instance_count {label}: {len(runs)} launches of 1 and "
+                 f"5 predicates ({', '.join(names)}; count, any, mixed) "
+                 f"equal the plain twin and the one-hot count; two-level "
+                 f"{tuple(g2.shape)} sum {int(g2.sum())}; max abs err "
+                 f"{max(errs.values())}")
     # the one PyTorch call computing the same counts: scatter_add_ over a
     # precomputed flat cell index (the index and weights are prepared
     # outside the timed call)
@@ -457,26 +539,50 @@ def check_instance_count(torch, kernels, lanes, n_inst, seed, results):
     w2 = ok2.to(torch.int32).reshape(-1)
     out1 = torch.zeros(N * n_inst, dtype=torch.int32, device=dev)
     out2 = torch.zeros(N * n_inst * n_inst, dtype=torch.int32, device=dev)
+    sc = kernels.scope8(s1, valid, n_inst)
+    # five predicates on the vector path (the unaligned one is not)
+    five = [preds[k] for k in names if k != "unaligned"] + [
+        rand_pred((N, R), 0.7)]
+    five_bytes = sum(R if p.stride(0) == 0 else N * R for p in five)
     out1.zero_().scatter_add_(0, idx1, w1)
     if not torch.equal(out1.view(N, n_inst),
-                       kernels.instance_count(pred, s1, valid, n_inst)):
+                       kernels.instance_count_many([pred], sc, n_inst)[0]):
         raise AssertionError("scatter_add_ yardstick disagrees with K3")
-    for name, times, nbytes, cells in (
-            ("instance_count", timed(
-                torch,
-                lambda: kernels.instance_count(pred, s1, valid, n_inst),
-                lambda: kernels.instance_count_plain(pred, s1, valid, n_inst),
-                lambda: out1.zero_().scatter_add_(0, idx1, w1)),
-             N * R * 6, n_inst),
-            ("instance_count2", timed(
-                torch,
+    one = timed(torch, lambda: kernels.instance_count_many([pred], sc, n_inst),
+                lambda: kernels.instance_count_many_plain([pred], sc, n_inst),
+                lambda: out1.zero_().scatter_add_(0, idx1, w1))
+    p5 = timed(torch, lambda: kernels.instance_count_many(five, sc, n_inst),
+               lambda: kernels.instance_count_many_plain(five, sc, n_inst))
+    any1 = graph_ms(torch, lambda: kernels.instance_count_many(
+        [pred], sc, n_inst, "any"))
+    counts_out = N * n_inst * 4
+    results["instance_count"] = {
+        "max_abs_err": errs["instance_count"], **one,
+        # the bytes this entry reads and writes (pred, scope8, counts)
+        "bound": bound(N * R * 2 + counts_out, N * R * 4),
+        "ms_p5": p5["ms"], "eager_ms_p5": p5["eager_ms"],
+        "plain_ms_p5": p5["plain_ms"], "ms_any": any1,
+        "bound_p5": bound(five_bytes + N * R + 5 * counts_out,
+                          5 * N * R * 4),
+        # the earlier kernel's measure: pred, valid and int32 scope1
+        # (6 bytes a row)
+        "bound_6_bytes": bound(N * R * 6 + counts_out, N * R * 4),
+    }
+    results["instance_count2"] = {
+        "max_abs_err": errs["instance_count2"],
+        **timed(torch,
                 lambda: kernels.instance_count2(pred, s1, s2, valid, n_inst),
                 lambda: kernels.instance_count_plain(pred, s1, valid, n_inst,
                                                      s2),
                 lambda: out2.zero_().scatter_add_(0, idx2, w2)),
-             N * R * 10, n_inst * n_inst)):
-        results[name] = {"max_abs_err": errs[name], **times,
-                         "bound": bound(nbytes + N * cells * 4, N * R * 4)}
+        "bound": bound(N * R * 10 + N * n_inst * n_inst * 4, N * R * 4),
+    }
+    r = results["instance_count"]
+    say("3", f"K3 one level at ({N}, {R}), I={n_inst}: P=1 {r['ms']:.4f} ms "
+             f"(bound {r['bound'][0]:.4f}; 6-byte bound "
+             f"{r['bound_6_bytes'][0]:.4f}), any {r['ms_any']:.4f} ms, P=5 "
+             f"{r['ms_p5']:.4f} ms (bound {r['bound_p5'][0]:.4f}), "
+             f"scatter_add_ {r['library_ms']:.4f} ms")
 
 
 def check_verdict_counts(torch, kernels, dev, rules, N, seed, results):
@@ -715,15 +821,23 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
 
     kernels.reset_launches()
+    zero_stats(eng.cps.device_fn())
     t0 = time.perf_counter()
     res = eng.scan(resources, operations=ops)
     scan_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    line, st = program_stats(eng.cps.device_fn())
     say("4", f"TorchEngine.scan N={n}: table {res.verdicts.shape}, "
              f"{scan_s:.3f} s end to end {tag}; launches {launches}")
+    say("4", f"the program: {line}")
     for name in DENSE_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"dense path never launched {name}")
+    if launches["instance_count"] != st["inst_issued"] \
+            or launches["instance_count"] > DENSE_K3_MAX:
+        raise AssertionError(f"dense program: {launches['instance_count']} "
+                             f"one-level K3 launches ({st['inst_issued']} "
+                             f"issued), want at most {DENSE_K3_MAX}")
     if res.verdicts.shape != (len(eng.cps.rules), n):
         raise AssertionError(f"table shape {res.verdicts.shape}")
     if not ((res.verdicts >= 0) & (res.verdicts <= 4)).all():
@@ -777,6 +891,7 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
         prog.append((time.perf_counter() - t0) * 1e3)
     program_ms = statistics.median(prog)
     peak = torch.cuda.max_memory_allocated()
+    n_ops, kl = program_ops(torch, kernels, lambda: eng.run(lanes))
     # the same program with the kernels' plain twins, on the same lanes
     ptable, pcounts = eng.cps.device_fn(plain=True)(lanes)
     if not (torch.equal(ptable, table) and torch.equal(pcounts, counts)):
@@ -809,6 +924,8 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     say("4", f"H2D {h2d_ms:.3f} ms (pack into pinned memory + one copy) {tag}")
     say("4", f"program {program_ms:.3f} ms median of 5 "
              f"({', '.join(f'{x:.3f}' for x in prog)}) {tag}")
+    say("4", f"one program run issues {n_ops} aten operations and {kl} "
+             "launches of the port's kernels")
     say("4", f"readback {readback_ms:.3f} ms {tag}")
     say("4", f"{cells / (program_ms / 1e3):.0f} rule x resource evals/s "
              f"on the program, {cells / scan_s:.0f} end to end {tag}")
@@ -860,10 +977,13 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
              f"{time.perf_counter() - t0:.3f} s (host)")
 
     kernels.reset_launches()
+    zero_stats(scanner.step_jitted())
     t0 = time.perf_counter()
     res, stats = scanner.scan_stream(resources, tile=tile, operations=ops)
     scan_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    say("5", f"the step over {-(-scan_n // tile)} tiles: "
+             + program_stats(scanner.step_jitted())[0])
     say("5", f"ShardedScanner.scan_stream {scan_n} resources, tile {tile}: "
              f"{scan_s:.3f} s end to end, {scan_n / scan_s:.1f} resources/s, "
              f"{len(scanner.cps.rules) * scan_n / scan_s:.0f} rule x "
@@ -911,7 +1031,8 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     v, c = scanner.step_jitted()(lanes)
     plain = build_program(scanner.cps.device_programs,
                           scanner.cps.encode_cfg.max_instances,
-                          dfa=scanner.cps.dfa, plain=True, verdicts_u8=True)
+                          dfa=scanner.cps.dfa, plain=True, verdicts_u8=True,
+                          nfa_globs=scanner.cps.nfa_globs)
     pv, pc = plain(lanes)
     if not (torch.equal(v, pv) and torch.equal(c, pc)):
         raise AssertionError("step differs from the plain-twin step")
@@ -954,6 +1075,10 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
         torch.cuda.synchronize()
         step.append((time.perf_counter() - t0) * 1e3)
     step_ms = statistics.median(step)
+    n_ops, kl = program_ops(torch, kernels,
+                            lambda: scanner.step_jitted()(lanes))
+    say("5", f"one step issues {n_ops} aten operations and {kl} launches of "
+             "the port's kernels")
     cells = len(scanner.cps.device_programs) * tile
     say("5", f"steady-state step {step_ms:.3f} ms median of 5 "
              f"({', '.join(f'{x:.3f}' for x in step)}) on one resident "
@@ -1072,10 +1197,13 @@ def glob_subjects(torch, rng, pattern: str, S: int, W: int):
 
 
 def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
-    """K9 against its plain twin on the tenant batch's namespace and
-    name lanes, its pool plane and 320-byte seeded subjects, with real
-    and hostile lengths, over every pattern class; then K9 and K1's
-    non-ASCII entry timed on the namespace lane."""
+    """Packed K9 against its plain twin on the tenant batch's namespace,
+    name and pool lanes, with real and hostile lengths, over the packs
+    of the tenant's NFA-route globs and every pattern class (1, 2 and 8
+    64-bit state words); the pack of one (``glob_nfa``) against the same
+    rows and on 320-byte seeded subjects (2 to 16 state words). Then the
+    packed launch timed on the namespace lane beside the pack of one,
+    and K1's non-ASCII entry."""
     import numpy as np
 
     dev = lanes["meta_ns_bytes"].device
@@ -1084,6 +1212,11 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
     qglob = next(g for g in nfa if "?" in g)
     classes = [nfa[0], qglob, "", "*", "***", "?", "a*b?c*", "é*", "中?",
                "a" * 63, "a" * 64, "a" * 65, ("ab*?" * 75)[:299]]
+    packs = kernels.glob_packs(list(nfa) + [c for c in classes
+                                            if c not in nfa])
+    words = [p.nw for p in packs]
+    if words != [1, 2, 8]:
+        raise AssertionError(f"glob packs of {words} state words")
     planes = [("ns", lanes["meta_ns_bytes"], lanes["meta_ns_len"]),
               ("name", lanes["meta_name_bytes"], lanes["meta_name_len"]),
               ("pool", lanes["pool"], lanes["pool_len"])]
@@ -1095,14 +1228,23 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
                                 dtype=torch.int32).to(dev)
         for lname, lens in (("lengths", ln), ("hostile lengths", hostile)):
             hits = 0
-            for p in classes:
-                got = kernels.glob_nfa(p, byt, lens)
-                err = max(err, exact(torch, f"glob_nfa {p!r} {label} {lname}",
-                                     got, kernels.glob_nfa_plain(p, byt, lens)))
+            rows = {}
+            for pack in packs:
+                got = kernels.glob_nfa_pack(pack, byt, lens)
+                err = max(err, exact(
+                    torch, f"glob_nfa pack of {len(pack.patterns)} "
+                           f"({pack.nw} words) {label} {lname}",
+                    got, kernels.glob_nfa_pack_plain(pack, byt, lens)))
                 hits += int(got.sum())
-            say("3", f"K9 glob_nfa {len(classes)} patterns on {label} "
-                     f"{tuple(byt.shape)} with {lname}: {hits} accepts, max "
-                     f"abs err {err}")
+                rows.update(zip(pack.patterns, got))
+            for p in classes:
+                err = max(err, exact(torch, f"glob_nfa {p!r} {label} {lname}",
+                                     kernels.glob_nfa(p, byt, lens), rows[p]))
+            say("3", f"K9 glob_nfa {len(packs)} packs of "
+                     f"{sum(len(p.patterns) for p in packs)} patterns on "
+                     f"{label} {tuple(byt.shape)} with {lname}: {hits} "
+                     f"accepts; the pack of one on {len(classes)} classes "
+                     f"equal; max abs err {err}")
     # past one state word: 320-byte subjects (the label-key width)
     for p in ("a" * 65, ("ab*?" * 75)[:299], "a*" * 150, "a*" * 260):
         byt, lens = glob_subjects(torch, rng, p, 4096, 320)
@@ -1118,26 +1260,38 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
     if not {2, 8, 16} <= words:
         raise AssertionError(f"glob_nfa state words run: {sorted(words)}")
 
-    # timed at the main path's shape: an NFA-route tenant glob over the
-    # batch's namespace lane (one launch per pattern and family)
+    # timed at the main path's shape: the pack of the tenant's NFA-route
+    # globs over the batch's namespace lane (one launch per family)
     byt, ln = lanes["meta_ns_bytes"], lanes["meta_ns_len"]
     S, W = byt.shape
-    pat = nfa[0]
-    table = kernels.glob_table(pat, dev)
-    _, steps = kernels.glob_nfa_plain(pat, byt, ln, with_steps=True)
-    need = int(steps.to(torch.int64).sum())
-    nw = kernels.glob_words(pat)
+    (pack,) = kernels.glob_packs(nfa)
+    P = len(pack.patterns)
+    steps = torch.stack([kernels.glob_nfa_plain(p, byt, ln,
+                                                with_steps=True)[1]
+                         for p in pack.patterns]).to(torch.int64)
+    need = int(steps.sum())
+    # memory moves the subjects once (the bytes any pattern of the pack
+    # reads; the pairs read them again from shared memory), the lengths,
+    # the tables and the (P, S) plane; the operations are the pairs'
+    # steps
+    subj = int(steps.max(dim=0).values.sum())
+    tables = sum(t.nbytes for t in pack.on(dev))
     results["glob_nfa"] = {
         "max_abs_err": err,
-        **timed(torch, lambda: kernels.glob_nfa(pat, byt, ln, table),
-                lambda: kernels.glob_nfa_plain(pat, byt, ln)),
-        "bound": bound(need + S * 4 + S + table.numel() * 8, need * nw * 6),
+        **timed(torch, lambda: kernels.glob_nfa_pack(pack, byt, ln),
+                lambda: kernels.glob_nfa_pack_plain(pack, byt, ln),
+                plain_eager=True),
+        "bound": bound(S * 4 + subj + tables + P * S, need * pack.nw * 6),
+        "pack_of_one_ms": graph_ms(
+            torch, lambda: kernels.glob_nfa(pack.patterns[0], byt, ln)),
     }
-    upto = int(torch.where((ln >= 0) & (ln <= W), ln,
-                           torch.zeros_like(ln)).to(torch.int64).sum())
-    say("3", f"K9 bound inputs: {S} subjects of {W} bytes, {need} bytes the "
-             f"NFA reads before its state dies or the length ends ({upto} "
-             f"up to the lengths)")
+    r = results["glob_nfa"]
+    say("3", f"K9 packed over {P} globs x {S} subjects of {W} bytes: "
+             f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), bound "
+             f"{r['bound'][0]:.6f} ms ({need} pair steps, {subj} subject "
+             f"bytes, {tables} table bytes, {pack.classes} table rows); the "
+             f"pack of one {r['pack_of_one_ms']:.4f} ms x {P} = "
+             f"{r['pack_of_one_ms'] * P:.4f} ms")
 
     # K1's non-ASCII entry alone (what the NFA route's '?' globs launch)
     na = kernels.nonascii(byt, ln)
@@ -1168,15 +1322,22 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
 
     n = len(resources)
     kernels.reset_launches()
+    zero_stats(eng.cps.device_fn())
     t0 = time.perf_counter()
     res = eng.scan(resources)
     scan_s = time.perf_counter() - t0
     lv = dict(kernels.LAUNCHES)
+    line, st = program_stats(eng.cps.device_fn())
     say("7", f"TorchEngine.scan of {n} tenant resources: {scan_s:.3f} s end "
              f"to end {tag}; launches {lv}")
+    say("7", f"the scan's program: {line}")
     for name in TENANT_KERNELS:
         if lv[name] <= 0:
             raise AssertionError(f"tenant scan never launched {name}")
+    # one packed K9 launch per lane family (namespace and name)
+    if lv["glob_nfa"] > 4 or st["nfa_unpacked"]:
+        raise AssertionError(f"tenant scan: {lv['glob_nfa']} K9 launches, "
+                             f"{st['nfa_unpacked']} unrecorded NFA globs")
     if res.verdicts.shape != (len(eng.cps.rules), n) or not (
             (res.verdicts >= 0) & (res.verdicts <= 4)).all():
         raise AssertionError("tenant scan: table not complete")
@@ -1197,8 +1358,11 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     table, counts = eng.run(lanes)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
+    n_ops, kl = program_ops(torch, kernels, lambda: eng.run(lanes))
     say("7", f"scan parts: encode {encode_s:.4f} s, H2D {h2d_ms:.3f} ms, "
-             f"program {program_s:.4f} s (host clock to a sync) {tag}")
+             f"program {program_s:.4f} s (host clock to a sync) {tag}; one "
+             f"program run issues {n_ops} aten operations and {kl} launches "
+             "of the port's kernels")
     t0 = time.perf_counter()
     ptable, pcounts = eng.cps.device_fn(plain=True)(lanes)
     torch.cuda.synchronize()
@@ -1228,16 +1392,23 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     # mutate triage in batches
     eng.triage_dispatches = eng.triage_encode_fallbacks = 0
     kernels.reset_launches()
+    zero_stats(eng.cps.mutate_device_fn())
     t0 = time.perf_counter()
     parts = [eng.triage_mutate(resources[i:i + batch_n])
              for i in range(0, n, batch_n)]
     triage_s = time.perf_counter() - t0
     lt = dict(kernels.LAUNCHES)
+    line, st = program_stats(eng.cps.mutate_device_fn())
     say("7", f"triage_mutate of {n} in batches of {batch_n}: {triage_s:.3f} s,"
              f" {n / triage_s:.1f} resources/s {tag}; launches {lt}")
+    say("7", f"the triage programs: {line}")
     for name in TENANT_KERNELS:
         if lt[name] <= 0:
             raise AssertionError(f"tenant triage never launched {name}")
+    if lt["glob_nfa"] > 4 * len(parts) or st["nfa_unpacked"]:
+        raise AssertionError(f"tenant triage: {lt['glob_nfa']} K9 launches "
+                             f"over {len(parts)} batches, "
+                             f"{st['nfa_unpacked']} unrecorded NFA globs")
     if eng.triage_dispatches != len(parts) or eng.triage_encode_fallbacks:
         raise AssertionError(f"{eng.triage_dispatches} device batches, "
                              f"{eng.triage_encode_fallbacks} encode fallbacks "
@@ -1267,9 +1438,12 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     want = eng.cps.mutate_device_fn(plain=True)(lanes)
     if not torch.equal(got, want):
         raise AssertionError("triage program differs from its plain twins")
+    n_ops, kl = program_ops(torch, kernels,
+                          lambda: eng.cps.mutate_device_fn()(lanes))
     say("7", f"one triage batch of {len(first)}: encode {encode_s:.4f} s, "
              f"program {program_s:.4f} s; equal to the plain-twin triage "
-             f"program {tag}")
+             f"program {tag}; it issues {n_ops} aten operations and {kl} "
+             "launches of the port's kernels")
     del lanes
 
     # a slice against the CPU run

@@ -73,7 +73,9 @@ _SIGNATURES = {
                        [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P]),
     "dfa_scan_stride1": ("dfa_scan",
                          [_P, _P, _L, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]),
-    "instance_count": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
+    "instance_count_many": ("instance_count",
+                            [_P, _I, ctypes.c_uint, _P, _L, _I, _I, _P]),
+    "instance_count2": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
     "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P, _P]),
     "vocab_gather": ("vocab_gather", [_P, _P, _P, _P, _I, _P, _I, _L, _L, _P]),
     "vocab_gather_rows": ("vocab_gather",
@@ -81,7 +83,8 @@ _SIGNATURES = {
     "hash_match": ("hash_match", [_P, _P, _P, _L, _P, _I, _P, _P]),
     "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _P, _P]),
     "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
-    "glob_nfa": ("glob_nfa", [_P, _P, _L, _I, _P, _I, _I, _P, _P]),
+    "glob_nfa_pack": ("glob_nfa",
+                      [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -321,7 +324,24 @@ def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # K3 instance_count (csrc/instance_count.cu): replaces
 # kyverno_tpu/tpu/evaluator.py InstScope.count / Inst2Scope.count (the
-# f32 one-hot einsums). Bound by the bytes of pred/valid/scope lanes.
+# f32 one-hot einsums). One level: up to 8 predicates a launch over a
+# compact uint8 scope (``scope8``), bound by their bytes and the scope's.
+# Two levels: bound by the bytes of pred/valid/both scope lanes.
+
+COUNT_MAX_PREDS = 8      # kMaxPreds in csrc/instance_count.cu
+COUNT_MAX_ROWS = 32 * 255  # 8-bit per-lane count fields
+SCOPE_NONE = 0xFF        # scope8 of a row that counts nowhere
+
+
+def scope8(scope1: torch.Tensor, valid: torch.Tensor, n_inst: int
+           ) -> torch.Tensor:
+    """(N, R) uint8: ``scope1`` where the row is valid and its scope lies
+    in [0, I), ``SCOPE_NONE`` elsewhere (I <= 64). Built once a batch; a
+    one-level count then reads 2 bytes a row."""
+    if not 0 < n_inst <= 64:
+        raise ValueError(f"instance_count: I={n_inst} outside (0, 64]")
+    ok = valid & (scope1 >= 0) & (scope1 < n_inst)
+    return torch.where(ok, scope1, SCOPE_NONE).to(torch.uint8)
 
 
 def instance_count_plain(pred: torch.Tensor, scope1: torch.Tensor,
@@ -341,44 +361,108 @@ def instance_count_plain(pred: torch.Tensor, scope1: torch.Tensor,
     return both.sum(dim=1, dtype=torch.int32)
 
 
-def _instance_count(pred, scope1, valid, n_inst, scope2, name):
-    if pred.device.type == "cpu":
-        return instance_count_plain(pred, scope1, valid, n_inst, scope2)
-    dev = pred.device
-    _check(pred, "pred", torch.bool, dev, 2)
-    _check(valid, "valid", torch.bool, dev, 2)
-    _check(scope1, "scope1", torch.int32, dev, 2)
-    shapes = {tuple(pred.shape), tuple(valid.shape), tuple(scope1.shape)}
-    if scope2 is not None:
-        _check(scope2, "scope2", torch.int32, dev, 2)
-        shapes.add(tuple(scope2.shape))
-    if len(shapes) != 1:
-        raise ValueError(f"instance_count: mismatched shapes {shapes}")
+def _wants(preds: Sequence[torch.Tensor], want) -> List[str]:
+    wants = [want] * len(preds) if isinstance(want, str) else list(want)
+    if len(wants) != len(preds) or any(w not in ("count", "any")
+                                       for w in wants):
+        raise ValueError(f"want {want!r}: 'count' or 'any' per predicate")
+    return wants
+
+
+def instance_count_many_plain(preds: Sequence[torch.Tensor],
+                              scope: torch.Tensor, n_inst: int,
+                              want="count") -> List[torch.Tensor]:
+    """Each (N, R) (or broadcastable) bool predicate over the (N, R)
+    uint8 ``scope8`` -> (N, I) int32 counts, or (N, I) bool "count > 0"
+    where ``want`` (one word, or one per predicate) is "any"."""
+    ar = torch.arange(n_inst, device=scope.device, dtype=torch.uint8)
+    oh = scope[:, :, None] == ar[None, None, :]
+    out = []
+    for p, w in zip(preds, _wants(preds, want)):
+        hit = oh & p.expand(scope.shape)[:, :, None]
+        out.append(hit.any(dim=1) if w == "any"
+                   else hit.sum(dim=1, dtype=torch.int32))
+    return out
+
+
+def instance_count_many(preds: Sequence[torch.Tensor], scope: torch.Tensor,
+                        n_inst: int, want="count") -> List[torch.Tensor]:
+    """K3, one level: up to 8 (N, R) bool predicates on one ``scope8``
+    in one launch -> one (N, I) int32 (or bool for "any") per predicate.
+    A predicate's rows must be contiguous; its row stride may be 0 (a
+    (1, R) predicate expanded over the batch, read without a copy)."""
+    if scope.device.type == "cpu":
+        return instance_count_many_plain(preds, scope, n_inst, want)
+    dev = scope.device
+    wants = _wants(preds, want)
+    _check(scope, "scope8", torch.uint8, dev, 2)
+    N, R = scope.shape
+    if not 0 < len(preds) <= COUNT_MAX_PREDS:
+        raise ValueError(f"instance_count_many: {len(preds)} predicates "
+                         f"(1..{COUNT_MAX_PREDS})")
     if not 0 < n_inst <= 64:
         raise ValueError(f"instance_count: I={n_inst} outside (0, 64]")
-    N, R = pred.shape
-    cells = (n_inst,) if scope2 is None else (n_inst, n_inst)
-    out = torch.empty((N,) + cells, dtype=torch.int32, device=dev)
+    if not 0 < R <= COUNT_MAX_ROWS:
+        raise ValueError(f"instance_count: R={R} outside (0, {COUNT_MAX_ROWS}]")
+    for p in preds:
+        if p.dtype != torch.bool or p.device != dev or tuple(p.shape) != (N, R):
+            raise ValueError(f"predicate {tuple(p.shape)} {p.dtype} on "
+                             f"{p.device}: want ({N}, {R}) bool on {dev}")
+        if R > 1 and p.stride(1) != 1:
+            raise ValueError(f"predicate strides {p.stride()}: rows must be "
+                             f"contiguous")
+    # one output buffer per dtype, a (N, I) slice of it per predicate
+    k = len(preds)
+    n_any = wants.count("any")
+    bufs = {"count": iter(torch.empty((k - n_any, N, n_inst),
+                                      dtype=torch.int32, device=dev)),
+            "any": iter(torch.empty((n_any, N, n_inst), dtype=torch.bool,
+                                    device=dev))}
+    outs = [next(bufs[w]) for w in wants]
     if N:
-        _call("instance_count", _ptr(pred), _ptr(scope1), _ptr(scope2),
-              _ptr(valid), N, R, n_inst, _ptr(out))
-        LAUNCHES[name] += 1
-    return out
+        args = (ctypes.c_longlong * (3 * k))(
+            *[p.data_ptr() for p in preds], *[p.stride(0) for p in preds],
+            *[o.data_ptr() for o in outs])
+        any_mask = sum(1 << q for q, w in enumerate(wants) if w == "any")
+        _call("instance_count_many", ctypes.cast(args, _P), k, any_mask,
+              _ptr(scope), N, R, n_inst)
+        LAUNCHES["instance_count"] += 1
+    return outs
 
 
 def instance_count(pred: torch.Tensor, scope1: torch.Tensor,
                    valid: torch.Tensor, n_inst: int) -> torch.Tensor:
-    """K3, one level: (N, R) -> (N, I) int32."""
-    return _instance_count(pred, scope1, valid, n_inst, None,
-                           "instance_count")
+    """K3, one level, one predicate: (N, R) -> (N, I) int32 (``scope8``
+    built here; the evaluator builds it once a batch)."""
+    if pred.device.type == "cpu":
+        return instance_count_plain(pred, scope1, valid, n_inst)
+    return instance_count_many([pred], scope8(scope1, valid, n_inst),
+                               n_inst)[0]
 
 
 def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
                     scope2: torch.Tensor, valid: torch.Tensor,
                     n_inst: int) -> torch.Tensor:
     """K3, two levels: (N, R) -> (N, I, I) int32."""
-    return _instance_count(pred, scope1, valid, n_inst, scope2,
-                           "instance_count2")
+    if pred.device.type == "cpu":
+        return instance_count_plain(pred, scope1, valid, n_inst, scope2)
+    dev = pred.device
+    _check(pred, "pred", torch.bool, dev, 2)
+    _check(valid, "valid", torch.bool, dev, 2)
+    _check(scope1, "scope1", torch.int32, dev, 2)
+    _check(scope2, "scope2", torch.int32, dev, 2)
+    shapes = {tuple(t.shape) for t in (pred, valid, scope1, scope2)}
+    if len(shapes) != 1:
+        raise ValueError(f"instance_count2: mismatched shapes {shapes}")
+    if not 0 < n_inst <= 64:
+        raise ValueError(f"instance_count: I={n_inst} outside (0, 64]")
+    N, R = pred.shape
+    out = torch.empty((N, n_inst, n_inst), dtype=torch.int32, device=dev)
+    if N:
+        _call("instance_count2", _ptr(pred), _ptr(scope1), _ptr(scope2),
+              _ptr(valid), N, R, n_inst, _ptr(out))
+        LAUNCHES["instance_count2"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -717,9 +801,10 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor):
 
 # ---------------------------------------------------------------------------
 # K9 glob_nfa (csrc/glob_nfa.cu): replaces kyverno_tpu/tpu/evaluator.py
-# glob_match, the per-pattern glob NFA of the globs outside the DFA bank.
-# Bound by the bytes of each subject the NFA still needs (up to its
-# length, or until no state is left), the lengths and the output.
+# glob_match, the per-pattern glob NFA of the globs outside the DFA bank,
+# for a whole pack of patterns in one launch. Bound by the bytes each
+# (subject, pattern) pair reads (up to its length, or until no state is
+# left), the lengths, the subjects, the packed tables and the output.
 
 GLOB_TABLE_ROWS = 257  # a row of positions per byte value, then the '*' row
 GLOB_MAX_WORDS = 32
@@ -747,16 +832,12 @@ def glob_words(pattern: str) -> int:
     return nw
 
 
-def glob_table(pattern: str, device) -> torch.Tensor:
-    """K9's (257, NW) int64 pattern table on ``device``: bit j of row c
-    (c < 256) is set when position j (1..m) consumes byte c (a literal
-    equal to c, or '?' when c != 0); row 256 holds the '*' positions.
-    A CUDA table is copied from pinned memory without waiting; the
-    evaluator keeps one per compiled program and pattern."""
-    chars = glob_chars(pattern)
-    nw = glob_words(pattern)
+def _glob_rows(pattern: str, nw: int) -> np.ndarray:
+    """(257, nw) uint64: bit j of row c (c < 256) is set when position j
+    (1..m) consumes byte c (a literal equal to c, or '?' when c != 0);
+    row 256 holds the '*' positions."""
     tab = np.zeros((GLOB_TABLE_ROWS, nw), dtype=np.uint64)
-    for j, pc in enumerate(chars, start=1):
+    for j, pc in enumerate(glob_chars(pattern), start=1):
         word, bit = divmod(j, 64)
         b = np.uint64(1) << np.uint64(bit)
         if pc == "*":
@@ -765,10 +846,74 @@ def glob_table(pattern: str, device) -> torch.Tensor:
             tab[1:256, word] |= b
         else:
             tab[ord(pc) & 0xFF, word] |= b
-    t = torch.from_numpy(tab.view(np.int64))
-    if torch.device(device).type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    return tab
+
+
+def glob_table(pattern: str, device) -> torch.Tensor:
+    """One pattern's full (257, NW) table (``_glob_rows`` as int64) on
+    ``device``: what a pack's class rows are gathered from."""
+    t = torch.from_numpy(_glob_rows(pattern, glob_words(pattern)).view(np.int64))
+    return t if torch.device(device).type == "cpu" else t.to(device)
+
+
+class GlobPack:
+    """K9's packed tables for globs of one state-word count.
+
+    The byte-class map sends each byte to a class: one per literal byte
+    the pack's patterns use (``ord(c) & 0xFF``, NUL included), NUL when
+    no literal is NUL, and one "no literal" class for the other bytes
+    (left out when there are none). Each pattern's table is then its
+    257-row table gathered at one byte of each class, then the '*' row:
+    (P, C + 1, NW) uint64 words. Device copies are kept per device."""
+
+    def __init__(self, patterns: Sequence[str], nw: Optional[int] = None):
+        if not patterns:
+            raise ValueError("GlobPack: no pattern")
+        self.patterns = list(patterns)
+        self.nw = nw or max(glob_words(p) for p in self.patterns)
+        if any(glob_words(p) > self.nw for p in self.patterns):
+            raise ValueError(f"GlobPack: a pattern needs more than "
+                             f"{self.nw} state words")
+        lits = {ord(c) & 0xFF for p in self.patterns for c in glob_chars(p)
+                if c not in "*?"}
+        other = [b for b in range(1, 256) if b not in lits]
+        reps = other[:1] + [0] + sorted(lits - {0})
+        self.cmap = np.zeros(256, dtype=np.uint8)
+        for k, b in enumerate(reps):
+            self.cmap[b] = k
+        rows = np.array(reps + [256])
+        self.tables = np.stack([_glob_rows(p, self.nw)[rows]
+                                for p in self.patterns])
+        self.ms = np.array([len(glob_chars(p)) for p in self.patterns],
+                           dtype=np.int32)
+        self._on: Dict[str, Tuple[torch.Tensor, ...]] = {}
+
+    @property
+    def classes(self) -> int:
+        """Table rows a pattern has: its byte classes and the '*' row."""
+        return self.tables.shape[1]
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(cmap uint8, tables int64, ms int32) on ``device``; a CUDA
+        copy is made once, from pinned memory without waiting."""
+        key = str(device)
+        if key not in self._on:
+            host = (torch.from_numpy(self.cmap),
+                    torch.from_numpy(self.tables.view(np.int64)),
+                    torch.from_numpy(self.ms))
+            if torch.device(device).type != "cpu":
+                host = tuple(t.pin_memory().to(device, non_blocking=True)
+                             for t in host)
+            self._on[key] = host
+        return self._on[key]
+
+
+def glob_packs(patterns: Sequence[str]) -> List[GlobPack]:
+    """One pack per state-word count, patterns in their order."""
+    groups: Dict[int, List[str]] = {}
+    for p in patterns:
+        groups.setdefault(glob_words(p), []).append(p)
+    return [GlobPack(ps, nw) for nw, ps in sorted(groups.items())]
 
 
 def _glob_closure(dp: torch.Tensor, star: torch.Tensor) -> torch.Tensor:
@@ -821,15 +966,21 @@ def glob_nfa_plain(pattern: str, bytes_: torch.Tensor, lens: torch.Tensor,
     return (acc, steps) if with_steps else acc
 
 
-def glob_nfa(pattern: str, bytes_: torch.Tensor, lens: torch.Tensor,
-             table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K9: one launch per (pattern, lane family). (..., B) uint8
-    subjects (contiguous), (...) int32 lengths -> (...) bool. ``table``
-    is ``glob_table(pattern, device)`` (built here when not given). A
-    pattern with more non-'*' characters than B bytes cannot accept any
-    length in [0, B]: it gives all False without a launch."""
+def glob_nfa_pack_plain(pack: GlobPack, bytes_: torch.Tensor,
+                        lens: torch.Tensor) -> torch.Tensor:
+    """(P, ...) bool: ``glob_nfa_plain`` of each of the pack's patterns."""
+    return torch.stack([glob_nfa_plain(p, bytes_, lens)
+                        for p in pack.patterns])
+
+
+def glob_nfa_pack(pack: GlobPack, bytes_: torch.Tensor,
+                  lens: torch.Tensor) -> torch.Tensor:
+    """K9, one launch for a pack: (..., B) uint8 subjects (contiguous),
+    (...) int32 lengths -> (P, ...) bool, row p the answers of pattern
+    p. Raises for a pack of more than ``GLOB_MAX_WORDS`` state words or
+    one whose tables do not fit the kernel's shared memory."""
     if bytes_.device.type == "cpu":
-        return glob_nfa_plain(pattern, bytes_, lens)
+        return glob_nfa_pack_plain(pack, bytes_, lens)
     dev = bytes_.device
     _check(bytes_, "bytes", torch.uint8, dev)
     _check(lens, "lens", torch.int32, dev)
@@ -837,25 +988,34 @@ def glob_nfa(pattern: str, bytes_: torch.Tensor, lens: torch.Tensor,
     if bytes_.ndim < 1 or tuple(lens.shape) != lead:
         raise ValueError(f"lens {tuple(lens.shape)} vs bytes "
                          f"{tuple(bytes_.shape)}")
-    B = bytes_.shape[-1]
-    chars = glob_chars(pattern)
-    if sum(1 for c in chars if c != "*") > B:
-        return torch.zeros(lead, dtype=torch.bool, device=dev)
-    nw = glob_words(pattern)
-    if nw > GLOB_MAX_WORDS:
-        raise ValueError(f"glob of {len(chars)} positions over {B}-byte "
-                         f"subjects: K9 holds at most "
-                         f"{64 * GLOB_MAX_WORDS - 1}")
-    if table is None:
-        table = glob_table(pattern, dev)
-    _check(table, "table", torch.int64, dev, 2)
-    if tuple(table.shape) != (GLOB_TABLE_ROWS, nw):
-        raise ValueError(f"table {tuple(table.shape)}, want "
-                         f"({GLOB_TABLE_ROWS}, {nw})")
-    out = torch.empty(lead, dtype=torch.bool, device=dev)
-    S = out.numel()
+    if pack.nw > GLOB_MAX_WORDS:
+        raise ValueError(f"glob pack of {pack.nw} state words: K9 holds at "
+                         f"most {64 * GLOB_MAX_WORDS - 1} positions")
+    cmap, tables, ms = pack.on(dev)
+    P = len(pack.patterns)
+    out = torch.empty((P,) + lead, dtype=torch.bool, device=dev)
+    S = lens.numel()
     if S:
-        _call("glob_nfa", _ptr(bytes_), _ptr(lens), S, B, _ptr(table), nw,
-              len(chars), _ptr(out))
+        _call("glob_nfa_pack", _ptr(bytes_), _ptr(lens), S, bytes_.shape[-1],
+              _ptr(cmap), _ptr(tables), _ptr(ms), P, pack.classes, pack.nw,
+              _ptr(out))
         LAUNCHES["glob_nfa"] += 1
     return out
+
+
+def glob_nfa(pattern: str, bytes_: torch.Tensor,
+             lens: torch.Tensor) -> torch.Tensor:
+    """K9 for one pattern (a pack of one): (..., B) uint8 subjects,
+    (...) int32 lengths -> (...) bool. A pattern with more non-'*'
+    characters than B bytes cannot accept any length in [0, B]: it gives
+    all False without a launch."""
+    if bytes_.device.type == "cpu":
+        return glob_nfa_plain(pattern, bytes_, lens)
+    if sum(1 for c in glob_chars(pattern) if c != "*") > bytes_.shape[-1]:
+        return torch.zeros(tuple(bytes_.shape[:-1]), dtype=torch.bool,
+                           device=bytes_.device)
+    if glob_words(pattern) > GLOB_MAX_WORDS:
+        raise ValueError(f"glob of {len(glob_chars(pattern))} positions over "
+                         f"{bytes_.shape[-1]}-byte subjects: K9 holds at "
+                         f"most {64 * GLOB_MAX_WORDS - 1}")
+    return glob_nfa_pack(GlobPack([pattern]), bytes_, lens)[0]

@@ -71,7 +71,8 @@ class ShardedScanner:
         self._rbucket = min(64, self.cps.encode_cfg.max_rows)
         self._step = build_program(
             self.cps.device_programs, self.cps.encode_cfg.max_instances,
-            dfa=self.cps.dfa, verdicts_u8=True)
+            dfa=self.cps.dfa, verdicts_u8=True,
+            nfa_globs=self.cps.nfa_globs)
         # recording run: which compact lanes does THIS program read?
         # encode() drops everything else before transfer (meta lanes a
         # policy set never touches are most of the per-resource bytes)

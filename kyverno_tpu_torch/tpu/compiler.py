@@ -148,17 +148,32 @@ def _program_pattern_specs(prog: RuleProgram) -> List[Tuple[str, str, str]]:
 
 
 def _register_program_patterns(bank: DfaBank, prog: RuleProgram,
-                               owner: Optional[str] = None) -> bool:
-    """Register a program's patterns; returns whether it has any
-    (pattern-cell accounting rides prog.uses_patterns). ``owner``
-    attributes the patterns to a policy/rule for /debug/rules."""
+                               owner: Optional[str] = None
+                               ) -> List[Tuple[str, str]]:
+    """Register a program's patterns and set ``prog.uses_patterns``
+    (pattern-cell accounting rides it). Returns the (lane family, glob)
+    pairs the bank refused: they take the NFA route (kernel K9).
+    ``owner`` attributes the patterns to a policy/rule for
+    /debug/rules."""
     specs = _program_pattern_specs(prog)
+    refused: List[Tuple[str, str]] = []
     for kind, pattern, family in specs:
         if kind == "re2":
             bank.add_re2(pattern, family, owner=owner)
-        else:
-            bank.add_glob(pattern, family, owner=owner)
-    return bool(specs)
+        elif bank.add_glob(pattern, family, owner=owner) is None:
+            refused.append((family, pattern))
+    prog.uses_patterns = bool(specs)
+    return refused
+
+
+def _note_nfa_globs(nfa_globs: Dict[str, List[str]],
+                    refused: List[Tuple[str, str]]) -> None:
+    """Add a committed program's NFA-route globs to each family's list
+    (in order of first use, once each)."""
+    for family, pattern in refused:
+        globs = nfa_globs.setdefault(family, [])
+        if pattern not in globs:
+            globs.append(pattern)
 
 
 @dataclass
@@ -185,6 +200,10 @@ class CompiledPolicySet:
     mutate_entries: List[RuleEntry] = field(default_factory=list)
     mutate_programs: List[RuleProgram] = field(default_factory=list)
     mutate_templates: List[Optional[PatchTemplate]] = field(default_factory=list)
+    # each lane family's globs the bank refused, of the validate and of
+    # the mutate programs: build_program packs them for kernel K9
+    nfa_globs: Dict[str, List[str]] = field(default_factory=dict)
+    mutate_nfa_globs: Dict[str, List[str]] = field(default_factory=dict)
     _fns: Dict[bool, Callable] = field(default_factory=dict, repr=False)
     _mutate_fns: Dict[bool, Callable] = field(default_factory=dict,
                                               repr=False)
@@ -201,7 +220,7 @@ class CompiledPolicySet:
         if plain not in self._fns:
             self._fns[plain] = build_program(
                 self.device_programs, self.encode_cfg.max_instances,
-                dfa=self.dfa, plain=plain)
+                dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs)
         return self._fns[plain]
 
     @property
@@ -219,7 +238,8 @@ class CompiledPolicySet:
         if plain not in self._mutate_fns:
             self._mutate_fns[plain] = build_program(
                 self.mutate_programs, self.encode_cfg.max_instances,
-                with_counts=False, dfa=self.dfa, plain=plain)
+                with_counts=False, dfa=self.dfa, plain=plain,
+                nfa_globs=self.mutate_nfa_globs)
         return self._mutate_fns[plain]
 
     def coverage(self) -> Tuple[int, int]:
@@ -248,6 +268,7 @@ def compile_policy_set(
     key_byte_paths: Set[int] = set()
     deps: Dict[str, Optional[str]] = {}
     dyn_slots: List[DynSlot] = []
+    nfa_globs: Dict[str, List[str]] = {}
     bank = DfaBank(state_budget())
     for pi, policy in enumerate(policies):
         for rule in policy.get_rules():
@@ -259,7 +280,7 @@ def compile_policy_set(
                 # committing the program: a full bank demotes the rule
                 # to host instead of compiling an unevaluable program
                 try:
-                    prog.uses_patterns = _register_program_patterns(
+                    refused = _register_program_patterns(
                         bank, prog, owner=f"{policy.name}/{rule.name}")
                 except DfaUnsupported as e:
                     raise Unsupported(f"pattern: {e}")
@@ -275,6 +296,7 @@ def compile_policy_set(
                         if isinstance(ir_cond.value, DynValueRef):
                             ir_cond.value.slot += base
                 programs.append(prog)
+                _note_nfa_globs(nfa_globs, refused)
                 byte_paths |= prog.byte_paths
                 key_byte_paths |= prog.key_byte_paths
                 entries.append(RuleEntry(pi, policy.name, rule.name, row, None))
@@ -291,6 +313,7 @@ def compile_policy_set(
     mutate_entries: List[RuleEntry] = []
     mutate_programs: List[RuleProgram] = []
     mutate_templates: List[Optional[PatchTemplate]] = []
+    mutate_nfa_globs: Dict[str, List[str]] = {}
     collected: List[Tuple[int, ClusterPolicy, Rule, bool]] = []
     writes_so_far: List = []
     for pi, policy in enumerate(policies):
@@ -322,12 +345,13 @@ def compile_policy_set(
                 # cache eligibility. Host-route instead.
                 raise Unsupported("context: dynamic operand slots")
             try:
-                prog.uses_patterns = _register_program_patterns(
+                refused = _register_program_patterns(
                     bank, prog, owner=f"{policy.name}/{rule.name}")
             except DfaUnsupported as e:
                 raise Unsupported(f"pattern: {e}")
             row = len(mutate_programs)
             mutate_programs.append(prog)
+            _note_nfa_globs(mutate_nfa_globs, refused)
             byte_paths |= prog.byte_paths
             key_byte_paths |= prog.key_byte_paths
             mutate_entries.append(RuleEntry(pi, policy.name, rule.name,
@@ -371,4 +395,6 @@ def compile_policy_set(
         mutate_entries=mutate_entries,
         mutate_programs=mutate_programs,
         mutate_templates=mutate_templates,
+        nfa_globs=nfa_globs,
+        mutate_nfa_globs=mutate_nfa_globs,
     )

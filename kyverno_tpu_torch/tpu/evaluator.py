@@ -11,16 +11,20 @@ unrolls it at trace time, and every step is a PyTorch tensor operation
 on the batch's device. These pieces are kernels (``kernels.py``):
 
 - the DFA bank scan (K1) behind ``dfa.bank_match`` / ``nonascii_mask``;
-- per-instance counts (K3) behind ``InstScope.count`` and
-  ``Inst2Scope.count`` — integer counts where the reference takes f32
-  one-hot einsums; sums below 2**24 are exact in f32, so ``> 0`` and
-  ``==`` on the integers give the reference's booleans;
+- per-instance counts (K3) behind ``InstScope`` and ``Inst2Scope`` —
+  integer counts where the reference takes f32 one-hot einsums; sums
+  below 2**24 are exact in f32, so ``> 0`` and ``==`` on the integers
+  give the reference's booleans. ``Ctx.inst_counts`` counts each keyed
+  row mask once a batch (XLA's CSE merges the reference's identical
+  einsums) and issues the rest of a node's counts together;
 - the verdict-class histogram (K4) of ``build_program``, with the
   uint8 table of the background scan's step;
 - the vocabulary gathers (K5) behind ``LaneView``;
 - the hash-equality row masks (K6) behind ``Ctx.heq/hset/_mask``;
 - the pool-slot row gather (K7) behind ``Ctx._rows_from_pool``;
-- the first-true-row take (K8) of ``_eval_wildcard_anchor``.
+- the first-true-row take (K8) of ``_eval_wildcard_anchor``;
+- the glob NFA (K9) of the globs outside the bank, one launch per pack
+  of a lane family's NFA-route globs (``NfaPacks``).
 
 The program has no data-dependent Python branch (no ``.item()``,
 ``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
@@ -250,27 +254,81 @@ def densify(batch: Dict[str, torch.Tensor], record: bool = False,
 # evaluation context with memoization
 
 
+# a Ctx's counters, which a program adds up over its runs: one-level
+# (inst) and two-level (inst2) count requests, memo hits and kernel
+# calls issued, and NFA-route globs outside the program's packs (each
+# ran as a pack of one)
+STAT_KEYS = ("inst_calls", "inst_hits", "inst_issued", "inst2_calls",
+             "inst2_hits", "inst2_issued", "nfa_unpacked")
+
+
+def _usable_bank(dfa: Optional[DfaBank]) -> Optional[DfaBank]:
+    return dfa if (dfa is not None and dfa.trans is not None
+                   and len(dfa)) else None
+
+
+def bank_columns(dfa: Optional[DfaBank]) -> Dict[str, Dict[int, int]]:
+    """Each lane family's column in its ``bank_match`` accept plane, by
+    pattern id."""
+    bank = _usable_bank(dfa)
+    if bank is None:
+        return {}
+    return {family: {pid: col for col, pid in enumerate(ids)}
+            for family, ids in bank.families.items()}
+
+
+class NfaPacks:
+    """The K9 packs of a program's NFA-route globs: per lane family, one
+    ``kernels.GlobPack`` per state-word count, and (family, pattern) ->
+    (pack, row). A glob too long for the kernel stays out (its pack of
+    one raises unless it cannot match at all)."""
+
+    def __init__(self, globs: Dict[str, List[str]]):
+        self.packs: Dict[str, List[kernels.GlobPack]] = {}
+        self.index: Dict[Tuple[str, str], Tuple[int, int]] = {}
+        for family, patterns in globs.items():
+            packs = kernels.glob_packs([
+                p for p in patterns
+                if kernels.glob_words(p) <= kernels.GLOB_MAX_WORDS])
+            self.packs[family] = packs
+            for g, pack in enumerate(packs):
+                for row, p in enumerate(pack.patterns):
+                    self.index[(family, p)] = (g, row)
+
+
 class Ctx:
     def __init__(self, batch: Dict[str, torch.Tensor], max_instances: int,
                  dfa: Optional[DfaBank] = None, plain: bool = False,
                  hash_consts: Optional[Dict[Any, torch.Tensor]] = None,
-                 glob_tables: Optional[Dict[Any, torch.Tensor]] = None):
+                 nfa: Optional[NfaPacks] = None,
+                 bank_cols: Optional[Dict[str, Dict[int, int]]] = None):
         self.b = batch
         self.I = max_instances
         self.plain = plain
-        self.dfa = dfa if (dfa is not None and dfa.trans is not None
-                           and len(dfa)) else None
+        self.dfa = _usable_bank(dfa)
         n, r = batch["norm_hi"].shape
         self.N, self.R = n, r
         self.dev = batch["norm_hi"].device
         self._row_masks: Dict[Tuple[int, str], torch.Tensor] = {}
-        # K6 constant tables by (device, pairs) and K9 pattern tables by
-        # (device, pattern); build_program passes one dict of each for
-        # the life of the compiled program
+        # K6 constant tables by (device, pairs), which build_program
+        # keeps for the life of the compiled program, as it keeps each
+        # family's bank column by pattern id and the K9 packs of its
+        # NFA-route globs
         self._hash_consts = {} if hash_consts is None else hash_consts
-        self._glob_tables = {} if glob_tables is None else glob_tables
+        self._bank_cols = bank_columns(self.dfa) if bank_cols is None \
+            else bank_cols
+        self._nfa = nfa if nfa is not None else NfaPacks({})
         self._glob_cache: Dict[Tuple[str, str], Any] = {}
         self._valid = batch["valid"] != 0
+        self._types: Dict[Tuple[int, bool], torch.Tensor] = {}
+        # the count memo: keys of the row predicates it recognises (by
+        # the id of a tensor this Ctx keeps alive), typed masks, and
+        # the counts / anys by (level, predicate key, want)
+        self._pred_keys: Dict[int, Tuple] = {}
+        self._typed: Dict[Tuple, torch.Tensor] = {}
+        self._counts: Dict[Tuple, torch.Tensor] = {}
+        self._scope8: Optional[torch.Tensor] = None
+        self.stats: Dict[str, int] = dict.fromkeys(STAT_KEYS, 0)
         # per-rule host-fallback masks appended during evaluation
         # (nested instance-join overflow); eval_rule drains them
         self.host_acc: List[torch.Tensor] = []
@@ -295,7 +353,9 @@ class Ctx:
     def _mask(self, h: int, lane: str) -> torch.Tensor:
         key = (h, lane)
         if key not in self._row_masks:
-            self._row_masks[key] = self._hash_match(lane, (h,), self._valid)
+            m = self._row_masks[key] = self._hash_match(lane, (h,),
+                                                        self._valid)
+            self._pred_keys[id(m)] = key
         return self._row_masks[key]
 
     def heq(self, lane: str, h: int) -> torch.Tensor:
@@ -318,24 +378,105 @@ class Ctx:
         fn = kernels.hash_match_plain if self.plain else kernels.hash_match
         return fn(self.b[lane + "_hi"], self.b[lane + "_lo"], consts, valid)
 
-    def type_is(self, t: int) -> torch.Tensor:
-        return self.b["type_tag"] == t
+    def type_is(self, t: int, neg: bool = False) -> torch.Tensor:
+        key = (t, neg)
+        if key not in self._types:
+            eq = self.b["type_tag"] == t
+            self._types[key] = ~eq if neg else eq
+        return self._types[key]
 
-    # -- per-instance counts (kernel K3)
+    def typed(self, mask: torch.Tensor, t: int,
+              neg: bool = False) -> torch.Tensor:
+        """``mask & type_is(t)`` (``& ~type_is(t)`` with ``neg``). For a
+        row mask of ``rows_at`` / ``rows_with_parent`` it is made once
+        and keyed, so the count memo recognises it."""
+        key = self._pred_keys.get(id(mask))
+        if key is None:
+            return mask & self.type_is(t, neg)
+        key = key + (t, neg)
+        out = self._typed.get(key)
+        if out is None:
+            out = self._typed[key] = mask & self.type_is(t, neg)
+            self._pred_keys[id(out)] = key
+        return out
 
-    def inst_count(self, rowpred: torch.Tensor) -> torch.Tensor:
+    # -- per-instance counts (kernel K3), memoized as the reference's
+    # identical einsums are merged by XLA
+
+    def scope8(self) -> torch.Tensor:
+        """The batch's compact one-level scope (kernels.scope8)."""
+        if self._scope8 is None:
+            self._scope8 = kernels.scope8(self.b["scope1"], self._valid,
+                                          self.I)
+        return self._scope8
+
+    def _row_operand(self, rowpred: torch.Tensor) -> torch.Tensor:
+        """(N, R) view of a row predicate: a (1, R) broadcast keeps row
+        stride 0 (no copy); only a predicate whose rows are not
+        contiguous is copied."""
+        p = rowpred.expand(self.N, self.R)
+        if self.R > 1 and p.stride(1) != 1:
+            p = p.contiguous()
+        return p
+
+    def inst_counts(self, level: int,
+                    items: Sequence[Tuple[torch.Tensor, str]]
+                    ) -> List[torch.Tensor]:
+        """Per-instance counts ("count": (N, I) int32) or their "any"
+        ((N, I) bool) of row predicates, at scope ``level`` 1 (by scope1)
+        or 2 ((N, I, I), by scope1 and scope2). A predicate the memo
+        knows is counted once a batch (an "any" reuses its count); the
+        rest go to K3 together, up to 8 a launch at level 1."""
+        tag = "inst" if level == 1 else "inst2"
+        out: List[Optional[torch.Tensor]] = [None] * len(items)
+        # memo key (the item's index when its predicate has none) ->
+        # the items asking for it
+        todo: Dict[Any, List[int]] = {}
+        for i, (pred, want) in enumerate(items):
+            self.stats[tag + "_calls"] += 1
+            pk = self._pred_keys.get(id(pred))
+            if pk is not None:
+                key = (level, pk, want)
+                got = self._counts.get(key)
+                if got is None and want == "any":
+                    got = self._counts.get((level, pk, "count"))
+                    if got is not None:
+                        got = self._counts[key] = got > 0
+                if got is not None:
+                    self.stats[tag + "_hits"] += 1
+                    out[i] = got
+                    continue
+            else:
+                key = i
+            todo.setdefault(key, []).append(i)
+        keys = list(todo)
+        step = kernels.COUNT_MAX_PREDS if level == 1 else 1
+        for c in range(0, len(keys), step):
+            chunk = keys[c:c + step]
+            first = [items[todo[k][0]] for k in chunk]
+            self.stats[tag + "_issued"] += 1
+            if level == 1:
+                fn = kernels.instance_count_many_plain if self.plain \
+                    else kernels.instance_count_many
+                got = fn([self._row_operand(p) for p, _ in first],
+                         self.scope8(), self.I, [w for _, w in first])
+            else:
+                got = [self._count2(p, w) for p, w in first]
+            for k, g in zip(chunk, got):
+                if isinstance(k, tuple):
+                    self._counts[k] = g
+                for i in todo[k]:
+                    out[i] = g
+        return out
+
+    def _count2(self, rowpred: torch.Tensor, want: str) -> torch.Tensor:
         pred = rowpred.expand(self.N, self.R).contiguous()
-        fn = kernels.instance_count_plain if self.plain \
-            else kernels.instance_count
-        return fn(pred, self.b["scope1"], self._valid, self.I)
-
-    def inst2_count(self, rowpred: torch.Tensor) -> torch.Tensor:
-        pred = rowpred.expand(self.N, self.R).contiguous()
+        s1, s2 = self.b["scope1"], self.b["scope2"]
         if self.plain:
-            return kernels.instance_count_plain(
-                pred, self.b["scope1"], self._valid, self.I, self.b["scope2"])
-        return kernels.instance_count2(pred, self.b["scope1"],
-                                       self.b["scope2"], self._valid, self.I)
+            c = kernels.instance_count_plain(pred, s1, self._valid, self.I, s2)
+        else:
+            c = kernels.instance_count2(pred, s1, s2, self._valid, self.I)
+        return c > 0 if want == "any" else c
 
     # -- pattern matching over byte lanes. Every pattern of a lane
     # family is stepped through the compiled DFA bank (tpu/dfa.py) in
@@ -359,20 +500,21 @@ class Ctx:
         """(accept plane, Dfa) for one bank pattern on one lane family
         — the family's FULL accept tensor is computed once and cached,
         so N patterns on a family cost one scan, not N. None when the
-        pattern is not in the bank."""
+        pattern is not in the bank for that family (a glob then takes
+        the NFA)."""
         bank = self.dfa
         if bank is None:
             return None
-        ids = bank.families.get(family)
         pid = (bank.glob_ids if kind == "glob" else bank.re2_ids).get(pattern)
-        if pid is None or not ids or pid not in ids:
+        col = self._bank_cols.get(family, {}).get(pid)
+        if col is None:
             return None
         key = ("\x00bank", family)
         if key not in self._glob_cache:
             byt, lens = self._family_tensors(family)
-            self._glob_cache[key] = bank_match(bank, ids, byt, lens,
-                                               plain=self.plain)
-        return self._glob_cache[key][..., ids.index(pid)], bank.patterns[pid]
+            self._glob_cache[key] = bank_match(bank, bank.families[family],
+                                               byt, lens, plain=self.plain)
+        return self._glob_cache[key][..., col], bank.patterns[pid]
 
     def _family_nonascii(self, family: str) -> torch.Tensor:
         key = ("\x00nonascii", family)
@@ -390,8 +532,7 @@ class Ctx:
         if got is None:
             if kind == "re2":
                 return None, None  # no bank => caller routes to host
-            byt, lens = self._family_tensors(family)
-            acc = self._glob_match(pattern, byt, lens)
+            acc = self._glob_match(pattern, family)
             if "?" in pattern:
                 # legacy NFA consumes one BYTE per '?': confirm
                 # non-ASCII subjects exactly like the bank path
@@ -406,18 +547,25 @@ class Ctx:
             conf = na if conf is None else (conf | na)
         return acc, conf
 
-    def _glob_match(self, pattern: str, byt: torch.Tensor,
-                    lens: torch.Tensor) -> torch.Tensor:
-        """One glob outside the bank over a lane family (kernel K9; its
-        pattern table is kept per compiled program)."""
-        if self.plain:
-            return kernels.glob_nfa_plain(pattern, byt, lens)
-        key = (str(self.dev), pattern)
-        table = self._glob_tables.get(key)
-        if table is None:
-            table = self._glob_tables[key] = kernels.glob_table(pattern,
-                                                                self.dev)
-        return kernels.glob_nfa(pattern, byt, lens, table)
+    def _glob_match(self, pattern: str, family: str) -> torch.Tensor:
+        """One glob outside the bank over a lane family (kernel K9): a
+        row of the plane of its pack, which is computed once a batch for
+        every NFA-route glob of the family that compile recorded. A glob
+        compile did not record runs as a pack of one, counted in
+        ``stats["nfa_unpacked"]``."""
+        byt, lens = self._family_tensors(family)
+        where = self._nfa.index.get((family, pattern))
+        if where is None:
+            self.stats["nfa_unpacked"] += 1
+            fn = kernels.glob_nfa_plain if self.plain else kernels.glob_nfa
+            return fn(pattern, byt, lens)
+        g, row = where
+        key = ("\x00nfa", family, g)
+        if key not in self._glob_cache:
+            fn = kernels.glob_nfa_pack_plain if self.plain \
+                else kernels.glob_nfa_pack
+            self._glob_cache[key] = fn(self._nfa.packs[family][g], byt, lens)
+        return self._glob_cache[key][row]
 
     def _accept_confirm_cached(self, kind: str, pattern: str, family: str):
         """One (accepts, confirm) pair per (kind, pattern, family) —
@@ -478,35 +626,43 @@ class Depth0:
     def count(self, rowpred: torch.Tensor) -> torch.Tensor:
         return rowpred.sum(dim=-1)
 
+    def many(self, items: Sequence[Tuple[torch.Tensor, str]]
+             ) -> List[torch.Tensor]:
+        return [self.any(p) if w == "any" else self.count(p)
+                for p, w in items]
 
-class InstScope:
+
+class _Counted:
+    """A scope whose reductions are per-instance counts (K3)."""
+
+    level = 0
+
     def __init__(self, ctx: Ctx):
         self.ctx = ctx
 
     def any(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return self.count(rowpred) > 0
+        return self.many([(rowpred, "any")])[0]
 
     def count(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return self.ctx.inst_count(rowpred)
+        return self.many([(rowpred, "count")])[0]
+
+    def many(self, items: Sequence[Tuple[torch.Tensor, str]]
+             ) -> List[torch.Tensor]:
+        """Counts ("count") or their ``> 0`` ("any") of several row
+        predicates, issued together (Ctx.inst_counts)."""
+        return self.ctx.inst_counts(self.level, items)
 
 
-class Inst2Scope:
+class InstScope(_Counted):
+    level = 1
+
+
+class Inst2Scope(_Counted):
     """Second-level instance scope: joins rows by (scope1, scope2) pairs
     for nested arrays-of-maps (containers[].ports[]); reductions land in
     (N, I, J)."""
 
-    def __init__(self, ctx: Ctx):
-        self.ctx = ctx
-
-    def any(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return self.count(rowpred) > 0
-
-    def count(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return self.ctx.inst2_count(rowpred)
-
-
-# ---------------------------------------------------------------------------
-# leaf row predicates (pattern.Validate lowering, pattern.go:26)
+    level = 2
 
 
 # ---------------------------------------------------------------------------
@@ -647,13 +803,12 @@ def eval_node(ctx: Ctx, scope, node: Node) -> torch.Tensor:
 
 def _eval_leaf(ctx: Ctx, scope, node: LeafNode) -> torch.Tensor:
     mask = ctx.rows_at(node.path)
-    exists = scope.any(mask)
-    is_arr = scope.any(mask & ctx.type_is(T_ARR))
     pred = leaf_row_pred(ctx, node.leaf)
-    scalar_ok = scope.any(mask & pred & ~ctx.type_is(T_ARR))
     elem_mask = ctx.rows_at(node.path + (ARRAY_SEG,))
-    n_elem = scope.count(elem_mask)
-    n_ok = scope.count(elem_mask & pred)
+    exists, is_arr, scalar_ok, n_elem, n_ok = scope.many([
+        (mask, "any"), (ctx.typed(mask, T_ARR), "any"),
+        (ctx.typed(mask, T_ARR, neg=True) & pred, "any"),
+        (elem_mask, "count"), (elem_mask & pred, "count")])
     arr_ok = n_elem == n_ok  # every element matches; empty array passes
     ok = torch.where(is_arr, arr_ok, scalar_ok)
     missing = _leaf_missing_cls(node.leaf)
@@ -692,13 +847,22 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
 
 def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
     mask = ctx.rows_at(node.path)
-    exists = scope.any(mask)
-    is_map = scope.any(mask & ctx.type_is(T_MAP))
+    # every reduction of the map and its children that needs no child's
+    # evaluation, issued together: exists, is_map, each anchor's and
+    # phase-2 child's existence, and the non-null of plain '*' children
+    items = [(mask, "any"), (ctx.typed(mask, T_MAP), "any")]
+    items += [(ctx.rows_at(node.path + (a.key,)), "any") for a in node.anchors]
+    for c in node.phase2:
+        cmask = ctx.rows_at(node.path + (c.key,))
+        items.append((cmask, "any"))
+        if c.is_star and not c.is_global:
+            items.append((ctx.typed(cmask, T_NULL, neg=True), "any"))
+    got = iter(scope.many(items))
+    exists, is_map = next(got), next(got)
 
     anchor_cls: List[torch.Tensor] = []
     for a in node.anchors:
-        cpath = node.path + (a.key,)
-        cexists = scope.any(ctx.rows_at(cpath))
+        cexists = next(got)
         if a.kind == "negation":
             cls = torch.where(cexists, FAIL, PASS)
         elif a.kind == "condition":
@@ -723,12 +887,10 @@ def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
 
     p2_cls: List[torch.Tensor] = []
     for c in node.phase2:
-        cpath = node.path + (c.key,)
-        cmask = ctx.rows_at(cpath)
-        cexists = scope.any(cmask)
+        cexists = next(got)
         if c.is_star and not c.is_global:
             # "*" under a plain key: present and non-null (handlers.go:128)
-            non_null = scope.any(cmask & ~ctx.type_is(T_NULL))
+            non_null = next(got)
             cls = torch.where(cexists & non_null, PASS, FAIL)
         elif c.is_global:
             ch = eval_node(ctx, scope, c.child)
@@ -771,8 +933,8 @@ def _eval_array_maps(ctx: Ctx, scope, node: ArrayMapsNode) -> torch.Tensor:
         # nested array-of-maps (containers[].ports[]): join elements by
         # (scope1, scope2); classes land in (N, I, J), reduced over J
         mask = ctx.rows_at(node.path)
-        exists = scope.any(mask)
-        is_arr = scope.any(mask & ctx.type_is(T_ARR))
+        exists, is_arr = scope.many([(mask, "any"),
+                                     (ctx.typed(mask, T_ARR), "any")])
         inst2 = Inst2Scope(ctx)
         valid_i = inst2.any(ctx.rows_at(node.path + (ARRAY_SEG,)))  # (N, I, J)
         elem = eval_node(ctx, inst2, node.element)
@@ -793,11 +955,12 @@ def _eval_array_maps(ctx: Ctx, scope, node: ArrayMapsNode) -> torch.Tensor:
 
 def _eval_array_scalar(ctx: Ctx, scope, node: ArrayScalarNode) -> torch.Tensor:
     mask = ctx.rows_at(node.path)
-    exists = scope.any(mask)
-    is_arr = scope.any(mask & ctx.type_is(T_ARR))
     pred = leaf_row_pred(ctx, node.leaf)
     elem_mask = ctx.rows_at(node.path + (ARRAY_SEG,))
-    all_ok = scope.count(elem_mask) == scope.count(elem_mask & pred)
+    exists, is_arr, n_elem, n_ok = scope.many([
+        (mask, "any"), (ctx.typed(mask, T_ARR), "any"),
+        (elem_mask, "count"), (elem_mask & pred, "count")])
+    all_ok = n_elem == n_ok
     cls = torch.where(all_ok, PASS, FAIL)
     bad = torch.full(cls.shape, FAIL, dtype=torch.int32, device=ctx.dev)
     return torch.where(exists & is_arr, cls, bad)
@@ -1035,7 +1198,7 @@ def _eval_path_vs_dyn_list(ctx: Ctx, pc, op: str, ref: DynValueRef,
         eq = eq_str | eq_num | eq_bool
         if op == "notequals":
             null_or_missing = (~scope.any(mask)) \
-                | scope.any(mask & ctx.type_is(T_NULL))
+                | scope.any(ctx.typed(mask, T_NULL))
             return ~eq & ~null_or_missing, err
         return eq, err
     # membership. value shapes: a real list (t==5), or a STRING that
@@ -1081,13 +1244,13 @@ def _eval_path_vs_dyn_list(ctx: Ctx, pc, op: str, ref: DynValueRef,
     st = pc.states[0]
     is_scalar = scope.any(mask & (ctx.type_is(T_STR) | ctx.type_is(T_NUM)
                                   | ctx.type_is(T_BOOL)))
-    is_arr = scope.any(mask & ctx.type_is(T_ARR))
+    is_arr = scope.any(ctx.typed(mask, T_ARR))
     hit = scope.any(in_set) | raw_eq
     em = ctx.rows_at(prefix + st.segs + (ARRAY_SEG,))
     e_in = _dyn_in_set(ctx, s, em)
     e_any_in = scope.any(e_in)
     e_any_not = scope.any(em & ~e_in)
-    e_nonstr = scope.any(em & ~ctx.type_is(T_STR))
+    e_nonstr = scope.any(ctx.typed(em, T_STR, neg=True))
     if strict and pc is not None:
         # strict array keys vs string values mix decode rules — host
         ctx.host_acc.append(is_arr & (t == 4) & ~err)
@@ -1213,9 +1376,9 @@ def _list_exists(ctx: Ctx, pc: PathCollect, scope, prefix: Tuple[str, ...] = ())
     for segs, kind in pc.array_roots:
         m = ctx.rows_at(prefix + segs)
         if kind == "array":
-            ex = ex | scope.any(m & ctx.type_is(T_ARR))
+            ex = ex | scope.any(ctx.typed(m, T_ARR))
         else:  # mselect: any non-null input yields a literal list
-            ex = ex | scope.any(m & ~ctx.type_is(T_NULL))
+            ex = ex | scope.any(ctx.typed(m, T_NULL, neg=True))
     return ex
 
 
@@ -1239,7 +1402,7 @@ def _scalar_falsy(ctx: Ctx, mask: torch.Tensor, scope) -> torch.Tensor:
     """JMESPath falsy for a scalar path value: missing/null/''/false/
     empty map/empty list."""
     exists = scope.any(mask)
-    null = scope.any(mask & ctx.type_is(T_NULL))
+    null = scope.any(ctx.typed(mask, T_NULL))
     empty_str = scope.any(mask & ctx.type_is(T_STR) & ctx.heq("repr", hash_str("", tag="s")))
     false_b = scope.any(mask & ctx.type_is(T_BOOL) & (ctx.b["bool_val"] == 0))
     empty_cont = scope.any(
@@ -1306,14 +1469,14 @@ def _eval_path_cond(
         sset = [hash_str(l, tag="s") for l in lits if l is not None]
         in_set = ctx.hset("sprint", sset)
         is_scalar = scope.any(mask & (ctx.type_is(T_STR) | ctx.type_is(T_NUM) | ctx.type_is(T_BOOL)))
-        is_arr = scope.any(mask & ctx.type_is(T_ARR))
+        is_arr = scope.any(ctx.typed(mask, T_ARR))
         hit = scope.any(mask & in_set)
         em = ctx.rows_at(prefix + st.segs + (ARRAY_SEG,))
         e_any_in = scope.any(em & in_set)
         e_any_not = scope.any(em & ~in_set)
         # deprecated In/NotIn list-key strictness (in.go:35-43): any
         # non-string element makes the whole condition false
-        e_nonstr = scope.any(em & ~ctx.type_is(T_STR))
+        e_nonstr = scope.any(ctx.typed(em, T_STR, neg=True))
         res = {
             "any_in": torch.where(is_arr, e_any_in, is_scalar & hit),
             "all_in": torch.where(is_arr, ~e_any_not, is_scalar & hit),
@@ -1377,7 +1540,7 @@ def _eval_scalar_eqop(ctx: Ctx, pc: PathCollect, op: str, value: Any,
         return res
     st = pc.states[0]
     mask = ctx.rows_at(prefix + st.segs)
-    null_or_missing = (~scope.any(mask)) | scope.any(mask & ctx.type_is(T_NULL))
+    null_or_missing = (~scope.any(mask)) | scope.any(ctx.typed(mask, T_NULL))
     return ~res & ~null_or_missing
 
 
@@ -1387,7 +1550,7 @@ def _default_falsy(ctx: Ctx, pc: PathCollect, mask: torch.Tensor,
     falsy value; not_null() on null/missing only."""
     if pc.default_null_only:
         exists = scope.any(mask)
-        null = scope.any(mask & ctx.type_is(T_NULL))
+        null = scope.any(ctx.typed(mask, T_NULL))
         return (~exists) | null
     return _scalar_falsy(ctx, mask, scope)
 
@@ -1818,7 +1981,7 @@ def _eval_foreach_deny(
             bad = arr_rows & ~ctx.type_is(T_ARR) & ~ctx.type_is(T_NULL)
             bad = bad | (elem_rows & ctx.type_is(T_ARR))
             host = host | bad.any(dim=-1)
-            nonnull_i = inst.any(elem_rows & ~ctx.type_is(T_NULL))  # (N, I)
+            nonnull_i = inst.any(ctx.typed(elem_rows, T_NULL, neg=True))  # (N, I)
             den_i, err_i = eval_cond_tree(ctx, fe.tree, inst, arr + (ARRAY_SEG,))
             den_i = den_i & nonnull_i
             err_i = err_i & nonnull_i
@@ -1968,7 +2131,9 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
                   dfa: Optional[DfaBank] = None,
                   plain: bool = False,
                   verdicts_u8: bool = False,
-                  with_counts: bool = True) -> Callable:
+                  with_counts: bool = True,
+                  nfa_globs: Optional[Dict[str, List[str]]] = None
+                  ) -> Callable:
     """Returns fn(batch dict of tensors) -> ((num_rules, N) int32 table,
     (num_rules, NUM_VERDICT_CLASSES) int32 counts) — the reference's
     ``build_program(..., with_counts=True)``. The counts are kernel K4
@@ -1977,16 +2142,24 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     same pass as the counts (the background scan's step,
     kyverno_tpu/parallel/sharding.py:101-111). With ``with_counts``
     False it returns the int32 table alone (the mutate bank's triage
-    program). Dense and vocabulary (``row_idx``) batches both run."""
+    program). Dense and vocabulary (``row_idx``) batches both run.
+    ``nfa_globs`` holds each lane family's globs the bank refused (the
+    compiler's record, ``CompiledPolicySet.nfa_globs``): K9 runs each
+    family's in one packed launch a batch. The returned function's
+    ``stats`` sums its runs' Ctx counters (``STAT_KEYS``)."""
 
     hash_consts: Dict[Any, torch.Tensor] = {}
-    glob_tables: Dict[Any, torch.Tensor] = {}
+    bank_cols = bank_columns(dfa)
+    nfa = NfaPacks(nfa_globs or {})
+    stats = dict.fromkeys(STAT_KEYS, 0)
 
     def run(batch: Dict[str, torch.Tensor]):
         ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
-                  plain=plain, hash_consts=hash_consts,
-                  glob_tables=glob_tables)
+                  plain=plain, hash_consts=hash_consts, nfa=nfa,
+                  bank_cols=bank_cols)
         outs = [eval_rule(ctx, p).to(torch.int32) for p in programs]
+        for k, v in ctx.stats.items():
+            stats[k] += v
         if not outs:
             table = torch.zeros((0, ctx.N), dtype=torch.int32, device=ctx.dev)
         else:
@@ -2000,4 +2173,5 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
             else kernels.verdict_counts(table)
         return table, counts
 
+    run.stats = stats  # the Ctx counters (STAT_KEYS) of all its runs
     return run

@@ -66,6 +66,46 @@ def test_instance_count_kernel_equals_plain(cuda):
                        kernels.instance_count_plain(pred, s1, valid, I, s2))
 
 
+@pytest.mark.parametrize("R", [256, 200, 37])
+@pytest.mark.parametrize("I", [4, 16, 33, 64])
+def test_instance_count_many_kernel_equals_plain(cuda, I, R):
+    """1 to 8 predicates a launch (contiguous, strided, unaligned and
+    broadcast; count, any and mixed) on hazard scopes. R = 37 and the
+    unaligned predicate take the byte loads; at R = 200 a warp's last
+    lanes hold no row."""
+    g = torch.Generator().manual_seed(I + R)
+    N = 1001
+    valid = torch.rand((N, R), generator=g) < 0.8
+    s1 = torch.randint(-1, I + 3, (N, R), generator=g, dtype=torch.int32)
+    wide = torch.rand((N, R + 8), generator=g) < 0.4
+    row = torch.rand((1, R), generator=g) < 0.5
+    full = [torch.rand((N, R), generator=g) < q for q in (0.5, 0.02, 0.9)]
+    full += [torch.ones((N, R), dtype=torch.bool),
+             torch.zeros((N, R), dtype=torch.bool)]
+
+    def views(w, r, f):  # strided, unaligned, broadcast, contiguous
+        return [w[:, :R], w[:, 3:R + 3], r.expand(N, R)] + f
+
+    preds = views(wide, row, full)
+    dpreds = views(wide.to(cuda), row.to(cuda), [f.to(cuda) for f in full])
+    assert dpreds[2].stride(0) == 0 and dpreds[0].stride(0) == R + 8
+    sc = kernels.scope8(s1, valid, I)
+    dsc = sc.to(cuda)
+    for P in range(1, 9):
+        for want in ("count", "any",
+                     ["any" if q % 2 else "count" for q in range(P)]):
+            kernels.reset_launches()
+            got = kernels.instance_count_many(dpreds[:P], dsc, I, want)
+            assert kernels.LAUNCHES["instance_count"] == 1
+            ref = kernels.instance_count_many_plain(preds[:P], sc, I, want)
+            for a, b in zip(got, ref):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    one = kernels.instance_count(full[0].to(cuda), s1.to(cuda),
+                                 valid.to(cuda), I)
+    assert torch.equal(one.cpu(),
+                       kernels.instance_count_plain(full[0], s1, valid, I))
+
+
 def test_verdict_counts_kernel_equals_plain(cuda):
     g = torch.Generator().manual_seed(4)
     table = torch.randint(0, 7, (66, 5000), generator=g, dtype=torch.int32)
@@ -270,6 +310,55 @@ def test_glob_nfa_kernel_equals_plain(cuda, pattern, lead):
     assert int(want.sum()) > 0
 
 
+@pytest.mark.parametrize("lead", [(3000,), (300, 11)])
+def test_glob_nfa_pack_kernel_equals_plain(cuda, lead):
+    """GLOB_PATTERNS in packs of 1 to 32 64-bit state words, one launch
+    a pack, over subjects of every pattern with hostile lengths."""
+    parts = [_glob_subjects(p, (lead[0] // 3,), seed=i)
+             for i, p in enumerate(GLOB_PATTERNS[::3])]
+    B = max(b.shape[-1] for b, _ in parts)
+    byt = torch.cat([torch.nn.functional.pad(b, (0, B - b.shape[-1]))
+                     for b, _ in parts])
+    lens = torch.cat([ln for _, ln in parts])
+    n = byt.shape[0] - byt.shape[0] % int(np.prod(lead[1:], dtype=int))
+    byt = byt[:n].reshape((-1,) + tuple(lead[1:]) + (B,)).contiguous()
+    lens = lens[:n].reshape((-1,) + tuple(lead[1:])).contiguous()
+    packs = kernels.glob_packs(GLOB_PATTERNS)
+    assert [p.nw for p in packs] == [1, 2, 8, 32]
+    for pack in packs:
+        kernels.reset_launches()
+        got = kernels.glob_nfa_pack(pack, byt.to(cuda), lens.to(cuda))
+        assert kernels.LAUNCHES["glob_nfa"] == 1
+        assert torch.equal(got.cpu(),
+                           kernels.glob_nfa_pack_plain(pack, byt, lens))
+
+
+def test_glob_nfa_pack_tiles_patterns_past_shared_memory(cuda):
+    """1,250 tenant globs of 64-bit words do not fit one block's shared
+    memory: the pattern tiles over the grid's second axis give the plain
+    twin's answers."""
+    globs = [f"tenant-{i:05d}-*-production-east-zone" for i in range(1150)] + [
+        f"t{i:03d}-??-*-production-east-zone" for i in range(100)]
+    pack = kernels.GlobPack(globs)
+    assert pack.nw == 1
+    assert len(pack.patterns) * pack.classes * 8 > 200 * 1024
+    rng = random.Random(3)
+    names = [(f"tenant-{rng.randrange(1250):05d}-x{'é' if i % 50 == 0 else ''}"
+              f"-production-east-zone" if i % 3 else
+              f"t{rng.randrange(100):03d}-ab--production-east-zone"
+              ).encode()[:64] for i in range(2048)]
+    byt = torch.zeros((2048, 64), dtype=torch.uint8)
+    for i, nm in enumerate(names):
+        byt[i, :len(nm)] = torch.tensor(list(nm), dtype=torch.uint8)
+    lens = torch.tensor([len(nm) for nm in names], dtype=torch.int32)
+    lens[:3] = torch.tensor([-1, 0, 70], dtype=torch.int32)
+    kernels.reset_launches()
+    got = kernels.glob_nfa_pack(pack, byt.to(cuda), lens.to(cuda))
+    assert kernels.LAUNCHES["glob_nfa"] == 1
+    want = kernels.glob_nfa_pack_plain(pack, byt.to(cuda), lens.to(cuda))
+    assert torch.equal(got, want) and int(got.sum()) > 0
+
+
 def test_glob_nfa_kernel_pattern_longer_than_subjects(cuda):
     """More non-'*' characters than bytes: all False, no launch."""
     byt, lens = _glob_subjects("ab", (64,), seed=1)
@@ -319,3 +408,31 @@ def test_tenant_overflow_on_the_card_equals_cpu(cuda, monkeypatch):
     tri = eng.triage_mutate(res)
     assert kernels.LAUNCHES["glob_nfa"] > 0
     assert np.array_equal(tri.verdicts, cpu.triage_mutate(res).verdicts)
+
+
+def test_tenant_overflow_packs_one_launch_per_family(cuda, monkeypatch):
+    """With the bank lowered, the tenant scan's program runs its NFA
+    globs in one K9 launch per lane family (namespace and name), and
+    asks for no glob outside its packs."""
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+
+    monkeypatch.setattr(tdfa, "MAX_BANK_STATES", 200)
+    globs = [f"tenant-{i:03d}-*-prod" for i in range(40)]
+    pol = ClusterPolicy.from_dict({
+        "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+        "metadata": {"name": "tenant"},
+        "spec": {"validationFailureAction": "Enforce", "rules": [
+            {"name": "require-team",
+             "match": {"resources": {"kinds": ["Pod"], "namespaces": globs}},
+             "validate": {"pattern": {"metadata": {"labels": {"team": "?*"}}}}}]}})
+    eng = TorchEngine([pol])
+    res = [{"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"p{i}", "namespace": f"tenant-0{i:02d}-a-prod"},
+            "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
+           for i in range(50)]
+    kernels.reset_launches()
+    got = eng.scan_device(res)
+    assert kernels.LAUNCHES["glob_nfa"] == 2
+    assert eng.cps.device_fn().stats["nfa_unpacked"] == 0
+    want = TorchEngine(cps=eng.cps, device="cpu").scan_device(res)
+    assert np.array_equal(got[0], want[0])

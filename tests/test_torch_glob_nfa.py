@@ -194,6 +194,116 @@ def test_kernel_bitset_model_equals_reference(pattern):
         assert bits & 1 == 0 and bits >> (m + 1) == 0
 
 
+def _pack_model(pack, byt, lens):
+    """The packed kernel's arithmetic on Python integers: each byte
+    through the pack's class map to its pattern's class row, the '*'
+    row last, stepped as csrc/glob_nfa.cu steps it -> (P, ...) bool."""
+    tables = pack.tables.view(np.uint64)
+    B = byt.shape[-1]
+    flat_b, flat_l = byt.reshape(-1, B), lens.reshape(-1)
+    out = np.zeros((len(pack.patterns), flat_l.shape[0]), bool)
+    for p in range(len(pack.patterns)):
+        rows = [sum(int(w) << (64 * k) for k, w in enumerate(r))
+                for r in tables[p]]
+        star, m = rows[-1], int(pack.ms[p])
+        for s in range(flat_l.shape[0]):
+            n = int(flat_l[s])
+            if n < 0 or n > B:
+                continue
+            dp = 1 | (2 & star)
+            for w in range(n):
+                t = rows[pack.cmap[flat_b[s, w]]]
+                dp = ((dp << 1) & t) | (dp & star)
+                dp |= (dp << 1) & star
+                if not dp:
+                    break
+            out[p, s] = bool(dp >> m & 1)
+    return out.reshape((len(pack.patterns),) + lens.shape)
+
+
+def _shared_subjects(patterns, per, seed):
+    """Each pattern's ``_subjects`` (instances, noise, hostile lengths),
+    zero-padded to one width and stacked."""
+    parts = [_subjects(p, (per,), seed + i) for i, p in enumerate(patterns)]
+    B = max(b.shape[-1] for b, _ in parts)
+    byt = np.concatenate([np.pad(b, ((0, 0), (0, B - b.shape[-1])))
+                          for b, _ in parts])
+    return byt, np.concatenate([ln for _, ln in parts])
+
+
+def test_packs_equal_reference():
+    """PATTERNS fall into packs of 1, 2 and 8 64-bit state words; each
+    pack's class-compressed tables (the kernel's arithmetic), its plain
+    twin and the pack of one equal the reference per pattern."""
+    packs = kernels.glob_packs(PATTERNS)
+    assert [p.nw for p in packs] == [1, 2, 8]
+    assert sorted(q for p in packs for q in p.patterns) == sorted(PATTERNS)
+    byt, lens = _shared_subjects(PATTERNS, 6, seed=11)
+    tb, tl = torch.from_numpy(byt), torch.from_numpy(lens)
+    for pack in packs:
+        model = _pack_model(pack, byt, lens)
+        plane = kernels.glob_nfa_pack(pack, tb, tl)
+        assert plane.dtype == torch.bool
+        assert tuple(plane.shape) == (len(pack.patterns),) + lens.shape
+        assert np.array_equal(kernels.glob_nfa_pack_plain(pack, tb, tl)
+                              .numpy(), plane.numpy())
+        for row, pattern in enumerate(pack.patterns):
+            want = np.asarray(jev.glob_match(pattern, jnp.asarray(byt),
+                                             jnp.asarray(lens)))
+            assert np.array_equal(model[row], want), pattern
+            assert np.array_equal(plane[row].numpy(), want), pattern
+            assert np.array_equal(kernels.glob_nfa(pattern, tb, tl).numpy(),
+                                  want)
+
+
+def test_pack_class_map():
+    """Literal bytes (ord(c) & 0xFF, NUL included) get a class each, NUL
+    one of its own, every other byte the "no literal" class; a table row
+    is the pattern's full-table row at a byte of its class."""
+    pack = kernels.GlobPack(["ab?", "\x00*b", "中?"])
+    lits = {ord("a"), ord("b"), 0, ord("中") & 0xFF}
+    assert pack.classes == 1 + len(lits) + 1  # "no literal", literals, '*'
+    full = [kernels.glob_table(p, "cpu").numpy().view(np.uint64)
+            for p in pack.patterns]
+    for c in range(256):
+        k = int(pack.cmap[c])
+        same = [d for d in range(256) if pack.cmap[d] == k]
+        assert (c in lits) == (same == [c])
+        for p, f in enumerate(full):
+            assert np.array_equal(pack.tables.view(np.uint64)[p, k], f[c])
+    for p, f in enumerate(full):
+        assert np.array_equal(pack.tables.view(np.uint64)[p, -1], f[256])
+    # the kernel's operands: the class map, the tables as 64-bit words
+    cmap, words, ms = pack.on("cpu")
+    assert np.array_equal(cmap.numpy(), pack.cmap)
+    assert words.dtype == torch.int64
+    assert np.array_equal(words.numpy().view(np.uint64),
+                          pack.tables.view(np.uint64))
+    assert np.array_equal(ms.numpy(), [3, 3, 2])
+
+
+def test_unrecorded_glob_runs_as_a_pack_of_one():
+    """A glob asked on a family whose packs do not hold it still runs (a
+    pack of one, counted); a recorded one reads its pack's row."""
+    patterns = ["a*b?c*", "*-prod", "?" * 64]
+    byt, lens = _shared_subjects(patterns, 8, seed=3)
+    lane, len_lane = tev.Ctx._FAMILY_LANES["ns"]
+    N = byt.shape[0]
+    batch = {"norm_hi": np.zeros((N, 1), np.uint32),
+             "valid": np.ones((N, 1), np.uint8), lane: byt, len_lane: lens}
+    nfa = tev.NfaPacks({"ns": patterns[:2] + patterns[2:], "name": ["x*"]})
+    assert [p.nw for p in nfa.packs["ns"]] == [1, 2]
+    tctx = tev.Ctx(lanes_to_device(batch, "cpu"), 4, nfa=nfa)
+    for pattern in patterns + ["tenant-0*-*-prod"]:
+        got = tctx.glob_meta(pattern, "ns")
+        want = np.asarray(jev.glob_match(pattern, jnp.asarray(byt),
+                                         jnp.asarray(lens)))
+        assert np.array_equal(got.numpy(), want)
+    assert tctx.stats["nfa_unpacked"] == 1
+    assert ("\x00nfa", "ns", 0) in tctx._glob_cache
+    assert ("\x00nfa", "ns", 1) in tctx._glob_cache
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_one_pass_closure_equals_reference_loop(seed):
     rng = np.random.default_rng(seed)
@@ -302,3 +412,19 @@ def test_tenant_scan_equals_reference(small_bank, seed):
     assert got.rules == want.rules
     assert np.array_equal(got.verdicts, want.verdicts)
     assert (got.verdicts == tev.CONFIRM).any()
+
+
+def test_tenant_program_packs_its_nfa_globs(small_bank):
+    """The compiler records each program's NFA-route globs: the validate
+    and the mutate program pack exactly the tenant globs the bank left
+    out, on the namespace and name families, and their runs ask for no
+    other glob."""
+    jeng, teng = tenant_engines()
+    outside = [g for g in TENANT_GLOBS if g not in teng.cps.dfa.glob_ids]
+    for globs in (teng.cps.nfa_globs, teng.cps.mutate_nfa_globs):
+        assert globs == {"ns": outside, "name": outside}
+    resources = tenant_resources(2)
+    teng.scan_device(resources)
+    teng.triage_mutate(resources)
+    assert teng.cps.device_fn().stats["nfa_unpacked"] == 0
+    assert teng.cps.mutate_device_fn().stats["nfa_unpacked"] == 0
