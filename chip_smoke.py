@@ -406,64 +406,153 @@ def check_dfa(torch, kernels, dfa_mod, pool, pool_len, seed, results):
                 if not bank.stats()["approx"]:
                     raise AssertionError("approximated bank has no "
                                          "approximated pattern")
-            tabs = dfa_mod.device_tables(bank, dev)
             ids = [i for i in bank.families["pool"]
                    if int(bank.strides[i]) == stride]
             if not ids:
                 raise AssertionError(f"{label} bank: no pattern at stride {stride}")
-            idx = torch.as_tensor(ids, dtype=torch.int64, device=dev)
-            if stride == 1:
-                args = (b, ln, tabs["trans"], int(bank.trans.shape[1]),
-                        tabs["class_map"][idx].contiguous(),
-                        tabs["start"][idx].contiguous(), tabs["accept"])
-                kfn, pfn, name = (kernels.dfa_scan_stride1,
-                                  kernels.dfa_scan_stride1_plain,
-                                  "dfa_scan_stride1")
-            else:
-                args = (b, ln, tabs["fused_trans"], tabs["fused_pairs"],
-                        tabs["fused_start"][idx].contiguous(),
-                        tabs["fused_accept"], int(bank.fused_pitch),
-                        2 if stride == 4 else 1)
-                kfn, pfn, name = (kernels.dfa_scan_fused,
-                                  kernels.dfa_scan_fused_plain,
-                                  "dfa_scan_fused")
-            got, na = kfn(*args, want_nonascii=True)
-            want = pfn(*args)
+            (tiles,) = dfa_mod.scan_groups(bank, ids, dev)
+            kfn, name = k1_entry(kernels, tiles)
+            out = torch.empty((b.shape[0], len(ids)), dtype=torch.bool,
+                              device=dev)
+            got, na = kfn(b, ln, tiles, out, want_nonascii=True)
+            want = tiles.plain_scan(b, ln)
             err = exact(torch, f"{name} {label} stride {stride}", got, want)
             err = max(err, exact(torch, f"nonascii {label} stride {stride}",
                                  na, kernels.nonascii_plain(b, ln)))
             say("3", f"K1 {name} {label} bank stride {stride}: "
                      f"{tuple(got.shape)} accepts, {int(got.sum())} hits, "
-                     f"{int(na.sum())} non-ASCII subjects, max abs err {err}")
+                     f"{int(na.sum())} non-ASCII subjects, max abs err {err}; "
+                     + k1_layout(tiles, b))
             # time each entry at the main path's own configuration: the
             # compiled PSS bank (stride 4) and its stride-1 build
             if label == "pss" and stride in (4, 1):
-                # the least work this run's data needs: the scan stops
-                # after ceil(min(len, W) / 2) pairs (stride 4) or
-                # min(len, W) bytes (stride 1), and bytes past that
-                # cannot change the result, so only live bytes count
-                S = b.shape[0]
                 K = len(ids)
-                live = torch.clamp(ln, 0, W).to(torch.int64)
-                if stride == 4:
-                    steps = int(((live + 1) // 2).sum())
-                    live_bytes = 2 * steps
-                    table_bytes = (tabs["fused_trans"].numel() * 4 + 4096
-                                   + tabs["fused_accept"].numel())
-                else:
-                    steps = int(live.sum())
-                    live_bytes = steps
-                    table_bytes = (tabs["trans"].numel() * 4 + K * 256
-                                   + tabs["accept"].numel())
-                nbytes = S * 4 + S * K + live_bytes + table_bytes + K * 4
+                nbytes, steps, table_bytes = k1_work(torch, tiles, b, ln)
                 results[name] = {
                     "max_abs_err": err,
-                    **timed(torch, lambda: kfn(*args), lambda: pfn(*args)),
+                    **timed(torch, lambda: kfn(b, ln, tiles, out),
+                            lambda: tiles.plain_scan(b, ln)),
                     "bound": bound(nbytes, steps * K * 4),
                 }
-                say("3", f"K1 {name} bound inputs: {S} subjects, "
-                         f"{live_bytes} live bytes, {steps * K} steps, "
-                         f"{table_bytes} table bytes")
+                say("3", f"K1 {name} bound inputs: {b.shape[0]} subjects, "
+                         f"{steps * K} steps, {table_bytes} table bytes")
+
+
+def k1_entry(kernels, tiles):
+    """K1's wrapper for a stride group's tiles, and its name."""
+    if tiles.kind == "stride1":
+        return kernels.dfa_scan_stride1, "dfa_scan_stride1"
+    return kernels.dfa_scan_fused, "dfa_scan_fused"
+
+
+def k1_layout(tiles, b):
+    """The tiles and the grid of a K1 launch over subjects ``b``."""
+    S, W = b.shape
+    chunk = tiles.chunk(S, W, b.device)
+    flags = tiles.tiles[:, 3].cpu()
+    return (f"{tiles.n_tiles} tiles ({int((flags & 2).sum())} in global "
+            f"memory, {int((flags & 1).sum())} wide) of "
+            f"{int(tiles.blob.numel())} bytes, the largest staged "
+            f"{tiles.smem_tile}; grid ({-(-S // chunk)}, {tiles.n_tiles}), "
+            f"{chunk} subjects a chunk, {tiles.smem} bytes of shared memory")
+
+
+def check_dfa_tenant(torch, kernels, dfa_mod, bank, lanes, results):
+    """K1 where most of its launches run: the tenant bank's ``ns`` and
+    ``name`` families (3,000 patterns, 59,993 states) over the tenant
+    batch's namespace and name lanes, at the scan shape (every row)
+    and at the triage shape (the first 1,024 rows), both entries held
+    exactly against their plain twins and timed."""
+    dev = lanes["meta_ns_bytes"].device
+    rows = []
+    for family in ("ns", "name"):
+        byt = lanes[f"meta_{family}_bytes"]
+        ln = lanes[f"meta_{family}_len"]
+        ids = bank.families[family]
+        # the whole family, both groups writing the plane in place
+        err = exact(torch, f"bank_match tenant {family}",
+                    dfa_mod.bank_match(bank, ids, byt, ln),
+                    dfa_mod.bank_match(bank, ids, byt, ln, plain=True))
+        say("3", f"K1 bank_match tenant {family} ({len(ids)} patterns, "
+                 f"{byt.shape[0]} subjects): equal to the plain twins, max "
+                 f"abs err {err}")
+        for stride in (1, 4):
+            sub = [i for i in ids if int(bank.strides[i]) == stride]
+            (tiles,) = dfa_mod.scan_groups(bank, sub, dev)
+            kfn, name = k1_entry(kernels, tiles)
+            for shape, n in (("scan", byt.shape[0]),
+                             ("triage", min(1024, byt.shape[0]))):
+                b, l = byt[:n].contiguous(), ln[:n].contiguous()
+                out = torch.empty((n, len(sub)), dtype=torch.bool, device=dev)
+                got = kfn(b, l, tiles, out)[0]
+                err = exact(torch, f"{name} tenant {family} {shape}", got,
+                            tiles.plain_scan(b, l))
+                nbytes, steps, table_bytes = k1_work(torch, tiles, b, l)
+                row = {"name": name, "family": family, "shape": shape,
+                       "K": len(sub), "S": n, "W": b.shape[1],
+                       "steps": steps * len(sub), "table_bytes": table_bytes,
+                       "max_abs_err": err,
+                       **timed(torch, lambda: kfn(b, l, tiles, out),
+                               lambda: tiles.plain_scan(b, l),
+                               plain_eager=True),
+                       "bound": bound(nbytes, steps * len(sub) * 4),
+                       "chunk_ms": k1_chunk_sweep(torch, kernels, kfn, tiles,
+                                                  b, l, out)}
+                rows.append(row)
+                say("3", f"K1 {name} tenant {family} {shape}: K {len(sub)}, "
+                         f"S {n}, W {b.shape[1]}, steps {steps * len(sub)}, "
+                         f"table bytes {table_bytes}; "
+                         + k1_layout(tiles, b))
+                say("3", f"K1 {name} tenant {family} {shape}: "
+                         f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}),"
+                         f" plain {row['plain_ms']:.4f} ms, bound "
+                         f"{row['bound'][0]:.6f} ms ({row['bound'][1]}), "
+                         f"{int(got.sum())} hits, max abs err {err}")
+                say("3", f"K1 {name} tenant {family} {shape}: chunks a tile"
+                         f" -> ms (the wrapper's rule: "
+                         f"{-(-n // tiles.chunk(n, b.shape[1], dev))}): "
+                         + ", ".join(
+                             f"{c}: {ms:.4f}"
+                             for c, ms in row["chunk_ms"].items()))
+    results["dfa_tenant"] = rows
+
+
+def k1_chunk_sweep(torch, kernels, kfn, tiles, b, ln, out):
+    """K1's device time over ``b`` with the subjects of each tile split
+    into 1, 2, 3, 4, 8, 16, 32 and 64 chunks and the wrapper's own count
+    (while a chunk keeps ``kernels.DFA_MIN_CHUNK`` subjects):
+    {chunks: ms}."""
+    S, W = b.shape
+    own = -(-S // tiles.chunk(S, W, b.device))
+    sweep = {}
+    try:
+        for c in sorted({1, 2, 3, 4, 8, 16, 32, 64, own}):
+            if c > 1 and -(-S // c) < kernels.DFA_MIN_CHUNK:
+                break
+            tiles.chunk = lambda S, W, device, c=c: -(-S // c)
+            sweep[c] = graph_ms(torch, lambda: kfn(b, ln, tiles, out))
+    finally:
+        del tiles.chunk
+    return sweep
+
+
+def k1_work(torch, tiles, b, ln):
+    """The least work K1 needs on these subjects: (bytes moved, steps
+    per pattern, table bytes). The tables are the group's packed tiles,
+    their directory and (fused) the 4 KB pair map, each read once. The
+    scan stops after ceil(min(len, W) / 2) pairs (fused) or min(len, W)
+    bytes (stride 1), and bytes past that cannot change the result, so
+    only live bytes count, beside the lengths and the (S, K) output."""
+    S, W = b.shape
+    live = torch.clamp(ln, 0, W).to(torch.int64)
+    table_bytes = tiles.blob.numel() + tiles.tiles.numel() * 4
+    if tiles.kind == "stride1":
+        steps = int(live.sum())
+    else:
+        steps = int(((live + 1) // 2).sum())
+        table_bytes += 4096
+    nbytes = S * 4 + S * tiles.cols.numel() + int(live.sum()) + table_bytes
+    return nbytes, steps, table_bytes
 
 
 def check_instance_count(torch, kernels, lanes, n_inst, seed, results):
@@ -1688,6 +1777,8 @@ def main() -> int:
     check_vocab_kernels(torch, kernels, dfa_mod, scanner, tile_lanes,
                         args.seed + 5, results)
     check_glob_nfa(torch, kernels, tenant_lanes, nfa, args.seed + 6, results)
+    check_dfa_tenant(torch, kernels, dfa_mod, tenant.cps.dfa, tenant_lanes,
+                     results)
     del lanes, tile_lanes, tenant_lanes
 
     # phase 4: the dense path through the user's entry point
@@ -1725,6 +1816,19 @@ def main() -> int:
                  + ", ".join(f"{p} {k}" for p, k in per.items()) + f" {tag}")
         if n_launch <= 0:
             raise AssertionError(f"{name} was launched on no path")
+    # K1 at the tenant bank's shapes, beside the rows above
+    by_name = {e["name"]: e for e in out}
+    for r in results["dfa_tenant"]:
+        b_ms, b_by = r["bound"]
+        by_name[r["name"]].setdefault("tenant_shapes", []).append({
+            k: r[k] for k in ("family", "shape", "K", "S", "W", "steps",
+                              "table_bytes", "ms", "eager_ms", "plain_ms",
+                              "chunk_ms")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
+        say("6", f"{r['name']} tenant {r['family']} {r['shape']} (K "
+                 f"{r['K']}, S {r['S']}): {r['ms']:.4f} ms (eager "
+                 f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                 f"bound {b_ms:.6f} ms ({b_by}) {tag}")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,60 @@
 // K1 dfa_scan: the DFA bank scan over padded byte lanes.
 //
-// Replaces kyverno_tpu/tpu/dfa.py:_scan_fused (stride 2/4, the fused
-// premultiplied pad-extended table), dfa.py:_scan_stride1 (one byte per
-// step) and dfa.py:nonascii_mask, with the accept lookup of
-// dfa.py:bank_match folded into the epilogue.
+// Replaces kyverno_tpu/tpu/dfa.py:_scan_stride1 (one byte per step),
+// dfa.py:_scan_fused (stride 2/4, the fused premultiplied pad-extended
+// table) and dfa.py:nonascii_mask, with the accept lookup and the
+// column order of dfa.py:bank_match folded into the epilogue.
 //
-// Design: one thread per (subject, pattern) pair, pattern fastest, so
-// the K threads of one subject read the same bytes. The 1024-entry
-// pair map lives in shared memory; the transition table (at most
-// MAX_BANK_STRIDE_ENTRIES = 8M int32 = 32 MiB) is read from global
-// memory and stays resident in the 50 MB L2. The state walks in a
-// register. Each step is a data-dependent gather, so the scan is
-// bounded by gather latency, not by the bytes it reads: only the live
-// bytes of each subject (up to min(len, W)) are read, the tables are
-// small.
+// What bounds it: every step is one data-dependent table gather, so the
+// scan is bound by the latency and throughput of the memory that serves
+// that gather, not by the bytes it reads. A bank holds thousands of
+// patterns (a tenant set: 3,000 patterns, 60,000 states); read from
+// global memory, a warp's 32 lanes would gather from 32 patterns' tables
+// and cost one L2 sector each a step.
 //
-// The column index is the reference's: byte + 256 * (pos >= min(len, W)),
-// window padding counts as byte 0 with the pad flag. A pair whose two
-// positions are both pad is the identity column ((pad, pad) freezes the
-// state, dfa.py finalize), so the loop stops after ceil(min(len, W) / 2)
-// pairs; the skipped steps could not change the state.
+// Design: the patterns of one stride group are packed on the host
+// (kernels.py:pack_stride1 / pack_fused) into tiles that fit shared
+// memory, with pattern-local state ids. The grid is (subject chunk,
+// tile). A block copies its tile into shared memory once, then walks
+// every (subject, pattern) pair of its chunk with each table read on
+// chip. Pairs are numbered pattern fastest, so the lanes of a warp
+// share a subject: its length keeps them in step and its bytes are one
+// broadcast read, a word at a time through L1 (the wrapper hands over
+// rows of ld bytes, a multiple of 4 and at least W, from a 4-byte
+// aligned base), and a fused lane folds each byte pair into its column
+// (pairs[b0] + pairs[512 + b1], the map in shared memory) as it steps.
+// Staging each group of subjects'
+// bytes, or their pair-column streams, in shared memory first measured
+// slower on an H100: every group cost a round of dependent global
+// loads and three barriers (PERF.md, Findings).
+//
+// A tile (16-byte aligned, a multiple of 16 bytes) begins with four
+// int32 fields per pattern, field-major (f[i * P + k]), so the lanes'
+// reads of one field are consecutive words:
+//   stride 1: f0 rows offset, f1 accept offset, f2 n_classes | start
+//             << 16, f3 output column; then the class maps at a
+//             260-byte pitch (65 words: 32 patterns' maps fall in 32
+//             banks); then each pattern's (states x classes) rows of
+//             local ids (uint8, or uint16 past 256 states) and its
+//             accept bytes.
+//   fused:    f0 table offset, f1 accept offset, f2 local premultiplied
+//             start, f3 output column; then each pattern's (states x
+//             pitch) table of local premultiplied ids (uint16, or int32
+//             past 65,536 entries) and its accept bytes.
+// The directory holds (blob offset, bytes, patterns, flags) a tile;
+// flag 1 marks the wide entry type and flag 2 a tile too large for
+// shared memory, read in place from global memory by the same code.
+// The layout's constants are kernels.py's _CM_PITCH, _TILE_WIDE and
+// _TILE_GLOBAL; its tile budgets fit kMaxSmem.
+//
+// The arithmetic is the reference's. Stride 1: state = rows[state * C +
+// cm[byte]] for each byte below min(len, W). Fused: the column of pair p
+// is pairs[b0] + pairs[512 + b1] with the pad flag (bit 8) set on bytes
+// at or past min(len, W); a (pad, pad) pair is the identity (dfa.py
+// finalize), so the walk stops after the ceil(min(len, W) / 2) live
+// pairs (a word read may add one identity pair) and stride 4's chain
+// (which only pads the window) needs no code; the accept is
+// accept[state / pitch]. A subject of length 0 takes no step.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kyverno_tpu_torch/kernels.py does this).
@@ -29,6 +64,12 @@
 
 namespace {
 
+constexpr int kThreads = 1024;
+constexpr int kCmPitch = 260;
+constexpr int kWide = 1;
+constexpr int kGlobal = 2;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
+
 __device__ __forceinline__ bool any_nonascii(const uint8_t* b, int lim) {
   for (int w = 0; w < lim; ++w) {
     if (b[w] >= 0x80) return true;
@@ -36,88 +77,228 @@ __device__ __forceinline__ bool any_nonascii(const uint8_t* b, int lim) {
   return false;
 }
 
-__global__ void dfa_scan_fused_kernel(
-    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
-    long long n_subj, int W, const int32_t* __restrict__ trans,
-    const int32_t* __restrict__ pairs_g, const int32_t* __restrict__ starts,
-    const uint8_t* __restrict__ accept, int K, int pitch,
-    uint8_t* __restrict__ out, uint8_t* __restrict__ nonascii) {
-  __shared__ int32_t pairs[1024];
-  for (int i = threadIdx.x; i < 1024; i += blockDim.x) pairs[i] = pairs_g[i];
-  __syncthreads();
-  const int Kt = K > 0 ? K : 1;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_subj * Kt) return;
-  const long long s = t / Kt;
-  const int k = (int)(t % Kt);
-  const uint8_t* b = bytes + s * (long long)W;
-  const int len = lens[s];
-  const int lc = len < W ? len : W;
-  if (nonascii != nullptr && k == 0) nonascii[s] = any_nonascii(b, lc) ? 1 : 0;
-  if (K == 0) return;
-  int state = starts[k];
-  const int live_pairs = lc > 0 ? (lc + 1) / 2 : 0;
-  for (int p = 0; p < live_pairs; ++p) {
-    const int p0 = 2 * p;
-    const int p1 = p0 + 1;
-    const int b0 = (p0 < W ? (int)b[p0] : 0) + (p0 >= lc ? 256 : 0);
-    const int b1 = (p1 < W ? (int)b[p1] : 0) + (p1 >= lc ? 256 : 0);
-    state = trans[state + pairs[b0] + pairs[512 + b1]];
-  }
-  out[s * K + k] = accept[state / pitch];
+__device__ __forceinline__ int clamp_len(int len, int W) {
+  return len < 0 ? 0 : (len < W ? len : W);
 }
 
-__global__ void dfa_scan_stride1_kernel(
+// the block's tile into shared memory, 16 bytes a thread a step
+__device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
+                                           int nbytes) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < nbytes / 16; i += blockDim.x) d[i] = s[i];
+}
+
+// the chunk's (subject, pattern) pairs through one stride-1 tile T
+// (shared or global); a subject's live bytes are read a word at a time
+template <typename E>
+__device__ __forceinline__ void walk_stride1(
+    const uint8_t* T, int P, const uint8_t* __restrict__ bytes,
+    const int32_t* __restrict__ lens, int W, int ld, long long c0, int n,
+    uint8_t* __restrict__ out, long long ostride) {
+  const int* f = reinterpret_cast<const int*>(T);
+  const uint8_t* cms = T + 16 * P;
+  for (int i = threadIdx.x; i < n * P; i += blockDim.x) {
+    const int j = i / P;
+    const int k = i - j * P;
+    const long long s = c0 + j;
+    const int lc = clamp_len(__ldg(lens + s), W);
+    const uint8_t* b = bytes + s * ld;
+    const E* rows = reinterpret_cast<const E*>(T + f[k]);
+    const unsigned packed = (unsigned)f[2 * P + k];
+    const int C = (int)(packed & 0xFFFFu);
+    int state = (int)(packed >> 16);
+    const uint8_t* cm = cms + k * kCmPitch;
+    int w = 0;
+    for (; w + 4 <= lc; w += 4) {
+      const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(b + w));
+      state = rows[state * C + cm[x & 0xFFu]];
+      state = rows[state * C + cm[(x >> 8) & 0xFFu]];
+      state = rows[state * C + cm[(x >> 16) & 0xFFu]];
+      state = rows[state * C + cm[x >> 24]];
+    }
+    for (; w < lc; ++w) state = rows[state * C + cm[__ldg(b + w)]];
+    out[s * ostride + f[3 * P + k]] = T[f[P + k] + state];
+  }
+}
+
+// the chunk's (subject, pattern) pairs through one fused tile T (shared
+// or global), two pairs (a word of the subject) a step. A pair wholly at
+// or past min(len, W) is (pad, pad), the identity, so a word's second
+// pair may be taken past the live ones, and the bytes of the word past
+// W (rows are ld >= W bytes) are read as pad.
+template <typename E>
+__device__ __forceinline__ void walk_fused(
+    const uint8_t* T, int P, const int* pairs,
     const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
-    long long n_subj, int W, const int32_t* __restrict__ trans, int C,
-    const uint8_t* __restrict__ class_map, const int32_t* __restrict__ starts,
-    const uint8_t* __restrict__ accept, int K, uint8_t* __restrict__ out,
-    uint8_t* __restrict__ nonascii) {
-  const int Kt = K > 0 ? K : 1;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_subj * Kt) return;
-  const long long s = t / Kt;
-  const int k = (int)(t % Kt);
-  const uint8_t* b = bytes + s * (long long)W;
+    int W, int ld, int pitch, long long c0, int n, uint8_t* __restrict__ out,
+    long long ostride) {
+  const int* f = reinterpret_cast<const int*>(T);
+  for (int i = threadIdx.x; i < n * P; i += blockDim.x) {
+    const int j = i / P;
+    const int k = i - j * P;
+    const long long s = c0 + j;
+    const int lc = clamp_len(__ldg(lens + s), W);
+    const uint8_t* b = bytes + s * ld;
+    const E* tab = reinterpret_cast<const E*>(T + f[k]);
+    int state = f[2 * P + k];
+    for (int p0 = 0; p0 < lc; p0 += 4) {
+      const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(b + p0));
+      const int u0 =
+          pairs[x & 0xFFu] +
+          pairs[512 + ((x >> 8) & 0xFFu) + (p0 + 1 >= lc ? 256 : 0)];
+      const int u1 =
+          pairs[((x >> 16) & 0xFFu) + (p0 + 2 >= lc ? 256 : 0)] +
+          pairs[512 + (x >> 24) + (p0 + 3 >= lc ? 256 : 0)];
+      state = (int)tab[state + u0];
+      state = (int)tab[state + u1];
+    }
+    out[s * ostride + f[3 * P + k]] = T[f[P + k] + state / pitch];
+  }
+}
+
+__device__ __forceinline__ void chunk_nonascii(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    int W, int ld, long long c0, int n, uint8_t* __restrict__ nonascii) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const long long s = c0 + j;
+    nonascii[s] = any_nonascii(bytes + s * ld, clamp_len(lens[s], W)) ? 1 : 0;
+  }
+}
+
+// dynamic shared memory: the tile (smem_tile bytes)
+__global__ void __launch_bounds__(kThreads, 2) dfa_scan_stride1_kernel(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    long long S, int W, int ld, const uint8_t* __restrict__ blob,
+    const int4* __restrict__ dir, int chunk, uint8_t* __restrict__ out,
+    long long ostride, uint8_t* __restrict__ nonascii) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int4 d = dir[blockIdx.y];
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const int n = (int)(S - c0 < chunk ? S - c0 : chunk);
+  const bool staged = !(d.w & kGlobal);
+  if (staged) stage_tile(smem, blob + d.x, d.y);
+  if (nonascii != nullptr && blockIdx.y == 0)
+    chunk_nonascii(bytes, lens, W, ld, c0, n, nonascii);
+  __syncthreads();
+  // a walk of its own for each memory, so that the staged one reads
+  // shared memory with shared-memory loads
+#define K1_WALK(T, E) \
+  walk_stride1<E>(T, d.z, bytes, lens, W, ld, c0, n, out, ostride)
+  if (staged) {
+    if (d.w & kWide) K1_WALK(smem, uint16_t);
+    else K1_WALK(smem, uint8_t);
+  } else if (d.w & kWide) {
+    K1_WALK(blob + d.x, uint16_t);
+  } else {
+    K1_WALK(blob + d.x, uint8_t);
+  }
+#undef K1_WALK
+}
+
+// dynamic shared memory: the tile (smem_tile bytes), the pair map
+// (1024 int32)
+__global__ void __launch_bounds__(kThreads) dfa_scan_fused_kernel(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    long long S, int W, int ld, const uint8_t* __restrict__ blob,
+    const int4* __restrict__ dir, const int32_t* __restrict__ pairs_g,
+    int pitch, int chunk, int smem_tile, uint8_t* __restrict__ out,
+    long long ostride, uint8_t* __restrict__ nonascii) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int4 d = dir[blockIdx.y];
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const int n = (int)(S - c0 < chunk ? S - c0 : chunk);
+  const bool staged = !(d.w & kGlobal);
+  if (staged) stage_tile(smem, blob + d.x, d.y);
+  int* pairs = reinterpret_cast<int*>(smem + smem_tile);
+  for (int i = threadIdx.x; i < 1024; i += blockDim.x) pairs[i] = pairs_g[i];
+  if (nonascii != nullptr && blockIdx.y == 0)
+    chunk_nonascii(bytes, lens, W, ld, c0, n, nonascii);
+  __syncthreads();
+#define K1_WALK(T, E) \
+  walk_fused<E>(T, d.z, pairs, bytes, lens, W, ld, pitch, c0, n, out, ostride)
+  if (staged) {
+    if (d.w & kWide) K1_WALK(smem, int32_t);
+    else K1_WALK(smem, uint16_t);
+  } else if (d.w & kWide) {
+    K1_WALK(blob + d.x, int32_t);
+  } else {
+    K1_WALK(blob + d.x, uint16_t);
+  }
+#undef K1_WALK
+}
+
+// B4: the non-ASCII flag alone, one thread a subject
+__global__ void dfa_nonascii_kernel(const uint8_t* __restrict__ bytes,
+                                    const int32_t* __restrict__ lens,
+                                    long long n_subj, int W,
+                                    uint8_t* __restrict__ nonascii) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_subj) return;
   const int len = lens[s];
   const int lim = len < W ? len : W;
-  if (nonascii != nullptr && k == 0) nonascii[s] = any_nonascii(b, lim) ? 1 : 0;
-  if (K == 0) return;
-  const uint8_t* cm = class_map + (long long)k * 256;
-  int state = starts[k];
-  for (int w = 0; w < lim; ++w) state = trans[state * C + cm[b[w]]];
-  out[s * K + k] = accept[state];
+  nonascii[s] = any_nonascii(bytes + s * (long long)W, lim) ? 1 : 0;
 }
 
-constexpr int kThreads = 256;
+constexpr int kNonasciiThreads = 256;
 
-int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+template <typename Kernel>
+int allow_smem(Kernel kernel, bool* done) {
+  // once a process, outside any stream capture (the first launch)
+  if (*done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e == cudaSuccess) *done = true;
+  return (int)e;
+}
+
+bool stride1_smem_set = false;
+bool fused_smem_set = false;
 
 }  // namespace
 
-extern "C" int dfa_scan_fused(const void* bytes, const void* lens,
-                              long long n_subj, int W, const void* trans,
-                              const void* pairs, const void* starts,
-                              const void* accept, int K, int pitch,
-                              void* out, void* nonascii, void* stream) {
-  const long long n = n_subj * (K > 0 ? K : 1);
-  dfa_scan_fused_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int32_t*)lens, n_subj, W,
-      (const int32_t*)trans, (const int32_t*)pairs, (const int32_t*)starts,
-      (const uint8_t*)accept, K, pitch, (uint8_t*)out, (uint8_t*)nonascii);
+extern "C" int dfa_scan_stride1(const void* bytes, const void* lens,
+                                long long S, int W, int ld, const void* blob,
+                                const void* dir, int n_tiles, int smem_tile,
+                                int chunk, void* out, long long ostride,
+                                void* nonascii, void* stream) {
+  if (smem_tile > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int rc = allow_smem(dfa_scan_stride1_kernel, &stride1_smem_set);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)((S + chunk - 1) / chunk), (unsigned)n_tiles);
+  dfa_scan_stride1_kernel<<<grid, kThreads, (size_t)smem_tile,
+                            (cudaStream_t)stream>>>(
+      (const uint8_t*)bytes, (const int32_t*)lens, S, W, ld,
+      (const uint8_t*)blob, (const int4*)dir, chunk, (uint8_t*)out, ostride,
+      (uint8_t*)nonascii);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dfa_scan_stride1(const void* bytes, const void* lens,
-                                long long n_subj, int W, const void* trans,
-                                int C, const void* class_map,
-                                const void* starts, const void* accept, int K,
-                                void* out, void* nonascii, void* stream) {
-  const long long n = n_subj * (K > 0 ? K : 1);
-  dfa_scan_stride1_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+extern "C" int dfa_scan_fused(const void* bytes, const void* lens,
+                              long long S, int W, int ld, const void* blob,
+                              const void* dir, int n_tiles, int smem_tile,
+                              const void* pairs, int pitch, int chunk,
+                              void* out, long long ostride, void* nonascii,
+                              void* stream) {
+  const int smem = smem_tile + 4096;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int rc = allow_smem(dfa_scan_fused_kernel, &fused_smem_set);
+  if (rc != 0) return rc;
+  const dim3 grid((unsigned)((S + chunk - 1) / chunk), (unsigned)n_tiles);
+  dfa_scan_fused_kernel<<<grid, kThreads, (size_t)smem,
+                          (cudaStream_t)stream>>>(
+      (const uint8_t*)bytes, (const int32_t*)lens, S, W, ld,
+      (const uint8_t*)blob, (const int4*)dir, (const int32_t*)pairs, pitch,
+      chunk, smem_tile, (uint8_t*)out, ostride, (uint8_t*)nonascii);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dfa_nonascii(const void* bytes, const void* lens,
+                            long long n_subj, int W, void* nonascii,
+                            void* stream) {
+  const int blocks = (int)((n_subj + kNonasciiThreads - 1) / kNonasciiThreads);
+  dfa_nonascii_kernel<<<blocks, kNonasciiThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)bytes, (const int32_t*)lens, n_subj, W,
-      (const int32_t*)trans, C, (const uint8_t*)class_map,
-      (const int32_t*)starts, (const uint8_t*)accept, K, (uint8_t*)out,
       (uint8_t*)nonascii);
   return (int)cudaGetLastError();
 }

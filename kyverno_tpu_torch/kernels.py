@@ -28,12 +28,13 @@ the CPU tests and ``chip_smoke.py`` hold the kernels against them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,10 +70,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "dfa_scan_fused": ("dfa_scan",
-                       [_P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P]),
-    "dfa_scan_stride1": ("dfa_scan",
-                         [_P, _P, _L, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]),
+    "dfa_scan_fused": ("dfa_scan", [_P, _P, _L, _I, _I, _P, _P, _I, _I, _P,
+                                    _I, _I, _P, _L, _P, _P]),
+    "dfa_scan_stride1": ("dfa_scan", [_P, _P, _L, _I, _I, _P, _P, _I, _I,
+                                      _I, _P, _L, _P, _P]),
+    "dfa_nonascii": ("dfa_scan", [_P, _P, _L, _I, _P, _P]),
     "instance_count_many": ("instance_count",
                             [_P, _I, ctypes.c_uint, _P, _L, _I, _I, _P]),
     "instance_count2": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
@@ -182,9 +184,237 @@ def _ptr(t: Optional[torch.Tensor]):
 # ---------------------------------------------------------------------------
 # K1 dfa_scan (csrc/dfa_scan.cu): replaces kyverno_tpu/tpu/dfa.py
 # _scan_fused, _scan_stride1 and nonascii_mask, plus bank_match's accept
-# lookup. Bound by gather latency (one dependent table read per pair or
-# byte); the bytes moved are the lengths, the live bytes of each subject
-# (up to min(len, W)) and the output.
+# lookup and column order. Bound by the latency of one dependent table
+# read a pair or byte; the kernels serve those reads from shared memory,
+# from tiles of pattern-local tables that ``pack_stride1`` /
+# ``pack_fused`` build (csrc/dfa_scan.cu describes the layout).
+
+# Two stride-1 tiles share an SM's 228 KB of shared memory; a fused tile
+# takes an SM with its 4 KB pair map (four tenant patterns of 20 states x
+# 1,089 columns). Both stay under the 227 KB a block may use (kMaxSmem).
+# Tiles of up to 112 KB and 220 KB measured slower on an H100 at the
+# tenant shapes (fewer blocks; PERF.md, Findings).
+STRIDE1_TILE_BYTES = 90 << 10
+FUSED_TILE_BYTES = 200 << 10
+DFA_MIN_CHUNK = 64       # subjects a block's tile serves at least
+DFA_SM_SMEM = 233472     # shared memory of one H100 SM (228 KB)
+_CM_PITCH = 260          # kCmPitch: a class map's stride in a tile
+_TILE_WIDE = 1           # kWide: uint16 rows (stride 1) / int32 entries (fused)
+_TILE_GLOBAL = 2         # kGlobal: read in place from global memory
+
+
+class DfaTiles:
+    """K1's tables for one stride group of a bank's patterns on one
+    device: ``kind`` "stride1" or "fused"; the packed tiles (``blob``,
+    uint8, and ``tiles``, the (T, 4) int32 directory of blob offset,
+    bytes, patterns and flags); ``smem_tile``, the bytes of the largest
+    tile staged in shared memory; ``cols``, each pattern's column in the
+    (S, ``width``) output plane; ``pairs`` and ``pitch``, the fused
+    kernel's pair map and table pitch; and ``plain_args``, a function
+    that returns the plain twin's table arguments, called at the first
+    plain scan (the kernels read only the tiles)."""
+
+    def __init__(self, kind: str, width: int, cols: torch.Tensor,
+                 blob: torch.Tensor, tiles: torch.Tensor, smem_tile: int,
+                 plain_args: Callable[[], tuple],
+                 pairs: Optional[torch.Tensor] = None, pitch: int = 0):
+        if kind not in ("stride1", "fused"):
+            raise ValueError(f"DfaTiles: kind {kind!r}")
+        self.kind, self.width, self.cols = kind, width, cols
+        self.blob, self.tiles, self.smem_tile = blob, tiles, smem_tile
+        self.plain_args, self.pairs, self.pitch = plain_args, pairs, pitch
+        self._plain: Optional[tuple] = None
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory of a block: its tile, and the fused
+        kernel's pair map."""
+        return self.smem_tile + (4096 if self.kind == "fused" else 0)
+
+    def plain_scan(self, bytes_: torch.Tensor, lens: torch.Tensor
+                   ) -> torch.Tensor:
+        """The group's (S, K) accepts through the plain twin."""
+        if self._plain is None:
+            self._plain = self.plain_args()
+        fn = dfa_scan_stride1_plain if self.kind == "stride1" \
+            else dfa_scan_fused_plain
+        return fn(bytes_, lens, *self._plain)
+
+    def chunk(self, S: int, W: int, device) -> int:
+        """Subjects a block walks in a launch over S subjects of W
+        bytes (``dfa_chunks``)."""
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return -(-S // dfa_chunks(self.kind, S, W, self.n_tiles,
+                                  int(self.cols.numel()), self.smem_tile, sms))
+
+
+@functools.lru_cache(maxsize=1024)
+def dfa_chunks(kind: str, S: int, W: int, T: int, K: int, smem_tile: int,
+               sms: int) -> int:
+    """The chunks each of T tiles splits S subjects of W bytes into:
+    the count c of at least ``DFA_MIN_CHUNK`` subjects a chunk that
+    minimises waves(c) x (walk / c + copy). A block copies its tile
+    (``smem_tile`` bytes) and walks its chunk's share of the tile's
+    (subject, pattern) steps, counted as four tile bytes a step at W/4
+    steps a subject (stride 1) or W/8 (fused); a wave is the blocks the
+    SMs hold at once (two 1,024-thread blocks an SM where their shared
+    memory fits). On an H100, in ``chip_smoke.py``'s chunk sweep
+    (PERF.md, Findings), it picks the fastest count at the tenant fused
+    shapes (one chunk at triage, where the copy of a 174 KB tile
+    outweighs the walk) and one within 5 % of the fastest at the
+    stride-1 shapes; a fixed rule (tiles x chunks >= 2 x SMs) read up to
+    1.7x slower at the fused ones."""
+    smem = smem_tile + (4096 if kind == "fused" else 0)
+    slots = sms * min(2, max(1, DFA_SM_SMEM // (smem + 1024)))
+    walk = 4 * S * max(1, W // (4 if kind == "stride1" else 8)) * K / T
+    most = max(1, min(-(-S // DFA_MIN_CHUNK), 4 * slots))
+    return min(range(1, most + 1),
+               key=lambda c: -(-T * c // slots) * (walk / c + smem_tile))
+
+
+def _closure(step, starts: np.ndarray, n_states: int
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The states reachable from each start, which own disjoint blocks
+    of states: (states sorted by owner then state, their owners, the
+    count a start). ``step`` maps a frontier to its (F, C) successors."""
+    owner = np.full((n_states,), -1, dtype=np.int64)
+    owner[starts] = np.arange(starts.shape[0])
+    front = starts
+    while front.size:
+        nxt = step(front)
+        own = np.repeat(owner[front], nxt.shape[1])
+        nxt = nxt.reshape(-1)
+        new = owner[nxt] < 0
+        nxt, first = np.unique(nxt[new], return_index=True)
+        owner[nxt] = own[new][first]
+        front = nxt
+    states = np.nonzero(owner >= 0)[0]
+    states = states[np.argsort(owner[states], kind="stable")]
+    own = owner[states]
+    return states, own, np.bincount(own, minlength=starts.shape[0])
+
+
+def _local(step, starts: np.ndarray, n_states: int):
+    """Per start, its reachable states (global ids) and the map from
+    global to pattern-local ids (their rank among them)."""
+    states, own, counts = _closure(step, starts, n_states)
+    offs = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    g2l = np.zeros((n_states,), dtype=np.int64)
+    g2l[states] = np.arange(states.shape[0]) - offs[own]
+    return [states[o:o + c] for o, c in zip(offs, counts)], g2l
+
+
+def _a4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _assemble(entries, budget: int, with_cm: bool):
+    """Pack (wide, class map or None, table, accept bytes, field 2,
+    column) entries into tiles of at most ``budget`` bytes, narrow ones
+    first, each kind in order; an entry larger than a tile alone gets a
+    global tile of its own. -> (blob uint8, (T, 4) int32 directory,
+    bytes of the largest shared-memory tile)."""
+    head = 16 + (_CM_PITCH if with_cm else 0)
+
+    def cost(e):
+        return head + _a4(e[2].nbytes) + _a4(e[3].nbytes)
+
+    tiles: List[Tuple[List, int]] = []
+    for wide in (False, True):
+        cur: List = []
+        size = 0
+        for e in (e for e in entries if e[0] == wide):
+            c = cost(e)
+            if c > budget - 16:
+                tiles.append(([e], _TILE_GLOBAL))
+                continue
+            if size + c > budget - 16:
+                tiles.append((cur, 0))
+                cur, size = [], 0
+            cur.append(e)
+            size += c
+        if cur:
+            tiles.append((cur, 0))
+    parts, rows, off, smem = [], [], 0, 0
+    for ents, flags in tiles:
+        P = len(ents)
+        nbytes = -(-sum(cost(e) for e in ents) // 16) * 16
+        buf = np.zeros((nbytes,), dtype=np.uint8)
+        fields = np.zeros((4, P), dtype=np.uint32)
+        pos = head * P
+        for k, (_, cm, tab, acc, f2, col) in enumerate(ents):
+            if with_cm:
+                buf[16 * P + _CM_PITCH * k:16 * P + _CM_PITCH * k + 256] = cm
+            fields[:, k] = (pos, _a4(pos + tab.nbytes), f2, col)
+            buf[pos:pos + tab.nbytes] = tab.reshape(-1).view(np.uint8)
+            pos = _a4(pos + tab.nbytes)
+            buf[pos:pos + acc.nbytes] = acc
+            pos = _a4(pos + acc.nbytes)
+        buf[:16 * P] = fields.reshape(-1).view(np.uint8)
+        flags |= _TILE_WIDE if ents[0][0] else 0
+        rows.append((off, nbytes, P, flags))
+        if not flags & _TILE_GLOBAL:
+            smem = max(smem, nbytes)
+        parts.append(buf)
+        off += nbytes
+    blob = np.concatenate(parts) if parts else np.zeros((16,), np.uint8)
+    return blob, np.asarray(rows, dtype=np.int32).reshape(-1, 4), smem
+
+
+def pack_stride1(trans: np.ndarray, class_map: np.ndarray,
+                 start: np.ndarray, accept: np.ndarray, ids: Sequence[int],
+                 cols: Sequence[int], budget: int = STRIDE1_TILE_BYTES):
+    """K1 stride-1 tiles of a bank's patterns ``ids`` (their output
+    columns ``cols``), from the bank's (states, classes) ``trans``, its
+    per-pattern ``class_map`` and ``start`` and its per-state
+    ``accept``: each pattern's class map, its rows over its own classes
+    in pattern-local ids (uint8, uint16 past 256 states), its local
+    start and its accept bytes."""
+    idx = np.asarray(ids, dtype=np.int64)
+    upid, inv = np.unique(idx, return_inverse=True)
+    trans = trans.astype(np.int64)
+    states, g2l = _local(lambda f: trans[f], start[upid].astype(np.int64),
+                         trans.shape[0])
+    entries = []
+    for j, pid in enumerate(idx):
+        st = states[inv[j]]
+        cm = class_map[pid]
+        C = int(cm.max()) + 1
+        wide = st.shape[0] > 256
+        rows = g2l[trans[st, :C]].astype(np.uint16 if wide else np.uint8)
+        entries.append((wide, cm, rows, accept[st].astype(np.uint8),
+                        C | (int(g2l[start[pid]]) << 16), int(cols[j])))
+    return _assemble(entries, budget, with_cm=True)
+
+
+def pack_fused(fused_trans: np.ndarray, pitch: int, fused_start: np.ndarray,
+               fused_accept: np.ndarray, ids: Sequence[int],
+               cols: Sequence[int], budget: int = FUSED_TILE_BYTES):
+    """K1 fused tiles of a bank's patterns ``ids``, from its fused
+    premultiplied table of row ``pitch``, per-pattern ``fused_start``
+    and per-state ``fused_accept``: each pattern's slice rebased to
+    local premultiplied ids (uint16 while states x pitch <= 65,536, else
+    int32), its local premultiplied start and its accept bytes."""
+    idx = np.asarray(ids, dtype=np.int64)
+    upid, inv = np.unique(idx, return_inverse=True)
+    ftab = fused_trans.reshape(-1, pitch).astype(np.int64)
+    states, g2l = _local(lambda f: ftab[f] // pitch,
+                         fused_start[upid].astype(np.int64) // pitch,
+                         ftab.shape[0])
+    entries = []
+    for j, pid in enumerate(idx):
+        st = states[inv[j]]
+        wide = st.shape[0] * pitch > 65536
+        tab = (g2l[ftab[st] // pitch] * pitch).astype(
+            np.int32 if wide else np.uint16)
+        entries.append((wide, None, tab, fused_accept[st].astype(np.uint8),
+                        int(g2l[fused_start[pid] // pitch]) * pitch,
+                        int(cols[j])))
+    return _assemble(entries, budget, with_cm=False)
 
 
 def dfa_scan_fused_plain(bytes_: torch.Tensor, lens: torch.Tensor,
@@ -246,79 +476,76 @@ def _dfa_args(bytes_: torch.Tensor, lens: torch.Tensor):
     return dev
 
 
-def dfa_scan_fused(bytes_: torch.Tensor, lens: torch.Tensor,
-                   trans: torch.Tensor, pairs: torch.Tensor,
-                   starts: torch.Tensor, accept: torch.Tensor, pitch: int,
-                   chain: int, want_nonascii: bool = False):
-    """K1, fused entry: (S, W) subjects -> ((S, K) bool accepts,
-    (S,) bool non-ASCII flags or None)."""
+def _dfa_scan(kind: str, bytes_: torch.Tensor, lens: torch.Tensor,
+              tiles: DfaTiles, out: torch.Tensor, want_nonascii: bool):
+    if tiles.kind != kind:
+        raise ValueError(f"dfa_scan_{kind}: tiles of kind {tiles.kind!r}")
     if bytes_.device.type == "cpu":
-        acc = dfa_scan_fused_plain(bytes_, lens, trans, pairs, starts,
-                                   accept, pitch, chain)
-        return acc, (nonascii_plain(bytes_, lens) if want_nonascii else None)
+        out[:, tiles.cols] = tiles.plain_scan(bytes_, lens)
+        return out, (nonascii_plain(bytes_, lens) if want_nonascii else None)
     dev = _dfa_args(bytes_, lens)
-    _check(trans, "fused_trans", torch.int32, dev, 1)
-    _check(pairs, "fused_pairs", torch.int32, dev, 1)
-    _check(starts, "fused_start", torch.int32, dev, 1)
-    _check(accept, "fused_accept", torch.uint8, dev, 1)
-    if pairs.shape[0] != 1024:
-        raise ValueError(f"fused_pairs has {pairs.shape[0]} entries, want 1024")
-    if chain not in (1, 2) or pitch <= 0:
-        raise ValueError(f"chain {chain}, pitch {pitch}")
+    _check(out, "out", torch.bool, dev, 2)
+    _check(tiles.blob, "tile blob", torch.uint8, dev, 1)
+    _check(tiles.tiles, "tile directory", torch.int32, dev, 2)
     S, W = bytes_.shape
-    K = starts.shape[0]
-    out = torch.empty((S, K), dtype=torch.bool, device=dev)
-    na = torch.empty((S,), dtype=torch.bool, device=dev) if want_nonascii else None
-    if S * max(K, 1) and (K or want_nonascii):
-        _call("dfa_scan_fused", _ptr(bytes_), _ptr(lens), S, W, _ptr(trans),
-              _ptr(pairs), _ptr(starts), _ptr(accept), K, pitch, _ptr(out),
+    if tuple(out.shape) != (S, tiles.width):
+        raise ValueError(f"out {tuple(out.shape)}, want ({S}, {tiles.width})")
+    na = torch.empty((S,), dtype=torch.bool, device=dev) if want_nonascii \
+        else None
+    if S == 0:
+        return out, na
+    if W % 4 or bytes_.data_ptr() % 4:
+        # the kernels read a subject a word at a time: rows of a multiple
+        # of 4 bytes from a 4-byte aligned base (the bytes past W are
+        # never live, the lengths being clamped to W)
+        rows = bytes_.new_zeros((S, -(-W // 4) * 4))
+        rows[:, :W] = bytes_
+        bytes_ = rows
+    head = (_ptr(bytes_), _ptr(lens), S, W, bytes_.shape[1], _ptr(tiles.blob),
+            _ptr(tiles.tiles), tiles.n_tiles, tiles.smem_tile)
+    chunk = tiles.chunk(S, W, dev)
+    if kind == "fused":
+        _check(tiles.pairs, "fused_pairs", torch.int32, dev, 1)
+        if tiles.pairs.shape[0] != 1024 or tiles.pitch <= 0:
+            raise ValueError(f"fused_pairs of {tiles.pairs.shape[0]} entries,"
+                             f" pitch {tiles.pitch}")
+        _call("dfa_scan_fused", *head, _ptr(tiles.pairs), tiles.pitch, chunk,
+              _ptr(out), out.stride(0), _ptr(na))
+    else:
+        _call("dfa_scan_stride1", *head, chunk, _ptr(out), out.stride(0),
               _ptr(na))
-        LAUNCHES["dfa_scan_fused"] += 1
+    LAUNCHES[f"dfa_scan_{kind}"] += 1
     return out, na
+
+
+def dfa_scan_fused(bytes_: torch.Tensor, lens: torch.Tensor,
+                   tiles: DfaTiles, out: torch.Tensor,
+                   want_nonascii: bool = False):
+    """K1, fused entry: the accepts of (S, W) subjects written into the
+    (S, ``tiles.width``) bool plane ``out`` at the tiles' columns ->
+    (``out``, (S,) bool non-ASCII flags or None)."""
+    return _dfa_scan("fused", bytes_, lens, tiles, out, want_nonascii)
 
 
 def dfa_scan_stride1(bytes_: torch.Tensor, lens: torch.Tensor,
-                     trans: torch.Tensor, n_classes: int,
-                     class_map: torch.Tensor, starts: torch.Tensor,
-                     accept: torch.Tensor, want_nonascii: bool = False,
-                     _count: str = "dfa_scan_stride1"):
-    """K1, stride-1 entry: (S, W) subjects -> ((S, K) bool accepts,
-    (S,) bool non-ASCII flags or None). ``trans`` is the bank's uint16
-    table widened to int32 and flattened; ``class_map`` is (K, 256)."""
-    if bytes_.device.type == "cpu":
-        acc = dfa_scan_stride1_plain(bytes_, lens, trans, n_classes,
-                                     class_map, starts, accept)
-        return acc, (nonascii_plain(bytes_, lens) if want_nonascii else None)
-    dev = _dfa_args(bytes_, lens)
-    K = starts.shape[0]
-    if K:
-        _check(trans, "trans", torch.int32, dev, 1)
-        _check(class_map, "class_map", torch.uint8, dev, 2)
-        _check(starts, "start", torch.int32, dev, 1)
-        _check(accept, "accept", torch.uint8, dev, 1)
-        if tuple(class_map.shape) != (K, 256):
-            raise ValueError(f"class_map {tuple(class_map.shape)}, want ({K}, 256)")
-    S, W = bytes_.shape
-    out = torch.empty((S, K), dtype=torch.bool, device=dev)
-    na = torch.empty((S,), dtype=torch.bool, device=dev) if want_nonascii else None
-    if S * max(K, 1) and (K or want_nonascii):
-        _call("dfa_scan_stride1", _ptr(bytes_), _ptr(lens), S, W,
-              _ptr(trans if K else None), n_classes,
-              _ptr(class_map if K else None), _ptr(starts if K else None),
-              _ptr(accept if K else None), K, _ptr(out), _ptr(na))
-        LAUNCHES[_count] += 1
-    return out, na
+                     tiles: DfaTiles, out: torch.Tensor,
+                     want_nonascii: bool = False):
+    """K1, stride-1 entry: as ``dfa_scan_fused``, one byte a step."""
+    return _dfa_scan("stride1", bytes_, lens, tiles, out, want_nonascii)
 
 
 def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """K1's non-ASCII output alone (the stride-1 entry with no
-    patterns), counted as ``nonascii``: (S, W) uint8, (S,) int32 ->
-    (S,) bool."""
+    """K1's non-ASCII output alone, counted as ``nonascii``: (S, W)
+    uint8, (S,) int32 -> (S,) bool."""
     if bytes_.device.type == "cpu":
         return nonascii_plain(bytes_, lens)
-    empty = torch.empty((0,), dtype=torch.int32, device=bytes_.device)
-    return dfa_scan_stride1(bytes_, lens, empty, 1, empty, empty, empty,
-                            want_nonascii=True, _count="nonascii")[1]
+    dev = _dfa_args(bytes_, lens)
+    S, W = bytes_.shape
+    na = torch.empty((S,), dtype=torch.bool, device=dev)
+    if S:
+        _call("dfa_nonascii", _ptr(bytes_), _ptr(lens), S, W, _ptr(na))
+        LAUNCHES["nonascii"] += 1
+    return na
 
 
 # ---------------------------------------------------------------------------

@@ -77,6 +77,7 @@ lookaround — which cel/re2.py itself rejects) raise
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 from dataclasses import dataclass, field
@@ -95,7 +96,8 @@ from ..cel.re2 import (
 
 __all__ = [
     "Dfa", "DfaBank", "DfaUnsupported", "compile_glob", "compile_re2",
-    "bank_match", "nonascii_mask", "state_budget", "max_stride",
+    "bank_match", "nonascii_mask", "scan_groups", "state_budget",
+    "max_stride",
     "approx_error_ceiling", "prove_miss_definitive",
 ]
 
@@ -1125,14 +1127,15 @@ class DfaBank:
 # ---------------------------------------------------------------------------
 # batched device scan (the PyTorch port of dfa.py's device half): the
 # patterns are partitioned by compiled stride, each group runs through
-# kernel K1 (kernels.dfa_scan_fused / dfa_scan_stride1, which fold the
-# accept lookup into their epilogue), and the groups are put back in id
-# order.
+# kernel K1 (kernels.dfa_scan_fused / dfa_scan_stride1), which writes its
+# accepts straight into the family's (S, K) plane at the group's
+# columns. The kernels read each group's patterns from tiles that
+# kernels.pack_stride1 / pack_fused build from the bank's arrays.
 
 
 def device_tables(bank: DfaBank, device) -> Dict[str, object]:
     """The bank's tables as tensors on ``device``, built once per
-    (bank, device) and kept on the bank."""
+    (bank, device) and kept on the bank: the plain twins' arguments."""
     import torch
 
     device = torch.device(device)
@@ -1161,6 +1164,22 @@ def device_tables(bank: DfaBank, device) -> Dict[str, object]:
     return cache[key]
 
 
+def _plain_args(bank: DfaBank, ids: np.ndarray, stride: int, device):
+    """The plain twin's table arguments for the patterns ``ids`` of one
+    stride group."""
+    import torch
+
+    tabs = device_tables(bank, device)
+    sel = torch.as_tensor(ids, dtype=torch.int64, device=device)
+    if stride == 1:
+        return (tabs["trans"], int(bank.trans.shape[1]),
+                tabs["class_map"][sel].contiguous(),
+                tabs["start"][sel].contiguous(), tabs["accept"])
+    return (tabs["fused_trans"], tabs["fused_pairs"],
+            tabs["fused_start"][sel].contiguous(), tabs["fused_accept"],
+            int(bank.fused_pitch), 2 if stride == 4 else 1)
+
+
 def _subjects(bytes_, lens):
     """Flatten the lead dims: (..., W) uint8 + (...) lengths -> (S, W)
     uint8 and (S,) int32, both contiguous."""
@@ -1172,24 +1191,50 @@ def _subjects(bytes_, lens):
     return b, ln
 
 
-def _index(tabs, idx: np.ndarray, device):
-    """``idx`` as an int64 tensor on ``device``, made once per bank and
-    device and kept with its tables: a later batch copies nothing to
-    the device (an H2D copy from pageable memory would wait for it)."""
+def scan_groups(bank: DfaBank, ids: Sequence[int], device):
+    """K1's tables for the patterns ``ids``, one ``kernels.DfaTiles`` a
+    stride group, each with its columns in the (S, len(ids)) accept
+    plane; built once per (bank, ids, device) and kept on the bank (a
+    later batch copies nothing to the device). The bank's full tables
+    reach the device only for a plain scan."""
     import torch
 
-    key = ("\x00index", tuple(int(i) for i in idx))
-    if key not in tabs:
-        tabs[key] = torch.as_tensor(idx, dtype=torch.int64, device=device)
-    return tabs[key]
+    from .. import kernels
 
+    device = torch.device(device)
+    cache = bank.__dict__.setdefault("_scan_groups", {})
+    key = (str(device), tuple(int(i) for i in ids))
+    if key in cache:
+        return cache[key]
+    idx = np.asarray(key[1], dtype=np.int64)
+    strides = (np.ones(idx.shape, dtype=np.int32) if bank.strides is None
+               else bank.strides[idx])
 
-def _select(tabs, name: str, idx: np.ndarray, device):
-    """Rows ``idx`` of table ``name``, made once per bank and device."""
-    key = ("\x00select", name, tuple(int(i) for i in idx))
-    if key not in tabs:
-        tabs[key] = tabs[name][_index(tabs, idx, device)].contiguous()
-    return tabs[key]
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    groups = []
+    for k in sorted(set(int(s) for s in strides)):
+        sel = np.nonzero(strides == k)[0]
+        sub = idx[sel]
+        if k == 1:
+            blob, tdir, smem = kernels.pack_stride1(
+                bank.trans, bank.class_map, bank.start, bank.accept, sub, sel)
+            extra = {}
+        else:
+            blob, tdir, smem = kernels.pack_fused(
+                bank.fused_trans, int(bank.fused_pitch), bank.fused_start,
+                bank.fused_accept, sub, sel)
+            extra = {"pairs": t(bank.fused_pairs, torch.int32),
+                     "pitch": int(bank.fused_pitch)}
+        groups.append(kernels.DfaTiles(
+            "stride1" if k == 1 else "fused", idx.shape[0],
+            t(sel, torch.int64), t(blob, torch.uint8), t(tdir, torch.int32),
+            smem, functools.partial(_plain_args, bank, sub, k, device),
+            **extra))
+    cache[key] = groups
+    return groups
 
 
 def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
@@ -1197,53 +1242,27 @@ def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
     """Evaluate the bank patterns ``ids`` against padded byte tensors.
 
     bytes_: (..., W) uint8, lens: (...) int32 -> (..., K) bool accepts,
-    K = len(ids) — kyverno_tpu/tpu/dfa.py:bank_match. ``plain`` runs
-    the kernels' plain PyTorch twins whatever the device."""
+    K = len(ids) — kyverno_tpu/tpu/dfa.py:bank_match. Each stride group
+    writes its columns of the plane in place. ``plain`` runs the
+    kernels' plain PyTorch twins whatever the device."""
     import torch
 
     from .. import kernels
 
     assert bank.trans is not None, "bank not finalized"
-    dev = bytes_.device
-    tabs = device_tables(bank, dev)
-    idx = np.asarray(list(ids), dtype=np.int64)
     lead = tuple(bytes_.shape[:-1])
     b, ln = _subjects(bytes_, lens)
-    fused = kernels.dfa_scan_fused_plain if plain else kernels.dfa_scan_fused
-    stride1 = kernels.dfa_scan_stride1_plain if plain \
-        else kernels.dfa_scan_stride1
-
-    def run_stride1(sub):
-        out = stride1(b, ln, tabs["trans"], int(bank.trans.shape[1]),
-                      _select(tabs, "class_map", sub, dev),
-                      _select(tabs, "start", sub, dev), tabs["accept"])
-        return out if plain else out[0]
-
-    def run_fused(sub, chain):
-        out = fused(b, ln, tabs["fused_trans"], tabs["fused_pairs"],
-                    _select(tabs, "fused_start", sub, dev),
-                    tabs["fused_accept"], int(bank.fused_pitch), chain)
-        return out if plain else out[0]
-
-    if bank.strides is None:
-        full = run_stride1(idx)
-    else:
-        strides = bank.strides[idx]
-        order: List[np.ndarray] = []
-        parts = []
-        for k in sorted(set(int(s) for s in strides)):
-            sel = np.nonzero(strides == k)[0]
-            sub = idx[sel]
-            parts.append(run_stride1(sub) if k == 1
-                         else run_fused(sub, 2 if k == 4 else 1))
-            order.append(sel)
-        if len(parts) == 1:
-            full = parts[0]
+    groups = scan_groups(bank, ids, b.device)
+    out = torch.empty((b.shape[0], len(ids)), dtype=torch.bool,
+                      device=b.device)
+    for g in groups:
+        if plain:
+            out[:, g.cols] = g.plain_scan(b, ln)
+        elif g.kind == "stride1":
+            kernels.dfa_scan_stride1(b, ln, g, out)
         else:
-            full = torch.cat(parts, dim=-1)
-            inv = np.argsort(np.concatenate(order))
-            full = full[:, _index(tabs, inv, dev)]
-    return full.reshape(lead + (len(idx),))
+            kernels.dfa_scan_fused(b, ln, g, out)
+    return out.reshape(lead + (len(ids),))
 
 
 def nonascii_mask(bytes_, lens, plain: bool = False):

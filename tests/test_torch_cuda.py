@@ -52,6 +52,147 @@ def test_dfa_scan_kernel_equals_plain(cuda, stride):
     assert torch.equal(na.cpu(), kernels.nonascii_plain(byt, lens))
 
 
+def _tenant_bank(monkeypatch, n=300):
+    """A tenant family of ``n`` namespace globs; the fused table's cap is
+    lowered so that, as in a full tenant bank, the first globs run fused
+    and the rest at stride 1."""
+    monkeypatch.setattr(tdfa, "MAX_BANK_STRIDE_ENTRIES", 1 << 19)
+    bank = tdfa.DfaBank()
+    globs = [f"tenant-{i:05d}-*-prod" for i in range(n - 20)] + [
+        f"t{i:03d}-??-*" for i in range(20)]
+    for g in globs:
+        bank.add_glob(g, "ns")
+    return globs, bank.finalize()
+
+
+def _tenant_lane(globs, S, W=64, seed=0):
+    rng = random.Random(seed)
+    byt = torch.zeros((S, W), dtype=torch.uint8)
+    lens = torch.zeros((S,), dtype=torch.int32)
+    for i in range(S):
+        g = rng.choice(globs)
+        s = "".join(rng.choice("xy") if c == "?" else
+                    ("ab" * rng.randint(0, 3) if c == "*" else c) for c in g)
+        s = rng.choice([s, s, s.replace("a", "é", 1), "", "default"])
+        e = s.encode()[:W]
+        byt[i, :len(e)] = torch.tensor(list(e), dtype=torch.uint8)
+        lens[i] = len(s.encode()) + (W if i % 97 == 0 else 0)
+    return byt, lens
+
+
+@pytest.mark.parametrize("S", [1024, 5000])
+def test_dfa_tiles_tenant_family_equal_plain(cuda, monkeypatch, S):
+    """Both K1 entries over a 300-glob family (241 stride-1 patterns in
+    two tiles, 59 fused ones in five) at the triage batch size and past
+    it, writing the family plane in place."""
+    globs, bank = _tenant_bank(monkeypatch)
+    ids = bank.families["ns"]
+    groups = tdfa.scan_groups(bank, ids, cuda)
+    assert {g.kind for g in groups} == {"stride1", "fused"}
+    assert all(g.n_tiles > 1 for g in groups)
+    byt, lens = _tenant_lane(globs, S)
+    kernels.reset_launches()
+    got = tdfa.bank_match(bank, ids, byt.to(cuda), lens.to(cuda))
+    assert kernels.LAUNCHES["dfa_scan_stride1"] == 1
+    assert kernels.LAUNCHES["dfa_scan_fused"] == 1
+    want = tdfa.bank_match(bank, ids, byt, lens)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("budget", [(600, 30000), (300, 3000)])
+def test_dfa_tiles_small_and_global_tiles_equal_plain(cuda, budget):
+    """Tiles packed with small budgets: many tiles, and patterns larger
+    than a tile read in place from global memory."""
+    byt, lens = _subjects(9, S=3000, W=80)
+    for stride in (1, 4):
+        bank = tdfa.DfaBank(budget=48)
+        for p in ("a*b", "nginx-?", "*-suffix-*-mid-*-tail", "localhost/*",
+                  "prefix-????-*-????-end", "x*y*z*w", "*.example.com"):
+            bank.add_glob(p, "pool")
+        bank.add_re2("^(ab|cd){1,10}x[0-9]{3}$", "pool")
+        bank.add_re2("^v[0-9]{1,4}\\.[0-9]{1,4}$", "pool")
+        bank.finalize(stride=stride)
+        ids = [i for i in bank.families["pool"]
+               if int(bank.strides[i]) == stride]
+        (g,) = tdfa.scan_groups(bank, ids, cuda)
+        cols = list(range(len(ids)))
+        if stride == 1:
+            blob, tdir, smem = kernels.pack_stride1(
+                bank.trans, bank.class_map, bank.start, bank.accept, ids,
+                cols, budget=budget[0])
+        else:
+            blob, tdir, smem = kernels.pack_fused(
+                bank.fused_trans, int(bank.fused_pitch), bank.fused_start,
+                bank.fused_accept, ids, cols, budget=budget[1])
+        assert tdir.shape[0] > 1 and (tdir[:, 3] & 2).any()
+        tiles = kernels.DfaTiles(
+            g.kind, len(ids), g.cols, torch.from_numpy(blob).to(cuda),
+            torch.from_numpy(tdir).to(cuda), smem, g.plain_args, g.pairs,
+            g.pitch)
+        fn = kernels.dfa_scan_stride1 if stride == 1 \
+            else kernels.dfa_scan_fused
+        out = torch.empty((byt.shape[0], len(ids)), dtype=torch.bool,
+                          device=cuda)
+        got, na = fn(byt.to(cuda), lens.to(cuda), tiles, out,
+                     want_nonascii=True)
+        assert torch.equal(got.cpu(), tdfa.bank_match(bank, ids, byt, lens))
+        assert torch.equal(na.cpu(), kernels.nonascii_plain(byt, lens))
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+def test_dfa_tiles_wide_local_ids_equal_plain(cuda, stride):
+    """A 512-state pattern: uint16 local ids at stride 1, int32 fused
+    entries read from global memory at stride 4."""
+    bank = tdfa.DfaBank(budget=600)
+    bank.add_re2("^[ab]*a[ab]{8}$", "pool")
+    for g in ("0123456789*", "klmnopqrst*", "uvwxyz-_.:*", "a*b", "x?z"):
+        bank.add_glob(g, "pool")
+    bank.finalize(stride=stride, stride_entries=1 << 21)
+    ids = bank.families["pool"]
+    groups = tdfa.scan_groups(bank, ids, cuda)
+    assert any(int((g.tiles[:, 3] & 1).sum()) for g in groups)
+    g = torch.Generator().manual_seed(stride)
+    byt = torch.randint(97, 99, (4096, 48), generator=g, dtype=torch.uint8)
+    lens = torch.randint(0, 56, (4096,), generator=g, dtype=torch.int32)
+    got = tdfa.bank_match(bank, ids, byt.to(cuda), lens.to(cuda))
+    want = tdfa.bank_match(bank, ids, byt, lens)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("W,offset", [(33, 0), (64, 1), (33, 3)])
+def test_dfa_scan_unpadded_rows_equal_plain(cuda, stride, W, offset):
+    """Rows of a width that is no multiple of 4, or from a base that is
+    not 4-byte aligned: the wrapper pads them to words for the kernel;
+    both entries and the non-ASCII output equal the plain twins."""
+    bank = tdfa.DfaBank(budget=12)
+    for p in ("a*b", "nginx-?", "*-suffix-*-mid-*-tail", "localhost/*"):
+        bank.add_glob(p, "pool")
+    bank.add_re2("^(ab|cd){1,10}x[0-9]{3}$", "pool")
+    bank.add_re2("[a-c]+é", "pool")
+    bank.finalize(stride=stride)
+    ids = bank.families["pool"]
+    byt, lens = _subjects(W + stride, S=3000, W=W)
+    flat = torch.empty((byt.numel() + offset,), dtype=torch.uint8,
+                       device=cuda)
+    dev = flat[offset:].view(byt.shape)
+    dev.copy_(byt)
+    assert dev.is_contiguous() and (dev.data_ptr() % 4 == 0) == (offset == 0)
+    dl = lens.to(cuda)
+    for g in tdfa.scan_groups(bank, ids, cuda):
+        fn = kernels.dfa_scan_stride1 if g.kind == "stride1" \
+            else kernels.dfa_scan_fused
+        out = torch.zeros((byt.shape[0], len(ids)), dtype=torch.bool,
+                          device=cuda)
+        kernels.reset_launches()
+        got, na = fn(dev, dl, g, out, want_nonascii=True)
+        assert kernels.LAUNCHES[f"dfa_scan_{g.kind}"] == 1
+        assert torch.equal(got[:, g.cols], g.plain_scan(byt.to(cuda), dl))
+        assert torch.equal(na.cpu(), kernels.nonascii_plain(byt, lens))
+    assert torch.equal(tdfa.bank_match(bank, ids, dev, dl).cpu(),
+                       tdfa.bank_match(bank, ids, byt, lens))
+
+
 def test_instance_count_kernel_equals_plain(cuda):
     g = torch.Generator().manual_seed(3)
     N, R, I = 512, 256, 16

@@ -118,13 +118,14 @@ def test_fused_entry_nonascii_output_equals_reference():
     """K1's optional non-ASCII output rides the scan's own entry."""
     jbank, _ = _banks("exact", 4)
     bank = bank_from_numpy(bank_to_numpy(jbank))
-    tabs = tdfa.device_tables(bank, "cpu")
     byt, lens = _pack(_corpus(5), 96, seed=5)
     ids = [i for i in jbank.families["pool"] if jbank.strides[i] == 4]
+    (tiles,) = tdfa.scan_groups(bank, ids, "cpu")
+    out = torch.empty((byt.shape[0], len(ids)), dtype=torch.bool)
     acc, na = kernels.dfa_scan_fused(
-        torch.from_numpy(byt), torch.from_numpy(lens), tabs["fused_trans"],
-        tabs["fused_pairs"], tabs["fused_start"][ids], tabs["fused_accept"],
-        bank.fused_pitch, 2, want_nonascii=True)
+        torch.from_numpy(byt), torch.from_numpy(lens), tiles, out,
+        want_nonascii=True)
+    assert acc is out
     assert np.array_equal(na.numpy(), np.asarray(jdfa.nonascii_mask(byt, lens)))
     want = np.asarray(jdfa.bank_match(jbank, ids, byt, lens))
     assert np.array_equal(acc.numpy(), want)
