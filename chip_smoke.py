@@ -24,8 +24,10 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    word and of 1, 2 and 8 64-bit words) on the tenant batch's
    namespace, name and pool lanes with real and hostile lengths, its
    pack of one there and on 320-byte seeded subjects (state words 2 to
-   16), and K1's non-ASCII entry on its own. Each is timed by CUDA-graph
-   replay beside its plain twin and its library yardstick;
+   16), and K1's non-ASCII entry on its own; K10 ``meta_any`` on the
+   tenant policy's 3,264-entry ``namespaces`` list at the tenant scan
+   and triage shapes. Each is timed by CUDA-graph replay beside its
+   plain twin and its library yardstick;
 4. the dense path: ``TorchEngine(PSS).scan`` on N seeded resources
    (Pod / Deployment / CronJob / Service): the completed table over all
    rules (codes 0..4), its launch counts and the program's K3 counts,
@@ -59,7 +61,29 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    scalar chain and every negative unchanged, and an all-negative batch
    of 512 costing one device dispatch and no patcher call.
 
-Phases 7 and 8 run after phase 5; phase 6's lines come last.
+9. the guarded dispatch ladder on the card: an armed ``tpu.dispatch``
+   fault (the breaker trips after two failures and the third scan never
+   tries the device), a corrupt-shape fault and its half-open probe, the
+   three hostile resources (``metadata: "x"``, ``kind: 7``,
+   ``metadata.namespace: ["x"]``) through ``TorchEngine.scan`` and
+   ``ShardedScanner.scan``, a device fault in ``ShardedScanner.scan``,
+   and an armed ``mutate.triage`` fault: every table equals the clean
+   scan and the CPU run, the triage batch is all-HOST and patches as the
+   clean one.
+
+On every path (dense, step, tenant scan, tenant triage, mutate leg) the
+program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
+replay equals the eager program and the plain-twin program exactly, with
+the same launches and stats, and the phase prints eager and replayed
+times, captures and the aten operations issued per eager run and per
+replayed call. A ``torch.profiler`` trace of the dense program, eager and
+replayed, gives the device's busy share. The port's breaker and metrics
+are reset before each phase; after each phase but the fault phase the
+script fails unless no ``breaker_fallback`` was counted, the last
+dispatch went to the device and the breaker is closed.
+
+Phases 7 and 8 run after phase 5, then phase 9; phase 6's lines come
+last.
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -112,6 +136,8 @@ KERNEL_META = {
                  "kyverno_tpu/tpu/dfa.py:1246"),
     "glob_nfa": ("kyverno_tpu_torch/csrc/glob_nfa.cu",
                  "kyverno_tpu/tpu/evaluator.py:386"),
+    "meta_any": ("kyverno_tpu_torch/csrc/meta_any.cu",
+                 "kyverno_tpu/tpu/evaluator.py:1589"),
 }
 PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
          "mutate_leg")
@@ -123,7 +149,10 @@ DENSE_KERNELS = ("dfa_scan_fused", "instance_count", "instance_count2",
 SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
                 "dfa_scan_fused", "instance_count", "instance_count2")
-TENANT_KERNELS = ("glob_nfa", "nonascii")
+TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any")
+# eager aten operations a tenant triage batch may issue (46,747 before
+# K10 took the per-entry loop over the namespace globs)
+TRIAGE_OPS_MAX = 5000
 # one-level K3 launches the dense PSS program may issue: its 1,875
 # counts less the memo's hits on identical row masks
 DENSE_K3_MAX = 1065
@@ -361,6 +390,148 @@ def program_ops(torch, kernels, fn):
         fn()
     torch.cuda.synchronize()
     return Count.n, sum(kernels.LAUNCHES.values()) - before
+
+
+def ladder_reset():
+    """Before a phase: no fault armed, the port's breaker reset (closed,
+    default tuning), its fallback counters and the triage fallback
+    outcome at 0, and no dispatch path recorded on this thread."""
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.observability.profiling import set_dispatch_path
+    from kyverno_tpu_torch.resilience.breaker import tpu_breaker
+    from kyverno_tpu_torch.resilience.faults import global_faults
+
+    global_faults.disarm()
+    tpu_breaker().reset()
+    for reason in ("error", "open"):
+        global_registry.breaker_fallback.remove({"reason": reason})
+    global_registry.mutate_triage.remove({"outcome": "fallback"})
+    set_dispatch_path("none")
+
+
+def ladder_check(phase: str) -> None:
+    """After a phase other than the fault phase: the ladder must not
+    have hidden the card — no breaker fallback, no triage fallback, the
+    last dispatch on the device, the breaker closed."""
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.observability.profiling import (PATH_DEVICE,
+                                                           last_dispatch_path)
+    from kyverno_tpu_torch.resilience.breaker import CLOSED, tpu_breaker
+
+    fb = {r: global_registry.breaker_fallback.value({"reason": r})
+          for r in ("error", "open")}
+    tri = global_registry.mutate_triage.value({"outcome": "fallback"})
+    path = last_dispatch_path("none")
+    state = tpu_breaker().state
+    if any(fb.values()) or tri or path != PATH_DEVICE or state != CLOSED:
+        raise AssertionError(f"phase {phase}: breaker_fallback {fb}, triage "
+                             f"fallbacks {tri}, last dispatch path {path!r}, "
+                             f"breaker {state}: the card was not used")
+    say(phase, "ladder: no breaker_fallback and no triage fallback, last "
+               "dispatch path device, breaker closed")
+
+
+def same_outputs(torch, name: str, got, want) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if len(got) != len(want) or not all(
+            g.dtype == w.dtype and torch.equal(g, w)
+            for g, w in zip(got, want)):
+        raise AssertionError(f"{name} differ")
+
+
+def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag):
+    """One path's program as a CUDA graph (``tpu/graphs.py``) on one
+    lane dict: the replay against the eager program (``g.run``) and the
+    plain-twin program, exactly; the launches and program stats of one
+    eager run against one replay; eager and replayed times (host clock
+    to a sync, median of 5); captures; and the aten operations the host
+    issues per eager run and per replayed call."""
+    from kyverno_tpu_torch.tpu.graphs import GraphedProgram
+
+    if not isinstance(g, GraphedProgram):
+        raise AssertionError(f"{label}: the program is not graphed")
+
+    def five(fn):
+        ts, out = [], None
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts), ts, out
+
+    eager_ms, eager_all, eager_out = five(lambda: g.run(lanes))
+    # a key's first call runs eagerly, its second captures: both happen
+    # here unless the path already made them
+    g(lanes)
+    g(lanes)
+    replay_ms, replay_all, replay_out = five(lambda: g(lanes))
+    same_outputs(torch, f"{label}: replay and eager outputs", replay_out,
+                 eager_out)
+    same_outputs(torch, f"{label}: replay and plain-twin outputs",
+                 replay_out, plain_fn(lanes))
+    counted = []
+    for fn in (g.run, g):
+        kernels.reset_launches()
+        zero_stats(g)
+        fn(lanes)
+        torch.cuda.synchronize()
+        counted.append((dict(kernels.LAUNCHES), dict(g.stats)))
+    if counted[0] != counted[1]:
+        raise AssertionError(f"{label}: an eager run counts {counted[0]}, a "
+                             f"replay {counted[1]}")
+    ops_eager, _ = program_ops(torch, kernels, lambda: g.run(lanes))
+    ops_replay, _ = program_ops(torch, kernels, lambda: g(lanes))
+    n_launch = sum(counted[0][0].values())
+    say(phase, f"{label} as a CUDA graph: replay equals the eager program and "
+               f"the plain-twin program; eager {eager_ms:.3f} ms median of 5 "
+               f"({', '.join(f'{x:.3f}' for x in eager_all)}), replay "
+               f"{replay_ms:.3f} ms median of 5 "
+               f"({', '.join(f'{x:.3f}' for x in replay_all)}) {tag}")
+    say(phase, f"{label}: captures {g.captures} (live {g.live_graphs}), "
+               f"replays {g.replays}; aten operations per eager run "
+               f"{ops_eager}, per replayed call {ops_replay}; {n_launch} "
+               "launches of the port's kernels per run, the same counted "
+               "eagerly and replayed")
+    return {"eager_ms": eager_ms, "replay_ms": replay_ms,
+            "captures": g.captures, "ops_eager": ops_eager,
+            "ops_replay": ops_replay, "launches": n_launch}
+
+
+def busy_share(torch, fn, reps: int = 3):
+    """The device's busy share over ``reps`` calls of ``fn`` under
+    ``torch.profiler``: the union of the CUDA activity intervals over the
+    traced window (first to last event). None when the trace holds no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.time_range.end > e.time_range.start]
+    dev = sorted((e.time_range.start, e.time_range.end) for e in evs
+                 if e.device_type == DeviceType.CUDA)
+    if not dev:
+        return None
+    lo = min(e.time_range.start for e in evs)
+    hi = max(e.time_range.end for e in evs)
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for a, b in dev[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return {"busy_share": busy / (hi - lo), "window_ms": (hi - lo) / 1e3,
+            "busy_ms": busy / 1e3, "device_events": len(dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -909,6 +1080,7 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     """Phase 4: the dense TorchEngine path. Returns its launch counts."""
     from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
 
+    ladder_reset()
     kernels.reset_launches()
     zero_stats(eng.cps.device_fn())
     t0 = time.perf_counter()
@@ -971,24 +1143,24 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
     lane_bytes = sum(v.nbytes for v in batch.values())
-    prog = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        table, counts = eng.run(lanes)
-        torch.cuda.synchronize()
-        prog.append((time.perf_counter() - t0) * 1e3)
-    program_ms = statistics.median(prog)
+    # the program as a CUDA graph (its key first seen by the scan above) against
+    # the eager program and the plain-twin program, on the same lanes
+    graph = eng.cps.device_fn(device=eng.device)
+    gr = graph_check(torch, kernels, "4", "the dense program", graph, lanes,
+                     eng.cps.device_fn(plain=True), tag)
+    program_ms = gr["replay_ms"]
+    table, counts = eng.run(lanes)
     peak = torch.cuda.max_memory_allocated()
-    n_ops, kl = program_ops(torch, kernels, lambda: eng.run(lanes))
-    # the same program with the kernels' plain twins, on the same lanes
-    ptable, pcounts = eng.cps.device_fn(plain=True)(lanes)
-    if not (torch.equal(ptable, table) and torch.equal(pcounts, counts)):
-        raise AssertionError("kernel program differs from the plain-twin "
-                             "program")
-    del ptable, pcounts
-    say("4", "device table and counts of run() equal the plain-twin "
-             "program on the card")
+    for label, fn in (("eager", graph.run), ("replayed", graph)):
+        share = busy_share(torch, lambda: fn(lanes))
+        say("4", f"device busy share of the dense program, {label} "
+                 "(torch.profiler, 3 runs): " + (
+                     "not measured (no device activity in the trace)"
+                     if share is None else
+                     f"{share['busy_share']:.4f} ({share['busy_ms']:.3f} ms "
+                     f"busy of a {share['window_ms']:.3f} ms window, "
+                     f"{share['device_events']} device events)") + f" {tag}")
+        gr[f"busy_{label}"] = share
     t0 = time.perf_counter()
     dtab = table.cpu().numpy()
     counts.cpu().numpy()
@@ -1011,13 +1183,11 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     say("4", f"encode {encode_s:.4f} s (host, {len(padded)} padded "
              f"resources, {lane_bytes} lane bytes) {tag}")
     say("4", f"H2D {h2d_ms:.3f} ms (pack into pinned memory + one copy) {tag}")
-    say("4", f"program {program_ms:.3f} ms median of 5 "
-             f"({', '.join(f'{x:.3f}' for x in prog)}) {tag}")
-    say("4", f"one program run issues {n_ops} aten operations and {kl} "
-             "launches of the port's kernels")
+    say("4", f"program {gr['eager_ms']:.3f} ms eager, {program_ms:.3f} ms "
+             f"replayed (medians of 5) {tag}")
     say("4", f"readback {readback_ms:.3f} ms {tag}")
     say("4", f"{cells / (program_ms / 1e3):.0f} rule x resource evals/s "
-             f"on the program, {cells / scan_s:.0f} end to end {tag}")
+             f"on the replayed program, {cells / scan_s:.0f} end to end {tag}")
     say("4", f"peak device memory of the lanes and the program {peak} "
              f"bytes {tag}")
     del lanes, table, counts
@@ -1042,7 +1212,8 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
         raise AssertionError("stride-1 scan differs from the stride-4 scan")
     say("4", "stride-1 completed table equals the stride-4 scan")
     launches["dfa_scan_stride1"] = launches1["dfa_scan_stride1"]
-    return launches
+    ladder_check("4")
+    return launches, gr
 
 
 def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
@@ -1065,6 +1236,7 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     say("5", f"snapshot of {scan_n} resources generated in "
              f"{time.perf_counter() - t0:.3f} s (host)")
 
+    ladder_reset()
     kernels.reset_launches()
     zero_stats(scanner.step_jitted())
     t0 = time.perf_counter()
@@ -1128,22 +1300,26 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     say("5", "step (uint8 table and counts) equals the plain-twin step on "
              "the same vocabulary lanes")
 
-    # the step never waits for the device
+    # the step never waits for the device, eager or replayed (the
+    # graph of these lanes' bucket exists by now)
+    step = scanner.step_jitted()
+    step(lanes)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            scanner.step_jitted()(lanes)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message) for w in caught
-             if "synchroniz" in str(w.message).lower()]
-    if syncs:
-        raise AssertionError(f"the step synchronizes the host {len(syncs)} "
-                             f"times: {syncs[:3]}")
-    say("5", "the step issued no synchronizing operation "
-             "(torch.cuda.set_sync_debug_mode)")
+    for label, fn in (("eager", step.run), ("replayed", step)):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn(lanes)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "synchroniz" in str(w.message).lower()]
+        if syncs:
+            raise AssertionError(f"the {label} step synchronizes the host "
+                                 f"{len(syncs)} times: {syncs[:3]}")
+    say("5", "the step issued no synchronizing operation, eager or "
+             "replayed (torch.cuda.set_sync_debug_mode)")
 
     # 257 resources: the CPU scanner against the card's
     small = 257
@@ -1155,24 +1331,16 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     say("5", f"ShardedScanner(device='cpu').scan of {small} resources equals "
              "the card's")
 
-    # steady-state step on one resident tile (bench.py's measure)
-    step = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scanner.step_jitted()(lanes)
-        torch.cuda.synchronize()
-        step.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(step)
-    n_ops, kl = program_ops(torch, kernels,
-                            lambda: scanner.step_jitted()(lanes))
-    say("5", f"one step issues {n_ops} aten operations and {kl} launches of "
-             "the port's kernels")
+    # steady-state step on one resident tile (bench.py's measure),
+    # eager and replayed, against the plain-twin step
+    gr = graph_check(torch, kernels, "5", "the step", step, lanes, plain,
+                     tag)
+    step_ms = gr["replay_ms"]
     cells = len(scanner.cps.device_programs) * tile
-    say("5", f"steady-state step {step_ms:.3f} ms median of 5 "
-             f"({', '.join(f'{x:.3f}' for x in step)}) on one resident "
+    say("5", f"steady-state step {gr['eager_ms']:.3f} ms eager, "
+             f"{step_ms:.3f} ms replayed (medians of 5) on one resident "
              f"{tile}-resource tile: {cells / (step_ms / 1e3):.0f} rule x "
-             f"resource evals/s {tag}")
+             f"resource evals/s replayed {tag}")
     vocab_bytes = sum(a.nbytes for a in host.values())
     dpad, dops, _ = dense.pad(first, fops)
     dense_host = dense.encode(dpad, None, dops)[0]
@@ -1185,7 +1353,8 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
              f"pool_sidx {host['pool_sidx'].dtype} {host['pool_sidx'].shape}, "
              f"{len([k for k in host if k.startswith('vocab_')])} vocabulary "
              f"lanes of {host['vocab_valid'].shape[0]} rows")
-    return launches
+    ladder_check("5")
+    return launches, gr
 
 
 # ---------------------------------------------------------------------------
@@ -1402,6 +1571,61 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
              f"{nbytes} bytes up to the first non-ASCII byte or the length")
 
 
+def check_meta_any(torch, kernels, eng, resources, lanes, batch_n, results):
+    """K10 against its plain twin on the tenant policy's namespace list
+    (3,264 entries a family: bank columns, K9 pack rows and two
+    non-ASCII masks) at the tenant scan shape (the validate program over
+    ``lanes``) and the triage shape (the mutate program over the first
+    ``batch_n`` resources), with the arguments the evaluator gives it
+    (``Ctx.meta_any_args``). Bound: the plane cells of the entries, the
+    hash lanes, the masks, the entry table and the two outputs over
+    3.35 TB/s; or a compare a cell over 67 TOPS."""
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+    from kyverno_tpu_torch.tpu.evaluator import Ctx, NfaPacks, densify
+
+    cps = eng.cps
+    padded, _, _ = eng.pad(resources[:batch_n])
+    tri_lanes = lanes_to_device(eng.encode(padded)[0], eng.device)
+    shapes = (("scan", lanes, cps.device_programs, cps.nfa_globs),
+              ("triage", tri_lanes, cps.mutate_programs,
+               cps.mutate_nfa_globs))
+    out = []
+    for shape, ln, programs, nfa in shapes:
+        flt = next(f for p in programs for f in p.match.filters
+                   if len(f.namespaces) >= len(TENANT_GLOBS))
+        ctx = Ctx(densify(ln), cps.encode_cfg.max_instances, dfa=cps.dfa,
+                  nfa=NfaPacks(nfa))
+        args = ctx.meta_any_args("namespaces", flt.namespaces)
+        table, planes, hashes, is_ns, na = args
+        got = kernels.meta_any(*args)
+        want = kernels.meta_any_plain(*args)
+        err = max(exact(torch, f"K10 meta_any {shape} {w}", g, p)
+                  for w, g, p in zip(("hit", "confirm"), got, want))
+        N = hashes[0].shape[0]
+        E = table.ent.shape[0]
+        e_plane = int((table.ent[:, 0] >= 0).sum())
+        nbytes = (N * e_plane + sum(h.numel() * 4 for h in hashes)
+                  + table.ent.nbytes + N * (1 + sum(m is not None for m in na))
+                  + 2 * N)
+        r = timed(torch, lambda: kernels.meta_any(*args),
+                  lambda: kernels.meta_any_plain(*args))
+        r.update({"name": "meta_any", "shape": shape, "N": N, "E": E,
+                  "plane_entries": e_plane, "planes": len(planes),
+                  "bytes": nbytes, "max_abs_err": err,
+                  "bound": bound(nbytes, 2 * N * E), "library_ms": None})
+        out.append(r)
+        say("3", f"K10 meta_any at the tenant {shape} shape: N {N}, {E} "
+                 f"entries ({e_plane} in {len(planes)} planes, "
+                 f"{E - e_plane} hash pairs), hits {int(got[0].sum())}, "
+                 f"confirms {int(got[1].sum())}, max abs err {err}; "
+                 f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), plain "
+                 f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+                 f"({r['bound'][1]}, {nbytes} bytes)")
+    results["meta_any"] = out[0]
+    results["meta_any_shapes"] = out
+    del tri_lanes
+
+
 def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     """Phase 7: the tenant set's scan and mutate triage. Returns the
     launch counts of the scan and of the triage."""
@@ -1410,6 +1634,7 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
 
     n = len(resources)
+    ladder_reset()
     kernels.reset_launches()
     zero_stats(eng.cps.device_fn())
     t0 = time.perf_counter()
@@ -1443,22 +1668,13 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     lanes = lanes_to_device(batch, eng.device)
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    table, counts = eng.run(lanes)
-    torch.cuda.synchronize()
-    program_s = time.perf_counter() - t0
-    n_ops, kl = program_ops(torch, kernels, lambda: eng.run(lanes))
+    gv = graph_check(torch, kernels, "7", "the tenant scan program",
+                     eng.cps.device_fn(device=eng.device), lanes,
+                     eng.cps.device_fn(plain=True), tag)
     say("7", f"scan parts: encode {encode_s:.4f} s, H2D {h2d_ms:.3f} ms, "
-             f"program {program_s:.4f} s (host clock to a sync) {tag}; one "
-             f"program run issues {n_ops} aten operations and {kl} launches "
-             "of the port's kernels")
-    t0 = time.perf_counter()
-    ptable, pcounts = eng.cps.device_fn(plain=True)(lanes)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    if not (torch.equal(ptable, table) and torch.equal(pcounts, counts)):
-        raise AssertionError("tenant program differs from the plain-twin "
-                             "program")
+             f"program {gv['eager_ms']:.3f} ms eager, {gv['replay_ms']:.3f} ms "
+             f"replayed (host clock to a sync) {tag}")
+    table, counts = eng.run(lanes)
     dtab = table.cpu().numpy()
     confirm = int((dtab[:, :n] == 6).sum())
     host = int((dtab[:, :n] == 5).sum())
@@ -1473,10 +1689,9 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     if confirm <= 0:
         raise AssertionError("no CONFIRM cell: the non-ASCII subjects of the "
                              "'?' globs did not reach the scan")
-    say("7", f"device table and counts equal the plain-twin program "
-             f"({plain_s:.3f} s) on the card; {confirm} CONFIRM and {host} "
-             f"HOST cells completed on the host")
-    del lanes, table, counts, ptable, pcounts
+    say("7", f"{confirm} CONFIRM and {host} HOST cells of the device table "
+             "completed on the host")
+    del lanes, table, counts
 
     # mutate triage in batches
     eng.triage_dispatches = eng.triage_encode_fallbacks = 0
@@ -1520,19 +1735,16 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     encode_s = time.perf_counter() - t0
     lanes = lanes_to_device(batch, eng.device)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = eng.cps.mutate_device_fn()(lanes)
-    torch.cuda.synchronize()
-    program_s = time.perf_counter() - t0
-    want = eng.cps.mutate_device_fn(plain=True)(lanes)
-    if not torch.equal(got, want):
-        raise AssertionError("triage program differs from its plain twins")
-    n_ops, kl = program_ops(torch, kernels,
-                          lambda: eng.cps.mutate_device_fn()(lanes))
+    gt = graph_check(torch, kernels, "7", "one tenant triage batch",
+                     eng.cps.mutate_device_fn(device=eng.device), lanes,
+                     eng.cps.mutate_device_fn(plain=True), tag)
     say("7", f"one triage batch of {len(first)}: encode {encode_s:.4f} s, "
-             f"program {program_s:.4f} s; equal to the plain-twin triage "
-             f"program {tag}; it issues {n_ops} aten operations and {kl} "
-             "launches of the port's kernels")
+             f"program {gt['eager_ms']:.3f} ms eager, {gt['replay_ms']:.3f} ms "
+             f"replayed {tag}; {gt['ops_eager']} aten operations an eager "
+             f"run (at most {TRIAGE_OPS_MAX})")
+    if gt["ops_eager"] >= TRIAGE_OPS_MAX:
+        raise AssertionError(f"a triage batch issues {gt['ops_eager']} aten "
+                             f"operations eagerly, want < {TRIAGE_OPS_MAX}")
     del lanes
 
     # a slice against the CPU run
@@ -1550,7 +1762,8 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     say("7", f"compile {compile_s:.3f} s, scan {scan_s:.3f} s, triage "
              f"{triage_s:.3f} s; glob_nfa launches {lv['glob_nfa']} (scan) + "
              f"{lt['glob_nfa']} (triage) {tag}")
-    return lv, lt
+    ladder_check("7")
+    return lv, lt, gv, gt
 
 
 def mutate_leg_phase(torch, kernels, n, tile, tag):
@@ -1589,6 +1802,7 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
 
     resources = [pod(i, "prod" if i % 20 == 0 else "dev") for i in range(n)]
     tiles = [resources[i:i + tile] for i in range(0, n, tile)]
+    ladder_reset()
     eng.triage_mutate(tiles[0], nsmap)  # first-use costs outside timing
     padded, _, _ = eng.pad(tiles[0])
     t0 = time.perf_counter()
@@ -1596,13 +1810,13 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
     encode_s = time.perf_counter() - t0
     lanes = lanes_to_device(batch, eng.device)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.cps.mutate_device_fn()(lanes)
-    torch.cuda.synchronize()
-    program_s = time.perf_counter() - t0
+    gm = graph_check(torch, kernels, "8", "one mutate-leg tile",
+                     eng.cps.mutate_device_fn(device=eng.device), lanes,
+                     eng.cps.mutate_device_fn(plain=True), tag)
     del lanes
     say("8", f"one tile of {len(tiles[0])}: encode {encode_s:.4f} s, program "
-             f"{program_s:.4f} s {tag}")
+             f"{gm['eager_ms']:.3f} ms eager, {gm['replay_ms']:.3f} ms "
+             f"replayed {tag}")
     kernels.reset_launches()
     t0 = time.perf_counter()
     results = [eng.triage_mutate(t, nsmap) for t in tiles]
@@ -1667,7 +1881,119 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
                              f"{calls} patcher calls, rows {uc}")
     say("8", f"all-negative batch of {len(untouched)}: one device dispatch, "
              f"no patcher call, {untouched_s:.4f} s {tag}")
-    return launches
+    ladder_check("8")
+    return launches, gm
+
+
+def fault_phase(torch, kernels, eng, scanner, tenant, resources, ops,
+                tenant_res, tag):
+    """Phase 9: the guarded dispatch ladder on the card. Every table
+    must equal the clean scan's and the CPU run's; fallbacks are counted
+    here (the only phase where they are expected)."""
+    import numpy as np
+
+    from kyverno_tpu_torch.mutation.coordinator import apply_mutations
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.resilience.breaker import CLOSED, OPEN, tpu_breaker
+    from kyverno_tpu_torch.resilience.faults import (SITE_MUTATE_TRIAGE,
+                                                     SITE_TPU_DISPATCH,
+                                                     global_faults)
+    from kyverno_tpu_torch.tpu.engine import TorchEngine
+    from kyverno_tpu_torch.tpu.evaluator import HOST
+
+    def fallbacks():
+        return {r: int(global_registry.breaker_fallback.value({"reason": r}))
+                for r in ("error", "open")}
+
+    def check(name, got, want):
+        if got.rules != want.rules or not np.array_equal(got.verdicts,
+                                                         want.verdicts):
+            raise AssertionError(f"fault phase: {name} differs")
+
+    ladder_reset()
+    breaker = tpu_breaker()
+    res, rops = resources[:64], ops[:64]
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    clean = eng.scan(res, operations=rops)
+    check("the clean scan against the CPU run", clean,
+          cpu.scan(res, operations=rops))
+    breaker.reset(failure_threshold=2, reset_timeout_s=600.0)
+    global_faults.arm(SITE_TPU_DISPATCH, mode="raise", p=1.0)
+    for i, want_state in enumerate((CLOSED, OPEN)):
+        check(f"scan under an armed dispatch fault ({i + 1})",
+              eng.scan(res, operations=rops), clean)
+        if breaker.state != want_state:
+            raise AssertionError(f"breaker {breaker.state} after {i + 1} "
+                                 f"failures, want {want_state}")
+    fired = global_faults.armed()[SITE_TPU_DISPATCH].fired
+    check("scan with the breaker open", eng.scan(res, operations=rops), clean)
+    if global_faults.armed()[SITE_TPU_DISPATCH].fired != fired \
+            or fallbacks() != {"error": 2, "open": 1}:
+        raise AssertionError(f"open breaker: fault fired again or fallbacks "
+                             f"{fallbacks()}")
+    say("9", "armed tpu.dispatch fault: two failures trip the breaker, the "
+             "third scan never tries the device; all three tables equal the "
+             f"clean scan and the CPU run; breaker_fallback {fallbacks()}")
+    global_faults.disarm()
+    breaker.reset(failure_threshold=1, reset_timeout_s=0.0)
+    global_faults.arm(SITE_TPU_DISPATCH, mode="corrupt", count=1)
+    check("scan under a corrupt-shape fault", eng.scan(res, operations=rops),
+          clean)
+    if breaker.state != OPEN:
+        raise AssertionError(f"corrupt shape: breaker {breaker.state}")
+    check("the half-open probe", eng.scan(res, operations=rops), clean)
+    if breaker.state != CLOSED:
+        raise AssertionError(f"half-open probe: breaker {breaker.state}")
+    say("9", "corrupt-shape fault: a device failure (breaker open), the "
+             "half-open probe closes it; tables equal the clean scan")
+    global_faults.disarm()
+    breaker.reset()
+    hostile = {"metadata: \"x\"": {"apiVersion": "v1", "kind": "Pod",
+                                    "metadata": "x"},
+               "kind: 7": {"apiVersion": "v1", "kind": 7,
+                           "metadata": {"name": "k", "namespace": "d"}},
+               "metadata.namespace: [\"x\"]": {
+                   "apiVersion": "v1", "kind": "Pod",
+                   "metadata": {"name": "n", "namespace": ["x"]}}}
+    for name, h in hostile.items():
+        batch, bops = [res[0], h, res[1]], [rops[0], "", rops[1]]
+        want = cpu.scan(batch, operations=bops)
+        check(f"TorchEngine.scan with {name}",
+              eng.scan(batch, operations=bops), want)
+        check(f"ShardedScanner.scan with {name}",
+              scanner.scan(batch, operations=bops), want)
+        if not np.array_equal(want.verdicts[:, [0, 2]],
+                              clean.verdicts[:, :2]):
+            raise AssertionError(f"{name}: the good resources changed")
+    say("9", f"hostile resources {list(hostile)}: TorchEngine.scan and "
+             "ShardedScanner.scan equal the CPU run, the good resources keep "
+             "their clean verdicts")
+    e0 = fallbacks()["error"]
+    global_faults.arm(SITE_TPU_DISPATCH, mode="raise", count=1)
+    check("ShardedScanner.scan under a dispatch fault",
+          scanner.scan(res, operations=rops), clean)
+    if fallbacks()["error"] != e0 + 1 or breaker.state != CLOSED:
+        raise AssertionError("ShardedScanner.scan: the fault was not a "
+                             "counted device failure")
+    global_faults.disarm()
+    trs = tenant_res[:48]
+    tclean = tenant.triage_mutate(trs)
+    global_faults.arm(SITE_MUTATE_TRIAGE, mode="raise")
+    tfault = tenant.triage_mutate(trs)
+    global_faults.disarm()
+    if not (tfault.verdicts == HOST).all() or tfault.rules != tclean.rules:
+        raise AssertionError("mutate.triage fault: the batch is not all-HOST")
+    for ci, r in enumerate(trs):
+        a = apply_mutations(tenant, r, tfault.rows_for(ci))
+        b = apply_mutations(tenant, r, tclean.rows_for(ci))
+        if a.patched != b.patched:
+            raise AssertionError(f"mutate.triage fault: resource {ci} "
+                                 "patches differently")
+    say("9", f"ShardedScanner.scan under a dispatch fault equals the clean "
+             f"scan (all-HOST, completed on the host); mutate.triage fault: "
+             f"{len(trs)} resources all-HOST, patched as the clean triage "
+             f"routes them; breaker_fallback {fallbacks()} {tag}")
+    ladder_reset()
 
 
 def main() -> int:
@@ -1779,20 +2105,31 @@ def main() -> int:
     check_glob_nfa(torch, kernels, tenant_lanes, nfa, args.seed + 6, results)
     check_dfa_tenant(torch, kernels, dfa_mod, tenant.cps.dfa, tenant_lanes,
                      results)
+    check_meta_any(torch, kernels, tenant, tenant_res, tenant_lanes,
+                   args.tenant_batch, results)
     del lanes, tile_lanes, tenant_lanes
 
     # phase 4: the dense path through the user's entry point
-    dense = dense_phase(torch, kernels, eng, policies, resources, ops, padded,
-                        pops, args.n, tag)
+    dense, g_dense = dense_phase(torch, kernels, eng, policies, resources,
+                                 ops, padded, pops, args.n, tag)
     # phase 5: the background scan through the user's entry point
-    scan = scan_phase(torch, kernels, scanner, policies, args.scan_n,
-                      args.tile, args.seed + 10, tag)
+    scan, g_step = scan_phase(torch, kernels, scanner, policies, args.scan_n,
+                              args.tile, args.seed + 10, tag)
     # phase 7: the tenant set's scan and triage
-    tv, tt = tenant_phase(torch, kernels, tenant, tenant_res,
-                          args.tenant_batch, tenant_compile_s, tag)
+    tv, tt, g_tv, g_tt = tenant_phase(torch, kernels, tenant, tenant_res,
+                                      args.tenant_batch, tenant_compile_s,
+                                      tag)
     # phase 8: bench.py's mutate leg
-    leg = mutate_leg_phase(torch, kernels, args.mutate_n, args.mutate_tile,
-                           tag)
+    leg, g_leg = mutate_leg_phase(torch, kernels, args.mutate_n,
+                                  args.mutate_tile, tag)
+    # phase 9: the guarded dispatch ladder under faults
+    fault_phase(torch, kernels, eng, scanner, tenant, resources, ops,
+                tenant_res, tag)
+    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+        say("6", f"graphs {path}: eager {gr['eager_ms']:.3f} ms, replay "
+                 f"{gr['replay_ms']:.3f} ms, captures {gr['captures']}, aten "
+                 f"operations {gr['ops_eager']} eager / {gr['ops_replay']} "
+                 f"replayed {tag}")
 
     # phase 6: the kernels line, then the device line
     by_path = dict(zip(PATHS, (dense, scan, tv, tt, leg)))
@@ -1818,6 +2155,12 @@ def main() -> int:
             raise AssertionError(f"{name} was launched on no path")
     # K1 at the tenant bank's shapes, beside the rows above
     by_name = {e["name"]: e for e in out}
+    for r in results["meta_any_shapes"]:
+        b_ms, b_by = r["bound"]
+        by_name["meta_any"].setdefault("tenant_shapes", []).append({
+            k: r[k] for k in ("shape", "N", "E", "plane_entries", "planes",
+                              "bytes", "ms", "eager_ms", "plain_ms")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
     for r in results["dfa_tenant"]:
         b_ms, b_by = r["bound"]
         by_name[r["name"]].setdefault("tenant_shapes", []).append({

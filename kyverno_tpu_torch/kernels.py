@@ -2,7 +2,7 @@
 PyTorch twins: K1 ``dfa_scan`` (and its non-ASCII entry), K3
 ``instance_count``, K4 ``verdict_counts`` (and its uint8-table entry),
 K5 ``vocab_gather``, K6 ``hash_match``, K7 ``pool_rows``, K8
-``first_true_take`` and K9 ``glob_nfa``.
+``first_true_take``, K9 ``glob_nfa`` and K10 ``meta_any``.
 
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 The first launch builds all sources at once (one ``nvcc`` per source,
@@ -18,8 +18,17 @@ Each wrapper:
   (there is no fallback);
 - checks dtype, shape, device and contiguity before the launch;
 - raises when the C entry returns a nonzero ``cudaGetLastError()``;
+- raises ``KernelError`` when a kernel fails to build, load or launch
+  (and ``tpu/graphs.py`` when a program fails to be captured): the
+  guarded dispatch ladder passes it to the caller instead of answering
+  the batch all-HOST, so a broken kernel never hides behind the scalar
+  engine;
 - adds one to ``LAUNCHES[<name>]`` for each kernel launch, and nowhere
   else.
+
+A program replayed as a CUDA graph (``tpu/graphs.py``) runs no Python:
+``GraphedProgram`` takes back the counts its capture run added and adds
+them again at every replay, so ``LAUNCHES`` counts what the card runs.
 
 The ``*_plain`` functions repeat each kernel's arithmetic in PyTorch;
 the CPU tests and ``chip_smoke.py`` hold the kernels against them.
@@ -45,7 +54,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "build", "kernels")
 SOURCES = ("dfa_scan", "instance_count", "verdict_counts", "vocab_gather",
-           "hash_match", "pool_rows", "first_true_take", "glob_nfa")
+           "hash_match", "pool_rows", "first_true_take", "glob_nfa",
+           "meta_any")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -64,6 +74,7 @@ LAUNCHES: Dict[str, int] = {
     "pool_rows": 0,
     "first_true_take": 0,
     "glob_nfa": 0,
+    "meta_any": 0,
 }
 
 _P = ctypes.c_void_p
@@ -87,12 +98,19 @@ _SIGNATURES = {
     "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
     "glob_nfa_pack": ("glob_nfa",
                       [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "meta_any": ("meta_any", [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _L,
+                              _P, _P, _P]),
 }
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, load or launch, or a
+    program failed to be captured as a CUDA graph."""
 
 
 def reset_launches() -> None:
@@ -107,7 +125,7 @@ def _nvcc() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+    raise KernelError("nvcc not found: the CUDA kernels are built with the "
                        "CUDA toolkit's nvcc at first use")
 
 
@@ -145,9 +163,13 @@ def build_all() -> Dict[str, str]:
                 continue
             os.replace(tmp, path)
         if failed:
-            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+            raise KernelError("kernel build failed: " + "\n".join(failed))
         for name in SOURCES:
-            _libs[name] = ctypes.CDLL(_lib_path(name))
+            try:
+                _libs[name] = ctypes.CDLL(_lib_path(name))
+            except OSError as e:
+                raise KernelError(f"kernel library {name} failed to load: "
+                                  f"{e}") from e
         for fn, (src, argtypes) in _SIGNATURES.items():
             f = getattr(_libs[src], fn)
             f.argtypes = argtypes
@@ -162,7 +184,7 @@ def _call(fn: str, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rc = _fns[fn](*args, stream)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {rc}")
+        raise KernelError(f"CUDA kernel {fn} failed to launch: cudaError {rc}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, ndim: Optional[int] = None
@@ -1245,4 +1267,184 @@ def glob_nfa(pattern: str, bytes_: torch.Tensor,
         raise ValueError(f"glob of {len(glob_chars(pattern))} positions over "
                          f"{bytes_.shape[-1]}-byte subjects: K9 holds at "
                          f"most {64 * GLOB_MAX_WORDS - 1}")
-    return glob_nfa_pack(GlobPack([pattern]), bytes_, lens)[0]
+    return glob_nfa_pack(_single_pack(pattern), bytes_, lens)[0]
+
+
+@functools.lru_cache(maxsize=4096)
+def _single_pack(pattern: str) -> GlobPack:
+    """A pattern's pack of one, made once: its device tables are copied
+    once, so a CUDA graph can replay a program that runs it."""
+    return GlobPack([pattern])
+
+
+# ---------------------------------------------------------------------------
+# K10 meta_any (csrc/meta_any.cu): replaces the names / namespaces loops
+# of kyverno_tpu/tpu/evaluator.py _eval_condition_block (1618-1631), the
+# OR over a filter's entries of a glob accept or a hash equality. Bound
+# by the bytes of the plane cells it reads.
+
+META_ANY_MAX_PLANES = 72  # kMaxPlanes in csrc/meta_any.cu
+
+
+class MetaAnyTable:
+    """K10's entries for one filter list, built once per compiled
+    program: ``families`` ("name",) for ``names``, ("name", "ns") for
+    ``namespaces``; ``slots``, the planes the entries read, each a key
+    the evaluator resolves a batch ("bank", family), ("nfa", family,
+    pack) or ("unpacked", family), with ``entry_major`` True where a
+    plane's rows are entries ((P, N)) and False where they are resources
+    ((N, K)); ``ent``, the (E, 4) int32 table {slot or -1, column/row or
+    hash hi, hash lo, self} of every (entry, family), the name family's
+    ``ent[:off[0]]`` then the namespace family's ``ent[off[0]:off[1]]``,
+    each sorted by (slot, column); ``na``, per family, whether its
+    non-ASCII mask joins the confirm; ``unpacked``, per family, the
+    globs outside its K9 packs (their stacked accepts are that slot's
+    rows). ``confirms`` is False when no entry can need a confirm."""
+
+    def __init__(self, families: Tuple[str, ...], slots: List[Tuple],
+                 entry_major: List[bool], ent: np.ndarray,
+                 off: Tuple[int, int], na: Tuple[bool, ...],
+                 unpacked: Dict[str, List[str]]):
+        if len(slots) > META_ANY_MAX_PLANES:
+            raise ValueError(f"meta_any: {len(slots)} planes, at most "
+                             f"{META_ANY_MAX_PLANES}")
+        self.families, self.slots, self.entry_major = families, slots, \
+            entry_major
+        self.ent = np.ascontiguousarray(ent, dtype=np.int32).reshape(-1, 4)
+        self.off, self.na, self.unpacked = off, na, unpacked
+        self.confirms = bool(any(na) or (self.ent[:, 3] != 0).any())
+        self._on: Dict[str, torch.Tensor] = {}
+        self._plain: Dict[str, list] = {}
+
+    def on(self, device) -> torch.Tensor:
+        """The entry table on ``device``; a CUDA copy is made once, from
+        pinned memory without waiting."""
+        key = str(device)
+        if key not in self._on:
+            t = torch.from_numpy(self.ent)
+            if torch.device(device).type != "cpu":
+                t = t.pin_memory().to(device, non_blocking=True)
+            self._on[key] = t
+        return self._on[key]
+
+    def plain_index(self, device) -> list:
+        """Per family: [(slot, columns, self)] and the hash entries'
+        (hi, lo, self), as index tensors on ``device`` (the twin's)."""
+        key = str(device)
+        if key not in self._plain:
+            out = []
+            bounds = (0,) + tuple(self.off)
+            for f in range(len(self.families)):
+                rows = self.ent[bounds[f]:bounds[f + 1]]
+
+                def t(a, dtype):
+                    return torch.as_tensor(np.ascontiguousarray(a),
+                                           dtype=dtype, device=device)
+
+                by_slot = [(s, t(rows[rows[:, 0] == s, 1], torch.int64),
+                            t(rows[rows[:, 0] == s, 3] != 0, torch.bool))
+                           for s in sorted(set(rows[:, 0].tolist()) - {-1})]
+                h = rows[rows[:, 0] == -1]
+                out.append((by_slot, (t(h[:, 1], torch.int32),
+                                      t(h[:, 2], torch.int32),
+                                      t(h[:, 3] != 0, torch.bool))))
+            self._plain[key] = out
+        return self._plain[key]
+
+
+def _meta_any_args(table: MetaAnyTable, planes: Sequence[torch.Tensor],
+                   hashes: Sequence[torch.Tensor]):
+    F = len(table.families)
+    if len(planes) != len(table.slots):
+        raise ValueError(f"meta_any: {len(planes)} planes for "
+                         f"{len(table.slots)} slots")
+    if len(hashes) != F:
+        raise ValueError(f"meta_any: {len(hashes)} hash lanes for {F} "
+                         f"families")
+    N = hashes[0].shape[0]
+    for p, em in zip(planes, table.entry_major):
+        if p.dtype != torch.bool or p.ndim != 2 \
+                or p.shape[1 if em else 0] != N:
+            raise ValueError(f"meta_any: plane {tuple(p.shape)} {p.dtype} "
+                             f"for {N} resources")
+    return N
+
+
+def meta_any_plain(table: MetaAnyTable, planes: Sequence[torch.Tensor],
+                   hashes: Sequence[torch.Tensor],
+                   is_ns: Optional[torch.Tensor] = None,
+                   na: Sequence[Optional[torch.Tensor]] = ()
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N,) bool hit and confirm of a filter list: each family's entries
+    gathered from their planes and hash lanes into one (N, E_f) matrix,
+    and ``any`` over it. ``hashes`` holds each family's (N, 2) int32
+    hash lane, ``is_ns`` the (N,) bool Namespace-kind mask (namespaces),
+    ``na`` each family's (N,) bool non-ASCII mask or None."""
+    N = _meta_any_args(table, planes, hashes)
+    dev = hashes[0].device
+    hits, conf = [], torch.zeros((N,), dtype=torch.bool, device=dev)
+    for f, (by_slot, (hi, lo, hself)) in enumerate(table.plain_index(dev)):
+        h = hashes[f]
+        accs = [(h[:, :1] == hi) & (h[:, 1:] == lo)]
+        selfs = [hself]
+        for s, cols, sself in by_slot:
+            p = planes[s]
+            accs.append(p[cols].T if table.entry_major[s] else p[:, cols])
+            selfs.append(sself)
+        acc = torch.cat(accs, dim=1)
+        hits.append(acc.any(dim=1))
+        conf = conf | (acc & torch.cat(selfs)).any(dim=1)
+        if f < len(na) and na[f] is not None:
+            conf = conf | na[f]
+    hit = hits[0] if is_ns is None else torch.where(is_ns, hits[0], hits[1])
+    return hit, conf
+
+
+def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
+             hashes: Sequence[torch.Tensor],
+             is_ns: Optional[torch.Tensor] = None,
+             na: Sequence[Optional[torch.Tensor]] = ()
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: one launch for a filter list -> (N,) bool (hit, confirm), as
+    ``meta_any_plain``. Planes may have any strides."""
+    if hashes[0].device.type == "cpu":
+        return meta_any_plain(table, planes, hashes, is_ns, na)
+    N = _meta_any_args(table, planes, hashes)
+    dev = hashes[0].device
+    for f, h in enumerate(hashes):
+        _check(h, f"hash lane {f}", torch.int32, dev, 2)
+        if tuple(h.shape) != (N, 2):
+            raise ValueError(f"hash lane {tuple(h.shape)}, want ({N}, 2)")
+    for p in planes:
+        if p.device != dev:
+            raise ValueError(f"plane on {p.device}, want {dev}")
+    F = len(table.families)
+    if (is_ns is None) != (F == 1):
+        raise ValueError("meta_any: is_ns goes with the two families of "
+                         "namespaces, and only with them")
+    if is_ns is not None:
+        _check(is_ns, "is_ns", torch.bool, dev, 1)
+    nas = [na[f] if f < len(na) else None for f in range(2)]
+    for m in nas:
+        if m is not None:
+            _check(m, "nonascii", torch.bool, dev, 1)
+            if m.shape[0] != N:
+                raise ValueError(f"nonascii {tuple(m.shape)} for {N}")
+    ent = table.on(dev)
+    hit = torch.empty((N,), dtype=torch.bool, device=dev)
+    conf = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        k = len(planes)
+        args = (ctypes.c_longlong * max(3 * k, 1))(
+            *[p.data_ptr() for p in planes],
+            *[p.stride(1 if em else 0)
+              for p, em in zip(planes, table.entry_major)],
+            *[p.stride(0 if em else 1)
+              for p, em in zip(planes, table.entry_major)])
+        e1, e2 = table.off
+        _call("meta_any", _ptr(ent), e1, e2, ctypes.cast(args, _P), k,
+              _ptr(hashes[0]), _ptr(hashes[1]) if F > 1 else None,
+              _ptr(is_ns), _ptr(nas[0]), _ptr(nas[1]), N, _ptr(hit),
+              _ptr(conf))
+        LAUNCHES["meta_any"] += 1
+    return hit, conf

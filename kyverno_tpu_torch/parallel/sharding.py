@@ -13,10 +13,19 @@ The step is the program of ``evaluator.build_program`` over a LaneView;
 kernel K4 then takes the per-(rule, verdict-class) counts over every
 column and writes the uint8 verdict table in the same pass.
 
+On CUDA the step replays as one CUDA graph per shape bucket
+(``tpu/graphs.py``; the eager step is ``step_jitted().run``).
+
+``scan`` goes through the reference's resilience ladder: an encode
+failure quarantines the hostile resources through ``TorchEngine.scan``,
+and a device failure (raised, injected or wrong-shaped) takes the one
+guarded dispatch of ``TorchEngine`` and answers the batch all-HOST, so
+the scalar engine completes it. ``scan_stream`` raises on either, as
+the reference's does.
+
 ``n_devices`` is 1: the multi-GPU scanner (``torch.distributed``) is
-not ported yet, nor is the guarded dispatch ladder of the reference
-(breaker, encode quarantine): a device or encode error raises. The
-encode uses the library default (no columnar store, no encoder pool).
+not ported yet. The encode uses the library default (no columnar store,
+no encoder pool).
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (every kernel replaced by its plain twin).
@@ -35,6 +44,7 @@ from ..tpu.compiler import CompiledPolicySet, compile_policy_set
 from ..tpu.engine import (ScanResult, TorchEngine, lanes_to_device,
                           resolve_device)
 from ..tpu.evaluator import HOST, build_program
+from ..tpu.graphs import graphed
 from ..tpu.flatten import EncodeConfig, encode_resources_vocab
 from ..tpu.metadata import encode_metadata
 
@@ -69,10 +79,11 @@ class ShardedScanner:
         self._vbucket = 1024
         self._sbucket = 256
         self._rbucket = min(64, self.cps.encode_cfg.max_rows)
-        self._step = build_program(
+        step = build_program(
             self.cps.device_programs, self.cps.encode_cfg.max_instances,
             dfa=self.cps.dfa, verdicts_u8=True,
             nfa_globs=self.cps.nfa_globs)
+        self._step = graphed(step, self.device)
         # recording run: which compact lanes does THIS program read?
         # encode() drops everything else before transfer (meta lanes a
         # policy set never touches are most of the per-resource bytes)
@@ -158,11 +169,27 @@ class ShardedScanner:
              ) -> ScanResult:
         """Complete ScanResult over ALL rules: device verdicts merged
         with scalar-engine completions (host rules, exception-named
-        rules, capped resources) — HOST never escapes."""
+        rules, capped resources) — HOST never escapes
+        (kyverno_tpu/parallel/sharding.py:ShardedScanner.scan).
+
+        An encode failure quarantines the hostile resources through
+        TorchEngine.scan; a device failure (raised, injected, or
+        wrong-shaped) trips the shared breaker in the engine's guarded
+        dispatch and the whole batch completes on the scalar engine."""
         eng = self._engine()
-        batch, n = self.encode(resources, namespace_labels, operations)
-        v, _ = self._step(self.put(batch))
-        table = v.cpu().numpy()[:, :n].astype(np.int32)
+        try:
+            batch, n = self.encode(resources, namespace_labels, operations)
+        except Exception:
+            return eng.scan(resources, namespace_labels, operations)
+        D = len(self.cps.device_programs)
+
+        def run():
+            v, _ = self._step(self.put(batch))
+            return v.cpu().numpy()[:, :n].astype(np.int32)
+
+        table = eng.guarded_dispatch(run, (D, n))
+        if table is None:
+            table = np.full((D, len(resources)), HOST, dtype=np.int32)
         return eng.assemble(table, resources, namespace_labels, operations)
 
     def scan_stream(
@@ -244,5 +271,6 @@ class ShardedScanner:
         """The step: device lanes -> ((rules, N) uint8 verdicts, (rules,
         7) int32 counts over every column), asynchronous on CUDA —
         nothing in it waits for the device. (The reference's jitted
-        step; PyTorch runs it eagerly.)"""
+        step: on CUDA a ``GraphedProgram``, whose ``run`` is the eager
+        step; on the CPU the eager step.)"""
         return self._step

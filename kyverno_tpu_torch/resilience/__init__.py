@@ -1,3 +1,3 @@
-"""Fault-injection sites and retry budgets used by the context loaders
-(copies of ``kyverno_tpu/resilience/{faults,retry}.py``). The circuit
-breaker and the storage ladder are not part of the port yet."""
+"""Fault-injection sites, retry budgets and the circuit breaker of the
+device plane (copies of ``kyverno_tpu/resilience/{faults,retry,
+breaker}.py``). The storage ladder is not part of the port yet."""

@@ -25,6 +25,7 @@ from ..utils.wildcard import contains_wildcard
 from .dfa import DfaBank, DfaUnsupported, state_budget
 from .evaluator import build_program
 from .flatten import EncodeConfig, plan_byte_pool
+from .graphs import graphed
 from .ir import (
     ArrayMapsNode,
     ArrayScalarNode,
@@ -213,15 +214,17 @@ class CompiledPolicySet:
         """Policy indices owning at least one host-fallback rule."""
         return sorted({e.policy_idx for e in self.rules if e.device_row is None})
 
-    def device_fn(self, plain: bool = False) -> Callable:
+    def device_fn(self, plain: bool = False, device=None) -> Callable:
         """The batch program, built once per compiled set (and per
         ``plain``), returning (verdict table, per-rule verdict-class
-        counts) — evaluator.build_program."""
+        counts) — evaluator.build_program. With a CUDA ``device`` (and
+        not ``plain``) the program replays as one CUDA graph per shape
+        bucket (``tpu/graphs.py``); the eager program is its ``run``."""
         if plain not in self._fns:
             self._fns[plain] = build_program(
                 self.device_programs, self.encode_cfg.max_instances,
                 dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs)
-        return self._fns[plain]
+        return graphed(self._fns[plain], device, plain)
 
     @property
     def mutate_rules(self) -> List[Tuple[str, str]]:
@@ -230,17 +233,18 @@ class CompiledPolicySet:
         coordinator."""
         return [(e.policy_name, e.rule_name) for e in self.mutate_entries]
 
-    def mutate_device_fn(self, plain: bool = False) -> Callable:
+    def mutate_device_fn(self, plain: bool = False, device=None) -> Callable:
         """The triage batch program over the mutate bank, built once
         per compiled set (and per ``plain``): the same shape contract
         as device_fn minus the analytics counts, so it returns the
-        int32 verdict table alone."""
+        int32 verdict table alone. Graphed on a CUDA ``device`` as
+        ``device_fn`` is."""
         if plain not in self._mutate_fns:
             self._mutate_fns[plain] = build_program(
                 self.mutate_programs, self.encode_cfg.max_instances,
                 with_counts=False, dfa=self.dfa, plain=plain,
                 nfa_globs=self.mutate_nfa_globs)
-        return self._mutate_fns[plain]
+        return graphed(self._mutate_fns[plain], device, plain)
 
     def coverage(self) -> Tuple[int, int]:
         dev = sum(1 for e in self.rules if e.device_row is not None)

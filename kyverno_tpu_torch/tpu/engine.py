@@ -22,10 +22,26 @@ subtracted.
 returns the needs-mutation table (``MutateTriageResult``) that
 ``mutation.coordinator.apply_mutations`` routes patches by.
 
-Not ported: the guarded dispatch ladder, the breaker and the encode
-quarantine (a device error raises; only triage keeps the reference's
-all-HOST answer to a host encode error), the verdict and encode
-caches, the encoder pool, and the rule analytics fold.
+Every device call goes through ONE guarded dispatch ladder
+(``guarded_dispatch``, the reference's, which ``ShardedScanner.scan``
+shares): the ``tpu.dispatch`` fault site, the program, the corrupt
+filter, shape and dtype validation, and the process-wide circuit
+breaker (``resilience.breaker.tpu_breaker``). A failed or refused
+dispatch answers the batch all-HOST, so the scalar engine completes it
+with the same verdicts, counted as ``breaker_fallback`` (metric and
+trace event). A ``kernels.KernelError`` (a kernel of the port that
+fails to build, load or launch, or a program that fails to be captured
+as a CUDA graph) is not a batch's fault: it is counted as
+``kernel_errors`` and raised, never answered all-HOST, so a broken
+kernel cannot hide behind the scalar engine. A batch whose host encode
+raises is quarantined (``_scan_quarantining``): the resources that
+encode alone are scanned again, the others complete on the scalar
+engine, with per-rule ERROR where that engine fails too. Triage
+answers both failures all-HOST.
+
+Not ported: the verdict and encode caches, the encoder pool, the
+pipelined ladder (``guarded_launch``/``guarded_complete``) and the rule
+analytics fold.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of running elsewhere.
@@ -33,6 +49,7 @@ Entry points run on ``device="cuda"`` unless the caller passes
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,11 +57,20 @@ import numpy as np
 import torch
 
 from ..api.policy import ClusterPolicy
+from ..devtools import sanitizer as _sanitizer
 from ..engine.context import Context
 from ..engine.engine import Engine as ScalarEngine
 from ..engine.match import RequestInfo
 from ..engine.policycontext import PolicyContext
 from ..engine.response import EngineResponse
+from ..kernels import KernelError
+from ..observability.profiling import (PATH_DEVICE, PATH_SCALAR_FALLBACK,
+                                       PHASE_DISPATCH, PHASE_ENCODE,
+                                       PHASE_READBACK, global_profiler,
+                                       maybe_xla_trace, set_dispatch_path)
+from ..observability.tracing import global_tracer
+from ..resilience.faults import (SITE_MUTATE_TRIAGE, SITE_TPU_DISPATCH,
+                                 global_faults)
 from .compiler import CompiledPolicySet, compile_policy_set
 from .evaluator import (ERROR, FAIL, HOST, NOT_MATCHED,
                         NUM_VERDICT_CLASSES, PASS, SKIP, batch_to_host)
@@ -53,6 +79,13 @@ from .metadata import MetaConfig, encode_metadata
 
 VERDICT_NAMES = {PASS: "pass", SKIP: "skip", FAIL: "fail",
                  NOT_MATCHED: "not_matched", ERROR: "error"}
+
+
+class DeviceResultError(RuntimeError):
+    """The device program returned a wrong-shaped/typed verdict table —
+    treated exactly like a dispatch failure (breaker + scalar fallback),
+    never silently consumed as truth."""
+
 
 _STATUS_TO_CODE = {"pass": PASS, "skip": SKIP, "fail": FAIL, "error": ERROR}
 
@@ -288,12 +321,23 @@ class TorchEngine:
         cps: Optional[CompiledPolicySet] = None,
         exceptions: Sequence[Any] = (),
         data_sources=None,
+        breaker=None,
     ):
         self.device = resolve_device(device)
         self.cps: CompiledPolicySet = cps if cps is not None \
             else compile_policy_set(policies, encode_cfg, meta_cfg,
                                     data_sources)
         self.data_sources = data_sources  # runtime dyn-operand loading
+        # device errors are device-wide, so engines share the process
+        # breaker by default (engines churn with policy revisions)
+        if breaker is None:
+            from ..resilience.breaker import tpu_breaker
+
+            breaker = tpu_breaker()
+        self.breaker = breaker
+        # the verdict-class counts ride from a dispatch to its caller
+        # in a thread-local slot, as the reference's do
+        self._tls = threading.local()
         self.scalar = ScalarEngine(exceptions=list(exceptions),
                                    background=True,
                                    data_sources=data_sources)
@@ -317,7 +361,7 @@ class TorchEngine:
                 if any(t.contains(entry.policy_name, entry.rule_name)
                        for t in typed):
                     self._exception_mutate_rules.add(mi)
-        # triage batches run on the device, and batches whose host
+        # triage batches the device answered, and batches whose host
         # encode raised (answered all-HOST, as the reference does)
         self.triage_dispatches = 0
         self.triage_encode_fallbacks = 0
@@ -553,8 +597,9 @@ class TorchEngine:
 
     def run(self, lanes: Dict[str, torch.Tensor]):
         """The compiled program on device lanes -> (table, counts)
-        tensors on the device (asynchronous on CUDA)."""
-        return self.cps.device_fn()(lanes)
+        tensors on the device (asynchronous on CUDA; a CUDA graph
+        replay per shape bucket, ``tpu/graphs.py``)."""
+        return self.cps.device_fn(device=self.device)(lanes)
 
     def scan_device(
         self,
@@ -566,16 +611,19 @@ class TorchEngine:
         """Device layer only: the (device rules, n) int32 table as the
         program computed it (HOST and CONFIRM cells left in, host rules
         absent) and the (device rules, 7) int32 class counts over the
-        n live columns (bucket-pad columns subtracted)."""
+        n live columns (bucket-pad columns subtracted). The dispatch
+        goes through the guarded ladder: a failed one gives the all-HOST
+        table and its counts. A host encode error raises (the device
+        layer has no scalar completion)."""
         n = len(resources)
         padded, ops, infos = self.pad(resources, operations, admission_infos)
         batch, _, _ = self.encode(padded, namespace_labels, ops, infos)
-        table, counts = self.run(lanes_to_device(batch, self.device))
-        table = table.cpu().numpy()
-        counts = counts.cpu().numpy().astype(np.int64)
-        # bucket-pad columns are encoded empties, not workload
-        counts = (counts - class_counts(table[:, n:])).astype(np.int32)
-        return np.ascontiguousarray(table[:, :n]), counts
+        table = np.ascontiguousarray(self._dispatch(batch, len(padded),
+                                                    n)[:, :n])
+        counts = self.take_pending_counts()
+        if counts is None:
+            counts = class_counts(table)
+        return table, counts.astype(np.int32)
 
     def scan(
         self,
@@ -585,11 +633,221 @@ class TorchEngine:
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
     ) -> ScanResult:
         """The complete ScanResult over ALL rules: the device table
-        completed on the scalar engine (``assemble``)."""
-        table, _ = self.scan_device(resources, namespace_labels, operations,
-                                    admission_infos)
+        completed on the scalar engine (``assemble``) —
+        kyverno_tpu/tpu/engine.py:TpuEngine._scan_uncached. A batch
+        whose encode raises is quarantined (``_scan_quarantining``)."""
+        n = len(resources)
+        padded, ops, infos = self.pad(resources, operations, admission_infos)
+        try:
+            with global_profiler.phase(PHASE_ENCODE), \
+                    global_tracer.span("tpu.encode", resources=n,
+                                       padded=len(padded)):
+                batch, _, _ = self.encode(padded, namespace_labels, ops,
+                                          infos)
+        except Exception:
+            # a hostile resource broke batch encoding: quarantine it so
+            # the rest of the batch still evaluates (device or scalar),
+            # and the bad resource degrades to scalar / per-rule ERROR
+            return self._scan_quarantining(resources, namespace_labels,
+                                           operations, admission_infos)
+        table = self._dispatch(batch, len(padded), n)[:, :n]
         return self.assemble(table, resources, namespace_labels, operations,
                              admission_infos)
+
+    # -- the guarded dispatch ladder (kyverno_tpu/tpu/engine.py:840-1043)
+
+    def take_pending_counts(self) -> Optional[np.ndarray]:
+        """The last dispatch's (device rules, 7) counts over its live
+        columns on this thread (None after a fallback)."""
+        counts = getattr(self._tls, "pending_counts", None)
+        self._tls.pending_counts = None
+        return counts
+
+    def _breaker_open_fallback(self) -> None:
+        from ..observability.metrics import global_registry
+
+        self._tls.pending_counts = None  # no device truth this batch
+        set_dispatch_path(PATH_SCALAR_FALLBACK)
+        global_registry.breaker_fallback.inc({"reason": "open"})
+        global_tracer.add_event("breaker_fallback", reason="open",
+                                breaker=self.breaker.name)
+
+    def _record_dispatch_failure(self, e: Exception) -> None:
+        from ..observability.metrics import global_registry
+
+        # a stash from a dispatch that then failed validation must not
+        # masquerade as truth for the all-HOST fallback table
+        self._tls.pending_counts = None
+        self.breaker.record_failure()
+        set_dispatch_path(PATH_SCALAR_FALLBACK)
+        global_registry.breaker_fallback.inc({"reason": "error"})
+        global_tracer.add_event(
+            "breaker_fallback", reason="error", breaker=self.breaker.name,
+            breaker_state=self.breaker.state,
+            error=f"{type(e).__name__}: {e}")
+
+    def _record_kernel_error(self, e: KernelError) -> None:
+        from ..observability.metrics import global_registry
+
+        self._tls.pending_counts = None
+        global_registry.kernel_errors.inc()
+        global_tracer.add_event("kernel_error",
+                                error=f"{type(e).__name__}: {e}")
+
+    def guarded_dispatch(self, dispatch_fn, want_shape) -> Optional[np.ndarray]:
+        """The ONE breaker-gated dispatch ladder (shared with
+        ShardedScanner so the two paths cannot drift): fault hook,
+        dispatch, corrupt filter, shape/dtype validation, breaker
+        bookkeeping. Returns the validated verdict table, or None when
+        the breaker is open or the dispatch failed — the caller falls
+        back to scalar completion (all-HOST). A ``KernelError`` (a
+        kernel of the port that fails to build, load or launch, or a
+        failed CUDA-graph capture) is counted as ``kernel_errors`` and
+        raised."""
+        self._tls.pending_counts = None
+        if not self.breaker.allow():
+            self._breaker_open_fallback()
+            return None
+        try:
+            with global_tracer.span("tpu.dispatch",
+                                    breaker=self.breaker.state) as span:
+                global_faults.fire(SITE_TPU_DISPATCH)
+                if _sanitizer.ENABLED:
+                    # lock-order sanitizer: any lock held across the
+                    # device call serializes its waiters behind it
+                    _sanitizer.note_device_dispatch()
+                table = dispatch_fn()
+                table = self._validate_device_table(table, want_shape)
+                span.attributes["engine"] = PATH_DEVICE
+                return table
+        except KernelError as e:
+            # a kernel of the port failed to build, load or launch, or
+            # the program to be captured: the program is at fault, not
+            # the batch, so it is raised (the breaker is left alone)
+            self._record_kernel_error(e)
+            raise
+        except Exception as e:
+            self._record_dispatch_failure(e)
+            return None
+
+    def _validate_device_table(self, table, want_shape) -> np.ndarray:
+        table = global_faults.corrupt(SITE_TPU_DISPATCH, table)
+        if not (isinstance(table, np.ndarray)
+                and table.shape == want_shape
+                and np.issubdtype(table.dtype, np.integer)):
+            raise DeviceResultError(
+                f"device returned shape "
+                f"{getattr(table, 'shape', None)}, want {want_shape}")
+        self.breaker.record_success()
+        set_dispatch_path(PATH_DEVICE)
+        return table
+
+    def _dispatch(self, batch, padded_n: int,
+                  n_live: Optional[int] = None) -> np.ndarray:
+        """One device dispatch through the guarded ladder. Any failure
+        returns an all-HOST table, which routes the WHOLE batch through
+        the scalar engine in assemble(): verdicts stay the same, only
+        latency degrades. The program's verdict-class counts are
+        stashed (pad columns subtracted) for the caller."""
+        if n_live is None:
+            n_live = padded_n
+
+        def run():
+            with maybe_xla_trace():
+                with global_profiler.phase(PHASE_DISPATCH):
+                    out = self.run(lanes_to_device(batch, self.device))
+                with global_profiler.phase(PHASE_READBACK):
+                    # tolerate monkeypatched programs that still return
+                    # a bare verdict table
+                    if isinstance(out, tuple):
+                        table = out[0].cpu().numpy()
+                        counts = out[1].cpu().numpy()
+                    else:
+                        table, counts = out.cpu().numpy(), None
+            if counts is not None and table.ndim == 2:
+                # bucket-pad columns are encoded empties, not workload
+                counts = counts.astype(np.int64) - class_counts(
+                    table[:, n_live:])
+            self._tls.pending_counts = counts
+            return table
+
+        D = len(self.cps.device_programs)
+        table = self.guarded_dispatch(run, (D, padded_n))
+        if table is None:
+            return np.full((D, padded_n), HOST, dtype=np.int32)
+        return table
+
+    def _scan_quarantining(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> ScanResult:
+        """Batch encode failed: split the batch into resources that
+        encode alone (re-scanned as a clean sub-batch) and hostile ones,
+        which complete per (policy, resource) on the scalar engine — a
+        policy the scalar engine ALSO cannot evaluate yields per-rule
+        ERROR verdicts instead of aborting the scan."""
+        n = len(resources)
+        good: List[int] = []
+        bad: List[int] = []
+        for ci, res in enumerate(resources):
+            op = [(operations[ci] if operations else "") or ""]
+            info = [admission_infos[ci]] if admission_infos else None
+            try:
+                # STRUCTURAL probe only (rows + meta lanes): dyn-lane
+                # encoding does real context-backend I/O and catches its
+                # own load errors. A dyn-lane value that still throws
+                # re-enters quarantine from the good sub-batch's scan.
+                encode_resources([res], self.cps.encode_cfg,
+                                 self.cps.byte_paths, self.cps.key_byte_paths)
+                encode_metadata([res], namespace_labels, op, info,
+                                self.cps.meta_cfg)
+                good.append(ci)
+            except Exception:
+                bad.append(ci)
+        if not bad:
+            # batch-level failure with no single culprit: degrade the
+            # whole batch to the scalar path rather than loop forever
+            good, bad = [], list(range(n))
+        total = np.full((len(self.cps.rules), n), NOT_MATCHED, dtype=np.int32)
+        if good:
+            sub = self.scan(
+                [resources[i] for i in good], namespace_labels,
+                [operations[i] for i in good] if operations else None,
+                [admission_infos[i] for i in good] if admission_infos
+                else None)
+            total[:, good] = sub.verdicts
+        ns_labels = namespace_labels or {}
+        for ci in bad:
+            res = resources[ci]
+            op = (operations[ci] if operations else "") or ""
+            info = admission_infos[ci] if admission_infos else None
+            try:
+                kind = res.get("kind", "")
+                meta = res.get("metadata") or {}
+                nsl = ns_labels.get(
+                    meta.get("name", "") if kind == "Namespace"
+                    else meta.get("namespace", ""), {})
+            except Exception:  # not even dict-shaped
+                nsl = {}
+            for pi, policy in enumerate(self.cps.policies):
+                try:
+                    pctx = build_scan_context(policy, res, nsl, op, info)
+                    verdicts = _scalar_rule_verdicts(self.scalar, policy,
+                                                     pctx)
+                except Exception:
+                    verdicts = None  # ERROR every rule of this policy
+                for ri, entry in enumerate(self.cps.rules):
+                    if entry.policy_idx != pi:
+                        continue
+                    total[ri, ci] = ERROR if verdicts is None \
+                        else verdicts.get(entry.rule_name, NOT_MATCHED)
+        return ScanResult(
+            verdicts=total,
+            rules=[(e.policy_name, e.rule_name) for e in self.cps.rules],
+        )
 
     def assemble(
         self,
@@ -703,30 +961,45 @@ class TorchEngine:
         and _triage_uncached; the port has no verdict cache, so every
         batch takes the uncached path, which gives the same table).
         Host rows (bank host entries, excepted rules, userinfo globs)
-        stay HOST; a host encode error answers the whole batch HOST, as
-        the reference's does — the coordinator then scalar-patches
-        everything, bit-identically. A device error raises (the
-        reference's guarded dispatch is not ported)."""
+        stay HOST; a host encode error or a failed dispatch (the guarded
+        ladder, with the ``mutate.triage`` fault site) answers the whole
+        batch HOST, as the reference's does — the coordinator then
+        scalar-patches everything, bit-identically."""
+        from ..observability.metrics import global_registry as reg
+
         rules = self.cps.mutate_rules
         m, n = len(rules), len(resources)
         if m == 0 or n == 0:
             return MutateTriageResult(np.zeros((m, n), dtype=np.int32), rules)
         total = np.full((m, n), HOST, dtype=np.int32)
+        d = len(self.cps.mutate_programs)
         device_table = None
-        if self.cps.mutate_programs:
+        if d:
             padded, ops, infos = self.pad(resources, operations,
                                           admission_infos)
             try:
-                batch, _, _ = self.encode(padded, namespace_labels, ops,
-                                          infos)
+                with global_profiler.phase(PHASE_ENCODE), \
+                        global_tracer.span("tpu.encode_triage",
+                                           resources=n, padded=len(padded)):
+                    batch, _, _ = self.encode(padded, namespace_labels, ops,
+                                              infos)
             except Exception:  # hostile resource: everything scalar
                 batch = None
                 self.triage_encode_fallbacks += 1
             if batch is not None:
-                out = self.cps.mutate_device_fn()(
-                    lanes_to_device(batch, self.device))
-                device_table = out.cpu().numpy()
-                self.triage_dispatches += 1
+                def run():
+                    global_faults.fire(SITE_MUTATE_TRIAGE)
+                    with maybe_xla_trace():
+                        with global_profiler.phase(PHASE_DISPATCH):
+                            out = self.cps.mutate_device_fn(
+                                device=self.device)(
+                                    lanes_to_device(batch, self.device))
+                        with global_profiler.phase(PHASE_READBACK):
+                            return out.cpu().numpy()
+
+                device_table = self.guarded_dispatch(run, (d, len(padded)))
+                if device_table is not None:
+                    self.triage_dispatches += 1
         if device_table is not None:
             glob_cis: List[int] = []
             if admission_infos:
@@ -748,4 +1021,11 @@ class TorchEngine:
                         entry.device_row].uses_userinfo:
                     row[glob_cis] = HOST
                 total[mi] = row
-        return MutateTriageResult(verdicts=total, rules=rules)
+            reg.mutate_triage.inc({"outcome": "device"})
+        else:
+            reg.mutate_triage.inc({"outcome": "fallback"})
+        result = MutateTriageResult(verdicts=total, rules=rules)
+        for label, count in result.counts().items():
+            if count:
+                reg.mutate_triage_rows.inc({"result": label}, count)
+        return result

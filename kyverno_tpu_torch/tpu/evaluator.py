@@ -24,7 +24,10 @@ on the batch's device. These pieces are kernels (``kernels.py``):
 - the pool-slot row gather (K7) behind ``Ctx._rows_from_pool``;
 - the first-true-row take (K8) of ``_eval_wildcard_anchor``;
 - the glob NFA (K9) of the globs outside the bank, one launch per pack
-  of a lane family's NFA-route globs (``NfaPacks``).
+  of a lane family's NFA-route globs (``NfaPacks``);
+- the any-of over a match filter's ``names`` / ``namespaces`` (K10,
+  ``Ctx.meta_any``): one launch per filter list and batch reads the
+  entries' bank columns, pack rows and hash equalities in place.
 
 The program has no data-dependent Python branch (no ``.item()``,
 ``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
@@ -301,7 +304,8 @@ class Ctx:
                  dfa: Optional[DfaBank] = None, plain: bool = False,
                  hash_consts: Optional[Dict[Any, torch.Tensor]] = None,
                  nfa: Optional[NfaPacks] = None,
-                 bank_cols: Optional[Dict[str, Dict[int, int]]] = None):
+                 bank_cols: Optional[Dict[str, Dict[int, int]]] = None,
+                 meta_tables: Optional[Dict[Any, Any]] = None):
         self.b = batch
         self.I = max_instances
         self.plain = plain
@@ -318,6 +322,8 @@ class Ctx:
         self._bank_cols = bank_columns(self.dfa) if bank_cols is None \
             else bank_cols
         self._nfa = nfa if nfa is not None else NfaPacks({})
+        # K10's entry tables by filter list (kept with the program)
+        self._meta_tables = {} if meta_tables is None else meta_tables
         self._glob_cache: Dict[Tuple[str, str], Any] = {}
         self._valid = batch["valid"] != 0
         self._types: Dict[Tuple[int, bool], torch.Tensor] = {}
@@ -509,12 +515,16 @@ class Ctx:
         col = self._bank_cols.get(family, {}).get(pid)
         if col is None:
             return None
+        return self._bank_plane(family)[..., col], bank.patterns[pid]
+
+    def _bank_plane(self, family: str) -> torch.Tensor:
         key = ("\x00bank", family)
         if key not in self._glob_cache:
             byt, lens = self._family_tensors(family)
-            self._glob_cache[key] = bank_match(bank, bank.families[family],
-                                               byt, lens, plain=self.plain)
-        return self._glob_cache[key][..., col], bank.patterns[pid]
+            self._glob_cache[key] = bank_match(
+                self.dfa, self.dfa.families[family], byt, lens,
+                plain=self.plain)
+        return self._glob_cache[key]
 
     def _family_nonascii(self, family: str) -> torch.Tensor:
         key = ("\x00nonascii", family)
@@ -553,19 +563,24 @@ class Ctx:
         every NFA-route glob of the family that compile recorded. A glob
         compile did not record runs as a pack of one, counted in
         ``stats["nfa_unpacked"]``."""
-        byt, lens = self._family_tensors(family)
         where = self._nfa.index.get((family, pattern))
         if where is None:
             self.stats["nfa_unpacked"] += 1
+            byt, lens = self._family_tensors(family)
             fn = kernels.glob_nfa_plain if self.plain else kernels.glob_nfa
             return fn(pattern, byt, lens)
         g, row = where
+        return self._nfa_plane(family, g)[row]
+
+    def _nfa_plane(self, family: str, g: int) -> torch.Tensor:
+        """The (P, ...) plane of one of the family's K9 packs."""
         key = ("\x00nfa", family, g)
         if key not in self._glob_cache:
+            byt, lens = self._family_tensors(family)
             fn = kernels.glob_nfa_pack_plain if self.plain \
                 else kernels.glob_nfa_pack
             self._glob_cache[key] = fn(self._nfa.packs[family][g], byt, lens)
-        return self._glob_cache[key][row]
+        return self._glob_cache[key]
 
     def _accept_confirm_cached(self, kind: str, pattern: str, family: str):
         """One (accepts, confirm) pair per (kind, pattern, family) —
@@ -590,6 +605,119 @@ class Ctx:
         if conf is not None:
             self.confirm_acc.append(conf)
         return acc
+
+    def meta_any(self, which: str, patterns: Sequence[str]) -> torch.Tensor:
+        """(N,) OR over a filter's ``names`` (which="names") or
+        ``namespaces`` of ``_glob_or_eq`` — a Namespace-kind resource
+        compares its name under ``namespaces`` (match.go:18-31) — in one
+        K10 launch a batch. The OR of the entries' confirm planes, of
+        both families under ``namespaces``, joins ``confirm_acc`` once a
+        call, as the per-entry loop's planes did. Lists of the same
+        entries (a rule and its autogen copies) share one launch."""
+        key = ("\x00meta_any", id(self._meta_table(which, patterns)))
+        got = self._glob_cache.get(key)
+        if got is None:
+            args = self.meta_any_args(which, patterns)
+            fn = kernels.meta_any_plain if self.plain else kernels.meta_any
+            got = self._glob_cache[key] = (fn(*args), args[0].confirms)
+        (hit, conf), confirms = got
+        if confirms:
+            self.confirm_acc.append(conf)
+        return hit
+
+    def meta_any_args(self, which: str, patterns: Sequence[str]) -> tuple:
+        """K10's arguments for one filter list on this batch: (entry
+        table, planes, hash lanes, Namespace-kind mask or None, each
+        family's non-ASCII mask or None); the planes come from (and
+        stay in) the batch's glob cache."""
+        table = self._meta_table(which, patterns)
+        planes = [self._meta_plane(table, k) for k in table.slots]
+        ns = which == "namespaces"
+        hashes = [self.b["meta_name_h"]] + ([self.b["meta_ns_h"]] if ns else [])
+        is_ns = (self.b["meta_is_namespace_kind"] == 1) if ns else None
+        na = [self._family_nonascii(f) if want else None
+              for f, want in zip(table.families, table.na)]
+        return table, planes, hashes, is_ns, na
+
+    def _meta_plane(self, table, key: Tuple) -> torch.Tensor:
+        if key[0] == "bank":
+            return self._bank_plane(key[1])
+        if key[0] == "nfa":
+            return self._nfa_plane(key[1], key[2])
+        return torch.stack([self._accept_confirm_cached("glob", p, key[1])[0]
+                            for p in table.unpacked[key[1]]])
+
+    def _meta_table(self, which: str, patterns: Sequence[str]):
+        """K10's entry table of one filter list, built once per program
+        (``kernels.MetaAnyTable``): per family, each entry's source as
+        ``_glob_or_eq`` and ``_accept_confirm`` choose it — a literal's
+        hash pair, a bank column (confirming itself when its DFA is not
+        exact), a K9 pack row or a glob outside the packs — and whether
+        the family's non-ASCII mask confirms. Lists of the same entries
+        share one table."""
+        key = (which, tuple(patterns))
+        table = self._meta_tables.get(key)
+        if table is None:
+            table = self._meta_tables[key] = self._build_meta_table(
+                which, patterns)
+        return table
+
+    def _build_meta_table(self, which: str, patterns: Sequence[str]):
+        from ..utils.wildcard import contains_wildcard
+
+        families = ("name",) if which == "names" else ("name", "ns")
+        tags = {"name": "m", "ns": "N"}
+        slots: List[Tuple] = []
+        entry_major: List[bool] = []
+
+        def slot(k: Tuple, em: bool) -> int:
+            if k not in slots:
+                slots.append(k)
+                entry_major.append(em)
+            return slots.index(k)
+
+        bank = self.dfa
+        rows: List[Tuple[int, int, int, int]] = []
+        off: List[int] = []
+        na: List[bool] = []
+        unpacked: Dict[str, List[str]] = {}
+        for fam in families:
+            frows: List[Tuple[int, int, int, int]] = []
+            fna = False
+            for pat in patterns:
+                if not contains_wildcard(pat):
+                    hi, lo = split32(hash_str(pat, tag=tags[fam]))
+                    frows.append((-1, _i32(hi), _i32(lo), 0))
+                    continue
+                col = None
+                if bank is not None:
+                    pid = bank.glob_ids.get(pat)
+                    col = self._bank_cols.get(fam, {}).get(pid)
+                if col is not None:
+                    dfa = bank.patterns[pid]
+                    frows.append((slot(("bank", fam), False), col, 0,
+                                  0 if dfa.exact else 1))
+                    fna = fna or bool(dfa.confirm_nonascii)
+                    continue
+                where = self._nfa.index.get((fam, pat))
+                if where is not None:
+                    frows.append((slot(("nfa", fam, where[0]), True),
+                                  where[1], 0, 0))
+                else:
+                    ups = unpacked.setdefault(fam, [])
+                    if pat not in ups:
+                        ups.append(pat)
+                    frows.append((slot(("unpacked", fam), True),
+                                  ups.index(pat), 0, 0))
+                fna = fna or "?" in pat
+            rows.extend(sorted(frows, key=lambda r: (r[0], r[1])))
+            off.append(len(rows))
+            na.append(fna)
+        if len(off) == 1:
+            off.append(off[0])
+        return kernels.MetaAnyTable(families, slots, entry_major,
+                                    np.asarray(rows, dtype=np.int32),
+                                    (off[0], off[1]), tuple(na), unpacked)
 
     def _rows_from_pool(self, plane: torch.Tensor,
                         lane: str = "byte_slot") -> torch.Tensor:
@@ -1819,19 +1947,10 @@ def _eval_condition_block(ctx: Ctx, f: FilterIR, with_user: bool) -> torch.Tenso
     if f.name:
         ok = ok & _glob_or_eq(ctx, f.name, "name", "name_h", "m")
     if f.names:
-        hit = ctx.false((ctx.N,))
-        for nm in f.names:
-            hit = hit | _glob_or_eq(ctx, nm, "name", "name_h", "m")
-        ok = ok & hit
+        ok = ok & ctx.meta_any("names", f.names)
     if f.namespaces:
         # Namespace-kind resources compare their name (match.go:18-31)
-        is_ns = ctx.b["meta_is_namespace_kind"] == 1
-        hit = ctx.false((ctx.N,))
-        for ns in f.namespaces:
-            by_ns = _glob_or_eq(ctx, ns, "ns", "ns_h", "N")
-            by_name = _glob_or_eq(ctx, ns, "name", "name_h", "m")
-            hit = hit | torch.where(is_ns, by_name, by_ns)
-        ok = ok & hit
+        ok = ok & ctx.meta_any("namespaces", f.namespaces)
     if f.annotations:
         for k, v in f.annotations:
             ok = ok & _pairs_any(ctx, "ann_kh", "ann_vh", "ann_n", k, v, "ak", "av")
@@ -2149,6 +2268,7 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     ``stats`` sums its runs' Ctx counters (``STAT_KEYS``)."""
 
     hash_consts: Dict[Any, torch.Tensor] = {}
+    meta_tables: Dict[Any, Any] = {}
     bank_cols = bank_columns(dfa)
     nfa = NfaPacks(nfa_globs or {})
     stats = dict.fromkeys(STAT_KEYS, 0)
@@ -2156,7 +2276,7 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     def run(batch: Dict[str, torch.Tensor]):
         ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
                   plain=plain, hash_consts=hash_consts, nfa=nfa,
-                  bank_cols=bank_cols)
+                  bank_cols=bank_cols, meta_tables=meta_tables)
         outs = [eval_rule(ctx, p).to(torch.int32) for p in programs]
         for k, v in ctx.stats.items():
             stats[k] += v

@@ -577,3 +577,212 @@ def test_tenant_overflow_packs_one_launch_per_family(cuda, monkeypatch):
     assert eng.cps.device_fn().stats["nfa_unpacked"] == 0
     want = TorchEngine(cps=eng.cps, device="cpu").scan_device(res)
     assert np.array_equal(got[0], want[0])
+
+
+# ---------------------------------------------------------------------------
+# K10 meta_any, and the programs replayed as CUDA graphs
+
+
+def _meta_any_case(E, N=3000, seed=0):
+    """A random K10 table of E entries a family over every source kind
+    (a resource-major bank plane read through a column slice, two
+    entry-major pack planes, an unpacked stack and hash pairs), with
+    the planes, hash lanes, Namespace-kind mask and non-ASCII masks."""
+    rng = np.random.default_rng(seed)
+    K, P, U = 2 * E + 3, E + 2, 3
+    planes = [torch.from_numpy(rng.random((N, K + 5)) < 0.01)[:, 2:K + 2],
+              torch.from_numpy(rng.random((P, N)) < 0.02),
+              torch.from_numpy(rng.random((P, N)) < 0.02),
+              torch.from_numpy(rng.random((U, N)) < 0.05)]
+    slots = [("bank", "x"), ("nfa", "x", 0), ("nfa", "x", 1),
+             ("unpacked", "x")]
+    entry_major = [False, True, True, True]
+    hashes = [torch.from_numpy(rng.integers(-4, 4, (N, 2)).astype(np.int32))
+              for _ in range(2)]
+    rows, off = [], []
+    for f in range(2):
+        frows = []
+        for _ in range(E):
+            s = int(rng.integers(-1, 4))
+            if s == -1:
+                frows.append((-1, int(rng.integers(-4, 4)),
+                              int(rng.integers(-4, 4)), 0))
+            else:
+                lim = (K, P, P, U)[s]
+                frows.append((s, int(rng.integers(0, lim)), 0,
+                              int(rng.random() < 0.3)))
+        rows += sorted(frows)
+        off.append(len(rows))
+    table = kernels.MetaAnyTable(("name", "ns"), slots, entry_major,
+                                 np.asarray(rows, np.int32), tuple(off),
+                                 (True, False), {"x": ["a", "b", "c"]})
+    is_ns = torch.from_numpy(rng.random(N) < 0.3)
+    na = [torch.from_numpy(rng.random(N) < 0.1), None]
+    return table, planes, hashes, is_ns, na
+
+
+@pytest.mark.parametrize("E", [1, 40, 3300])
+def test_meta_any_kernel_equals_plain(cuda, E):
+    table, planes, hashes, is_ns, na = _meta_any_case(E, seed=E)
+    want = kernels.meta_any_plain(table, planes, hashes, is_ns, na)
+    kernels.reset_launches()
+    got = kernels.meta_any(table, [p.to(cuda) for p in planes],
+                           [h.to(cuda) for h in hashes], is_ns.to(cuda),
+                           [na[0].to(cuda), None])
+    assert kernels.LAUNCHES["meta_any"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[0].any() and want[1].any()
+    # names: one family, no Namespace-kind mask
+    one = kernels.MetaAnyTable(("name",), table.slots, table.entry_major,
+                               table.ent[:table.off[0]],
+                               (table.off[0], table.off[0]), (False,),
+                               table.unpacked)
+    want = kernels.meta_any_plain(one, planes, hashes[:1])
+    got = kernels.meta_any(one, [p.to(cuda) for p in planes],
+                           [hashes[0].to(cuda)])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _pss_pods(n, seed):
+    rng = random.Random(seed)
+    return [{"apiVersion": "v1", "kind": "Pod",
+             "metadata": {"name": f"p{i}", "namespace": "d"},
+             "spec": {"containers": [{
+                 "name": "c", "image": "nginx",
+                 "securityContext": {"privileged": rng.random() < 0.3}}]}}
+            for i in range(n)]
+
+
+def _zero(stats):
+    for k in stats:
+        stats[k] = 0
+
+
+def _assert_same(a, b):
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+
+
+def _replay_equals_eager(g, plain, lanes_of):
+    """First call (eager), second call (capture, then replay) of the
+    same bucket: same outputs, launches and stats; a replay over other
+    lanes of the bucket equals the eager program and the plain twins."""
+    from kyverno_tpu_torch.tpu.graphs import GraphedProgram
+
+    assert isinstance(g, GraphedProgram)
+    seen = []
+    for lanes in (lanes_of(0), lanes_of(0)):
+        kernels.reset_launches()
+        _zero(g.stats)
+        out = g(lanes)
+        torch.cuda.synchronize()
+        seen.append((out, dict(kernels.LAUNCHES), dict(g.stats)))
+    assert (g.captures, g.replays) == (1, 1)
+    _assert_same(seen[0][0], seen[1][0])
+    assert seen[0][1] == seen[1][1] and seen[0][2] == seen[1][2]
+    assert sum(seen[1][1].values()) > 0
+    lanes = lanes_of(1)
+    got = g(lanes)
+    assert (g.captures, g.replays) == (1, 2)
+    _assert_same(got, g.run(lanes))
+    _assert_same(got, plain(lanes))
+
+
+def test_dense_program_replay_equals_eager_and_plain(cuda):
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()])
+    g = eng.cps.device_fn(device=cuda)
+    assert g is eng.cps.device_fn(device=cuda) and g.run is eng.cps.device_fn()
+
+    def lanes_of(seed, n=100):
+        padded, ops, infos = eng.pad(_pss_pods(n, seed))
+        return lanes_to_device(eng.encode(padded)[0], cuda)
+
+    _replay_equals_eager(g, eng.cps.device_fn(plain=True), lanes_of)
+    # a second bucket runs eagerly once, then captures a second graph
+    lanes = lanes_of(2, n=300)
+    want = eng.cps.device_fn(plain=True)(lanes)
+    _assert_same(g(lanes), want)
+    assert g.captures == 1 and g.live_graphs == 1
+    _assert_same(g(lanes), want)
+    assert g.captures == 2 and g.live_graphs == 2
+
+
+def test_step_replay_equals_eager_and_plain(cuda):
+    from kyverno_tpu_torch.tpu.evaluator import build_program
+
+    sc = ShardedScanner([expand_policy(p) for p in load_pss_policies()])
+    plain = build_program(sc.cps.device_programs,
+                          sc.cps.encode_cfg.max_instances, dfa=sc.cps.dfa,
+                          plain=True, verdicts_u8=True,
+                          nfa_globs=sc.cps.nfa_globs)
+
+    def lanes_of(seed):
+        host, _ = sc.encode(_pss_pods(100, seed) + [{}] * 28)
+        return sc.put(host)
+
+    _replay_equals_eager(sc.step_jitted(), plain, lanes_of)
+
+
+def test_triage_replay_equals_eager_and_plain(cuda, monkeypatch):
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    monkeypatch.setattr(tdfa, "MAX_BANK_STATES", 200)
+    globs = ([f"tenant-{i:03d}-*-prod" for i in range(12)]
+             + [f"t?-{i}-*" for i in range(4)] + ["default"])
+    pol = ClusterPolicy.from_dict({
+        "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+        "metadata": {"name": "tenant"},
+        "spec": {"rules": [{
+            "name": "stamp-team",
+            "match": {"resources": {"kinds": ["Pod", "Namespace"],
+                                    "namespaces": globs}},
+            "mutate": {"patchStrategicMerge":
+                       {"metadata": {"labels": {"+(team)": "core"}}}}}]}})
+    eng = TorchEngine([pol])
+    spaces = ["tenant-003-a-prod", "tx-2-foo", "té-1-x", "default",
+              "tenant-011-b-prod", "tq-0-é", "other"]
+
+    def lanes_of(seed):
+        rng = random.Random(seed)
+        res = []
+        for i in range(64):
+            ns = rng.choice(spaces)
+            res.append({"apiVersion": "v1", "kind": "Namespace",
+                        "metadata": {"name": ns}} if i % 5 == 4 else
+                       {"apiVersion": "v1", "kind": "Pod",
+                        "metadata": {"name": f"p{i}", "namespace": ns}})
+        return lanes_to_device(eng.encode(eng.pad(res)[0])[0], cuda)
+
+    g = eng.cps.mutate_device_fn(device=cuda)
+    _replay_equals_eager(g, eng.cps.mutate_device_fn(plain=True), lanes_of)
+    kernels.reset_launches()
+    g(lanes_of(3))
+    assert kernels.LAUNCHES["meta_any"] == 1
+    assert kernels.LAUNCHES["glob_nfa"] == 2
+
+
+def test_a_failed_capture_is_a_kernel_error(cuda):
+    """A program that syncs with the host cannot be captured: its first
+    call runs eagerly, its second raises ``KernelError``, which the
+    guarded ladder passes to the caller."""
+    from kyverno_tpu_torch.tpu.graphs import GraphedProgram
+
+    def run(lanes):
+        x = lanes["x"] * 2
+        return x + int(x.sum().item() > 0)
+
+    g = GraphedProgram(run)
+    lanes = {"x": torch.ones(4, device=cuda)}
+    assert g(lanes).tolist() == [3.0] * 4
+    with pytest.raises(kernels.KernelError, match="capture"):
+        g(lanes)
+    assert g.captures == 0 and g.live_graphs == 0
+    torch.cuda.synchronize()
