@@ -75,9 +75,19 @@ On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
 replay equals the eager program and the plain-twin program exactly, with
 the same launches and stats, and the phase prints eager and replayed
-times, captures and the aten operations issued per eager run and per
-replayed call. A ``torch.profiler`` trace of the dense program, eager and
-replayed, gives the device's busy share. The port's breaker and metrics
+times, captures, the aten operations issued per eager run and per
+replayed call, the device events of one replay, and the program's byte
+bound (its lanes read once, its outputs written once). Every K11
+``class_fold`` launch of an eager run (one a rule: the rule's class
+logic, recorded on its tape by ``tpu/fold.py``) is held against its
+plain twin on the same inputs, exactly, and the values forced off the
+tapes (``fold_forced``) are printed; on the dense path K11 is also timed
+over the run's launches (kept from that run) beside its plain twin and
+bound, the eager run's aten operations are counted by output shape kind
+and call site and its torch kernels' device time by call site
+(``Sites``, ``op_census``, ``device_profile``), and the replay's 15
+longest kernels are printed. A ``torch.profiler`` trace of the dense
+program, eager and replayed, gives the device's busy share. The port's breaker and metrics
 are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
@@ -138,6 +148,8 @@ KERNEL_META = {
                  "kyverno_tpu/tpu/evaluator.py:386"),
     "meta_any": ("kyverno_tpu_torch/csrc/meta_any.cu",
                  "kyverno_tpu/tpu/evaluator.py:1589"),
+    "class_fold": ("kyverno_tpu_torch/csrc/class_fold.cu",
+                   "kyverno_tpu/tpu/evaluator.py:1886"),
 }
 PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
          "mutate_leg")
@@ -145,11 +157,12 @@ PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
 # the kernels each path must launch
 DENSE_KERNELS = ("dfa_scan_fused", "instance_count", "instance_count2",
                  "verdict_counts", "hash_match", "pool_rows",
-                 "first_true_take")
+                 "first_true_take", "class_fold")
 SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
-                "dfa_scan_fused", "instance_count", "instance_count2")
-TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any")
+                "dfa_scan_fused", "instance_count", "instance_count2",
+                "class_fold")
+TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold")
 # eager aten operations a tenant triage batch may issue (46,747 before
 # K10 took the per-entry loop over the namespace globs)
 TRIAGE_OPS_MAX = 5000
@@ -392,6 +405,162 @@ def program_ops(torch, kernels, fn):
     return Count.n, sum(kernels.LAUNCHES.values()) - before
 
 
+# the evaluator functions whose device time and aten operations are
+# told apart by call site (each run under a ``record_function`` range)
+SITES = ("eval_rule", "eval_match", "eval_cond_tree", "eval_cond",
+         "eval_node", "_eval_map", "_eval_leaf", "_eval_array_maps",
+         "_eval_array_scalar", "_eval_existence", "_eval_wildcard_anchor",
+         "_first_nonpass", "_eval_foreach_deny", "_eval_condition_block",
+         "_glob_fallback", "leaf_row_pred", "_cmp_pred", "_meta_heq",
+         "_pairs_any", "_hash_in_lanes")
+# the kernel entries (and their plain twins) the evaluator calls: their
+# own operations and device time are the kernels', not the program's
+KERNEL_SITES = ("scope8", "instance_count_many", "instance_count_many_plain",
+                "instance_count2", "instance_count_plain", "hash_match",
+                "hash_match_plain", "pool_rows", "pool_rows_plain",
+                "first_true_take", "first_true_take_plain", "glob_nfa",
+                "glob_nfa_plain", "glob_nfa_pack", "glob_nfa_pack_plain",
+                "meta_any", "meta_any_plain", "verdict_counts",
+                "verdict_counts_plain", "verdict_counts_u8",
+                "verdict_counts_u8_plain", "vocab_gather",
+                "vocab_gather_plain", "vocab_gather_rows",
+                "vocab_gather_rows_plain", "class_fold", "class_fold_plain")
+
+
+class Sites:
+    """While entered, the evaluator's functions named in ``SITES`` run
+    inside a ``torch.profiler.record_function("site:<name>")`` range and
+    keep a stack of the sites entered (``current()``, the innermost);
+    the kernel entries of ``KERNEL_SITES`` and the DFA scans
+    (``bank_match``, ``nonascii_mask``) do so as "kernel:<name>"."""
+
+    def __init__(self, ev):
+        from kyverno_tpu_torch import kernels
+
+        self.targets = [(ev, n, n) for n in SITES if hasattr(ev, n)]
+        self.targets += [(ev, n, "kernel:" + n)
+                         for n in ("bank_match", "nonascii_mask")]
+        self.targets += [(kernels, n, "kernel:" + n) for n in KERNEL_SITES
+                         if hasattr(kernels, n)]
+        self.stack, self.saved = [], []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        for mod, name, label in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                self.stack.append(_label)
+                try:
+                    with record_function("site:" + _label):
+                        return _fn(*a, **k)
+                finally:
+                    self.stack.pop()
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+
+    def current(self) -> str:
+        return self.stack[-1] if self.stack else "build_program.run"
+
+
+def shape_kind(shape, N, I, R) -> str:
+    """An output's shape as the program's layers see it."""
+    shape = tuple(shape)
+    for kind, want in (("N", (N,)), ("NI", (N, I)), ("NIJ", (N, I, I)),
+                       ("NR", (N, R))):
+        if shape == want:
+            return kind
+    return "0-d" if not shape else "other"
+
+
+def op_census(torch, fn, N, I, R, sites=None):
+    """The non-view aten operations one call of ``fn`` dispatches, by
+    the shape kind of their first output and, with ``sites``, by the
+    innermost evaluator call site; with ``sites``, those inside a kernel
+    entry or its plain twin count as kind "kernel" (on the card a
+    kernel's wrapper issues only its output allocations)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kinds, by_site = {}, {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                first = out[0] if isinstance(out, (tuple, list)) and out \
+                    else out
+                kind = shape_kind(first.shape, N, I, R) \
+                    if isinstance(first, torch.Tensor) else "other"
+                site = sites.current() if sites is not None else None
+                if site is not None and site.startswith("kernel:"):
+                    kind = "kernel"
+                kinds[kind] = kinds.get(kind, 0) + 1
+                if site is not None:
+                    s = by_site.setdefault(site, {})
+                    s[kind] = s.get(kind, 0) + 1
+            return out
+
+    with Count():
+        fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"by_kind": kinds, "total": sum(kinds.values()),
+            "class_logic": sum(kinds.get(k, 0) for k in ("N", "NI", "NIJ")),
+            "by_site": by_site}
+
+
+def device_profile(torch, fn, sites=None, top: int = 15):
+    """One call of ``fn`` under ``torch.profiler``: device events and
+    their time by kernel name (the ``top`` longest), and with ``sites``
+    the device time of each innermost evaluator call site (kernels
+    charged to the range that launched them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, n_dev, dev_us = {}, 0, 0.0
+    site_us = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith("site:"):
+                continue  # a range's span on the device's timeline
+            us = e.time_range.end - e.time_range.start
+            n_dev += 1
+            dev_us += us
+            c, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (c + 1, t + us)
+            continue
+        ks = getattr(e, "kernels", None)
+        if sites is None or not ks:
+            continue
+        p, site = e, "build_program.run"
+        while p is not None:
+            if p.name.startswith("site:"):
+                site = p.name[5:]
+                break
+            p = p.cpu_parent
+        site_us[site] = site_us.get(site, 0.0) + sum(k.duration for k in ks)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"device_events": n_dev, "device_ms": dev_us / 1e3,
+            "kernels": len(by_name),
+            "top": [{"name": k[:120], "calls": c, "ms": t / 1e3}
+                    for k, (c, t) in ranked[:top]],
+            "by_site_ms": {k: v / 1e3 for k, v in sorted(
+                site_us.items(), key=lambda kv: -kv[1])}}
+
+
 def ladder_reset():
     """Before a phase: no fault armed, the port's breaker reset (closed,
     default tuning), its fallback counters and the triage fallback
@@ -440,13 +609,103 @@ def same_outputs(torch, name: str, got, want) -> None:
         raise AssertionError(f"{name} differ")
 
 
-def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag):
+class FoldCheck:
+    """A ``fold.CHECK`` hook: each K11 launch of a program run held
+    against its plain twin on the same inputs, exactly; with ``keep``,
+    each launch's code and tensors are kept (for ``time_class_fold``)."""
+
+    def __init__(self, torch, kernels, keep: bool = False):
+        self.torch, self.kernels, self.keep = torch, kernels, keep
+        self.launches, self.max_abs_err, self.kept = 0, 0.0, []
+
+    def __call__(self, code, ios, dims):
+        N, I, J = dims
+        outs = list(ios[code.n_ext:])
+        twin = [self.torch.empty_like(o) for o in outs]
+        self.kernels.class_fold_plain(code, list(ios[:code.n_ext]) + twin,
+                                      N, I, J)
+        for got, want in zip(outs, twin):
+            self.max_abs_err = max(self.max_abs_err, exact(
+                self.torch, "class_fold", got, want))
+        self.launches += 1
+        if self.keep:
+            self.kept.append((code, list(ios), dims))
+
+
+def _distinct_bytes(t) -> int:
+    """The bytes a view reads once (a broadcast dimension counts once)."""
+    n = t.element_size()
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n
+
+
+def fold_work(kept):
+    """K11's work over kept launches: the distinct bytes its descriptors
+    read or write, one operation per value element an instruction (or a
+    load group's entry) makes, and the instruction rows."""
+    seen, nbytes, ops, rows = set(), 0, 0, 0
+    for code, ios, (N, I, J) in kept:
+        for t in ios:
+            key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+            if key not in seen:
+                seen.add(key)
+                nbytes += _distinct_bytes(t)
+        per = (N, N * I, N * I * J)
+        pc, instrs = 0, code.instrs
+        while pc < len(instrs):
+            x = instrs[pc][0]
+            op, kind, f = x & 0xFF, (x >> 8) & 0xFF, x >> 16
+            pc += 1
+            if op == 0:  # a load group: its entries' kinds
+                ops += sum(per[e[0]] for e in instrs[pc:pc + f])
+                pc += f
+            else:
+                ops += per[kind]
+        rows += len(instrs)
+    return nbytes, ops, rows
+
+
+def time_class_fold(torch, kernels, kept, tag):
+    """K11 over one program run's launches (``FoldCheck(keep=True)``):
+    device time of all of them (graph replay) against their plain twins
+    (eager), and the bound — each distinct input read once and each
+    output written once, or one integer operation per instruction and
+    value element, the larger."""
+    def k11():
+        for code, ios, (N, I, J) in kept:
+            kernels.class_fold(code, ios, N, I, J)
+
+    def twin():
+        for code, ios, (N, I, J) in kept:
+            kernels.class_fold_plain(code, ios, N, I, J)
+
+    nbytes, ops, rows = fold_work(kept)
+    r = timed(torch, k11, twin, plain_eager=True)
+    r["bound"] = bound(nbytes, ops)
+    r["max_abs_err"] = 0.0
+    r.update(launches=len(kept), bytes=nbytes, ops=ops, instructions=rows)
+    say("3", f"class_fold over the {len(kept)} launches of one dense run "
+             f"({rows} instructions, {nbytes} distinct bytes, {ops} value "
+             f"operations): {r['ms']:.4f} ms (graph replay; eager "
+             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) {tag}")
+    return r
+
+
+def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
+                keep_folds: bool = False, top: bool = False):
     """One path's program as a CUDA graph (``tpu/graphs.py``) on one
     lane dict: the replay against the eager program (``g.run``) and the
     plain-twin program, exactly; the launches and program stats of one
     eager run against one replay; eager and replayed times (host clock
-    to a sync, median of 5); captures; and the aten operations the host
-    issues per eager run and per replayed call."""
+    to a sync, median of 5); captures; the aten operations the host
+    issues per eager run and per replayed call; every K11 launch of an
+    eager run against its plain twin and the values the run forced off
+    its tapes (``fold_forced``); and the device events of one replay
+    (with ``top``, its 15 longest kernels by name)."""
+    from kyverno_tpu_torch.tpu import fold
     from kyverno_tpu_torch.tpu.graphs import GraphedProgram
 
     if not isinstance(g, GraphedProgram):
@@ -485,6 +744,24 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag):
     ops_eager, _ = program_ops(torch, kernels, lambda: g.run(lanes))
     ops_replay, _ = program_ops(torch, kernels, lambda: g(lanes))
     n_launch = sum(counted[0][0].values())
+    chk = FoldCheck(torch, kernels, keep=keep_folds)
+    zero_stats(g)
+    fold.CHECK = chk
+    try:
+        g.run(lanes)
+        torch.cuda.synchronize()
+    finally:
+        fold.CHECK = None
+    forced = g.stats["fold_forced"]
+    if chk.launches <= 0 or chk.launches != counted[0][0]["class_fold"]:
+        raise AssertionError(f"{label}: {chk.launches} K11 launches checked, "
+                             f"{counted[0][0]['class_fold']} counted")
+    rp = device_profile(torch, lambda: g(lanes))
+    # the program's bound: every lane read once, its outputs written once
+    outs = eager_out if isinstance(eager_out, tuple) else (eager_out,)
+    io_bytes = sum(t.numel() * t.element_size() for t in lanes.values()) \
+        + sum(t.numel() * t.element_size() for t in outs)
+    b_ms, _ = bound(io_bytes, 0)
     say(phase, f"{label} as a CUDA graph: replay equals the eager program and "
                f"the plain-twin program; eager {eager_ms:.3f} ms median of 5 "
                f"({', '.join(f'{x:.3f}' for x in eager_all)}), replay "
@@ -495,9 +772,24 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag):
                f"{ops_eager}, per replayed call {ops_replay}; {n_launch} "
                "launches of the port's kernels per run, the same counted "
                "eagerly and replayed")
+    say(phase, f"{label}: K11 class_fold equals its plain twin on all "
+               f"{chk.launches} launches of an eager run (max abs err "
+               f"{chk.max_abs_err}); fold_forced {forced}; one replay "
+               f"{rp['device_events']} device events, {rp['device_ms']:.3f} "
+               f"ms of device time (torch.profiler); bound {b_ms:.4f} ms "
+               f"({io_bytes} bytes of lanes and outputs) {tag}")
+    if top:
+        for t in rp["top"]:
+            say(phase, f"  replay kernel {t['ms']:.3f} ms {t['calls']} x "
+                       f"{t['name']}")
     return {"eager_ms": eager_ms, "replay_ms": replay_ms,
             "captures": g.captures, "ops_eager": ops_eager,
-            "ops_replay": ops_replay, "launches": n_launch}
+            "ops_replay": ops_replay, "launches": n_launch,
+            "fold_checked": chk.launches, "fold_forced": forced,
+            "replay_events": rp["device_events"],
+            "replay_device_ms": rp["device_ms"], "top": rp["top"],
+            "bound_ms": b_ms, "io_bytes": io_bytes,
+            "fold_kept": chk.kept}
 
 
 def busy_share(torch, fn, reps: int = 3):
@@ -1076,8 +1368,9 @@ def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
 
 
 def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
-                n, tag):
-    """Phase 4: the dense TorchEngine path. Returns its launch counts."""
+                n, tag, results):
+    """Phase 4: the dense TorchEngine path. Returns its launch counts;
+    puts K11's time over the program's launches in ``results``."""
     from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
 
     ladder_reset()
@@ -1147,8 +1440,34 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     # the eager program and the plain-twin program, on the same lanes
     graph = eng.cps.device_fn(device=eng.device)
     gr = graph_check(torch, kernels, "4", "the dense program", graph, lanes,
-                     eng.cps.device_fn(plain=True), tag)
+                     eng.cps.device_fn(plain=True), tag, keep_folds=True,
+                     top=True)
     program_ms = gr["replay_ms"]
+    results["class_fold"] = time_class_fold(torch, kernels,
+                                            gr.pop("fold_kept"), tag)
+    # where the eager run's operations and device time go
+    from kyverno_tpu_torch.tpu import evaluator as ev
+
+    N, R = lanes["norm_hi"].shape
+    I = eng.cps.encode_cfg.max_instances
+    with Sites(ev) as sites:
+        census = op_census(torch, lambda: graph.run(lanes), N, I, R, sites)
+    say("4", f"aten operations of one eager dense run by output shape kind "
+             f"{json.dumps(census['by_kind'], sort_keys=True)}: class logic "
+             f"((N,), (N, I), (N, I, J)) {census['class_logic']}, total "
+             f"{census['total']} (record_function ranges included)")
+    for site, kinds in sorted(census["by_site"].items(),
+                              key=lambda kv: -sum(kv[1].values()))[:12]:
+        say("4", f"  aten operations at {site}: {sum(kinds.values())} "
+                 f"{json.dumps(kinds, sort_keys=True)}")
+    with Sites(ev) as sites:
+        dp = device_profile(torch, lambda: graph.run(lanes), sites)
+    say("4", f"one eager dense run: {dp['device_events']} device events, "
+             f"{dp['device_ms']:.3f} ms of device time; torch kernels' time "
+             f"by call site {tag}:")
+    for site, ms in list(dp["by_site_ms"].items())[:14]:
+        say("4", f"  device ms at {site}: {ms:.3f}")
+    gr["census"] = census
     table, counts = eng.run(lanes)
     peak = torch.cuda.max_memory_allocated()
     for label, fn in (("eager", graph.run), ("replayed", graph)):
@@ -1841,6 +2160,9 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
              f"{len(routed) / patch_s:.1f} patches/s {tag}")
     if len(routed) != -(-n // 20):
         raise AssertionError(f"{len(routed)} routed, want {-(-n // 20)}")
+    for name in ("meta_any", "class_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the mutate leg never launched {name}")
 
     def scalar_chain(resource):
         patched = copy.deepcopy(resource)
@@ -2111,7 +2433,7 @@ def main() -> int:
 
     # phase 4: the dense path through the user's entry point
     dense, g_dense = dense_phase(torch, kernels, eng, policies, resources,
-                                 ops, padded, pops, args.n, tag)
+                                 ops, padded, pops, args.n, tag, results)
     # phase 5: the background scan through the user's entry point
     scan, g_step = scan_phase(torch, kernels, scanner, policies, args.scan_n,
                               args.tile, args.seed + 10, tag)
@@ -2129,7 +2451,11 @@ def main() -> int:
         say("6", f"graphs {path}: eager {gr['eager_ms']:.3f} ms, replay "
                  f"{gr['replay_ms']:.3f} ms, captures {gr['captures']}, aten "
                  f"operations {gr['ops_eager']} eager / {gr['ops_replay']} "
-                 f"replayed {tag}")
+                 f"replayed, {gr['replay_events']} device events a replay "
+                 f"({gr['replay_device_ms']:.3f} ms), K11 launches "
+                 f"{gr['fold_checked']} (checked), fold_forced "
+                 f"{gr['fold_forced']}, bound {gr['bound_ms']:.4f} ms "
+                 f"({gr['io_bytes']} bytes) {tag}")
 
     # phase 6: the kernels line, then the device line
     by_path = dict(zip(PATHS, (dense, scan, tv, tt, leg)))

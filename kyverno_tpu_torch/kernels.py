@@ -2,7 +2,8 @@
 PyTorch twins: K1 ``dfa_scan`` (and its non-ASCII entry), K3
 ``instance_count``, K4 ``verdict_counts`` (and its uint8-table entry),
 K5 ``vocab_gather``, K6 ``hash_match``, K7 ``pool_rows``, K8
-``first_true_take``, K9 ``glob_nfa`` and K10 ``meta_any``.
+``first_true_take``, K9 ``glob_nfa``, K10 ``meta_any`` and K11
+``class_fold``.
 
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 The first launch builds all sources at once (one ``nvcc`` per source,
@@ -55,7 +56,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "build", "kernels")
 SOURCES = ("dfa_scan", "instance_count", "verdict_counts", "vocab_gather",
            "hash_match", "pool_rows", "first_true_take", "glob_nfa",
-           "meta_any")
+           "meta_any", "class_fold")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -75,6 +76,7 @@ LAUNCHES: Dict[str, int] = {
     "first_true_take": 0,
     "glob_nfa": 0,
     "meta_any": 0,
+    "class_fold": 0,
 }
 
 _P = ctypes.c_void_p
@@ -100,6 +102,7 @@ _SIGNATURES = {
                       [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
     "meta_any": ("meta_any", [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _L,
                               _P, _P, _P]),
+    "class_fold": ("class_fold", [_P, _I, _I, _I, _P, _I, _L, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -1448,3 +1451,180 @@ def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
               _ptr(conf))
         LAUNCHES["meta_any"] += 1
     return hit, conf
+
+
+# ---------------------------------------------------------------------------
+# K11 class_fold (csrc/class_fold.cu): a rule's class logic, recorded on
+# a tape by the evaluator (tpu/fold.py) and run as one launch a rule —
+# the where chains, class compares, ANDs/ORs of reductions, first-non-
+# pass folds and any-over-instance reductions that kyverno_tpu/tpu/
+# evaluator.py's eval_rule (1886) and the node folds it calls unroll at
+# trace time and XLA fuses. Bound: bytes (each input read once, the
+# outputs written once).
+
+CLASS_FOLD_MAX_IO = 128      # kMaxIO in csrc/class_fold.cu
+CLASS_FOLD_MAX_SMEM = 232448  # kMaxSmem: 227 KB of shared memory a block
+# opcodes (tpu/fold.py) the plain twin reads
+(_F_LOAD, _F_CONST, _F_NOT, _F_AND, _F_OR, _F_EQC, _F_NEC, _F_EQ, _F_WHERE,
+ _F_FNP, _F_ANY, _F_ALL, _F_EXPAND, _F_SCAN, _F_SCANX, _F_STORE,
+ _F_LOADJ) = range(17)
+
+
+class FoldCode:
+    """One compiled K11 segment (``tpu/fold.py:compile_tape``): ``rows``,
+    the (n, 4) int32 instructions {op | kind << 8 | dst << 16, a, b, c}
+    (csrc/class_fold.cu lists them; a load group's header is followed by
+    one row per value it loads, {kind, slot, descriptor, 0});
+    ``n_uniform`` the words of a resource's N values and ``n_lane`` the
+    lane words of its NI / NIJ values (shared memory a warp keeps);
+    ``n_ext`` the descriptors it reads and ``n_out`` the ones it writes
+    (after them). Built once per program and tape."""
+
+    def __init__(self, rows: np.ndarray, n_uniform: int, n_lane: int,
+                 n_ext: int, n_out: int):
+        self.rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 4)
+        self.n_uniform, self.n_lane = n_uniform, n_lane
+        self.n_ext, self.n_out = n_ext, n_out
+        self.instrs = [tuple(r) for r in self.rows.tolist()]
+        self._on: Dict[str, torch.Tensor] = {}
+        self._pinned: List[torch.Tensor] = []
+
+    @property
+    def smem_per_warp(self) -> int:
+        return 4 * (self.n_uniform + 32 * self.n_lane)
+
+    def on(self, device) -> torch.Tensor:
+        """The rows on ``device``: a CUDA copy is made once, from pinned
+        memory kept with the code, without waiting."""
+        key = str(device)
+        if key not in self._on:
+            t = torch.from_numpy(self.rows)
+            if torch.device(device).type != "cpu":
+                pinned = t.pin_memory()
+                self._pinned.append(pinned)
+                t = pinned.to(device, non_blocking=True)
+            self._on[key] = t
+        return self._on[key]
+
+
+def _fold_ios(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
+              J: int) -> None:
+    if len(ios) != code.n_ext + code.n_out:
+        raise ValueError(f"class_fold: {len(ios)} tensors for "
+                         f"{code.n_ext} + {code.n_out} descriptors")
+    shapes = ((N,), (N, I), (N, I, J))
+    for t in ios:
+        if t.dtype not in (torch.bool, torch.uint8, torch.int32):
+            raise TypeError(f"class_fold: dtype {t.dtype}")
+        if t.ndim not in (1, 2, 3) or tuple(t.shape) != shapes[t.ndim - 1]:
+            raise ValueError(f"class_fold: shape {tuple(t.shape)} is no "
+                             f"class shape of ({N}, {I}, {J})")
+    for t in ios[code.n_ext:]:
+        if t.dtype == torch.uint8:
+            raise TypeError("class_fold: outputs are bool or int32")
+
+
+def class_fold_plain(code: FoldCode, ios: Sequence[torch.Tensor], N: int,
+                     I: int, J: int) -> None:
+    """K11's plain twin: the segment's instructions, one torch operation
+    each, over int32 values of shape (N,), (N, I) or (N, I, J); writes
+    the output descriptors in place."""
+    _fold_ios(code, ios, N, I, J)
+    shapes = ((N,), (N, I), (N, I, J))
+    # a value by (N slot or lane slot, word): N slots and lane slots are
+    # two spaces, as in the kernel's shared memory
+    env: Dict[Tuple[bool, int], torch.Tensor] = {}
+    dev = ios[code.n_ext].device if code.n_out else ios[0].device
+    i32 = torch.int32
+
+    def nz(x):
+        return x != 0
+
+    rows, pc = code.instrs, 0
+    while pc < len(rows):
+        x, a, b, c = rows[pc]
+        pc += 1
+        op, kind, f = x & 0xFF, (x >> 8) & 0xFF, x >> 16
+        src = kind + 1 if op in (_F_ANY, _F_ALL) else \
+            (0 if op == _F_EXPAND else kind)
+
+        def get(u):
+            return env[(src == 0, u)]
+
+        def put(v):
+            env[(kind == 0, f)] = v
+
+        if op == _F_LOAD:
+            for k2, slot, d, _ in rows[pc:pc + f]:
+                env[(k2 == 0, slot)] = ios[d].to(i32)
+            pc += f
+        elif op == _F_LOADJ:
+            put(ios[a].to(i32))
+        elif op == _F_CONST:
+            put(torch.full(shapes[kind], a, dtype=i32, device=dev))
+        elif op == _F_NOT:
+            put((get(a) == 0).to(i32))
+        elif op == _F_AND:
+            put((nz(get(a)) & nz(get(b))).to(i32))
+        elif op == _F_OR:
+            put((nz(get(a)) | nz(get(b))).to(i32))
+        elif op == _F_EQC:
+            put((get(a) == b).to(i32))
+        elif op == _F_NEC:
+            put((get(a) != b).to(i32))
+        elif op == _F_EQ:
+            put((get(a) == get(b)).to(i32))
+        elif op == _F_WHERE:
+            put(torch.where(nz(get(a)), get(b), get(c)))
+        elif op == _F_FNP:
+            put(torch.where(nz(get(a)), get(a), get(b)))
+        elif op == _F_ANY:
+            put(nz(get(a)).any(dim=-1).to(i32))
+        elif op == _F_ALL:
+            put(nz(get(a)).all(dim=-1).to(i32))
+        elif op == _F_EXPAND:
+            put(get(a)[:, None].expand(N, I))
+        elif op in (_F_SCAN, _F_SCANX):
+            v = nz(get(a)).to(i32)
+            s = torch.cumsum(v, dim=-1, dtype=i32)
+            put(((s - v if op == _F_SCANX else s) > 0).to(i32))
+        elif op == _F_STORE:
+            out, v = ios[b], get(a)
+            out.copy_(nz(v) if out.dtype == torch.bool else v)
+        else:
+            raise ValueError(f"class_fold: opcode {op}")
+
+
+def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
+               J: int) -> None:
+    """K11: one launch runs a compiled segment over all N resources (a
+    warp a resource, a lane an instance, J in the thread), reading its
+    input descriptors by pointer and strides and writing its outputs
+    in place, as ``class_fold_plain``. I <= 32."""
+    dev = ios[code.n_ext].device if code.n_out else ios[0].device
+    if dev.type == "cpu":
+        return class_fold_plain(code, ios, N, I, J)
+    _fold_ios(code, ios, N, I, J)
+    for t in ios:
+        if t.device != dev:
+            raise ValueError(f"class_fold: a tensor on {t.device}, want {dev}")
+    if not 1 <= I <= 32:
+        raise ValueError(f"class_fold: I = {I}; a warp holds at most 32 "
+                         "instances")
+    if code.smem_per_warp > CLASS_FOLD_MAX_SMEM:
+        raise ValueError(f"class_fold: {code.smem_per_warp} bytes of values "
+                         "a resource, more shared memory than a block has")
+    if len(ios) > CLASS_FOLD_MAX_IO:
+        raise ValueError(f"class_fold: {len(ios)} descriptors, at most "
+                         f"{CLASS_FOLD_MAX_IO}")
+    if N == 0 or not len(code.rows):
+        return
+    k = len(ios)
+    strides = [list(t.stride()) + [0] * (3 - t.ndim) for t in ios]
+    io = (ctypes.c_longlong * (5 * k))(
+        *[t.data_ptr() for t in ios], *[s[0] for s in strides],
+        *[s[1] for s in strides], *[s[2] for s in strides],
+        *[t.element_size() for t in ios])
+    _call("class_fold", _ptr(code.on(dev)), len(code.rows), code.n_uniform,
+          code.n_lane, ctypes.cast(io, _P), k, N, I, J)
+    LAUNCHES["class_fold"] += 1

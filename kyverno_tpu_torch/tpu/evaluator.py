@@ -27,7 +27,16 @@ on the batch's device. These pieces are kernels (``kernels.py``):
   of a lane family's NFA-route globs (``NfaPacks``);
 - the any-of over a match filter's ``names`` / ``namespaces`` (K10,
   ``Ctx.meta_any``): one launch per filter list and batch reads the
-  entries' bank columns, pack rows and hash equalities in place.
+  entries' bank columns, pack rows and hash equalities in place;
+- each rule's class logic (K11, ``tpu/fold.py``): while ``eval_rule``
+  walks a rule, the per-node classes and flags ((N,), (N, I) and
+  (N, I, J) values: ``where`` chains, class compares, ANDs and ORs of
+  reductions, first-non-pass folds) are handles on the rule's tape
+  (``Ctx.fold``), not tensors; the row-plane predicates, the
+  reductions of row planes and the kernels above still run as they are
+  reached, and their (N,) / (N, I) / (N, I, J) results join the tape as
+  inputs. The rule's tape then runs as one K11 launch that writes its
+  row of the verdict table.
 
 The program has no data-dependent Python branch (no ``.item()``,
 ``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
@@ -51,7 +60,6 @@ verdict is a maybe, the scalar oracle confirms it; see tpu/dfa.py).
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +70,7 @@ from ..engine import pattern as patternpkg
 from ..engine.operator import Operator
 from ..utils.duration import parse_duration
 from ..utils.quantity import parse_quantity
+from . import fold
 from .dfa import DfaBank, bank_match, nonascii_mask
 from .flatten import T_ARR, T_BOOL, T_MAP, T_NULL, T_NUM, T_STR, RowBatch, go_sprint
 from .hashing import (
@@ -259,10 +268,11 @@ def densify(batch: Dict[str, torch.Tensor], record: bool = False,
 
 # a Ctx's counters, which a program adds up over its runs: one-level
 # (inst) and two-level (inst2) count requests, memo hits and kernel
-# calls issued, and NFA-route globs outside the program's packs (each
-# ran as a pack of one)
+# calls issued, NFA-route globs outside the program's packs (each ran as
+# a pack of one), and tape values a torch operation outside the tape
+# made materialize (``fold.Tape.force``)
 STAT_KEYS = ("inst_calls", "inst_hits", "inst_issued", "inst2_calls",
-             "inst2_hits", "inst2_issued", "nfa_unpacked")
+             "inst2_hits", "inst2_issued", "nfa_unpacked", "fold_forced")
 
 
 def _usable_bank(dfa: Optional[DfaBank]) -> Optional[DfaBank]:
@@ -341,12 +351,37 @@ class Ctx:
         # per-rule oracle-confirmation masks (approximate-DFA hits,
         # non-ASCII subjects under byte-sensitive patterns)
         self.confirm_acc: List[torch.Tensor] = []
+        # the tape of the rule being evaluated (build_program sets it)
+        self.fold: Optional[fold.Tape] = None
 
-    def false(self, shape) -> torch.Tensor:
-        return torch.zeros(tuple(shape), dtype=torch.bool, device=self.dev)
+    def _on_tape(self, shape) -> bool:
+        shape = tuple(shape)
+        return self.fold is not None and shape != (self.N, self.R) \
+            and shape in ((self.N,), (self.N, self.I),
+                          (self.N, self.I, self.I))
 
-    def true(self, shape) -> torch.Tensor:
-        return torch.ones(tuple(shape), dtype=torch.bool, device=self.dev)
+    def full(self, shape, value):
+        """A constant of ``shape``: on the rule's tape for a class
+        shape, else a tensor (bool for a bool value, else int32)."""
+        if self._on_tape(shape):
+            return self.fold.const(value, shape)
+        dt = torch.bool if isinstance(value, bool) else torch.int32
+        return torch.full(tuple(shape), value, dtype=dt, device=self.dev)
+
+    def false(self, shape):
+        return self.full(shape, False)
+
+    def true(self, shape):
+        return self.full(shape, True)
+
+    def lift(self, t: torch.Tensor):
+        """A class-shaped tensor as an input of the rule's tape (itself
+        when no rule is being recorded)."""
+        return t if self.fold is None else self.fold.input(t)
+
+    def row_any(self, plane: torch.Tensor):
+        """Any over a (N, R) row plane's rows, on the tape as an input."""
+        return self.lift(plane.any(dim=-1))
 
     # -- row masks
 
@@ -746,13 +781,22 @@ class Ctx:
 
 
 class Depth0:
+    """The resource scope: reductions over a row plane's rows, which join
+    the rule's tape as inputs (plain tensors without a ``ctx``)."""
+
     shape_suffix = ()
 
-    def any(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return rowpred.any(dim=-1)
+    def __init__(self, ctx: Optional[Ctx] = None):
+        self.ctx = ctx
 
-    def count(self, rowpred: torch.Tensor) -> torch.Tensor:
-        return rowpred.sum(dim=-1)
+    def _lift(self, t: torch.Tensor):
+        return t if self.ctx is None else self.ctx.lift(t)
+
+    def any(self, rowpred: torch.Tensor):
+        return self._lift(rowpred.any(dim=-1))
+
+    def count(self, rowpred: torch.Tensor):
+        return self._lift(rowpred.sum(dim=-1, dtype=torch.int32))
 
     def many(self, items: Sequence[Tuple[torch.Tensor, str]]
              ) -> List[torch.Tensor]:
@@ -777,8 +821,10 @@ class _Counted:
     def many(self, items: Sequence[Tuple[torch.Tensor, str]]
              ) -> List[torch.Tensor]:
         """Counts ("count") or their ``> 0`` ("any") of several row
-        predicates, issued together (Ctx.inst_counts)."""
-        return self.ctx.inst_counts(self.level, items)
+        predicates, issued together (Ctx.inst_counts); inputs of the
+        rule's tape while one is recorded."""
+        return [self.ctx.lift(t)
+                for t in self.ctx.inst_counts(self.level, items)]
 
 
 class InstScope(_Counted):
@@ -907,13 +953,13 @@ def _leaf_missing_cls(leaf: Any) -> int:
     return FAIL
 
 
-def _first_nonpass(ctx: Ctx, classes: List[torch.Tensor], shape) -> torch.Tensor:
-    res = torch.full(shape, PASS, dtype=torch.int32, device=ctx.dev)
-    taken = ctx.false(shape)
+def _first_nonpass(ctx: Ctx, classes: List[Any], shape):
+    """The first class that is not PASS (PASS when none): ``res`` is
+    taken exactly when it is not PASS, so each step keeps ``res`` or
+    takes the next class (``fold.first_nonpass``)."""
+    res = ctx.full(shape, PASS)
     for cls in classes:
-        take = (~taken) & (cls != PASS)
-        res = torch.where(take, cls, res)
-        taken = taken | (cls != PASS)
+        res = fold.first_nonpass(res, cls)
     return res
 
 
@@ -938,10 +984,10 @@ def _eval_leaf(ctx: Ctx, scope, node: LeafNode) -> torch.Tensor:
         (ctx.typed(mask, T_ARR, neg=True) & pred, "any"),
         (elem_mask, "count"), (elem_mask & pred, "count")])
     arr_ok = n_elem == n_ok  # every element matches; empty array passes
-    ok = torch.where(is_arr, arr_ok, scalar_ok)
+    ok = fold.where(is_arr, arr_ok, scalar_ok)
     missing = _leaf_missing_cls(node.leaf)
-    cls = torch.where(ok, PASS, FAIL)
-    return torch.where(exists, cls, torch.full_like(cls, missing))
+    cls = fold.where(ok, PASS, FAIL)
+    return fold.where(exists, cls, missing)
 
 
 def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) -> torch.Tensor:
@@ -953,8 +999,8 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
     P = wc.map_path
     map_rows = ctx.rows_at(P)
     children = ctx.rows_with_parent(P)
-    is_map = (map_rows & ctx.type_is(T_MAP)).any(dim=-1)
-    nonstring = (children & ~ctx.type_is(T_STR)).any(dim=-1)
+    is_map = ctx.row_any(map_rows & ctx.type_is(T_MAP))
+    nonstring = ctx.row_any(children & ~ctx.type_is(T_STR))
     accept = children & ctx.glob_key_rows(wc.glob)
     pred = leaf_row_pred(ctx, wc.leaf)
     # any matching row, and the leaf at the FIRST matching row (row 0
@@ -963,14 +1009,15 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
         else kernels.first_true_take
     has, val_ok = fn(accept.contiguous(),
                      pred.expand(ctx.N, ctx.R).contiguous())
+    has, val_ok = ctx.lift(has), ctx.lift(val_ok)
     if kind == "condition":
-        m_cls = torch.where(val_ok, PASS, SKIP)
+        m_cls = fold.where(val_ok, PASS, SKIP)
     elif kind == "negation":  # expanded key exists -> negation fails
-        m_cls = torch.full(val_ok.shape, FAIL, dtype=torch.int32, device=ctx.dev)
+        m_cls = FAIL
     else:  # equality / plain: key exists, value must match the leaf
-        m_cls = torch.where(val_ok, PASS, FAIL)
+        m_cls = fold.where(val_ok, PASS, FAIL)
     use = is_map & ~nonstring & has
-    return torch.where(use, m_cls, literal_cls)
+    return fold.where(use, m_cls, literal_cls)
 
 
 def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
@@ -992,13 +1039,13 @@ def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
     for a in node.anchors:
         cexists = next(got)
         if a.kind == "negation":
-            cls = torch.where(cexists, FAIL, PASS)
+            cls = fold.where(cexists, FAIL, PASS)
         elif a.kind == "condition":
             ch = eval_node(ctx, scope, a.child)
-            cls = torch.where(cexists & (ch == PASS), PASS, SKIP)
+            cls = fold.where(cexists & (ch == PASS), PASS, SKIP)
         elif a.kind == "equality":
             ch = eval_node(ctx, scope, a.child)
-            cls = torch.where(cexists, ch, PASS)
+            cls = fold.where(cexists, ch, PASS)
         else:  # existence
             cls = _eval_existence(ctx, scope, a.child, cexists)
         if a.wildcard is not None:
@@ -1007,8 +1054,8 @@ def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
 
     shape = exists.shape
     if anchor_cls:
-        any_fail = functools.reduce(torch.logical_or, [c == FAIL for c in anchor_cls])
-        all_skip = functools.reduce(torch.logical_and, [c == SKIP for c in anchor_cls])
+        any_fail = fold.any_of([c == FAIL for c in anchor_cls])
+        all_skip = fold.all_of([c == SKIP for c in anchor_cls])
     else:
         any_fail = ctx.false(shape)
         all_skip = ctx.false(shape)
@@ -1019,10 +1066,10 @@ def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
         if c.is_star and not c.is_global:
             # "*" under a plain key: present and non-null (handlers.go:128)
             non_null = next(got)
-            cls = torch.where(cexists & non_null, PASS, FAIL)
+            cls = fold.where(cexists & non_null, PASS, FAIL)
         elif c.is_global:
             ch = eval_node(ctx, scope, c.child)
-            cls = torch.where(cexists, torch.where(ch == PASS, PASS, SKIP), PASS)
+            cls = fold.where(cexists, fold.where(ch == PASS, PASS, SKIP), PASS)
         else:
             cls = eval_node(ctx, scope, c.child)
         if c.wildcard is not None:
@@ -1030,30 +1077,30 @@ def _eval_map(ctx: Ctx, scope, node: MapNode) -> torch.Tensor:
         p2_cls.append(cls)
 
     phase2 = _first_nonpass(ctx, p2_cls, shape)
-    cls = torch.where(any_fail, FAIL, torch.where(all_skip, SKIP, phase2))
-    return torch.where(exists & is_map, cls, torch.full(shape, FAIL, dtype=torch.int32, device=ctx.dev))
+    cls = fold.where(any_fail, FAIL, fold.where(all_skip, SKIP, phase2))
+    return fold.where(exists & is_map, cls, FAIL)
 
 
 def _eval_existence(ctx: Ctx, scope, node: ExistenceNode, cexists: torch.Tensor) -> torch.Tensor:
     if not isinstance(scope, Depth0):
         raise Unsupported("existence anchor in array scope")
     mask = ctx.rows_at(node.path)
-    is_arr = (mask & ctx.type_is(T_ARR)).any(dim=-1)
+    is_arr = ctx.row_any(mask & ctx.type_is(T_ARR))
     inst = InstScope(ctx)
     valid_i = inst.any(ctx.rows_at(node.path + (ARRAY_SEG,)))
     sat = ctx.true(cexists.shape)
     for pm in node.elements:
         cls_i = eval_node(ctx, inst, pm)  # (N, I)
         sat = sat & (valid_i & (cls_i == PASS)).any(dim=-1)
-    cls = torch.where(is_arr, torch.where(sat, PASS, FAIL), FAIL)
-    return torch.where(cexists, cls, PASS)
+    cls = fold.where(is_arr, fold.where(sat, PASS, FAIL), FAIL)
+    return fold.where(cexists, cls, PASS)
 
 
 def _eval_array_maps(ctx: Ctx, scope, node: ArrayMapsNode) -> torch.Tensor:
     if isinstance(scope, Depth0):
         mask = ctx.rows_at(node.path)
-        exists = mask.any(dim=-1)
-        is_arr = (mask & ctx.type_is(T_ARR)).any(dim=-1)
+        exists = ctx.row_any(mask)
+        is_arr = ctx.row_any(mask & ctx.type_is(T_ARR))
         inst = InstScope(ctx)
         valid_i = inst.any(ctx.rows_at(node.path + (ARRAY_SEG,)))
         elem = eval_node(ctx, inst, node.element)  # (N, I)
@@ -1075,10 +1122,10 @@ def _eval_array_maps(ctx: Ctx, scope, node: ArrayMapsNode) -> torch.Tensor:
     any_fail = (valid_i & (elem == FAIL)).any(dim=-1)
     any_pass = (valid_i & (elem == PASS)).any(dim=-1)
     nonempty = valid_i.any(dim=-1)
-    cls = torch.where(
-        any_fail, FAIL, torch.where(any_pass, PASS, torch.where(nonempty, SKIP, PASS))
+    cls = fold.where(
+        any_fail, FAIL, fold.where(any_pass, PASS, fold.where(nonempty, SKIP, PASS))
     )
-    return torch.where(exists & is_arr, cls, torch.full(cls.shape, FAIL, dtype=torch.int32, device=ctx.dev))
+    return fold.where(exists & is_arr, cls, FAIL)
 
 
 def _eval_array_scalar(ctx: Ctx, scope, node: ArrayScalarNode) -> torch.Tensor:
@@ -1089,9 +1136,8 @@ def _eval_array_scalar(ctx: Ctx, scope, node: ArrayScalarNode) -> torch.Tensor:
         (mask, "any"), (ctx.typed(mask, T_ARR), "any"),
         (elem_mask, "count"), (elem_mask & pred, "count")])
     all_ok = n_elem == n_ok
-    cls = torch.where(all_ok, PASS, FAIL)
-    bad = torch.full(cls.shape, FAIL, dtype=torch.int32, device=ctx.dev)
-    return torch.where(exists & is_arr, cls, bad)
+    cls = fold.where(all_ok, PASS, FAIL)
+    return fold.where(exists & is_arr, cls, FAIL)
 
 
 # ---------------------------------------------------------------------------
@@ -1118,9 +1164,12 @@ def _cond_shape(ctx: Ctx, scope) -> Tuple[int, ...]:
     return (ctx.N, ctx.I) if isinstance(scope, InstScope) else (ctx.N,)
 
 
-def _expand(ctx: Ctx, scope, r: torch.Tensor) -> torch.Tensor:
-    """Broadcast a per-resource (N,) result into the element scope."""
+def _expand(ctx: Ctx, scope, r):
+    """Broadcast a per-resource (N,) result into the element scope (on
+    the rule's tape, ``Tape.expand``)."""
     if isinstance(scope, InstScope) and r.ndim == 1:
+        if ctx.fold is not None:
+            return ctx.fold.expand(r)
         return r[:, None].expand(ctx.N, ctx.I)
     return r
 
@@ -1130,7 +1179,7 @@ def eval_cond_tree(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (ok, err) bools — (N,) at resource scope, (N, I) inside a
     foreach element scope."""
-    scope = scope if scope is not None else Depth0()
+    scope = scope if scope is not None else Depth0(ctx)
     shape = _cond_shape(ctx, scope)
     ok = ctx.true(shape)
     err = ctx.false(shape)
@@ -1154,7 +1203,7 @@ def eval_cond_tree(
 def eval_cond(
     ctx: Ctx, ir: CondIR, scope=None, prefix: Tuple[str, ...] = ()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    scope = scope if scope is not None else Depth0()
+    scope = scope if scope is not None else Depth0(ctx)
     shape = _cond_shape(ctx, scope)
     zero_err = ctx.false(shape)
     op = _op_canon(ir.op)
@@ -1176,11 +1225,11 @@ def eval_cond(
         from ..engine.conditions import evaluate_condition_values
 
         const = bool(evaluate_condition_values(ir.key.value, ir.op, ir.value))
-        return torch.full(shape, const, dtype=torch.bool, device=ctx.dev), zero_err
+        return ctx.full(shape, const), zero_err
     if isinstance(ir.key, ElementCollect):
         return _eval_path_cond(ctx, ir.key, op, ir.value, scope, prefix)
     # PathCollect keys always resolve at resource scope
-    res, err = _eval_path_cond(ctx, ir.key, op, ir.value, Depth0(), ())
+    res, err = _eval_path_cond(ctx, ir.key, op, ir.value, Depth0(ctx), ())
     return _expand(ctx, scope, res), _expand(ctx, scope, err)
 
 
@@ -1275,7 +1324,7 @@ def _eval_path_vs_dyn_list(ctx: Ctx, pc, op: str, ref: DynValueRef,
     list membership (_set_in semantics, hash equality) or scalar
     equality. Glob/unit-bearing values and list overflow were flagged
     host-side. ((N,) res, (N,) err)."""
-    scope = Depth0()
+    scope = Depth0(ctx)
     s = ref.slot
     t = ctx.b["dyn_type"][s]
     err = t == 0
@@ -1383,14 +1432,14 @@ def _eval_path_vs_dyn_list(ctx: Ctx, pc, op: str, ref: DynValueRef,
         # strict array keys vs string values mix decode rules — host
         ctx.host_acc.append(is_arr & (t == 4) & ~err)
     res = {
-        "any_in": torch.where(is_arr, e_any_in, is_scalar & hit),
-        "all_in": torch.where(is_arr, ~e_any_not, is_scalar & hit),
-        "any_not_in": torch.where(is_arr, e_any_not, is_scalar & ~hit),
-        "all_not_in": torch.where(is_arr, ~e_any_in, is_scalar & ~hit),
-        "in_strict": torch.where(is_arr, ~e_any_not & ~e_nonstr,
-                               is_scalar & hit),
-        "notin_strict": torch.where(is_arr, e_any_not & ~e_nonstr,
-                                  is_scalar & ~hit),
+        "any_in": fold.where(is_arr, e_any_in, is_scalar & hit),
+        "all_in": fold.where(is_arr, ~e_any_not, is_scalar & hit),
+        "any_not_in": fold.where(is_arr, e_any_not, is_scalar & ~hit),
+        "all_not_in": fold.where(is_arr, ~e_any_in, is_scalar & ~hit),
+        "in_strict": fold.where(is_arr, ~e_any_not & ~e_nonstr,
+                              is_scalar & hit),
+        "notin_strict": fold.where(is_arr, e_any_not & ~e_nonstr,
+                                 is_scalar & ~hit),
     }[mode]
     return usable & res, err
 
@@ -1438,11 +1487,12 @@ def _eval_op_cond(ctx: Ctx, key: OpKey, op: str, value: Any) -> torch.Tensor:
 
     for s in OP_CODES:
         code(s)
-    op_lane = ctx.b["meta_op_code"]  # 0..4 per OP_CODES order of insertion
+    # 0..4 per OP_CODES order of insertion
+    op_lane = ctx.lift(ctx.b["meta_op_code"])
     present = op_lane != 0
     if key.default is not None:
-        key_code = torch.where(present, op_lane, int(code(key.default)))
-        key_present = torch.ones_like(present)
+        key_code = fold.where(present, op_lane, int(code(key.default)))
+        key_present = ctx.true((ctx.N,))
     else:
         key_code = op_lane
         key_present = present
@@ -1556,7 +1606,7 @@ def _scalar_membership_const(default: Any, literals: List[Any], mode: str) -> bo
 def _eval_path_cond(
     ctx: Ctx, pc: PathCollect, op: str, value: Any, scope=None, prefix: Tuple[str, ...] = ()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    scope = scope if scope is not None else Depth0()
+    scope = scope if scope is not None else Depth0(ctx)
     shape = _cond_shape(ctx, scope)
     err = _keys_errors(ctx, pc.keys_error_states, scope, prefix)
     # a bare {{ request.object... }} chain with NO || default raises
@@ -1588,7 +1638,7 @@ def _eval_path_cond(
             if pc.default is not None:
                 falsy = (~present) | (count == 0)
                 const = _scalar_membership_const(pc.default, literals, mode)
-                res = torch.where(falsy, const, res)
+                res = fold.where(falsy, const, res)
             return res, err
         # scalar chain key
         st = pc.states[0]
@@ -1606,19 +1656,19 @@ def _eval_path_cond(
         # non-string element makes the whole condition false
         e_nonstr = scope.any(ctx.typed(em, T_STR, neg=True))
         res = {
-            "any_in": torch.where(is_arr, e_any_in, is_scalar & hit),
-            "all_in": torch.where(is_arr, ~e_any_not, is_scalar & hit),
-            "any_not_in": torch.where(is_arr, e_any_not, is_scalar & ~hit),
-            "all_not_in": torch.where(is_arr, ~e_any_in, is_scalar & ~hit),
-            "in_strict": torch.where(is_arr, ~e_any_not & ~e_nonstr,
-                                   is_scalar & hit),
-            "notin_strict": torch.where(is_arr, e_any_not & ~e_nonstr,
-                                      is_scalar & ~hit),
+            "any_in": fold.where(is_arr, e_any_in, is_scalar & hit),
+            "all_in": fold.where(is_arr, ~e_any_not, is_scalar & hit),
+            "any_not_in": fold.where(is_arr, e_any_not, is_scalar & ~hit),
+            "all_not_in": fold.where(is_arr, ~e_any_in, is_scalar & ~hit),
+            "in_strict": fold.where(is_arr, ~e_any_not & ~e_nonstr,
+                                  is_scalar & hit),
+            "notin_strict": fold.where(is_arr, e_any_not & ~e_nonstr,
+                                     is_scalar & ~hit),
         }[mode]
         if pc.default is not None:
             falsy = _default_falsy(ctx, pc, mask, scope)
             const = _scalar_membership_const(pc.default, value if isinstance(value, list) else [value], mode)
-            res = torch.where(falsy, const, res)
+            res = fold.where(falsy, const, res)
         return res, err
     if op in ("equals", "notequals"):
         if pc.is_projection:
@@ -1696,9 +1746,8 @@ def _apply_scalar_default(ctx: Ctx, pc: PathCollect, scope,
     if pc.default_collect is not None:
         alt = eval_chain(pc.default_collect)
     else:
-        alt = torch.full(tuple(res.shape), bool(eval_const(pc.default)),
-                         dtype=torch.bool, device=ctx.dev)
-    return torch.where(falsy, alt, res)
+        alt = ctx.full(res.shape, bool(eval_const(pc.default)))
+    return fold.where(falsy, alt, res)
 
 
 def _jcmp(kind: str, val, const: float, canon_eq) -> torch.Tensor:
@@ -1715,7 +1764,7 @@ def _jcmp(kind: str, val, const: float, canon_eq) -> torch.Tensor:
 def _eval_scalar_equals(
     ctx: Ctx, pc: PathCollect, v: Any, scope=None, prefix: Tuple[str, ...] = ()
 ) -> torch.Tensor:
-    scope = scope if scope is not None else Depth0()
+    scope = scope if scope is not None else Depth0(ctx)
     shape = _cond_shape(ctx, scope)
     st = pc.states[0]
     mask = ctx.rows_at(prefix + st.segs)
@@ -1768,7 +1817,7 @@ def _eval_scalar_equals(
 def _eval_scalar_numeric(
     ctx: Ctx, pc: PathCollect, kind: str, v: Any, scope=None, prefix: Tuple[str, ...] = ()
 ) -> torch.Tensor:
-    scope = scope if scope is not None else Depth0()
+    scope = scope if scope is not None else Depth0(ctx)
     shape = _cond_shape(ctx, scope)
     st = pc.states[0]
     mask = ctx.rows_at(prefix + st.segs)
@@ -1824,10 +1873,10 @@ def _eval_scalar_numeric(
 # match / exclude program (MatchesResourceDescription, match.go:168)
 
 
-def _meta_heq(ctx: Ctx, lane: str, s: str, tag: str) -> torch.Tensor:
+def _meta_heq(ctx: Ctx, lane: str, s: str, tag: str):
     hi, lo = split32(hash_str(s, tag=tag))
     l = ctx.b["meta_" + lane]
-    return (l[..., 0] == _i32(hi)) & (l[..., 1] == _i32(lo))
+    return (ctx.lift(l[..., 0]) == _i32(hi)) & (ctx.lift(l[..., 1]) == _i32(lo))
 
 
 def _pairs_any(ctx: Ctx, kh_lane: str, vh_lane: str, n_lane: str,
@@ -1924,8 +1973,8 @@ def _eval_condition_block(ctx: Ctx, f: FilterIR, with_user: bool) -> torch.Tenso
     if f.operations:
         codes = [OP_CODES.get(o, -1) for o in f.operations]
         # background scans evaluate as CREATE (the scalar engine default)
-        eff = torch.where(ctx.b["meta_op_code"] == 0, int(OP_CODES["CREATE"]),
-                        ctx.b["meta_op_code"])
+        op_lane = ctx.lift(ctx.b["meta_op_code"])
+        eff = fold.where(op_lane == 0, int(OP_CODES["CREATE"]), op_lane)
         hit = ctx.false((ctx.N,))
         for c in codes:
             hit = hit | (eff == int(c))
@@ -1983,14 +2032,14 @@ def _eval_condition_block(ctx: Ctx, f: FilterIR, with_user: bool) -> torch.Tenso
 def _eval_match_filter(ctx: Ctx, f: FilterIR) -> torch.Tensor:
     """_match_helper (match.go:253): empty-admission requests drop user
     constraints; fully-empty filters never match."""
-    adm_empty = ctx.b["meta_admission_empty"] == 1
+    adm_empty = ctx.lift(ctx.b["meta_admission_empty"]) == 1
     with_user = _eval_condition_block(ctx, f, with_user=True)
     without_user = _eval_condition_block(ctx, f, with_user=False)
     empty_bg = f.resources_empty           # user dropped => match cannot be empty
     empty_adm = f.resources_empty and f.user_empty
     bg = ctx.false((ctx.N,)) if empty_bg else without_user
     adm = ctx.false((ctx.N,)) if empty_adm else with_user
-    return torch.where(adm_empty, bg, adm)
+    return fold.where(adm_empty, bg, adm)
 
 
 def _eval_exclude_filter(ctx: Ctx, f: FilterIR) -> torch.Tensor:
@@ -2108,17 +2157,15 @@ def _eval_foreach_deny(
             # element j <= i pre-empts a deny at i (evaluate_conditions
             # raises before returning); a deny at j < i pre-empts an
             # error at i (the loop returned already)
-            err_int = err_i.to(torch.int32)
-            den_int = den_i.to(torch.int32)
-            err_incl = torch.cumsum(err_int, dim=-1) > 0
-            den_excl = (torch.cumsum(den_int, dim=-1) - den_int) > 0
+            err_incl = fold.scan_or(err_i)
+            den_excl = fold.scan_or(den_i, exclusive=True)
             deny_event = (den_i & ~err_incl).any(dim=-1)
             err_event = (err_i & ~den_excl).any(dim=-1)
             failed = failed | (~decided & deny_event)
             errored = errored | (~decided & err_event)
             decided = decided | deny_event | err_event
             applied = applied | nonnull_i.any(dim=-1)
-    cls = torch.where(failed, FAIL, torch.where(applied, PASS, SKIP))
+    cls = fold.where(failed, FAIL, fold.where(applied, PASS, SKIP))
     return cls, errored, host
 
 
@@ -2133,8 +2180,7 @@ def _eval_cel_node(ctx: Ctx, node: Any) -> Tuple[torch.Tensor, torch.Tensor]:
     (_logic: a determined operand absorbs the other side's error)."""
     shape = (ctx.N,)
     if isinstance(node, CelConst):
-        return torch.full(shape, node.value, dtype=torch.bool, device=ctx.dev), \
-            ctx.false(shape)
+        return ctx.full(shape, bool(node.value)), ctx.false(shape)
     if isinstance(node, CelNot):
         v, e = _eval_cel_node(ctx, node.sub)
         return ~v & ~e, e
@@ -2151,9 +2197,9 @@ def _eval_cel_node(ctx: Ctx, node: Any) -> Tuple[torch.Tensor, torch.Tensor]:
         return val, (le | re_) & ~val
     if isinstance(node, CelStrCmp):
         mask = ctx.rows_at(node.path)
-        exists = mask.any(dim=-1)
-        eq = (mask & ctx.type_is(T_STR)
-              & ctx.heq("repr", hash_str(node.value, tag="s"))).any(dim=-1)
+        exists = ctx.row_any(mask)
+        eq = ctx.row_any(mask & ctx.type_is(T_STR)
+                         & ctx.heq("repr", hash_str(node.value, tag="s")))
         # select on a missing path is no_such_field; heterogeneous
         # equality on a present non-string is false, never an error
         err = ~exists
@@ -2161,14 +2207,14 @@ def _eval_cel_node(ctx: Ctx, node: Any) -> Tuple[torch.Tensor, torch.Tensor]:
         return val & ~err, err
     if isinstance(node, CelHas):
         prows = ctx.rows_at(node.parent)
-        is_map = (prows & ctx.type_is(T_MAP)).any(dim=-1)
-        child = ctx.rows_at(node.parent + (node.fld,)).any(dim=-1)
+        is_map = ctx.row_any(prows & ctx.type_is(T_MAP))
+        child = ctx.row_any(ctx.rows_at(node.parent + (node.fld,)))
         # has() on a missing/non-map target is a CEL error
         return is_map & child, ~is_map
     if isinstance(node, CelMatches):
         mask = ctx.rows_at(node.path)
         str_rows = mask & ctx.type_is(T_STR)
-        is_str = str_rows.any(dim=-1)
+        is_str = ctx.row_any(str_rows)
         got = ctx._bank_lookup("re2", node.regex, "pool")
         if got is None:
             # compiled without a bank (legacy build_program callers):
@@ -2176,7 +2222,7 @@ def _eval_cel_node(ctx: Ctx, node: Any) -> Tuple[torch.Tensor, torch.Tensor]:
             ctx.host_acc.append(ctx.true(shape))
             return ctx.false(shape), ctx.false(shape)
         acc, conf = ctx._accept_confirm_cached("re2", node.regex, "pool")
-        hit = (str_rows & ctx._rows_from_pool(acc)).any(dim=-1)
+        hit = ctx.row_any(str_rows & ctx._rows_from_pool(acc))
         if conf is not None:
             ctx.confirm_acc.append(
                 (str_rows & ctx._rows_from_pool(conf)).any(dim=-1))
@@ -2201,11 +2247,14 @@ def _eval_cel_rule(ctx: Ctx, prog: RuleProgram
         ok = ok & v
         err = err | e
     ctx.host_acc.append(
-        ctx.b["meta_op_code"] == int(_OPS["DELETE"]))
-    return torch.where(ok, PASS, FAIL), err
+        ctx.lift(ctx.b["meta_op_code"]) == int(_OPS["DELETE"]))
+    return fold.where(ok, PASS, FAIL), err
 
 
-def eval_rule(ctx: Ctx, prog: RuleProgram) -> torch.Tensor:
+def eval_rule(ctx: Ctx, prog: RuleProgram):
+    """The rule's (N,) verdict codes: a value of its tape (``ctx.fold``,
+    which ``build_program`` sets and runs), or an int32 tensor when no
+    tape is being recorded."""
     ctx.host_acc = []
     ctx.confirm_acc = []
     matched = eval_match(ctx, prog.match, prog.exclude, prog.policy_namespace)
@@ -2213,36 +2262,38 @@ def eval_rule(ctx: Ctx, prog: RuleProgram) -> torch.Tensor:
     host_extra = ctx.false((ctx.N,))
     if prog.kind == "deny":
         denied, deny_err = eval_cond_tree(ctx, prog.deny)
-        cls = torch.where(denied, FAIL, PASS)
+        cls = fold.where(denied, FAIL, PASS)
         err = deny_err
     elif prog.kind == "pattern":
-        cls = eval_node(ctx, Depth0(), prog.patterns[0])
+        cls = eval_node(ctx, Depth0(ctx), prog.patterns[0])
         err = ctx.false((ctx.N,))
     elif prog.kind == "foreach_deny":
         cls, err, host_extra = _eval_foreach_deny(ctx, prog)
     elif prog.kind == "cel":
         cls, err = _eval_cel_rule(ctx, prog)
     else:  # any_pattern (validate_resource.go:382)
-        classes = [eval_node(ctx, Depth0(), p) for p in prog.patterns]
-        any_pass = functools.reduce(torch.logical_or, [c == PASS for c in classes])
-        any_skip = functools.reduce(torch.logical_or, [c == SKIP for c in classes])
-        any_fail = functools.reduce(torch.logical_or, [c == FAIL for c in classes])
-        cls = torch.where(any_pass, PASS, torch.where(any_skip & ~any_fail, SKIP, FAIL))
+        classes = [eval_node(ctx, Depth0(ctx), p) for p in prog.patterns]
+        any_pass = fold.any_of([c == PASS for c in classes])
+        any_skip = fold.any_of([c == SKIP for c in classes])
+        any_fail = fold.any_of([c == FAIL for c in classes])
+        cls = fold.where(any_pass, PASS, fold.where(any_skip & ~any_fail, SKIP, FAIL))
         err = ctx.false((ctx.N,))
-    verdict = torch.where(err, ERROR, cls)
-    verdict = torch.where(pre_err, ERROR, torch.where(pre_ok, verdict, SKIP))
-    verdict = torch.where(matched, verdict, NOT_MATCHED)
+    verdict = fold.where(err, ERROR, cls)
+    verdict = fold.where(pre_err, ERROR, fold.where(pre_ok, verdict, SKIP))
+    verdict = fold.where(matched, verdict, NOT_MATCHED)
     # pattern confirmation (tpu/dfa.py ladder): cells whose pattern
     # verdict is a maybe resolve via the scalar oracle like host cells,
     # but are attributed separately (miss = definitive, hit = confirm)
     if ctx.confirm_acc:
-        confirm = functools.reduce(torch.logical_or, ctx.confirm_acc)
-        verdict = torch.where(confirm, CONFIRM, verdict)
-    fallback = (ctx.b["fallback"] == 1) | (ctx.b["meta_fallback"] == 1)
+        confirm = fold.any_of([ctx.lift(c) if isinstance(c, torch.Tensor)
+                               else c for c in ctx.confirm_acc])
+        verdict = fold.where(confirm, CONFIRM, verdict)
+    fallback = (ctx.lift(ctx.b["fallback"]) == 1) \
+        | (ctx.lift(ctx.b["meta_fallback"]) == 1)
     fallback = fallback | host_extra | _glob_fallback(ctx, prog)
     for h in ctx.host_acc:
         fallback = fallback | h
-    return torch.where(fallback, HOST, verdict)
+    return fold.where(fallback, HOST, verdict)
 
 
 
@@ -2264,26 +2315,36 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     program). Dense and vocabulary (``row_idx``) batches both run.
     ``nfa_globs`` holds each lane family's globs the bank refused (the
     compiler's record, ``CompiledPolicySet.nfa_globs``): K9 runs each
-    family's in one packed launch a batch. The returned function's
-    ``stats`` sums its runs' Ctx counters (``STAT_KEYS``)."""
+    family's in one packed launch a batch. Each rule's row of the table
+    is written by one K11 launch of the rule's tape (``tpu/fold.py``),
+    compiled once per program and kept in the returned function's
+    ``fold_cache``. The returned function's ``stats`` sums its runs'
+    Ctx counters (``STAT_KEYS``)."""
 
     hash_consts: Dict[Any, torch.Tensor] = {}
     meta_tables: Dict[Any, Any] = {}
     bank_cols = bank_columns(dfa)
     nfa = NfaPacks(nfa_globs or {})
+    # each rule's compiled tape (K11's instructions), kept as the K6
+    # constants and K10 tables are
+    fold_cache = fold.FoldCache()
     stats = dict.fromkeys(STAT_KEYS, 0)
 
     def run(batch: Dict[str, torch.Tensor]):
         ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
                   plain=plain, hash_consts=hash_consts, nfa=nfa,
                   bank_cols=bank_cols, meta_tables=meta_tables)
-        outs = [eval_rule(ctx, p).to(torch.int32) for p in programs]
+        table = torch.empty((len(programs), ctx.N), dtype=torch.int32,
+                            device=ctx.dev)
+        # each rule's class logic is recorded on its tape and runs as
+        # one K11 launch writing its row of the table
+        for r, p in enumerate(programs):
+            ctx.fold = fold.Tape(ctx.N, ctx.I, ctx.I, ctx.dev, fold_cache,
+                                 plain, ctx.stats)
+            ctx.fold.run([eval_rule(ctx, p)], [table[r]])
+        ctx.fold = None
         for k, v in ctx.stats.items():
             stats[k] += v
-        if not outs:
-            table = torch.zeros((0, ctx.N), dtype=torch.int32, device=ctx.dev)
-        else:
-            table = torch.stack(outs, dim=0).contiguous()
         if not with_counts:
             return table
         if verdicts_u8:
@@ -2294,4 +2355,5 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
         return table, counts
 
     run.stats = stats  # the Ctx counters (STAT_KEYS) of all its runs
+    run.fold_cache = fold_cache
     return run

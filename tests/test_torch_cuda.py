@@ -786,3 +786,125 @@ def test_a_failed_capture_is_a_kernel_error(cuda):
         g(lanes)
     assert g.captures == 0 and g.live_graphs == 0
     torch.cuda.synchronize()
+
+
+# --- K11 class_fold ---
+
+
+def _fold_tape(dev, seed, N, I, steps=300):
+    """A seeded random tape on ``dev`` over every opcode and shape kind
+    (bool, int32 and uint8 inputs; a strided, a broadcast and a
+    transposed view) and the values it recorded."""
+    from kyverno_tpu_torch.tpu import fold
+
+    rng = np.random.default_rng(seed)
+    tape = fold.Tape(N, I, I, dev, fold.FoldCache(), plain=False)
+    shapes = ((N,), (N, I), (N, I, I))
+    pool = {0: [], 1: [], 2: []}
+    for kind in range(3):
+        for dt in ("bool", "int32", "uint8"):
+            a = rng.random(shapes[kind]) < 0.5 if dt == "bool" else \
+                rng.integers(0, 7, shapes[kind]).astype(dt)
+            pool[kind].append(tape.input(torch.from_numpy(a).to(dev)))
+    pool[0].append(tape.input(torch.from_numpy(
+        rng.random((N, 3)) < 0.5).to(dev)[:, 1]))
+    pool[1].append(tape.input(torch.from_numpy(
+        rng.random((N, 1)) < 0.5).to(dev).expand(N, I)))
+    pool[1].append(tape.input(torch.from_numpy(
+        rng.integers(0, 7, (I, N)).astype(np.int32)).to(dev).T))
+    for _ in range(steps):
+        kind = int(rng.integers(0, 3))
+        op = int(rng.integers(0, 11))
+        vals = pool[kind]
+        a, b, c = (vals[int(rng.integers(0, len(vals)))] for _ in range(3))
+        ab = [v for v in vals if v.dtype == fold.BOOL]
+        x, y = (ab[int(rng.integers(0, len(ab)))] for _ in range(2))
+        if op == 0:
+            pool[kind].append(x & y)
+        elif op == 1:
+            pool[kind].append(~x | y)
+        elif op == 2:
+            pool[kind].append(a == int(rng.integers(0, 4)))
+        elif op == 3:
+            pool[kind].append(a != b)
+        elif op == 4:
+            pool[kind].append(fold.where(x, a, b))
+        elif op == 5:
+            pool[kind].append(fold.where(x, int(rng.integers(0, 7)), c))
+        elif op == 6:
+            pool[kind].append(fold.first_nonpass(a, b))
+        elif op in (7, 8) and kind > 0:
+            pool[kind - 1].append(a.any(dim=-1) if op == 7 else a.all(dim=-1))
+        elif op == 9:
+            pool[1].append(fold.expand(pool[0][-1]))
+        elif op == 10:
+            v = [v for v in pool[1] if v.dtype == fold.BOOL][-1]
+            pool[1].append(fold.scan_or(v, exclusive=bool(seed % 2)))
+    outs = [v for k in range(3) for v in pool[k][-12:]]
+    return tape, outs
+
+
+@pytest.mark.parametrize("I", [16, 32, 5])
+@pytest.mark.parametrize("max_io", [None, 8])
+def test_class_fold_kernel_equals_plain_random_tapes(cuda, monkeypatch, I,
+                                                     max_io):
+    """K11 against its plain twin on random tapes (split into many
+    launches with a descriptor block of 8), I up to a full warp."""
+    from kyverno_tpu_torch.tpu import fold
+
+    if max_io is not None:
+        monkeypatch.setattr(kernels, "CLASS_FOLD_MAX_IO", max_io)
+    N = 1500
+    tape, outs = _fold_tape(cuda, I + (max_io or 0), N, I)
+    comp = tape.cache.get(tape.code, tuple(o.vid for o in outs), I)
+    assert (len(comp.segments) > 1) == (max_io is not None)
+
+    def dests():
+        return [torch.empty(o.shape, device=cuda, dtype=torch.bool
+                            if o.dtype == fold.BOOL else torch.int32)
+                for o in outs]
+
+    got, want = dests(), dests()
+    kernels.reset_launches()
+    fold.run_segments(comp, tape.inputs, got, False, (N, I, I))
+    assert kernels.LAUNCHES["class_fold"] == len(comp.segments)
+    fold.run_segments(comp, tape.inputs, want, True, (N, I, I))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_class_fold_kernel_equals_plain_on_the_dense_program(cuda):
+    """Every K11 launch of the dense PSS program, held against its plain
+    twin on the same inputs: one launch a rule, and the program equals
+    the plain-twin program."""
+    import chip_smoke
+    from kyverno_tpu_torch.tpu import fold
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()])
+    res, ops = chip_smoke.workload(700, 3)
+    padded, pops, _ = eng.pad(res, ops)
+    lanes = lanes_to_device(eng.encode(padded, None, pops)[0], cuda)
+    checked = []
+
+    def check(code, ios, dims):
+        N, I, J = dims
+        outs = list(ios[code.n_ext:])
+        twin = [torch.empty_like(o) for o in outs]
+        kernels.class_fold_plain(code, list(ios[:code.n_ext]) + twin, N, I, J)
+        for g, w in zip(outs, twin):
+            assert torch.equal(g, w)
+        checked.append(code)
+
+    run = eng.cps.device_fn()
+    kernels.reset_launches()
+    fold.CHECK = check
+    try:
+        out = run(lanes)
+    finally:
+        fold.CHECK = None
+    n_rules = len(eng.cps.device_programs)
+    assert len(checked) == n_rules == kernels.LAUNCHES["class_fold"]
+    assert run.stats["fold_forced"] == 0
+    _assert_same(out, eng.cps.device_fn(plain=True)(lanes))
