@@ -26,8 +26,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    pack of one there and on 320-byte seeded subjects (state words 2 to
    16), and K1's non-ASCII entry on its own; K10 ``meta_any`` on the
    tenant policy's 3,264-entry ``namespaces`` list at the tenant scan
-   and triage shapes. Each is timed by CUDA-graph replay beside its
-   plain twin and its library yardstick;
+   and triage shapes, under every tile a block may serve. Each is timed
+   by CUDA-graph replay beside its plain twin and its library yardstick;
 4. the dense path: ``TorchEngine(PSS).scan`` on N seeded resources
    (Pod / Deployment / CronJob / Service): the completed table over all
    rules (codes 0..4), its launch counts and the program's K3 counts,
@@ -81,9 +81,11 @@ bound (its lanes read once, its outputs written once). Every K11
 ``class_fold`` launch of an eager run (one a rule: the rule's class
 logic, recorded on its tape by ``tpu/fold.py``) is held against its
 plain twin on the same inputs, exactly, and the values forced off the
-tapes (``fold_forced``) are printed; on the dense path K11 is also timed
-over the run's launches (kept from that run) beside its plain twin and
-bound, the eager run's aten operations are counted by output shape kind
+tapes (``fold_forced``) are printed; K11 is also timed over the run's
+launches (kept from that run) beside its plain twin and bound, at the
+lane counts the host chose and at every lane count G (each launch held
+against its twin under each); on the dense path its slowest launches
+are timed alone at every G, the eager run's aten operations are counted by output shape kind
 and call site and its torch kernels' device time by call site
 (``Sites``, ``op_census``, ``device_profile``), and the replay's 15
 longest kernels are printed. A ``torch.profiler`` trace of the dense
@@ -667,12 +669,86 @@ def fold_work(kept):
     return nbytes, ops, rows
 
 
-def time_class_fold(torch, kernels, kept, tag):
+def fold_sweep(torch, kernels, kept):
+    """K11 over kept launches under every lane count G: each launch
+    (at G where G is legal for its code, else at its chosen G) against
+    its plain twin on the same inputs, exactly, and the device time of
+    all of them (graph replay). Returns ({G: ms}, {G: launches run at
+    another G})."""
+    wants = []
+    for code, ios, (N, I, J) in kept:
+        twin = [torch.empty_like(o) for o in ios[code.n_ext:]]
+        kernels.class_fold_plain(code, list(ios[:code.n_ext]) + twin, N, I,
+                                 J)
+        wants.append(twin)
+    ms, other = {}, {}
+
+    def at(G, code, I):
+        return G if G in kernels.fold_legal(code, I) else None
+
+    for G in kernels.CLASS_FOLD_LANES:
+        other[G] = 0
+        for (code, ios, (N, I, J)), want in zip(kept, wants):
+            got = [torch.empty_like(o) for o in ios[code.n_ext:]]
+            kernels.class_fold(code, list(ios[:code.n_ext]) + got, N, I, J,
+                               lanes=at(G, code, I))
+            other[G] += at(G, code, I) is None
+            for g, w in zip(got, want):
+                exact(torch, f"class_fold at G = {G}", g, w)
+
+        def run(G=G):
+            for code, ios, (N, I, J) in kept:
+                kernels.class_fold(code, ios, N, I, J, lanes=at(G, code, I))
+
+        ms[G] = graph_ms(torch, run)
+    return ms, other
+
+
+def fold_kinds(code):
+    """A segment's instructions by result kind (N, NI, NIJ) and its load
+    entries."""
+    kinds, loads, pc = [0, 0, 0], 0, 0
+    while pc < len(code.instrs):
+        x = code.instrs[pc][0]
+        op, kind, f = x & 0xFF, (x >> 8) & 0xFF, x >> 16
+        pc += 1
+        if op == 0:
+            loads += f
+            pc += f
+        else:
+            kinds[kind] += 1
+    return kinds, loads
+
+
+def fold_slowest(torch, kernels, kept, phase, label, tag, top: int = 6):
+    """The ``top`` launches of one run that take longest at their
+    chosen G, each timed alone (graph replay) at every G it allows, with
+    its code's shape: where K11's time goes."""
+    rows = []
+    for code, ios, (N, I, J) in kept:
+        ms = {G: graph_ms(torch, lambda G=G: kernels.class_fold(
+            code, ios, N, I, J, lanes=G)) for G in kernels.fold_legal(code, I)}
+        rows.append((ms[kernels.fold_lanes(code, N, I)], code, (N, I, J), ms))
+    rows.sort(key=lambda r: -r[0])
+    for t, code, (N, I, J), ms in rows[:top]:
+        kinds, loads = fold_kinds(code)
+        say(phase, f"  class_fold {label} launch {t:.4f} ms at G "
+                   f"{kernels.fold_lanes(code, N, I)}: {len(code.rows)} rows "
+                   f"(N / NI / NIJ steps {kinds}, {loads} loads), "
+                   f"{code.n_uniform} N words and {code.n_lane} lane units; "
+                   "by G " + ", ".join(f"{G} {m:.4f}" for G, m in ms.items())
+                   + f" {tag}")
+
+
+def time_class_fold(torch, kernels, kept, phase, label, tag,
+                    slowest: bool = False):
     """K11 over one program run's launches (``FoldCheck(keep=True)``):
     device time of all of them (graph replay) against their plain twins
     (eager), and the bound — each distinct input read once and each
     output written once, or one integer operation per instruction and
-    value element, the larger."""
+    value element, the larger; the lane counts the host chose (launches
+    by G), the sweep of every G (``fold_sweep``) and, with ``slowest``,
+    the slowest launches alone (``fold_slowest``)."""
     def k11():
         for code, ios, (N, I, J) in kept:
             kernels.class_fold(code, ios, N, I, J)
@@ -685,17 +761,31 @@ def time_class_fold(torch, kernels, kept, tag):
     r = timed(torch, k11, twin, plain_eager=True)
     r["bound"] = bound(nbytes, ops)
     r["max_abs_err"] = 0.0
-    r.update(launches=len(kept), bytes=nbytes, ops=ops, instructions=rows)
-    say("3", f"class_fold over the {len(kept)} launches of one dense run "
-             f"({rows} instructions, {nbytes} distinct bytes, {ops} value "
-             f"operations): {r['ms']:.4f} ms (graph replay; eager "
-             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
-             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) {tag}")
+    chosen = {}
+    for code, ios, (N, I, J) in kept:
+        G = kernels.fold_lanes(code, N, I)
+        chosen[G] = chosen.get(G, 0) + 1
+    g_ms, other = fold_sweep(torch, kernels, kept)
+    r.update(launches=len(kept), bytes=nbytes, ops=ops, instructions=rows,
+             path=label, g_chosen=chosen, g_ms=g_ms, g_other=other)
+    say(phase, f"class_fold over the {len(kept)} launches of {label} "
+               f"({rows} instructions, {nbytes} distinct bytes, {ops} value "
+               f"operations): {r['ms']:.4f} ms (graph replay; eager "
+               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}); launches by "
+               f"chosen G {json.dumps(chosen, sort_keys=True)} {tag}")
+    say(phase, f"class_fold {label} under every G (each launch equal to its "
+               "twin): " + ", ".join(
+                   f"G {G} {ms:.4f} ms" + (f" ({other[G]} launches at "
+                                           "their own G)" if other[G] else "")
+                   for G, ms in g_ms.items()) + f" {tag}")
+    if slowest:
+        fold_slowest(torch, kernels, kept, phase, label, tag)
     return r
 
 
 def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
-                keep_folds: bool = False, top: bool = False):
+                top: bool = False):
     """One path's program as a CUDA graph (``tpu/graphs.py``) on one
     lane dict: the replay against the eager program (``g.run``) and the
     plain-twin program, exactly; the launches and program stats of one
@@ -703,8 +793,9 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     to a sync, median of 5); captures; the aten operations the host
     issues per eager run and per replayed call; every K11 launch of an
     eager run against its plain twin and the values the run forced off
-    its tapes (``fold_forced``); and the device events of one replay
-    (with ``top``, its 15 longest kernels by name)."""
+    its tapes (``fold_forced``), and those launches timed together
+    (``time_class_fold``); and the device events of one replay (with
+    ``top``, its 15 longest kernels by name)."""
     from kyverno_tpu_torch.tpu import fold
     from kyverno_tpu_torch.tpu.graphs import GraphedProgram
 
@@ -744,7 +835,7 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     ops_eager, _ = program_ops(torch, kernels, lambda: g.run(lanes))
     ops_replay, _ = program_ops(torch, kernels, lambda: g(lanes))
     n_launch = sum(counted[0][0].values())
-    chk = FoldCheck(torch, kernels, keep=keep_folds)
+    chk = FoldCheck(torch, kernels, keep=True)
     zero_stats(g)
     fold.CHECK = chk
     try:
@@ -789,7 +880,8 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
             "replay_events": rp["device_events"],
             "replay_device_ms": rp["device_ms"], "top": rp["top"],
             "bound_ms": b_ms, "io_bytes": io_bytes,
-            "fold_kept": chk.kept}
+            "k11": time_class_fold(torch, kernels, chk.kept, phase, label,
+                                   tag, slowest=top)}
 
 
 def busy_share(torch, fn, reps: int = 3):
@@ -1440,11 +1532,9 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
     # the eager program and the plain-twin program, on the same lanes
     graph = eng.cps.device_fn(device=eng.device)
     gr = graph_check(torch, kernels, "4", "the dense program", graph, lanes,
-                     eng.cps.device_fn(plain=True), tag, keep_folds=True,
-                     top=True)
+                     eng.cps.device_fn(plain=True), tag, top=True)
     program_ms = gr["replay_ms"]
-    results["class_fold"] = time_class_fold(torch, kernels,
-                                            gr.pop("fold_kept"), tag)
+    results["class_fold"] = gr["k11"]
     # where the eager run's operations and device time go
     from kyverno_tpu_torch.tpu import evaluator as ev
 
@@ -1928,6 +2018,15 @@ def check_meta_any(torch, kernels, eng, resources, lanes, batch_n, results):
                   + 2 * N)
         r = timed(torch, lambda: kernels.meta_any(*args),
                   lambda: kernels.meta_any_plain(*args))
+        # every tile a block may serve, each equal to the twin
+        tile_ms = {}
+        for R in kernels.META_ANY_TILES:
+            for w, g, p in zip(("hit", "confirm"),
+                               kernels.meta_any(*args, tile=R), want):
+                exact(torch, f"K10 meta_any {shape} {w} tile {R}", g, p)
+            tile_ms[R] = graph_ms(torch,
+                                  lambda R=R: kernels.meta_any(*args, tile=R))
+        r.update(tile=kernels.meta_any_tile(N), tile_ms=tile_ms)
         r.update({"name": "meta_any", "shape": shape, "N": N, "E": E,
                   "plane_entries": e_plane, "planes": len(planes),
                   "bytes": nbytes, "max_abs_err": err,
@@ -1939,7 +2038,9 @@ def check_meta_any(torch, kernels, eng, resources, lanes, batch_n, results):
                  f"confirms {int(got[1].sum())}, max abs err {err}; "
                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f}), plain "
                  f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
-                 f"({r['bound'][1]}, {nbytes} bytes)")
+                 f"({r['bound'][1]}, {nbytes} bytes); tile {r['tile']} "
+                 "chosen; every tile (equal to the twin): " + ", ".join(
+                     f"{R} {ms:.4f} ms" for R, ms in tile_ms.items()))
     results["meta_any"] = out[0]
     results["meta_any_shapes"] = out
     del tri_lanes
@@ -2481,11 +2582,25 @@ def main() -> int:
             raise AssertionError(f"{name} was launched on no path")
     # K1 at the tenant bank's shapes, beside the rows above
     by_name = {e["name"]: e for e in out}
+    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+        r = gr["k11"]
+        b_ms, b_by = r["bound"]
+        by_name["class_fold"].setdefault("paths", []).append(
+            {"path": path, "launches_timed": r["launches"]}
+            | {k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bytes",
+                                 "ops", "instructions", "g_chosen", "g_ms",
+                                 "g_other")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
+        say("6", f"class_fold {path}: {r['launches']} launches of one run "
+                 f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
+                 f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                 f"{tag}")
     for r in results["meta_any_shapes"]:
         b_ms, b_by = r["bound"]
         by_name["meta_any"].setdefault("tenant_shapes", []).append({
             k: r[k] for k in ("shape", "N", "E", "plane_entries", "planes",
-                              "bytes", "ms", "eager_ms", "plain_ms")}
+                              "bytes", "ms", "eager_ms", "plain_ms", "tile",
+                              "tile_ms")}
             | {"bound_ms": b_ms, "bound_by": b_by})
     for r in results["dfa_tenant"]:
         b_ms, b_by = r["bound"]

@@ -100,9 +100,10 @@ _SIGNATURES = {
     "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
     "glob_nfa_pack": ("glob_nfa",
                       [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
-    "meta_any": ("meta_any", [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _L,
+    "meta_any": ("meta_any", [_P, _I, _P, _I, _P, _P, _P, _P, _P, _L, _I,
                               _P, _P, _P]),
-    "class_fold": ("class_fold", [_P, _I, _I, _I, _P, _I, _L, _I, _I, _P]),
+    "class_fold": ("class_fold", [_P, _I, _I, _I, _P, _I, _L, _I, _I, _I,
+                                  _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -1287,6 +1288,12 @@ def _single_pack(pattern: str) -> GlobPack:
 # by the bytes of the plane cells it reads.
 
 META_ANY_MAX_PLANES = 72  # kMaxPlanes in csrc/meta_any.cu
+# resources a block may serve (a power of two up to one of its 256
+# threads each, kThreads in csrc/meta_any.cu)
+META_ANY_TILES = (8, 16, 32, 64, 128, 256)
+# blocks a launch should have at least: two for each of the H100's 132 SMs
+META_ANY_MIN_BLOCKS = 264
+_MA_HEAD = 8  # words of the derived table's header
 
 
 class MetaAnyTable:
@@ -1302,7 +1309,19 @@ class MetaAnyTable:
     each sorted by (slot, column); ``na``, per family, whether its
     non-ASCII mask joins the confirm; ``unpacked``, per family, the
     globs outside its K9 packs (their stacked accepts are that slot's
-    rows). ``confirms`` is False when no entry can need a confirm."""
+    rows). ``confirms`` is False when no entry can need a confirm.
+
+    ``tab`` is the kernel's form of the same entries (``_derive``), an
+    int32 array made once per program: a header {bank runs, pack runs,
+    runs offset, rows offset, then each family's hash offset and count};
+    one run a resource-major (bank) slot {slot, family | has-self << 8,
+    columns, byte offset of the accept mask's column 0}, whose accept
+    and self column masks (bytes of 0xff or 0; each 16 zero bytes, the
+    columns padded to 16, 32 zero bytes) replace its entries; one run an
+    entry-major slot {slot, family, first, count} over ``rows`` (row |
+    self << 31); and each family's literals as (hi, lo, self, 0) sorted
+    by (hi, lo), for a binary search. ``need[s]``: the columns (bank) or
+    rows a plane of slot s must have."""
 
     def __init__(self, families: Tuple[str, ...], slots: List[Tuple],
                  entry_major: List[bool], ent: np.ndarray,
@@ -1316,15 +1335,76 @@ class MetaAnyTable:
         self.ent = np.ascontiguousarray(ent, dtype=np.int32).reshape(-1, 4)
         self.off, self.na, self.unpacked = off, na, unpacked
         self.confirms = bool(any(na) or (self.ent[:, 3] != 0).any())
+        self.tab, self.need = self._derive()
         self._on: Dict[str, torch.Tensor] = {}
         self._plain: Dict[str, list] = {}
 
+    def _derive(self) -> Tuple[np.ndarray, Dict[int, int]]:
+        bounds = (0,) + tuple(self.off)
+        bank, packs, rows, hashes = [], [], [], []
+        masks: List[np.ndarray] = []
+        need: Dict[int, int] = {}
+        mask_bytes = 0
+        for f in range(len(self.families)):
+            fr = self.ent[bounds[f]:bounds[f + 1]]
+            for sl in sorted(set(fr[:, 0].tolist()) - {-1}):
+                sel = fr[fr[:, 0] == sl]
+                idx, own = sel[:, 1].astype(np.int64), sel[:, 3] != 0
+                need[sl] = max(need.get(sl, 0), int(idx.max()) + 1)
+                if self.entry_major[sl]:
+                    packs.append((sl, f, len(rows), len(sel)))
+                    rows.extend((idx | (own.astype(np.int64) << 31))
+                                .tolist())
+                    continue
+                ncols = int(idx.max()) + 1
+                pad = -(-ncols // 16) * 16
+                m = np.zeros((2 if own.any() else 1, 16 + pad + 32),
+                             np.uint8)
+                m[0, 16 + idx] = 0xFF
+                if own.any():
+                    m[1, 16 + idx[own]] = 0xFF
+                bank.append([sl, f | (int(own.any()) << 8), ncols,
+                             mask_bytes + 16])
+                masks.append(m.reshape(-1))
+                mask_bytes += m.size
+            lits: Dict[Tuple[int, int], int] = {}
+            for _, hi, lo, own in fr[fr[:, 0] == -1].tolist():
+                lits[(hi, lo)] = lits.get((hi, lo), 0) | int(own != 0)
+            hashes.append([(hi, lo, own, 0) for (hi, lo), own in
+                           sorted(lits.items())])
+
+        def pad4(n):
+            return -(-n // 4) * 4
+
+        runs = _MA_HEAD
+        rows_at = runs + 4 * (len(bank) + len(packs))
+        at = pad4(rows_at + len(rows))
+        head = [len(bank), len(packs), runs, rows_at, 0, 0, 0, 0]
+        for f, h in enumerate(hashes):
+            head[4 + 2 * f], head[5 + 2 * f] = at, len(h)
+            at += 4 * len(h)
+        for b in bank:
+            b[3] += 4 * at
+        words = np.zeros(at + mask_bytes // 4, dtype=np.int64)
+        words[:_MA_HEAD] = head
+        flat = [v for r in bank + packs for v in r]
+        words[runs:runs + len(flat)] = flat
+        words[rows_at:rows_at + len(rows)] = rows
+        for f, h in enumerate(hashes):
+            if h:
+                words[head[4 + 2 * f]:head[4 + 2 * f] + 4 * len(h)] = \
+                    np.asarray(h, np.int64).reshape(-1)
+        tab = (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        if masks:
+            tab[at:] = np.concatenate(masks).view(np.int32)
+        return tab, need
+
     def on(self, device) -> torch.Tensor:
-        """The entry table on ``device``; a CUDA copy is made once, from
-        pinned memory without waiting."""
+        """The kernel's table (``tab``) on ``device``; a CUDA copy is
+        made once, from pinned memory without waiting."""
         key = str(device)
         if key not in self._on:
-            t = torch.from_numpy(self.ent)
+            t = torch.from_numpy(self.tab)
             if torch.device(device).type != "cpu":
                 t = t.pin_memory().to(device, non_blocking=True)
             self._on[key] = t
@@ -1403,16 +1483,39 @@ def meta_any_plain(table: MetaAnyTable, planes: Sequence[torch.Tensor],
     return hit, conf
 
 
+def meta_any_tile(N: int) -> int:
+    """Resources a K10 block serves over N: the most (the fewer times
+    the table is staged) that still give ``META_ANY_MIN_BLOCKS``
+    blocks, else the fewest."""
+    for R in reversed(META_ANY_TILES):
+        if -(-N // R) >= META_ANY_MIN_BLOCKS:
+            return R
+    return META_ANY_TILES[0]
+
+
 def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
              hashes: Sequence[torch.Tensor],
              is_ns: Optional[torch.Tensor] = None,
-             na: Sequence[Optional[torch.Tensor]] = ()
+             na: Sequence[Optional[torch.Tensor]] = (),
+             tile: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: one launch for a filter list -> (N,) bool (hit, confirm), as
-    ``meta_any_plain``. Planes may have any strides."""
+    ``meta_any_plain``. Planes may have any strides. A block serves
+    ``meta_any_tile(N)`` resources unless ``tile`` names one of
+    ``META_ANY_TILES``. On the CPU the plain twin runs; on a CUDA
+    tensor the kernel launches or this raises."""
     if hashes[0].device.type == "cpu":
         return meta_any_plain(table, planes, hashes, is_ns, na)
     N = _meta_any_args(table, planes, hashes)
+    R = meta_any_tile(N) if tile is None else tile
+    if R not in META_ANY_TILES:
+        raise ValueError(f"meta_any: tile {R}, want one of {META_ANY_TILES}")
+    for sl, n_need in table.need.items():
+        em = table.entry_major[sl]
+        if planes[sl].shape[0 if em else 1] < n_need:
+            raise ValueError(f"meta_any: plane {sl} {tuple(planes[sl].shape)}"
+                             f" has fewer than {n_need} "
+                             f"{'rows' if em else 'columns'}")
     dev = hashes[0].device
     for f, h in enumerate(hashes):
         _check(h, f"hash lane {f}", torch.int32, dev, 2)
@@ -1433,21 +1536,22 @@ def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
             _check(m, "nonascii", torch.bool, dev, 1)
             if m.shape[0] != N:
                 raise ValueError(f"nonascii {tuple(m.shape)} for {N}")
-    ent = table.on(dev)
+    tab = table.on(dev)
     hit = torch.empty((N,), dtype=torch.bool, device=dev)
     conf = torch.empty((N,), dtype=torch.bool, device=dev)
     if N:
         k = len(planes)
-        args = (ctypes.c_longlong * max(3 * k, 1))(
+        args = (ctypes.c_longlong * max(4 * k, 1))(
             *[p.data_ptr() for p in planes],
             *[p.stride(1 if em else 0)
               for p, em in zip(planes, table.entry_major)],
             *[p.stride(0 if em else 1)
+              for p, em in zip(planes, table.entry_major)],
+            *[int(not em and p.stride(1) == 1)
               for p, em in zip(planes, table.entry_major)])
-        e1, e2 = table.off
-        _call("meta_any", _ptr(ent), e1, e2, ctypes.cast(args, _P), k,
-              _ptr(hashes[0]), _ptr(hashes[1]) if F > 1 else None,
-              _ptr(is_ns), _ptr(nas[0]), _ptr(nas[1]), N, _ptr(hit),
+        _call("meta_any", _ptr(tab), int(tab.numel()), ctypes.cast(args, _P),
+              k, _ptr(hashes[0]), _ptr(hashes[1]) if F > 1 else None,
+              _ptr(is_ns), _ptr(nas[0]), _ptr(nas[1]), N, R, _ptr(hit),
               _ptr(conf))
         LAUNCHES["meta_any"] += 1
     return hit, conf
@@ -1464,6 +1568,17 @@ def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
 
 CLASS_FOLD_MAX_IO = 128      # kMaxIO in csrc/class_fold.cu
 CLASS_FOLD_MAX_SMEM = 232448  # kMaxSmem: 227 KB of shared memory a block
+CLASS_FOLD_MAX_WARPS = 4      # kMaxWarps: warps a block
+# lanes a resource (G) the kernel takes; each lane holds ``fold_ipl``
+# instances of an (N, I) value
+CLASS_FOLD_LANES = (1, 2, 4, 8, 16, 32)
+# the card the lane choice fills: the H100's SMs, and the resident warps
+# an SM should hold for the interpreter's shared-memory and global-load
+# latencies to overlap (chip_smoke.py sweeps G to check the choice)
+CLASS_FOLD_SMS = 132
+CLASS_FOLD_WARPS_PER_SM = 8
+# warps an SM holds by registers (csrc/class_fold.cu: up to 128 a thread)
+CLASS_FOLD_REG_WARPS = 16
 # opcodes (tpu/fold.py) the plain twin reads
 (_F_LOAD, _F_CONST, _F_NOT, _F_AND, _F_OR, _F_EQC, _F_NEC, _F_EQ, _F_WHERE,
  _F_FNP, _F_ANY, _F_ALL, _F_EXPAND, _F_SCAN, _F_SCANX, _F_STORE,
@@ -1474,11 +1589,15 @@ class FoldCode:
     """One compiled K11 segment (``tpu/fold.py:compile_tape``): ``rows``,
     the (n, 4) int32 instructions {op | kind << 8 | dst << 16, a, b, c}
     (csrc/class_fold.cu lists them; a load group's header is followed by
-    one row per value it loads, {kind, slot, descriptor, 0});
+    one row per value it loads, {kind, slot, descriptor, element
+    bytes}; LOADJ and STORE carry their element bytes too);
     ``n_uniform`` the words of a resource's N values and ``n_lane`` the
-    lane words of its NI / NIJ values (shared memory a warp keeps);
-    ``n_ext`` the descriptors it reads and ``n_out`` the ones it writes
-    (after them). Built once per program and tape."""
+    lane units of its NI / NIJ values (an NI value one, an NIJ value J;
+    shared memory a warp keeps, ``fold_smem``); ``n_ext`` the
+    descriptors it reads and ``n_out`` the ones it writes (after them);
+    ``widths``, the element bytes the rows give each descriptor;
+    ``nested``, whether it holds NIJ values. Built once per program and
+    tape."""
 
     def __init__(self, rows: np.ndarray, n_uniform: int, n_lane: int,
                  n_ext: int, n_out: int):
@@ -1486,12 +1605,24 @@ class FoldCode:
         self.n_uniform, self.n_lane = n_uniform, n_lane
         self.n_ext, self.n_out = n_ext, n_out
         self.instrs = [tuple(r) for r in self.rows.tolist()]
+        self.widths: Dict[int, int] = {}
+        self.nested = False
+        pc = 0
+        while pc < len(self.instrs):
+            x, a, b, c = self.instrs[pc]
+            op, f = x & 0xFF, x >> 16
+            self.nested |= (x >> 8) & 0xFF == 2
+            pc += 1
+            if op == _F_LOAD:
+                for _, _, d, w in self.instrs[pc:pc + f]:
+                    self.widths[d] = w
+                pc += f
+            elif op == _F_LOADJ:
+                self.widths[a] = b
+            elif op == _F_STORE:
+                self.widths[b] = c
         self._on: Dict[str, torch.Tensor] = {}
         self._pinned: List[torch.Tensor] = []
-
-    @property
-    def smem_per_warp(self) -> int:
-        return 4 * (self.n_uniform + 32 * self.n_lane)
 
     def on(self, device) -> torch.Tensor:
         """The rows on ``device``: a CUDA copy is made once, from pinned
@@ -1507,18 +1638,103 @@ class FoldCode:
         return self._on[key]
 
 
+def fold_ipl(I: int, G: int) -> int:
+    """Instances a lane holds with G lanes a resource: ceil(I / G)
+    rounded up to a power of two (the kernel's template argument);
+    lane g holds instances g * ipl .. g * ipl + ipl - 1, those >= I
+    being padding."""
+    return 1 << (max(1, -(-I // G)) - 1).bit_length()
+
+
+def fold_smem(code: FoldCode, G: int, I: int) -> int:
+    """Shared memory a warp keeps at G lanes a resource: a word a lane
+    for each N value (each lane its copy), and ipl words a lane for each
+    lane unit."""
+    return 4 * 32 * (code.n_uniform + fold_ipl(I, G) * code.n_lane)
+
+
+def fold_legal(code: FoldCode, I: int) -> List[int]:
+    """The lane counts K11 can run ``code`` with at I instances: G no
+    wider than I rounded up to a power of two, and a warp's values
+    within a block's shared memory."""
+    top = 1 << (I - 1).bit_length()
+    return [G for G in CLASS_FOLD_LANES
+            if G <= top and fold_smem(code, G, I) <= CLASS_FOLD_MAX_SMEM]
+
+
+def fold_lanes(code: FoldCode, N: int, I: int) -> int:
+    """The lanes a resource (G) K11 runs ``code`` with over N resources
+    of I instances: a pure function of the code's value kinds and
+    shared memory, N and I (a CUDA-graph capture and its replays
+    agree). A tape of N values alone runs a resource a lane; a tape with
+    NIJ values an instance a lane (the widest legal G: its J words a
+    lane per value fill shared memory, so fewer instances a lane keep
+    more warps resident; measured fastest on an H100, PERF.md);
+    otherwise the fewest lanes (the most instances a lane, so the fewest
+    decodes an element) that keep ``CLASS_FOLD_WARPS_PER_SM`` warps
+    resident on every SM (as registers and shared memory allow), else
+    the most resident warps."""
+    legal = fold_legal(code, I)
+    if not legal:
+        raise ValueError(f"class_fold: {fold_smem(code, 32, I)} bytes of "
+                         "values a warp at best, more shared memory than a "
+                         "block has")
+    if code.n_lane == 0:
+        return legal[0]
+    if code.nested:
+        return legal[-1]
+    want = CLASS_FOLD_SMS * CLASS_FOLD_WARPS_PER_SM
+    best = None
+    for G in legal:
+        warps = -(-N * G // 32)
+        per_sm = min(CLASS_FOLD_REG_WARPS,
+                     CLASS_FOLD_MAX_SMEM // fold_smem(code, G, I))
+        resident = min(warps, CLASS_FOLD_SMS * max(1, per_sm))
+        if resident >= want:
+            return G
+        if best is None or resident > best[0]:
+            best = (resident, G)
+    return best[1]
+
+
+def fold_block(code: FoldCode, N: int, I: int, G: int) -> int:
+    """Warps a block: up to ``CLASS_FOLD_MAX_WARPS`` while the block's
+    shared memory fits and the grid still has a block for every SM."""
+    warps = -(-N * G // 32)
+    smem = fold_smem(code, G, I)
+    for w in (CLASS_FOLD_MAX_WARPS, 2, 1):
+        if w * smem <= CLASS_FOLD_MAX_SMEM and -(-warps // w) >= \
+                CLASS_FOLD_SMS:
+            return w
+    return 1
+
+
+def _fold_vec(t: torch.Tensor, ipl: int) -> bool:
+    """Whether a lane may read its ipl instances of ``t`` as vectors:
+    instances adjacent and every lane's run aligned to the vector."""
+    w = t.element_size()
+    vb = (16 if ipl >= 4 else 8 if ipl == 2 else 0) if w == 4 else \
+        (16 if ipl >= 16 else 4 if ipl >= 4 else 0)
+    if t.ndim != 2 or vb == 0 or t.stride(1) != 1:
+        return False
+    return t.data_ptr() % vb == 0 and (t.stride(0) * w) % vb == 0
+
+
 def _fold_ios(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
               J: int) -> None:
     if len(ios) != code.n_ext + code.n_out:
         raise ValueError(f"class_fold: {len(ios)} tensors for "
                          f"{code.n_ext} + {code.n_out} descriptors")
     shapes = ((N,), (N, I), (N, I, J))
-    for t in ios:
+    for d, t in enumerate(ios):
         if t.dtype not in (torch.bool, torch.uint8, torch.int32):
             raise TypeError(f"class_fold: dtype {t.dtype}")
         if t.ndim not in (1, 2, 3) or tuple(t.shape) != shapes[t.ndim - 1]:
             raise ValueError(f"class_fold: shape {tuple(t.shape)} is no "
                              f"class shape of ({N}, {I}, {J})")
+        if code.widths.get(d, t.element_size()) != t.element_size():
+            raise TypeError(f"class_fold: descriptor {d} is {t.dtype}; the "
+                            f"code reads {code.widths[d]}-byte elements")
     for t in ios[code.n_ext:]:
         if t.dtype == torch.uint8:
             raise TypeError("class_fold: outputs are bool or int32")
@@ -1596,11 +1812,14 @@ def class_fold_plain(code: FoldCode, ios: Sequence[torch.Tensor], N: int,
 
 
 def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
-               J: int) -> None:
-    """K11: one launch runs a compiled segment over all N resources (a
-    warp a resource, a lane an instance, J in the thread), reading its
-    input descriptors by pointer and strides and writing its outputs
-    in place, as ``class_fold_plain``. I <= 32."""
+               J: int, lanes: Optional[int] = None) -> None:
+    """K11: one launch runs a compiled segment over all N resources (G
+    lanes a resource, ``fold_ipl(I, G)`` instances a lane, J in the
+    thread), reading its input descriptors by pointer and strides and
+    writing its outputs in place, as ``class_fold_plain``. I <= 32. G
+    is ``fold_lanes``'s choice unless ``lanes`` names one of
+    ``fold_legal``'s. On the CPU the plain twin runs; on a CUDA tensor
+    the kernel launches or this raises."""
     dev = ios[code.n_ext].device if code.n_out else ios[0].device
     if dev.type == "cpu":
         return class_fold_plain(code, ios, N, I, J)
@@ -1611,20 +1830,30 @@ def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
     if not 1 <= I <= 32:
         raise ValueError(f"class_fold: I = {I}; a warp holds at most 32 "
                          "instances")
-    if code.smem_per_warp > CLASS_FOLD_MAX_SMEM:
-        raise ValueError(f"class_fold: {code.smem_per_warp} bytes of values "
-                         "a resource, more shared memory than a block has")
     if len(ios) > CLASS_FOLD_MAX_IO:
         raise ValueError(f"class_fold: {len(ios)} descriptors, at most "
                          f"{CLASS_FOLD_MAX_IO}")
+    G = fold_lanes(code, N, I) if lanes is None else lanes
+    if G not in fold_legal(code, I):
+        raise ValueError(f"class_fold: {G} lanes a resource; legal at I = "
+                         f"{I}: {fold_legal(code, I)}")
     if N == 0 or not len(code.rows):
         return
-    k = len(ios)
+    # 32-bit strides and in-row offsets; the resource's offset is one
+    # 32 x 32 -> 64-bit product in the kernel
     strides = [list(t.stride()) + [0] * (3 - t.ndim) for t in ios]
+    lim = 1 << 31
+    if N >= lim or any(abs(s[0]) >= lim or I * abs(s[1]) + J * abs(s[2])
+                       >= lim for s in strides):
+        raise ValueError("class_fold: a stride or in-row offset past 32 bits")
+    ipl = fold_ipl(I, G)
+    k = len(ios)
     io = (ctypes.c_longlong * (5 * k))(
         *[t.data_ptr() for t in ios], *[s[0] for s in strides],
         *[s[1] for s in strides], *[s[2] for s in strides],
-        *[t.element_size() for t in ios])
+        *[int(_fold_vec(t, ipl)) for t in ios])
     _call("class_fold", _ptr(code.on(dev)), len(code.rows), code.n_uniform,
-          code.n_lane, ctypes.cast(io, _P), k, N, I, J)
+          code.n_lane, ctypes.cast(io, _P), k, N, I, J,
+          G.bit_length() - 1, ipl.bit_length() - 1,
+          fold_block(code, N, I, G))
     LAUNCHES["class_fold"] += 1

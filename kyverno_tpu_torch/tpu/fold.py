@@ -226,9 +226,11 @@ class Tape:
         got = self._in.get(key)
         if got is None:
             self.inputs.append(t)
+            # the element width travels with the load (the kernel reads
+            # it from the instruction, not from the descriptor)
             got = self._in[key] = self._emit(
                 OP_LOAD, kind, BOOL if t.dtype == torch.bool else INT,
-                len(self.inputs) - 1)
+                len(self.inputs) - 1, t.element_size())
         return got
 
     def wrap(self, x, kind: Optional[int] = None) -> FV:
@@ -373,7 +375,8 @@ class Tape:
         """Compile (cached) and run the cone of ``outs`` into ``dests``
         (tensors of their shapes; bool or int32)."""
         vids = tuple(self.wrap(o).vid for o in outs)
-        segs = self.cache.get(self.code, vids, self.J)
+        segs = self.cache.get(self.code, vids, self.J,
+                              tuple(d.element_size() for d in dests))
         run_segments(segs, self.inputs, list(dests), self.plain,
                      (self.N, self.I, self.J))
 
@@ -423,10 +426,17 @@ def _operands(ins: Tuple[int, ...]) -> Tuple[int, ...]:
     return (a, b)
 
 
+def _width(code, v: int) -> int:
+    """The element bytes of a value kept in its own dtype (bool 1,
+    int32 4): a scratch value, or an output by default."""
+    return 1 if code[v][2] == BOOL else 4
+
+
 def compile_tape(code: Sequence[Tuple[int, ...]], outs: Sequence[int],
-                 J: int) -> Compiled:
-    """The segments that compute ``outs`` (value ids of ``code``); see
-    the module docstring."""
+                 J: int, out_widths: Sequence[int]) -> Compiled:
+    """The segments that compute ``outs`` (value ids of ``code``) into
+    destinations of ``out_widths`` element bytes; see the module
+    docstring."""
     max_io = kernels.CLASS_FOLD_MAX_IO
     # the cone of the outputs
     need = set()
@@ -504,24 +514,28 @@ def compile_tape(code: Sequence[Tuple[int, ...]], outs: Sequence[int],
         seg_final = [o for o in outs if home.get(o) == s
                      or (s == len(seg_bodies) - 1 and o not in home)]
         segs.append(_emit_segment(code, sb, mine, stores, seg_final, outs,
-                                  tmp_of, J))
+                                  tmp_of, J, out_widths))
     return Compiled(segs, tmps)
 
 
 def _emit_segment(code, sb: List[int], mine: set, stores: List[int],
                   finals: List[int], outs: Sequence[int],
-                  tmp_of: Dict[int, int], J: int) -> Segment:
+                  tmp_of: Dict[int, int], J: int,
+                  out_widths: Sequence[int]) -> Segment:
     ext: List[Tuple[str, int]] = []
     ext_idx: Dict[int, int] = {}
     out_refs: List[Tuple[str, int]] = []
+    out_w: List[int] = []  # element bytes of each output descriptor
     out_idx: Dict[int, List[int]] = {}
     for v in stores:
         out_idx.setdefault(v, []).append(len(out_refs))
         out_refs.append(("tmp", tmp_of[v]))
+        out_w.append(_width(code, v))
     for k, o in enumerate(outs):
         if o in finals:
             out_idx.setdefault(o, []).append(len(out_refs))
             out_refs.append(("out", k))
+            out_w.append(out_widths[k])
     # values read from outside: inputs (LOAD) and earlier segments' tmps;
     # an output that is itself outside is read to be stored
     seq: List[Tuple[str, int]] = []  # ("x", vid) instructions of the body
@@ -559,13 +573,17 @@ def _emit_segment(code, sb: List[int], mine: set, stores: List[int],
             kind, idx = slot.pop(v)
             free[kind].append(idx)
 
+    ext_w: List[int] = []  # element bytes of each input descriptor
+
     def desc(v: int) -> int:
         if v not in ext_idx:
             ext_idx[v] = len(ext)
             if code[v][0] == OP_LOAD:
                 ext.append(("in", code[v][3]))
+                ext_w.append(code[v][4])
             else:
                 ext.append(("tmp", tmp_of[v]))
+                ext_w.append(_width(code, v))
         return ext_idx[v]
 
     def load(v: int) -> None:
@@ -575,14 +593,16 @@ def _emit_segment(code, sb: List[int], mine: set, stores: List[int],
         if v in slot:
             return
         if code[v][1] == NIJ:
-            rows.append([OP_LOADJ, NIJ, alloc(v), desc(v)])
+            d = desc(v)
+            rows.append([OP_LOADJ, NIJ, alloc(v), d, ext_w[d]])
             return
         group = [v] + [u for u in first[first.index(v) + 1:]
                        if u not in slot and code[u][1] != NIJ][
                            :LOAD_GROUP - 1]
         rows.append([OP_LOAD, 0, len(group)])
         for u in group:
-            rows.append(["entry", code[u][1], alloc(u), desc(u)])
+            d = desc(u)
+            rows.append(["entry", code[u][1], alloc(u), d, ext_w[d]])
 
     for pos, (what, v) in enumerate(seq):
         if what == "copy":
@@ -624,16 +644,16 @@ def _emit_segment(code, sb: List[int], mine: set, stores: List[int],
     out = np.zeros((len(rows), 4), dtype=np.int32)
     for r, row in enumerate(rows):
         op = row[0]
-        if op == "entry":
-            out[r, :3] = row[1], unit(row[2]), row[3]
+        if op == "entry":  # {kind, slot, descriptor, element bytes}
+            out[r] = row[1], unit(row[2]), row[3], row[4]
             continue
         kind = row[1]
         if op == OP_LOAD:
             f, args = row[2], ()
         elif op == OP_STORE:  # outputs follow the inputs' descriptors
-            f, args = 0, (unit(row[2]), len(ext) + row[3])
+            f, args = 0, (unit(row[2]), len(ext) + row[3], out_w[row[3]])
         elif op == OP_LOADJ:
-            f, args = unit(row[2]), (row[3],)
+            f, args = unit(row[2]), (row[3], row[4])
         elif op == OP_CONST:
             f, args = unit(row[2]), (row[3],)
         elif op in (OP_EQC, OP_NEC):
@@ -654,11 +674,17 @@ class FoldCache:
         self._by_code: Dict[Tuple, Compiled] = {}
 
     def get(self, code: Sequence[Tuple[int, ...]], outs: Tuple[int, ...],
-            J: int) -> Compiled:
-        key = (tuple(code), outs, J)
+            J: int, out_widths: Optional[Tuple[int, ...]] = None
+            ) -> Compiled:
+        """The compiled tape into destinations of ``out_widths`` element
+        bytes (by default the values' own: 1 for bool, 4 for int32)."""
+        if out_widths is None:
+            out_widths = tuple(_width(code, o) for o in outs)
+        key = (tuple(code), outs, J, out_widths)
         got = self._by_code.get(key)
         if got is None:
-            got = self._by_code[key] = compile_tape(code, outs, J)
+            got = self._by_code[key] = compile_tape(code, outs, J,
+                                                    out_widths)
         return got
 
     def __len__(self) -> int:

@@ -19,6 +19,8 @@ from kyverno_tpu_torch.tpu import dfa as tdfa
 from kyverno_tpu_torch.parallel.sharding import ShardedScanner
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
+from torch_kernel_cases import MIX_SOURCES, meta_any_mix
+
 pytestmark = pytest.mark.cuda
 
 
@@ -645,6 +647,31 @@ def test_meta_any_kernel_equals_plain(cuda, E):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("case", ["every", "hash", "bank", "pack",
+                                  "no-name", "no-ns"])
+def test_meta_any_kernel_every_source_and_tile(cuda, case):
+    """K10 against its plain twin on tables of one source kind (literals
+    alone, bank planes alone: rows at 16-byte, 4-byte and odd offsets,
+    a transposed view; packs alone) or of every
+    kind, with ``self`` entries, both non-ASCII masks, an empty name or
+    namespace family, N no multiple of any tile, under every tile."""
+    sizes = {"no-name": (0, 50), "no-ns": (50, 0)}.get(case, (50, 50))
+    sources = MIX_SOURCES.get(case, MIX_SOURCES["every"])
+    N = 3001
+    table, planes, hashes, is_ns, na = meta_any_mix(len(case), N, sizes,
+                                                    sources, device=cuda)
+    # rows at offsets 0 mod 16, 0 mod 4, odd; and a transposed plane
+    assert [p.stride(1) for p in planes[:4]] == [1, 1, 1, N]
+    want = kernels.meta_any_plain(table, planes, hashes, is_ns, na)
+    for tile in kernels.META_ANY_TILES:
+        kernels.reset_launches()
+        got = kernels.meta_any(table, planes, hashes, is_ns, na, tile=tile)
+        assert kernels.LAUNCHES["meta_any"] == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), tile
+    assert want[0].any() and want[1].any()
+
+
 def _pss_pods(n, seed):
     rng = random.Random(seed)
     return [{"apiVersion": "v1", "kind": "Pod",
@@ -791,15 +818,16 @@ def test_a_failed_capture_is_a_kernel_error(cuda):
 # --- K11 class_fold ---
 
 
-def _fold_tape(dev, seed, N, I, steps=300):
+def _fold_tape(dev, seed, N, I, steps=300, J=None):
     """A seeded random tape on ``dev`` over every opcode and shape kind
     (bool, int32 and uint8 inputs; a strided, a broadcast and a
-    transposed view) and the values it recorded."""
+    transposed view) and the values it recorded; J = I by default."""
     from kyverno_tpu_torch.tpu import fold
 
     rng = np.random.default_rng(seed)
-    tape = fold.Tape(N, I, I, dev, fold.FoldCache(), plain=False)
-    shapes = ((N,), (N, I), (N, I, I))
+    J = I if J is None else J
+    tape = fold.Tape(N, I, J, dev, fold.FoldCache(), plain=False)
+    shapes = ((N,), (N, I), (N, I, J))
     pool = {0: [], 1: [], 2: []}
     for kind in range(3):
         for dt in ("bool", "int32", "uint8"):
@@ -872,6 +900,56 @@ def test_class_fold_kernel_equals_plain_random_tapes(cuda, monkeypatch, I,
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("I", [1, 3, 16, 17, 32])
+@pytest.mark.parametrize("J", [0, 3])
+@pytest.mark.parametrize("max_io", [None, 8])
+def test_class_fold_kernel_every_lane_count(cuda, monkeypatch, I, J,
+                                            max_io):
+    """K11 against its plain twin under every legal lane count G (and
+    so every instance count a lane, padding instances included) on a
+    random tape, whole or split into many launches, over N resources
+    that fill no warp or block evenly."""
+    from kyverno_tpu_torch.tpu import fold
+
+    if max_io is not None:
+        monkeypatch.setattr(kernels, "CLASS_FOLD_MAX_IO", max_io)
+    N = 1037
+    tape, outs = _fold_tape(cuda, 7 * I + J, N, I, steps=200, J=J)
+    comp = tape.cache.get(tape.code, tuple(o.vid for o in outs), J)
+    assert (len(comp.segments) > 1) == (max_io is not None)
+
+    def dests():
+        return [torch.empty(o.shape, device=cuda, dtype=torch.bool
+                            if o.dtype == fold.BOOL else torch.int32)
+                for o in outs]
+
+    want = dests()
+    fold.run_segments(comp, tape.inputs, want, True, (N, I, J))
+    chosen = kernels.fold_lanes
+    tried = set()
+    for G in kernels.CLASS_FOLD_LANES:
+        monkeypatch.setattr(
+            kernels, "fold_lanes",
+            lambda code, n, i: G if G in kernels.fold_legal(code, i)
+            else chosen(code, n, i))
+        got = dests()
+        kernels.reset_launches()
+        fold.run_segments(comp, tape.inputs, got, False, (N, I, J))
+        assert kernels.LAUNCHES["class_fold"] == len(comp.segments)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w.cpu()), G
+        tried |= {G for seg in comp.segments
+                  if G in kernels.fold_legal(seg.code, I)}
+    # every lane count a segment allows: all those no wider than I's
+    # power of two, G = 1 aside (at I > 16 a segment's NIJ values may
+    # not fit a warp's shared memory at 32 instances a lane)
+    top = 1 << (I - 1).bit_length()
+    assert tried == set().union(*(kernels.fold_legal(seg.code, I)
+                                  for seg in comp.segments))
+    assert tried >= {G for G in kernels.CLASS_FOLD_LANES if 1 < G <= top}
 
 
 def test_class_fold_kernel_equals_plain_on_the_dense_program(cuda):

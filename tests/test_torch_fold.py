@@ -150,8 +150,8 @@ def _run_and_compare(tape, pool, seed, n_out=8):
     tape.run([fv for fv, _ in picks], dests)
     for (fv, ref), d in zip(picks, dests):
         assert torch.equal(d.to(torch.int64), ref.to(torch.int64))
-    return tape.cache._by_code[(tuple(tape.code),
-                                tuple(fv.vid for fv, _ in picks), tape.J)]
+    return tape.cache.get(tape.code, tuple(fv.vid for fv, _ in picks),
+                          tape.J)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -452,3 +452,200 @@ def test_pss_program_one_fold_a_rule():
     # one compiled tape; the second run compiles nothing
     assert 0 < n_tapes <= n_rules and len(run.fold_cache) == n_tapes
     assert run.stats["fold_forced"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernel's layout: lane groups, instances a lane, element widths
+
+
+def _lane_folds(x, G):
+    """ANY, ALL, SCAN and SCANX of an (N, I) bool value as K11 computes
+    them at G lanes a resource (csrc/class_fold.cu): 32 / G resources a
+    warp, lane g of a resource's group holding instances g * ipl ..
+    g * ipl + ipl - 1 (those >= I padding), an in-thread fold over them
+    and a warp ballot cut to the group's bits (none at G = 1)."""
+    N, I = x.shape
+    ipl = kernels.fold_ipl(I, G)
+    per = 32 // G
+    n_warps = -(-N // per)
+    any_, all_ = np.zeros(N, bool), np.zeros(N, bool)
+    scan, scanx = np.zeros((N, I), bool), np.zeros((N, I), bool)
+    gmask = (1 << G) - 1
+    for w in range(n_warps):
+        # each lane's in-thread state
+        v_any, v_all, bits = [0] * 32, [0] * 32, [0] * 32
+        for lane in range(32):
+            grp, gl = divmod(lane, G)
+            n = min(w * per + grp, N - 1)  # past N: the last resource
+            nv = max(0, min(ipl, I - gl * ipl))
+            vals = [bool(x[n, gl * ipl + k]) for k in range(nv)]
+            v_any[lane] = int(any(vals))
+            v_all[lane] = int(all(vals))  # no instances: true
+            bits[lane] = sum(1 << k for k, b in enumerate(vals) if b)
+
+        def ballot(p):
+            return sum(1 << lane for lane in range(32) if p[lane])
+
+        b_any, b_all = ballot(v_any), ballot(v_all)
+        b_bits = ballot([b != 0 for b in bits])
+        for lane in range(32):
+            grp, gl = divmod(lane, G)
+            n = w * per + grp
+            if n >= N:
+                continue  # a group past N stores nothing
+            if G == 1:
+                m_any, m_all, lower = v_any[lane], v_all[lane], False
+            else:
+                m_any = (b_any >> (grp * G)) & gmask
+                m_all = ((b_all >> (grp * G)) & gmask) == gmask
+                lower = ((b_bits >> (grp * G)) & gmask & ((1 << gl) - 1)) != 0
+            if gl == 0:
+                any_[n], all_[n] = m_any != 0, bool(m_all)
+            for k in range(ipl):
+                i = gl * ipl + k
+                if i < I:
+                    scan[n, i] = lower or (bits[lane] & ((2 << k) - 1)) != 0
+                    scanx[n, i] = lower or (bits[lane] & ((1 << k) - 1)) != 0
+    return any_, all_, scan, scanx
+
+
+@pytest.mark.parametrize("G", kernels.CLASS_FOLD_LANES)
+@pytest.mark.parametrize("I", [1, 2, 3, 15, 16, 17, 31, 32])
+def test_lane_mapping_folds_equal_numpy(G, I):
+    """K11's instance reductions under every lane count: the in-thread
+    fold plus a masked group ballot equal ``any``/``all``/``cumsum > 0``
+    over the instance axis, padding instances counting as absent."""
+    ipl = kernels.fold_ipl(I, G)
+    assert G * ipl >= I and ipl & (ipl - 1) == 0 and ipl <= 32
+    assert ipl == 1 or G * (ipl // 2) < I  # the smallest power of two
+    rng = np.random.default_rng(100 * G + I)
+    N = 70  # no multiple of the 32 / G resources a warp
+    x = rng.random((N, I)) < rng.choice([0.05, 0.3, 0.8], size=(N, 1))
+    x[0] = False
+    x[1] = True
+    any_, all_, scan, scanx = _lane_folds(x, G)
+    c = np.cumsum(x, axis=1)
+    assert np.array_equal(any_, x.any(1))
+    assert np.array_equal(all_, x.all(1))
+    assert np.array_equal(scan, c > 0)
+    assert np.array_equal(scanx, (c - x) > 0)
+
+
+def test_tape_rows_carry_element_widths():
+    """Load entries, LOADJ and STORE rows carry their element bytes (the
+    kernel reads no width from its descriptors), the code's ``widths``
+    follow each descriptor's dtype, the plain twin ignores the fields,
+    and a tensor of another width than the code reads raises."""
+    N, I = 6, 4
+    rng = np.random.default_rng(9)
+    tape = fold.Tape(N, I, I, "cpu", fold.FoldCache(), plain=True)
+    b = torch.from_numpy(rng.random((N, I)) < 0.5)
+    u8 = torch.from_numpy(rng.integers(0, 3, (N, I)).astype(np.uint8))
+    i32 = torch.from_numpy(rng.integers(0, 3, (N,)).astype(np.int32))
+    nij = torch.from_numpy(rng.integers(0, 3, (N, I, I)).astype(np.uint8))
+    v = (tape.input(b) & (tape.input(u8) == 2)) | \
+        tape.input(nij).any(dim=-1)
+    out = (v.any(dim=-1) & (tape.input(i32) != 1))
+    cls = fold.where(out, 1, tape.input(i32))
+    dests = [torch.empty((N,), dtype=torch.int32),
+             torch.empty((N,), dtype=torch.bool),
+             torch.empty((N, I), dtype=torch.int32)]
+    tape.run([cls, out, fold.expand(cls)], dests)
+    code = tape.cache.get(tape.code, (cls.vid, out.vid,
+                                      fold.expand(cls).vid), I,
+                          (4, 1, 4)).segments[0].code
+    ext = tape.cache.get(tape.code, (cls.vid, out.vid,
+                                     fold.expand(cls).vid), I,
+                         (4, 1, 4)).segments[0].ext
+    ins = [tape.inputs[k] for _, k in ext]
+    assert {d: t.element_size() for d, t in enumerate(ins + dests)} == \
+        code.widths
+    seen = set()
+    pc = 0
+    while pc < len(code.instrs):
+        x, a, bb, c = code.instrs[pc]
+        op, f = x & 0xFF, x >> 16
+        pc += 1
+        if op == fold.OP_LOAD:
+            for kind, _, d, w in code.instrs[pc:pc + f]:
+                assert w == ins[d].element_size()
+                seen.add("entry")
+            pc += f
+        elif op == fold.OP_LOADJ:
+            assert bb == ins[a].element_size() == 1
+            seen.add("loadj")
+        elif op == fold.OP_STORE:
+            assert c == dests[bb - code.n_ext].element_size()
+            seen.add("store")
+    assert seen == {"entry", "loadj", "store"}
+    want = torch.where((b & (u8 == 2)) | (nij != 0).any(-1), True, False)
+    want = want.any(-1) & (i32 != 1)
+    assert torch.equal(dests[1], want)
+    assert torch.equal(dests[0], torch.where(want, 1, i32))
+    assert torch.equal(dests[2], dests[0][:, None].expand(N, I))
+    # the same tape into an int32 destination compiles anew
+    wide = torch.empty((N,), dtype=torch.int32)
+    tape.run([out], [wide])
+    assert torch.equal(wide, want.to(torch.int32))
+    bad = list(ins) + [torch.empty_like(d) for d in dests]
+    bad[[t.dtype for t in ins].index(torch.uint8)] = u8.to(torch.int32)
+    with pytest.raises(TypeError, match="code reads"):
+        kernels.class_fold_plain(code, bad, N, I, I)
+
+
+def _code(n_uniform, n_lane, nested=False):
+    """Code of those slots: one CONST row, of an NIJ value if nested."""
+    rows = np.asarray([[fold.OP_CONST | (2 if nested else 0) << 8, 1, 0, 0]],
+                      np.int32)
+    return kernels.FoldCode(rows, n_uniform, n_lane, 0, 0)
+
+
+@pytest.mark.parametrize("n_uniform,n_lane,nested",
+                         [(0, 0, False), (12, 0, False), (8, 3, False),
+                          (20, 40, False), (4, 400, False), (60, 1500, False),
+                          (15, 106, True), (4, 400, True)])
+def test_lane_choice_is_deterministic_and_legal(n_uniform, n_lane, nested):
+    """``fold_lanes`` picks a legal G (G * ipl >= I, a warp's values and
+    a block's within shared memory) as a pure function of the code and
+    (N, I); a tape of N values alone runs a resource a lane, a tape with
+    NIJ values an instance a lane (the widest legal G); more resources
+    (from a warp's worth up) never pick more lanes; ``fold_block``
+    fits."""
+    code = _code(n_uniform, n_lane, nested)
+    assert code.nested == nested
+    for I in (1, 3, 16, 17, 32):
+        legal = kernels.fold_legal(code, I)
+        if not legal:
+            with pytest.raises(ValueError):
+                kernels.fold_lanes(code, 1024, I)
+            continue
+        last = None
+        for N in (37, 1024, 8192, 16384, 100000):
+            G = kernels.fold_lanes(code, N, I)
+            assert G == kernels.fold_lanes(code, N, I) and G in legal
+            assert G * kernels.fold_ipl(I, G) >= I
+            smem = kernels.fold_smem(code, G, I)
+            assert smem <= kernels.CLASS_FOLD_MAX_SMEM
+            w = kernels.fold_block(code, N, I, G)
+            assert 1 <= w <= kernels.CLASS_FOLD_MAX_WARPS
+            assert w * smem <= kernels.CLASS_FOLD_MAX_SMEM
+            if n_lane == 0:
+                assert G == 1
+            elif nested:
+                assert G == legal[-1]
+            if last is not None:
+                assert G <= last
+            last = G
+
+
+def test_lane_choice_at_the_main_path_shapes():
+    """At the dense shape (16,384 resources, 16 instances) a typical
+    rule's code keeps a few instances a lane and enough warps; a triage
+    batch (1,024) spreads wider."""
+    code = _code(12, 10)
+    G = kernels.fold_lanes(code, 16384, 16)
+    warps = 16384 * G // 32
+    assert G < 16 and warps >= kernels.CLASS_FOLD_SMS * 4
+    assert kernels.fold_lanes(code, 1024, 16) > G
+    # the PSS foreach tapes (NIJ values over J = 16): an instance a lane
+    assert kernels.fold_lanes(_code(15, 106, True), 16384, 16) == 16

@@ -266,3 +266,122 @@ def test_tenant_scan_and_triage_equal_reference(monkeypatch):
         want = jeng.triage_mutate(resources, ns_labels)
         got = teng.triage_mutate(resources, ns_labels)
         assert np.array_equal(got.verdicts, want.verdicts)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's table (``MetaAnyTable.tab``), read by a numpy model of
+# csrc/meta_any.cu
+
+
+def _meta_any_model(table, planes, hashes, is_ns, na):
+    """hit and confirm as the kernel reads ``table.tab``: each bank run's
+    column masks ANDed with a resource's row, each pack run's rows
+    (row | self << 31), and each family's sorted literals searched by
+    bisection."""
+    import bisect
+
+    tab = table.tab
+    raw = tab.view(np.uint8)
+    nb, ne, at_runs, at_rows = (int(x) for x in tab[:4])
+    runs = tab[at_runs:at_runs + 4 * (nb + ne)].reshape(-1, 4)
+    N = hashes[0].shape[0]
+    flags = np.zeros((N, 3), dtype=bool)  # family 0 / 1 hit, confirm
+    for s, fs, ncols, moff in runs[:nb].tolist():
+        fam, own = fs & 0xFF, fs >> 8
+        pad = -(-ncols // 16) * 16
+        row = planes[s].numpy()[:, :ncols]
+        flags[:, fam] |= (row & (raw[moff:moff + ncols] != 0)).any(1)
+        assert not raw[moff - 16:moff].any()
+        assert not raw[moff + ncols:moff + pad + 32].any()
+        if own:
+            sm = raw[moff + pad + 48:moff + pad + 48 + ncols] != 0
+            flags[:, 2] |= (row & sm).any(1)
+    for s, fam, first, count in runs[nb:].tolist():
+        q = tab[at_rows + first:at_rows + first + count].astype(np.int64)
+        acc = planes[s].numpy()[q & 0x7FFFFFFF].T
+        flags[:, fam] |= acc.any(1)
+        flags[:, 2] |= (acc & (q < 0)).any(1)
+    for f in range(len(hashes)):
+        at, cnt = int(tab[4 + 2 * f]), int(tab[5 + 2 * f])
+        lit = tab[at:at + 4 * cnt].reshape(-1, 4)
+        keys = [tuple(r[:2]) for r in lit.tolist()]
+        assert keys == sorted(set(keys))  # sorted, one row a literal
+        for n, key in enumerate(map(tuple, hashes[f].numpy().tolist())):
+            i = bisect.bisect_left(keys, key)
+            if i < cnt and keys[i] == key:
+                flags[n, f] = True
+                flags[n, 2] |= bool(lit[i, 2])
+    hit = flags[:, 0] if is_ns is None else \
+        np.where(is_ns.numpy(), flags[:, 0], flags[:, 1])
+    conf = flags[:, 2]
+    for m in na:
+        if m is not None:
+            conf = conf | m.numpy()
+    return hit, conf
+
+
+@pytest.mark.parametrize("case", ["every", "hash", "bank", "pack", "no-name",
+                                  "no-ns"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_meta_any_table_model_equals_plain(case, seed):
+    """The kernel's derived table (bank column masks, pack row runs,
+    sorted literals), read by a numpy model, gives ``meta_any_plain``'s
+    hit and confirm on random tables of each source kind (bank planes
+    aligned, at an odd offset and transposed; ``self`` entries and
+    duplicates; both non-ASCII masks; an empty family); names (one
+    family) too."""
+    from torch_kernel_cases import MIX_SOURCES, meta_any_mix
+
+    sizes = {"no-name": (0, 40), "no-ns": (40, 0)}.get(case, (40, 40))
+    table, planes, hashes, is_ns, na = meta_any_mix(
+        seed, 517, sizes, MIX_SOURCES.get(case, MIX_SOURCES["every"]))
+    hit, conf = kernels.meta_any_plain(table, planes, hashes, is_ns, na)
+    mhit, mconf = _meta_any_model(table, planes, hashes, is_ns, na)
+    assert np.array_equal(hit.numpy(), mhit)
+    assert np.array_equal(conf.numpy(), mconf)
+    assert hit.any() and not hit.all()
+    # names: the name family alone
+    one = kernels.MetaAnyTable(("name",), table.slots, table.entry_major,
+                               table.ent[:table.off[0]],
+                               (table.off[0], table.off[0]), (False,),
+                               table.unpacked)
+    hit, conf = kernels.meta_any_plain(one, planes, hashes[:1])
+    mhit, mconf = _meta_any_model(one, planes, hashes[:1], None, ())
+    assert np.array_equal(hit.numpy(), mhit)
+    assert np.array_equal(conf.numpy(), mconf)
+
+
+def test_meta_any_table_on_the_tenant_list(mix):
+    """The derived table of the mix policy's ``namespaces`` list: one
+    mask run a bank family, one row run a pack, the literals sorted,
+    the table a multiple of 16 bytes; its model equals the twin on the
+    batch's own planes."""
+    jeng, teng = mix
+    _, tctx = _ctxs(jeng, teng, mix_resources(0), teng.cps.nfa_globs)
+    f = teng.cps.device_programs[0].match.filters[0]
+    args = tctx.meta_any_args("namespaces", f.namespaces)
+    table = args[0]
+    nb, ne = int(table.tab[0]), int(table.tab[1])
+    assert nb == sum(k[0] == "bank" for k in table.slots) == 2
+    assert ne == sum(k[0] != "bank" for k in table.slots) > 0
+    assert table.tab.size % 4 == 0
+    assert table.need == {s: int(table.ent[table.ent[:, 0] == s, 1].max()) + 1
+                          for s in range(len(table.slots))}
+    hit, conf = kernels.meta_any_plain(*args)
+    mhit, mconf = _meta_any_model(*args)
+    assert np.array_equal(hit.numpy(), mhit)
+    assert np.array_equal(conf.numpy(), mconf)
+
+
+def test_meta_any_tile_choice():
+    """A block's resources: a tile of ``META_ANY_TILES``, the largest that
+    leaves ``META_ANY_MIN_BLOCKS`` blocks, the smallest below that."""
+    for N in (1, 100, 1024, 4000, 16384, 100000, 1 << 20):
+        R = kernels.meta_any_tile(N)
+        assert R in kernels.META_ANY_TILES and R == kernels.meta_any_tile(N)
+        bigger = [t for t in kernels.META_ANY_TILES if t > R]
+        if -(-N // R) >= kernels.META_ANY_MIN_BLOCKS:
+            assert all(-(-N // t) < kernels.META_ANY_MIN_BLOCKS
+                       for t in bigger)
+        else:
+            assert R == kernels.META_ANY_TILES[0]
