@@ -26,7 +26,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    pack of one there and on 320-byte seeded subjects (state words 2 to
    16), and K1's non-ASCII entry on its own; K10 ``meta_any`` on the
    tenant policy's 3,264-entry ``namespaces`` list at the tenant scan
-   and triage shapes, under every tile a block may serve. Each is timed
+   and triage shapes, under every tile a block may serve; K12
+   ``row_fold`` on the dense lanes at the main shape, a seeded tape of
+   every instruction over lanes of every element type. Each is timed
    by CUDA-graph replay beside its plain twin and its library yardstick;
 4. the dense path: ``TorchEngine(PSS).scan`` on N seeded resources
    (Pod / Deployment / CronJob / Service): the completed table over all
@@ -81,7 +83,12 @@ bound (its lanes read once, its outputs written once). Every K11
 ``class_fold`` launch of an eager run (one a rule: the rule's class
 logic, recorded on its tape by ``tpu/fold.py``) is held against its
 plain twin on the same inputs, exactly, and the values forced off the
-tapes (``fold_forced``) are printed; K11 is also timed over the run's
+tapes (``fold_forced``) are printed, and so is every K12 ``row_fold``
+launch of the same run (the rule's row-plane logic, recorded on its row
+tape by ``tpu/rowfold.py``), with the values forced off the row tapes
+(``rows_forced``), the run's K6 launches and its torch reductions over
+rows (none may remain on the dense path); K12 is timed over the run's
+launches beside its plain twin and bound; K11 is also timed over the run's
 launches (kept from that run) beside its plain twin and bound, at the
 lane counts the host chose and at every lane count G (each launch held
 against its twin under each); on the dense path its slowest launches
@@ -152,6 +159,8 @@ KERNEL_META = {
                  "kyverno_tpu/tpu/evaluator.py:1589"),
     "class_fold": ("kyverno_tpu_torch/csrc/class_fold.cu",
                    "kyverno_tpu/tpu/evaluator.py:1886"),
+    "row_fold": ("kyverno_tpu_torch/csrc/row_fold.cu",
+                 "kyverno_tpu/tpu/evaluator.py:480"),
 }
 PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
          "mutate_leg")
@@ -159,12 +168,15 @@ PATHS = ("dense", "background_scan", "tenant_validate", "tenant_triage",
 # the kernels each path must launch
 DENSE_KERNELS = ("dfa_scan_fused", "instance_count", "instance_count2",
                  "verdict_counts", "hash_match", "pool_rows",
-                 "first_true_take", "class_fold")
+                 "first_true_take", "class_fold", "row_fold")
 SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
                 "dfa_scan_fused", "instance_count", "instance_count2",
-                "class_fold")
-TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold")
+                "class_fold", "row_fold")
+TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold",
+                  "row_fold")
+# the mutate triage programs match on metadata alone: no row planes
+TRIAGE_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold")
 # eager aten operations a tenant triage batch may issue (46,747 before
 # K10 took the per-entry loop over the namespace globs)
 TRIAGE_OPS_MAX = 5000
@@ -426,7 +438,8 @@ KERNEL_SITES = ("scope8", "instance_count_many", "instance_count_many_plain",
                 "verdict_counts_plain", "verdict_counts_u8",
                 "verdict_counts_u8_plain", "vocab_gather",
                 "vocab_gather_plain", "vocab_gather_rows",
-                "vocab_gather_rows_plain", "class_fold", "class_fold_plain")
+                "vocab_gather_rows_plain", "class_fold", "class_fold_plain",
+                "row_fold", "row_fold_plain")
 
 
 class Sites:
@@ -634,6 +647,152 @@ class FoldCheck:
             self.kept.append((code, list(ios), dims))
 
 
+class RowCheck:
+    """A ``rowfold.CHECK`` hook: each K12 launch of a program run held
+    against its plain twin on the same inputs, exactly; each launch's
+    code and tensors are kept (for ``time_row_fold``)."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels = torch, kernels
+        self.launches, self.max_abs_err, self.kept = 0, 0.0, []
+
+    def __call__(self, code, ios, N, R):
+        outs = list(ios[code.n_in:])
+        twin = [self.torch.empty_like(o) for o in outs]
+        self.kernels.row_fold_plain(code, list(ios[:code.n_in]) + twin, N, R)
+        for got, want in zip(outs, twin):
+            self.max_abs_err = max(self.max_abs_err, exact(
+                self.torch, "row_fold", got, want))
+        self.launches += 1
+        self.kept.append((code, list(ios), (N, R)))
+
+
+def row_work(kept):
+    """K12's work over kept launches: the distinct bytes its descriptors
+    read or write, the element operations its instructions make (a
+    compare or a hash pair an element, a logic step or a reduction a
+    32-row word), and the instruction rows."""
+    seen, nbytes, ops, rows = set(), 0, 0, 0
+    for code, ios, (N, R) in kept:
+        for t in ios:
+            key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+            if key not in seen:
+                seen.add(key)
+                nbytes += _distinct_bytes(t)
+        words = N * -(-R // 32)
+        pc, instrs = 0, code.instrs
+        while pc < len(instrs):
+            x, a, b, c = instrs[pc]
+            op = x & 0xFF
+            pc += 1
+            if op == 0:  # a lane group: c compares
+                ops += c * N * R
+                pc += c
+            elif op == 1:  # a hash group: each set's pairs
+                q, end = pc, pc + c
+                while q < end:
+                    ops += 2 * instrs[q][0] * N * R
+                    q += 1 + (instrs[q][0] + 1) // 2
+                pc = end
+            elif op == 10:  # a batch of uint8 lane groups: a compares
+                ops += a * N * R
+                pc += (x >> 8) + a
+            else:
+                ops += words
+        rows += len(instrs)
+    return nbytes, ops, rows
+
+
+def row_slowest(torch, kernels, kept, phase, label, tag, top: int = 6):
+    """Each K12 launch of one run timed alone (graph replay): the
+    ``top`` slowest with their code's shape, and the time by the number
+    of lanes a launch reads (where K12's time goes)."""
+    rows = []
+    for code, ios, (N, R) in kept:
+        ms = graph_ms(torch, lambda: kernels.row_fold(code, ios, N, R),
+                      reps=10)
+        stores = sum(op == kernels.RF_STORE for op in code.out_ops)
+        rows.append((ms, code, stores))
+    rows.sort(key=lambda r: -r[0])
+    for ms, code, stores in rows[:top]:
+        say(phase, f"  row_fold {label} launch {ms:.4f} ms: {len(code.rows)} "
+                   f"rows, {code.n_in} lanes, {code.n_out} outputs ({stores} "
+                   f"stored planes) {tag}")
+    by = {}
+    for ms, code, _ in rows:
+        k = min(code.n_in // 4 * 4, 20)
+        n, t = by.get(k, (0, 0.0))
+        by[k] = (n + 1, t + ms)
+    say(phase, f"  row_fold {label} launches alone, by lanes read (from): "
+               + ", ".join(f"{k}+ {n} launches {t:.4f} ms"
+                           for k, (n, t) in sorted(by.items()))
+               + f"; sum {sum(r[0] for r in rows):.4f} ms {tag}")
+
+
+def time_row_fold(torch, kernels, kept, err, phase, label, tag,
+                  slowest: bool = False):
+    """K12 over one program run's launches (``RowCheck``, whose largest
+    error against the twins is ``err``): device time of all of them
+    (graph replay) against their plain twins (eager), and the bound: the
+    distinct inputs read once and the outputs written once, or
+    ``row_work``'s operations, the larger; with ``slowest``, each launch
+    alone (``row_slowest``). A path with no K12 launch (a triage of
+    metadata matches alone has no row tape) has no time and no bound:
+    None."""
+    def k12():
+        for code, ios, (N, R) in kept:
+            kernels.row_fold(code, ios, N, R)
+
+    def twin():
+        for code, ios, (N, R) in kept:
+            kernels.row_fold_plain(code, ios, N, R)
+
+    nbytes, ops, rows = row_work(kept)
+    if not kept:
+        say(phase, f"row_fold: no launch on {label} (no row tape) {tag}")
+        return {"ms": None, "eager_ms": None, "plain_ms": None,
+                "library_ms": None, "bound": (None, None),
+                "max_abs_err": None, "launches": 0, "bytes": 0, "ops": 0,
+                "instructions": 0, "path": label}
+    r = timed(torch, k12, twin, plain_eager=True)
+    r["bound"] = bound(nbytes, ops)
+    r["max_abs_err"] = err
+    r.update(launches=len(kept), bytes=nbytes, ops=ops, instructions=rows,
+             path=label)
+    say(phase, f"row_fold over the {len(kept)} launches of {label} "
+               f"({rows} instructions, {nbytes} distinct bytes, {ops} "
+               f"element operations): {r['ms']:.4f} ms (graph replay; eager "
+               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+               f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) {tag}")
+    if slowest:
+        row_slowest(torch, kernels, kept, phase, label, tag)
+    return r
+
+
+def row_reductions(torch, fn, N, R, sites):
+    """The torch ``any`` / ``sum`` reductions over an (N, R) row plane
+    one call of ``fn`` dispatches outside the kernel entries (on the
+    card a kernel's wrapper issues none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.__name__.split(".")[0]
+            if name in ("any", "sum") and args \
+                    and isinstance(args[0], torch.Tensor) \
+                    and tuple(args[0].shape) == (N, R) \
+                    and not sites.current().startswith("kernel:"):
+                n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return n[0]
+
+
 def _distinct_bytes(t) -> int:
     """The bytes a view reads once (a broadcast dimension counts once)."""
     n = t.element_size()
@@ -740,9 +899,10 @@ def fold_slowest(torch, kernels, kept, phase, label, tag, top: int = 6):
                    + f" {tag}")
 
 
-def time_class_fold(torch, kernels, kept, phase, label, tag,
+def time_class_fold(torch, kernels, kept, err, phase, label, tag,
                     slowest: bool = False):
-    """K11 over one program run's launches (``FoldCheck(keep=True)``):
+    """K11 over one program run's launches (``FoldCheck(keep=True)``,
+    whose largest error against the twins is ``err``):
     device time of all of them (graph replay) against their plain twins
     (eager), and the bound — each distinct input read once and each
     output written once, or one integer operation per instruction and
@@ -760,7 +920,7 @@ def time_class_fold(torch, kernels, kept, phase, label, tag,
     nbytes, ops, rows = fold_work(kept)
     r = timed(torch, k11, twin, plain_eager=True)
     r["bound"] = bound(nbytes, ops)
-    r["max_abs_err"] = 0.0
+    r["max_abs_err"] = err
     chosen = {}
     for code, ios, (N, I, J) in kept:
         G = kernels.fold_lanes(code, N, I)
@@ -794,9 +954,13 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     issues per eager run and per replayed call; every K11 launch of an
     eager run against its plain twin and the values the run forced off
     its tapes (``fold_forced``), and those launches timed together
-    (``time_class_fold``); and the device events of one replay (with
-    ``top``, its 15 longest kernels by name)."""
-    from kyverno_tpu_torch.tpu import fold
+    (``time_class_fold``); every K12 launch of the same run against its
+    twin, the values forced off its row tapes (``rows_forced``), the K6
+    launches and the torch reductions over rows of a run, and the K12
+    launches timed together (``time_row_fold``); and the device events
+    of one replay (with ``top``, its 15 longest kernels by name)."""
+    from kyverno_tpu_torch.tpu import evaluator as ev
+    from kyverno_tpu_torch.tpu import fold, rowfold
     from kyverno_tpu_torch.tpu.graphs import GraphedProgram
 
     if not isinstance(g, GraphedProgram):
@@ -836,17 +1000,27 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     ops_replay, _ = program_ops(torch, kernels, lambda: g(lanes))
     n_launch = sum(counted[0][0].values())
     chk = FoldCheck(torch, kernels, keep=True)
+    rchk = RowCheck(torch, kernels)
     zero_stats(g)
-    fold.CHECK = chk
+    fold.CHECK, rowfold.CHECK = chk, rchk
     try:
         g.run(lanes)
         torch.cuda.synchronize()
     finally:
-        fold.CHECK = None
-    forced = g.stats["fold_forced"]
+        fold.CHECK = rowfold.CHECK = None
+    forced, rforced = g.stats["fold_forced"], g.stats["rows_forced"]
     if chk.launches <= 0 or chk.launches != counted[0][0]["class_fold"]:
         raise AssertionError(f"{label}: {chk.launches} K11 launches checked, "
                              f"{counted[0][0]['class_fold']} counted")
+    if rchk.launches != counted[0][0]["row_fold"]:
+        raise AssertionError(f"{label}: {rchk.launches} K12 launches checked,"
+                             f" {counted[0][0]['row_fold']} counted")
+    # the torch reductions over rows an eager run issues (outside the
+    # kernel entries; a replay runs the same kernels)
+    rl = next(t for k, t in lanes.items() if k in ("norm_hi", "row_idx"))
+    with Sites(ev) as sites:
+        n_red = row_reductions(torch, lambda: g.run(lanes), *rl.shape,
+                               sites)
     rp = device_profile(torch, lambda: g(lanes))
     # the program's bound: every lane read once, its outputs written once
     outs = eager_out if isinstance(eager_out, tuple) else (eager_out,)
@@ -869,6 +1043,13 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
                f"{rp['device_events']} device events, {rp['device_ms']:.3f} "
                f"ms of device time (torch.profiler); bound {b_ms:.4f} ms "
                f"({io_bytes} bytes of lanes and outputs) {tag}")
+    held = (f"equals its plain twin on all {rchk.launches} launches of an "
+            f"eager run (max abs err {rchk.max_abs_err})" if rchk.launches
+            else "has no launch in an eager run")
+    say(phase, f"{label}: K12 row_fold {held}; rows_forced {rforced}; a run's K6 "
+               f"hash_match launches {counted[0][0]['hash_match']}, torch "
+               f"any/sum reductions over rows {n_red}, one replay "
+               f"{rp['device_events']} device events {tag}")
     if top:
         for t in rp["top"]:
             say(phase, f"  replay kernel {t['ms']:.3f} ms {t['calls']} x "
@@ -877,11 +1058,18 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
             "captures": g.captures, "ops_eager": ops_eager,
             "ops_replay": ops_replay, "launches": n_launch,
             "fold_checked": chk.launches, "fold_forced": forced,
+            "rows_checked": rchk.launches, "rows_forced": rforced,
+            "k6_launches": counted[0][0]["hash_match"],
+            "row_reductions": n_red,
             "replay_events": rp["device_events"],
             "replay_device_ms": rp["device_ms"], "top": rp["top"],
             "bound_ms": b_ms, "io_bytes": io_bytes,
-            "k11": time_class_fold(torch, kernels, chk.kept, phase, label,
-                                   tag, slowest=top)}
+            "k11": time_class_fold(torch, kernels, chk.kept,
+                                   chk.max_abs_err, phase, label, tag,
+                                   slowest=top),
+            "k12": time_row_fold(torch, kernels, rchk.kept,
+                                 rchk.max_abs_err, phase, label, tag,
+                                 slowest=top)}
 
 
 def busy_share(torch, fn, reps: int = 3):
@@ -1229,6 +1417,81 @@ def check_instance_count(torch, kernels, lanes, n_inst, seed, results):
              f"scatter_add_ {r['library_ms']:.4f} ms")
 
 
+def check_row_fold(torch, kernels, lanes, seed, results):
+    """K12 on the dense lanes at the main path's shape: a seeded tape of
+    every instruction over lanes of every element type (the uint8 type
+    tag, bool and valid lanes, a bool plane and a (1, R) broadcast, the
+    int32 scope lane, the float32 number and duration lanes, scaled, and
+    the int32 repr hash pair against sets of 0, 1 and 5 constants taken
+    from the lanes), its outputs (any, count, stored planes) against the
+    plain twin, exactly, and timed beside it and its bound."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    rng = random.Random(seed)
+    tt = lanes["type_tag"]
+    N, R = tt.shape
+    dev = tt.device
+    ft = fold.Tape(N, 1, 1, dev, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, dev, rowfold.RowCache(), False, ft)
+    hi, lo = lanes["repr_hi"], lanes["repr_lo"]
+    seen = list(zip(hi[:8, :16].flatten().tolist(),
+                    lo[:8, :16].flatten().tolist()))
+    lane = rt.lane
+    vals = [rt.wrap(lanes["valid"] != 0),
+            rt.wrap((torch.arange(R, device=dev) % 3 == 0)[None, :]),
+            lane(lanes["bool_val"]) == 1, lane(lanes["valid"]) != 0,
+            lane(lanes["scope1"]) == 0, lane(lanes["scope1"]) != -1,
+            lane(lanes["num_val"]) == 0, lane(lanes["num_val"]) > 1.0,
+            lane(lanes["num_val"]) < 100.0, lane(lanes["arr_len"]) != 0,
+            lane(lanes["dur_val"]) * 1e9 > 5e9,
+            rt.heq(hi, lo, []), rt.heq(hi, lo, seen[:1]),
+            rt.heq(hi, lo, rng.sample(seen, 5))]
+    vals += [lane(tt) == k for k in range(7)]
+    for _ in range(200):
+        a, b, c = (rng.choice(vals) for _ in range(3))
+        vals.append(rng.choice([lambda: a & b, lambda: a | b, lambda: ~a,
+                                lambda: rowfold.where(c, a, b)])())
+    picks = rng.sample(range(len(vals)), 24)
+    ops = (rowfold.ANY, rowfold.COUNT, rowfold.STORE)
+    outs = [(ops[k % 3], vals[i].vid) for k, i in enumerate(picks)]
+    segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
+
+    def dests():
+        return [torch.empty((N, R) if op == rowfold.STORE else (N,),
+                            dtype=torch.int32 if op == rowfold.COUNT
+                            else torch.bool, device=dev) for op, _ in outs]
+
+    got, want = dests(), dests()
+    launches = []
+    for seg in segs:
+        ios = [rt.inputs[i] for i in seg.ins]
+        kernels.row_fold(seg.code, ios + [got[k] for k in seg.outs], N, R)
+        kernels.row_fold_plain(seg.code, ios + [want[k] for k in seg.outs],
+                               N, R)
+        launches.append((seg.code, ios + [got[k] for k in seg.outs], (N, R)))
+    torch.cuda.synchronize()
+    err = max(exact(torch, "row_fold", g, w) for g, w in zip(got, want))
+    nbytes, n_ops, rows = row_work(launches)
+
+    def k12():
+        for code, ios, _ in launches:
+            kernels.row_fold(code, ios, N, R)
+
+    def twin():
+        for code, ios, _ in launches:
+            kernels.row_fold_plain(code, ios, N, R)
+
+    r = timed(torch, k12, twin, plain_eager=True)
+    r["bound"] = bound(nbytes, n_ops)
+    r["max_abs_err"] = err
+    results["row_fold_phase3"] = r
+    say("3", f"row_fold equals its plain twin on a random tape at ({N}, {R})"
+             f": {len(rt.code)} recorded instructions, {len(outs)} outputs, "
+             f"{len(segs)} launches ({rows} rows); {r['ms']:.4f} ms (eager "
+             f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, bound "
+             f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
+
+
 def check_verdict_counts(torch, kernels, dev, rules, N, seed, results):
     gen = torch.Generator(device="cpu").manual_seed(seed)
     table = torch.randint(0, 7, (rules, N), generator=gen,
@@ -1535,6 +1798,10 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
                      eng.cps.device_fn(plain=True), tag, top=True)
     program_ms = gr["replay_ms"]
     results["class_fold"] = gr["k11"]
+    results["row_fold"] = gr["k12"]
+    if gr["row_reductions"]:
+        raise AssertionError(f"the dense program reduces rows with torch "
+                             f"{gr['row_reductions']} times outside K12")
     # where the eager run's operations and device time go
     from kyverno_tpu_torch.tpu import evaluator as ev
 
@@ -2126,7 +2393,7 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     say("7", f"triage_mutate of {n} in batches of {batch_n}: {triage_s:.3f} s,"
              f" {n / triage_s:.1f} resources/s {tag}; launches {lt}")
     say("7", f"the triage programs: {line}")
-    for name in TENANT_KERNELS:
+    for name in TRIAGE_KERNELS:
         if lt[name] <= 0:
             raise AssertionError(f"tenant triage never launched {name}")
     if lt["glob_nfa"] > 4 * len(parts) or st["nfa_unpacked"]:
@@ -2523,6 +2790,7 @@ def main() -> int:
                          args.seed + 2, results)
     check_verdict_counts(torch, kernels, eng.device, len(eng.cps.device_programs),
                          len(padded), args.seed + 3, results)
+    check_row_fold(torch, kernels, lanes, args.seed + 7, results)
     check_vocab_kernels(torch, kernels, dfa_mod, scanner, tile_lanes,
                         args.seed + 5, results)
     check_glob_nfa(torch, kernels, tenant_lanes, nfa, args.seed + 6, results)
@@ -2555,7 +2823,10 @@ def main() -> int:
                  f"replayed, {gr['replay_events']} device events a replay "
                  f"({gr['replay_device_ms']:.3f} ms), K11 launches "
                  f"{gr['fold_checked']} (checked), fold_forced "
-                 f"{gr['fold_forced']}, bound {gr['bound_ms']:.4f} ms "
+                 f"{gr['fold_forced']}, K12 launches {gr['rows_checked']} "
+                 f"(checked), rows_forced {gr['rows_forced']}, K6 launches "
+                 f"{gr['k6_launches']}, torch reductions over rows "
+                 f"{gr['row_reductions']}, bound {gr['bound_ms']:.4f} ms "
                  f"({gr['io_bytes']} bytes) {tag}")
 
     # phase 6: the kernels line, then the device line
@@ -2585,6 +2856,9 @@ def main() -> int:
     for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
         r = gr["k11"]
         b_ms, b_by = r["bound"]
+        # the largest error any path's launches measured
+        e = by_name["class_fold"]
+        e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
         by_name["class_fold"].setdefault("paths", []).append(
             {"path": path, "launches_timed": r["launches"]}
             | {k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bytes",
@@ -2595,6 +2869,32 @@ def main() -> int:
                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
                  f"{tag}")
+    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+        r = gr["k12"]
+        b_ms, b_by = r["bound"]
+        e = by_name["row_fold"]
+        if r["launches"]:
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+        by_name["row_fold"].setdefault("paths", []).append(
+            {"path": path, "launches_timed": r["launches"],
+             "rows_forced": gr["rows_forced"], "k6_launches": gr["k6_launches"],
+             "row_reductions": gr["row_reductions"],
+             "replay_events": gr["replay_events"]}
+            | {k: r[k] for k in ("ms", "eager_ms", "plain_ms", "bytes", "ops",
+                                 "instructions")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
+        if not r["launches"]:
+            say("6", f"row_fold {path}: no launch; rows_forced "
+                     f"{gr['rows_forced']} {tag}")
+            continue
+        say("6", f"row_fold {path}: {r['launches']} launches of one run "
+                 f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
+                 f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+                 f"rows_forced {gr['rows_forced']} {tag}")
+    p3 = results["row_fold_phase3"]
+    by_name["row_fold"]["phase3"] = {
+        k: p3[k] for k in ("ms", "eager_ms", "plain_ms", "max_abs_err")} | {
+        "bound_ms": p3["bound"][0], "bound_by": p3["bound"][1]}
     for r in results["meta_any_shapes"]:
         b_ms, b_by = r["bound"]
         by_name["meta_any"].setdefault("tenant_shapes", []).append({

@@ -2,8 +2,8 @@
 PyTorch twins: K1 ``dfa_scan`` (and its non-ASCII entry), K3
 ``instance_count``, K4 ``verdict_counts`` (and its uint8-table entry),
 K5 ``vocab_gather``, K6 ``hash_match``, K7 ``pool_rows``, K8
-``first_true_take``, K9 ``glob_nfa``, K10 ``meta_any`` and K11
-``class_fold``.
+``first_true_take``, K9 ``glob_nfa``, K10 ``meta_any``, K11
+``class_fold`` and K12 ``row_fold``.
 
 Every kernel lives in ``csrc/<name>.cu`` behind a plain C interface.
 The first launch builds all sources at once (one ``nvcc`` per source,
@@ -56,7 +56,7 @@ _BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "build", "kernels")
 SOURCES = ("dfa_scan", "instance_count", "verdict_counts", "vocab_gather",
            "hash_match", "pool_rows", "first_true_take", "glob_nfa",
-           "meta_any", "class_fold")
+           "meta_any", "class_fold", "row_fold")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -77,6 +77,7 @@ LAUNCHES: Dict[str, int] = {
     "glob_nfa": 0,
     "meta_any": 0,
     "class_fold": 0,
+    "row_fold": 0,
 }
 
 _P = ctypes.c_void_p
@@ -104,6 +105,7 @@ _SIGNATURES = {
                               _P, _P, _P]),
     "class_fold": ("class_fold", [_P, _I, _I, _I, _P, _I, _L, _I, _I, _I,
                                   _I, _I, _P]),
+    "row_fold": ("row_fold", [_P, _I, _I, _P, _I, _L, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -1857,3 +1859,261 @@ def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
           G.bit_length() - 1, ipl.bit_length() - 1,
           fold_block(code, N, I, G))
     LAUNCHES["class_fold"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K12 row_fold (csrc/row_fold.cu): a rule's row-plane logic, recorded on a
+# tape by the evaluator (tpu/rowfold.py) and run as one launch a flush —
+# the lane compares, 64-bit hash equalities (B6's heq / hset), typed
+# masks, the ANDs/ORs/wheres of the leaf and condition predicates and
+# the reductions over rows that kyverno_tpu/tpu/evaluator.py (222-246,
+# 437-443, 480-612, 1142-1226) traces and XLA fuses. Bound: bytes (each
+# lane read once, each output written once).
+
+ROW_FOLD_MAX_IO = 128         # kMaxIO in csrc/row_fold.cu
+ROW_FOLD_MAX_SMEM = 232448    # kMaxSmem: 227 KB of shared memory a block
+ROW_FOLD_MAX_WARPS = 4        # kMaxWarps: warps a block
+ROW_FOLD_BATCH = 4            # kBatch: uint8 lanes a batch reads together
+# instructions (csrc/row_fold.cu lists them): a lane group, a hash
+# group, the logic and the outputs, and a batch of uint8 lane groups
+(RF_LANE, RF_HASH, RF_CONST, RF_NOT, RF_AND, RF_OR, RF_WHERE, RF_ANY,
+ RF_COUNT, RF_STORE, RF_BATCH) = range(11)
+# a lane group's compares
+RF_NZ, RF_EQ, RF_NE, RF_GT, RF_LT = range(5)
+# element types of an input lane: uint8 (and bool), int32, float32
+RF_U8, RF_I32, RF_F32 = range(3)
+_RF_DTYPES = {RF_U8: (torch.uint8, torch.bool), RF_I32: (torch.int32,),
+              RF_F32: (torch.float32,)}
+
+
+class RowCode:
+    """One compiled K12 launch (``tpu/rowfold.py:compile_rows``):
+    ``rows``, the (n, 4) int32 instructions {op | f << 8, a, b, c}
+    (csrc/row_fold.cu lists them); ``n_slots`` the value slots a
+    resource keeps (a word a lane each, W words for R > 1,024);
+    ``in_types`` the element type of each input descriptor (RF_U8,
+    RF_I32, RF_F32) and ``out_ops`` the output each later descriptor
+    receives (RF_ANY: bool (N,), RF_COUNT: int32 (N,), RF_STORE: bool
+    (N, R)). Built once per program and flush."""
+
+    def __init__(self, rows: np.ndarray, n_slots: int,
+                 in_types: Sequence[int], out_ops: Sequence[int]):
+        self.rows = np.ascontiguousarray(rows, dtype=np.int32).reshape(-1, 4)
+        self.n_slots = n_slots
+        self.in_types = tuple(in_types)
+        self.out_ops = tuple(out_ops)
+        self.n_in, self.n_out = len(self.in_types), len(self.out_ops)
+        self.instrs = [tuple(r) for r in self.rows.tolist()]
+        self._on: Dict[str, torch.Tensor] = {}
+        self._pinned: List[torch.Tensor] = []
+        self._check_lanes()
+
+    def _check_lanes(self) -> None:
+        """A LANE group reads a 4-byte lane (int32 or float32) and a BATCH
+        reads uint8 lanes: the kernel has no other lane path."""
+        pc, rows = 0, self.instrs
+        while pc < len(rows):
+            x, a, b, c = rows[pc]
+            op = x & 0xFF
+            pc += 1
+            if op == RF_LANE:
+                if b not in (RF_I32, RF_F32) or self.in_types[a] != b:
+                    raise ValueError(f"row_fold: a LANE group of type {b} "
+                                     f"over input {a}; LANE reads int32 or "
+                                     "float32 lanes, BATCH uint8 ones")
+                pc += c
+            elif op == RF_HASH:
+                pc += c
+            elif op == RF_BATCH:
+                for d, _, _, _ in rows[pc:pc + (x >> 8)]:
+                    if self.in_types[d] != RF_U8:
+                        raise ValueError(f"row_fold: a BATCH reads input {d}"
+                                         " of a 4-byte type")
+                pc += (x >> 8) + a
+
+    def on(self, device) -> torch.Tensor:
+        """The rows on ``device`` (a CUDA copy made once, from pinned
+        memory kept with the code, without waiting)."""
+        key = str(device)
+        if key not in self._on:
+            t = torch.from_numpy(self.rows)
+            if torch.device(device).type != "cpu":
+                pinned = t.pin_memory()
+                self._pinned.append(pinned)
+                t = pinned.to(device, non_blocking=True)
+            self._on[key] = t
+        return self._on[key]
+
+
+def row_lanes(R: int) -> int:
+    """Lanes a resource (G): ceil(R / 32) rounded up to a power of two,
+    at most 32; a lane holds 32 adjacent rows in each value word, so a
+    warp serves 32 / G resources (R > 1,024 takes several words)."""
+    return min(32, 1 << (max(1, -(-R // 32)) - 1).bit_length())
+
+
+def row_words(R: int) -> int:
+    """Words a value takes a lane."""
+    return max(1, -(-R // (32 * row_lanes(R))))
+
+
+def _row_ios(code: RowCode, ios: Sequence[torch.Tensor], N: int,
+             R: int) -> None:
+    if len(ios) != code.n_in + code.n_out:
+        raise ValueError(f"row_fold: {len(ios)} tensors for {code.n_in} + "
+                         f"{code.n_out} descriptors")
+    for d, t in enumerate(ios):
+        if d < code.n_in:
+            if t.dtype not in _RF_DTYPES[code.in_types[d]]:
+                raise TypeError(f"row_fold: input {d} is {t.dtype}; the "
+                                f"code reads {_RF_DTYPES[code.in_types[d]]}")
+            ok = t.ndim == 2 and t.shape[0] in (1, N) and t.shape[1] == R
+            if ok and R > 1 and t.stride(1) != 1:
+                raise ValueError(f"row_fold: input {d} has row stride "
+                                 f"{t.stride(1)}; rows must be adjacent")
+        else:
+            op = code.out_ops[d - code.n_in]
+            want = (torch.int32 if op == RF_COUNT else torch.bool,
+                    (N, R) if op == RF_STORE else (N,))
+            if t.dtype != want[0]:
+                raise TypeError(f"row_fold: output {d} is {t.dtype}, want "
+                                f"{want[0]}")
+            ok = tuple(t.shape) == want[1] and (op != RF_STORE or R <= 1
+                                                or t.stride(1) == 1)
+        if not ok:
+            raise ValueError(f"row_fold: descriptor {d} of shape "
+                             f"{tuple(t.shape)} strides {tuple(t.stride())} "
+                             f"at (N, R) = ({N}, {R})")
+
+
+def row_fold_plain(code: RowCode, ios: Sequence[torch.Tensor], N: int,
+                   R: int) -> None:
+    """K12's plain twin: the code's instructions, one torch operation
+    each, over bool (N, R) planes; writes the output descriptors in
+    place."""
+    _row_ios(code, ios, N, R)
+    env: Dict[int, torch.Tensor] = {}
+    dev = ios[0].device if ios else torch.device("cpu")
+    f32 = torch.float32
+
+    def f(bits: int) -> torch.Tensor:
+        return torch.from_numpy(np.asarray([bits], np.int32).view(
+            np.float32)).to(dev).reshape(())
+
+    def cmp(y, cop: int, k):
+        if cop == RF_NZ:
+            return y != 0
+        if cop == RF_EQ:
+            return y == k
+        if cop == RF_NE:
+            return y != k
+        if cop == RF_GT:
+            return y > k
+        if cop == RF_LT:
+            return y < k
+        raise ValueError(f"row_fold: compare {cop}")
+
+    rows, pc = code.instrs, 0
+    while pc < len(rows):
+        x, a, b, c = rows[pc]
+        op, dst = x & 0xFF, x >> 8
+        pc += 1
+        if op == RF_BATCH:
+            # dst lanes, then their compares in lane order
+            q = pc + dst
+            for d, m, _, _ in rows[pc:pc + dst]:
+                v = ios[d].expand(N, R).to(torch.int32)
+                for e in rows[q:q + m]:
+                    env[e[0] >> 8] = cmp(v, e[0] & 0xFF, e[1])
+                q += m
+            pc = q
+        elif op == RF_LANE:  # int32 or float32
+            v = ios[a].expand(N, R)
+            for e in rows[pc:pc + c]:
+                cop, s = e[0] & 0xFF, e[0] >> 8
+                if b == RF_F32:
+                    env[s] = cmp(v * f(e[2]).to(f32), cop, f(e[1]))
+                else:
+                    env[s] = cmp(v, cop, e[1])
+            pc += c
+        elif op == RF_HASH:
+            hi, lo = ios[a].expand(N, R), ios[b].expand(N, R)
+            q, end = pc, pc + c
+            while q < end:
+                k, s = rows[q][0], rows[q][1]
+                flat = [w for r4 in rows[q + 1:q + 1 + (k + 1) // 2]
+                        for w in r4]
+                acc = torch.zeros((N, R), dtype=torch.bool, device=dev)
+                for j in range(k):
+                    acc |= (hi == flat[2 * j]) & (lo == flat[2 * j + 1])
+                env[s] = acc
+                q += 1 + (k + 1) // 2
+            pc = end
+        elif op == RF_CONST:
+            env[dst] = torch.full((N, R), bool(a), dtype=torch.bool,
+                                  device=dev)
+        elif op == RF_NOT:
+            env[dst] = ~env[a]
+        elif op == RF_AND:
+            env[dst] = env[a] & env[b]
+        elif op == RF_OR:
+            env[dst] = env[a] | env[b]
+        elif op == RF_WHERE:
+            env[dst] = torch.where(env[a], env[b], env[c])
+        elif op == RF_ANY:
+            ios[b].copy_(env[a].any(dim=-1))
+        elif op == RF_COUNT:
+            ios[b].copy_(env[a].sum(dim=-1, dtype=torch.int32))
+        elif op == RF_STORE:
+            ios[b].copy_(env[a])
+        else:
+            raise ValueError(f"row_fold: opcode {op}")
+
+
+def _row_stride(t: torch.Tensor) -> int:
+    """The elements between resources the kernel steps: 0 for a (1, R)
+    row, which every resource reads, whatever its own stride."""
+    return 0 if t.shape[0] == 1 else t.stride(0)
+
+
+def _row_vec(t: torch.Tensor) -> bool:
+    """Whether a lane may read (or write) its 32 adjacent rows of ``t`` as
+    16-byte vectors: the resource's row 0 aligned to 16 bytes."""
+    return t.data_ptr() % 16 == 0 \
+        and (_row_stride(t) * t.element_size()) % 16 == 0
+
+
+def row_fold(code: RowCode, ios: Sequence[torch.Tensor], N: int,
+             R: int) -> None:
+    """K12: one launch runs a compiled flush over all N resources
+    (``row_lanes(R)`` lanes a resource, 32 rows a lane in each of
+    ``row_words(R)`` words), reading its input descriptors by pointer
+    and resource stride and writing its outputs in place, as
+    ``row_fold_plain``. On the CPU the plain twin runs; on a CUDA tensor
+    the kernel launches or this raises."""
+    dev = ios[0].device
+    if dev.type == "cpu":
+        return row_fold_plain(code, ios, N, R)
+    _row_ios(code, ios, N, R)
+    for t in ios:
+        if t.device != dev:
+            raise ValueError(f"row_fold: a tensor on {t.device}, want {dev}")
+    if len(ios) > ROW_FOLD_MAX_IO:
+        raise ValueError(f"row_fold: {len(ios)} descriptors, at most "
+                         f"{ROW_FOLD_MAX_IO}")
+    G, W = row_lanes(R), row_words(R)
+    per_warp = 4 * 32 * W * code.n_slots
+    warps = next((w for w in (ROW_FOLD_MAX_WARPS, 2, 1)
+                  if w * per_warp <= ROW_FOLD_MAX_SMEM), 0)
+    if not warps:
+        raise ValueError(f"row_fold: {per_warp} bytes of values a warp, "
+                         "more shared memory than a block has")
+    if N == 0 or not len(code.rows):
+        return
+    k = len(ios)
+    io = (ctypes.c_longlong * (3 * k))(
+        *[t.data_ptr() for t in ios], *[_row_stride(t) for t in ios],
+        *[int(_row_vec(t)) for t in ios])
+    _call("row_fold", _ptr(code.on(dev)), len(code.rows), code.n_slots,
+          ctypes.cast(io, _P), k, N, R, G.bit_length() - 1, warps)
+    LAUNCHES["row_fold"] += 1

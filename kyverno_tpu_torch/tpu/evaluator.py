@@ -20,7 +20,8 @@ on the batch's device. These pieces are kernels (``kernels.py``):
 - the verdict-class histogram (K4) of ``build_program``, with the
   uint8 table of the background scan's step;
 - the vocabulary gathers (K5) behind ``LaneView``;
-- the hash-equality row masks (K6) behind ``Ctx.heq/hset/_mask``;
+- the path masks (K6) behind ``Ctx._mask`` (``rows_at`` /
+  ``rows_with_parent``), made once a run and shared by the rules;
 - the pool-slot row gather (K7) behind ``Ctx._rows_from_pool``;
 - the first-true-row take (K8) of ``_eval_wildcard_anchor``;
 - the glob NFA (K9) of the globs outside the bank, one launch per pack
@@ -32,11 +33,17 @@ on the batch's device. These pieces are kernels (``kernels.py``):
   walks a rule, the per-node classes and flags ((N,), (N, I) and
   (N, I, J) values: ``where`` chains, class compares, ANDs and ORs of
   reductions, first-non-pass folds) are handles on the rule's tape
-  (``Ctx.fold``), not tensors; the row-plane predicates, the
-  reductions of row planes and the kernels above still run as they are
+  (``Ctx.fold``), not tensors; the kernels above run as they are
   reached, and their (N,) / (N, I) / (N, I, J) results join the tape as
   inputs. The rule's tape then runs as one K11 launch that writes its
-  row of the verdict table.
+  row of the verdict table;
+- each rule's row-plane logic (K12, ``tpu/rowfold.py``): the (N, R)
+  planes of the leaf and compare predicates, ``heq`` / ``hset`` (B6's
+  hash equalities), ``type_is`` / ``typed``, the collect masks and the
+  reductions over rows are handles on the rule's row tape
+  (``Ctx.rows``), read from the lanes by ``Ctx.lane`` compares; the tape
+  runs as a K12 launch before a K3 or K8 launch that needs a plane it
+  stores, and before the rule's K11 launch, which reads its reductions.
 
 The program has no data-dependent Python branch (no ``.item()``,
 ``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
@@ -70,7 +77,7 @@ from ..engine import pattern as patternpkg
 from ..engine.operator import Operator
 from ..utils.duration import parse_duration
 from ..utils.quantity import parse_quantity
-from . import fold
+from . import fold, rowfold
 from .dfa import DfaBank, bank_match, nonascii_mask
 from .flatten import T_ARR, T_BOOL, T_MAP, T_NULL, T_NUM, T_STR, RowBatch, go_sprint
 from .hashing import (
@@ -269,10 +276,12 @@ def densify(batch: Dict[str, torch.Tensor], record: bool = False,
 # a Ctx's counters, which a program adds up over its runs: one-level
 # (inst) and two-level (inst2) count requests, memo hits and kernel
 # calls issued, NFA-route globs outside the program's packs (each ran as
-# a pack of one), and tape values a torch operation outside the tape
-# made materialize (``fold.Tape.force``)
+# a pack of one), and class-tape and row-tape values a torch operation
+# outside the tapes made materialize (``fold.Tape.force``,
+# ``rowfold.RowTape.force``)
 STAT_KEYS = ("inst_calls", "inst_hits", "inst_issued", "inst2_calls",
-             "inst2_hits", "inst2_issued", "nfa_unpacked", "fold_forced")
+             "inst2_hits", "inst2_issued", "nfa_unpacked", "fold_forced",
+             "rows_forced")
 
 
 def _usable_bank(dfa: Optional[DfaBank]) -> Optional[DfaBank]:
@@ -351,8 +360,10 @@ class Ctx:
         # per-rule oracle-confirmation masks (approximate-DFA hits,
         # non-ASCII subjects under byte-sensitive patterns)
         self.confirm_acc: List[torch.Tensor] = []
-        # the tape of the rule being evaluated (build_program sets it)
+        # the class and row tapes of the rule being evaluated
+        # (build_program sets them)
         self.fold: Optional[fold.Tape] = None
+        self.rows: Optional[rowfold.RowTape] = None
 
     def _on_tape(self, shape) -> bool:
         shape = tuple(shape)
@@ -379,9 +390,45 @@ class Ctx:
         when no rule is being recorded)."""
         return t if self.fold is None else self.fold.input(t)
 
-    def row_any(self, plane: torch.Tensor):
-        """Any over a (N, R) row plane's rows, on the tape as an input."""
+    def row_any(self, plane):
+        """Any over a (N, R) row plane's rows: on the row tape, its
+        result an input of the class tape."""
+        if self.rows is not None:
+            return self.rows.reduce(rowfold.ANY, plane)
         return self.lift(plane.any(dim=-1))
+
+    def row_count(self, plane):
+        """The int32 count of a row plane's true rows (as ``row_any``)."""
+        if self.rows is not None:
+            return self.rows.reduce(rowfold.COUNT, plane)
+        return self.lift(plane.sum(dim=-1, dtype=torch.int32))
+
+    # -- row planes: handles on the rule's row tape while one is
+    # recorded, else tensors
+
+    def lane(self, name: str):
+        """A row lane as a compare operand (``rowfold.Lane``)."""
+        t = self.b[name]
+        return t if self.rows is None else self.rows.lane(t)
+
+    def row(self, plane: torch.Tensor):
+        """A bool (N, R) tensor as a row-tape value."""
+        return plane if self.rows is None else self.rows.wrap(plane)
+
+    def rconst(self, value: bool):
+        """A constant row plane."""
+        if self.rows is not None:
+            return self.rows.const(value)
+        return torch.full((self.N, self.R), bool(value), dtype=torch.bool,
+                          device=self.dev)
+
+    def planes(self, xs: Sequence) -> List[torch.Tensor]:
+        """Row planes as tensors for another kernel (K3, K8): the row
+        tape stores them in one flush."""
+        if self.rows is not None and any(isinstance(x, rowfold.RV)
+                                         for x in xs):
+            return self.rows.store(xs)
+        return list(xs)
 
     # -- row masks
 
@@ -399,10 +446,16 @@ class Ctx:
             self._pred_keys[id(m)] = key
         return self._row_masks[key]
 
-    def heq(self, lane: str, h: int) -> torch.Tensor:
-        return self._hash_match(lane, (h,))
+    def heq(self, lane: str, h: int):
+        return self.hset(lane, (h,))
 
-    def hset(self, lane: str, hashes: Sequence[int]) -> torch.Tensor:
+    def hset(self, lane: str, hashes: Sequence[int]):
+        """OR over ``hashes`` of the lane's 64-bit equality: on the row
+        tape (K12) while one is recorded, else kernel K6."""
+        if self.rows is not None:
+            pairs = [(_i32(hi), _i32(lo)) for hi, lo in map(split32, hashes)]
+            return self.rows.heq(self.b[lane + "_hi"], self.b[lane + "_lo"],
+                                 pairs)
         return self._hash_match(lane, hashes)
 
     def _hash_match(self, lane: str, hashes: Sequence[int],
@@ -419,21 +472,28 @@ class Ctx:
         fn = kernels.hash_match_plain if self.plain else kernels.hash_match
         return fn(self.b[lane + "_hi"], self.b[lane + "_lo"], consts, valid)
 
-    def type_is(self, t: int, neg: bool = False) -> torch.Tensor:
+    def type_is(self, t: int, neg: bool = False):
+        if self.rows is not None:
+            tag = self.lane("type_tag")
+            return tag != t if neg else tag == t
         key = (t, neg)
         if key not in self._types:
             eq = self.b["type_tag"] == t
             self._types[key] = ~eq if neg else eq
         return self._types[key]
 
-    def typed(self, mask: torch.Tensor, t: int,
-              neg: bool = False) -> torch.Tensor:
+    def typed(self, mask, t: int, neg: bool = False):
         """``mask & type_is(t)`` (``& ~type_is(t)`` with ``neg``). For a
-        row mask of ``rows_at`` / ``rows_with_parent`` it is made once
-        and keyed, so the count memo recognises it."""
+        row mask of ``rows_at`` / ``rows_with_parent`` it is keyed, so the
+        count memo recognises it: a row-tape value carrying its key, or
+        without a row tape a tensor made once."""
         key = self._pred_keys.get(id(mask))
         if key is None:
             return mask & self.type_is(t, neg)
+        if self.rows is not None:
+            out = self.row(mask) & self.type_is(t, neg)
+            self.rows.keys[out.vid] = key + (t, neg)
+            return out
         key = key + (t, neg)
         out = self._typed.get(key)
         if out is None:
@@ -475,7 +535,7 @@ class Ctx:
         todo: Dict[Any, List[int]] = {}
         for i, (pred, want) in enumerate(items):
             self.stats[tag + "_calls"] += 1
-            pk = self._pred_keys.get(id(pred))
+            pk = self._pred_key(pred)
             if pk is not None:
                 key = (level, pk, want)
                 got = self._counts.get(key)
@@ -491,24 +551,33 @@ class Ctx:
                 key = i
             todo.setdefault(key, []).append(i)
         keys = list(todo)
+        # the row-tape planes among the predicates, stored in one flush
+        preds = self.planes([items[todo[k][0]][0] for k in keys])
+        wants = [items[todo[k][0]][1] for k in keys]
         step = kernels.COUNT_MAX_PREDS if level == 1 else 1
         for c in range(0, len(keys), step):
             chunk = keys[c:c + step]
-            first = [items[todo[k][0]] for k in chunk]
+            ps, ws = preds[c:c + step], wants[c:c + step]
             self.stats[tag + "_issued"] += 1
             if level == 1:
                 fn = kernels.instance_count_many_plain if self.plain \
                     else kernels.instance_count_many
-                got = fn([self._row_operand(p) for p, _ in first],
-                         self.scope8(), self.I, [w for _, w in first])
+                got = fn([self._row_operand(p) for p in ps],
+                         self.scope8(), self.I, ws)
             else:
-                got = [self._count2(p, w) for p, w in first]
+                got = [self._count2(p, w) for p, w in zip(ps, ws)]
             for k, g in zip(chunk, got):
                 if isinstance(k, tuple):
                     self._counts[k] = g
                 for i in todo[k]:
                     out[i] = g
         return out
+
+    def _pred_key(self, pred) -> Optional[Tuple]:
+        """The count memo's key of a row predicate, or None."""
+        if isinstance(pred, rowfold.RV):
+            return pred.tape.keys.get(pred.vid)
+        return self._pred_keys.get(id(pred))
 
     def _count2(self, rowpred: torch.Tensor, want: str) -> torch.Tensor:
         pred = rowpred.expand(self.N, self.R).contiguous()
@@ -768,7 +837,7 @@ class Ctx:
         conf = self._pool_confirm("glob", pattern)
         if conf is not None:
             self.confirm_acc.append(
-                self._rows_from_pool(conf, lane).any(dim=-1))
+                self.row_any(self._rows_from_pool(conf, lane)))
         return acc
 
     def glob_key_rows(self, pattern: str) -> torch.Tensor:
@@ -781,22 +850,24 @@ class Ctx:
 
 
 class Depth0:
-    """The resource scope: reductions over a row plane's rows, which join
-    the rule's tape as inputs (plain tensors without a ``ctx``)."""
+    """The resource scope: reductions over a row plane's rows, on the
+    rule's row tape, their results inputs of its class tape (plain
+    tensors without a ``ctx``)."""
 
     shape_suffix = ()
 
     def __init__(self, ctx: Optional[Ctx] = None):
         self.ctx = ctx
 
-    def _lift(self, t: torch.Tensor):
-        return t if self.ctx is None else self.ctx.lift(t)
+    def any(self, rowpred):
+        if self.ctx is None:
+            return rowpred.any(dim=-1)
+        return self.ctx.row_any(rowpred)
 
-    def any(self, rowpred: torch.Tensor):
-        return self._lift(rowpred.any(dim=-1))
-
-    def count(self, rowpred: torch.Tensor):
-        return self._lift(rowpred.sum(dim=-1, dtype=torch.int32))
+    def count(self, rowpred):
+        if self.ctx is None:
+            return rowpred.sum(dim=-1, dtype=torch.int32)
+        return self.ctx.row_count(rowpred)
 
     def many(self, items: Sequence[Tuple[torch.Tensor, str]]
              ) -> List[torch.Tensor]:
@@ -845,17 +916,17 @@ class Inst2Scope(_Counted):
 
 def leaf_row_pred(ctx: Ctx, leaf: Any) -> torch.Tensor:
     if isinstance(leaf, BoolLeaf):
-        return ctx.type_is(T_BOOL) & (ctx.b["bool_val"] == int(1 if leaf.value else 0))
+        return ctx.type_is(T_BOOL) & (ctx.lane("bool_val") == int(1 if leaf.value else 0))
     if isinstance(leaf, NumLeaf):
         canon = canon_number(leaf.value)
         num_eq = ctx.heq("num", canon)
-        grammar = ctx.b["str_goint" if leaf.is_int else "str_gofloat"] == 1
+        grammar = ctx.lane("str_goint" if leaf.is_int else "str_gofloat") == 1
         return (ctx.type_is(T_NUM) & num_eq) | (ctx.type_is(T_STR) & grammar & num_eq)
     if isinstance(leaf, NullLeaf):
         return (
             ctx.type_is(T_NULL)
-            | (ctx.type_is(T_BOOL) & (ctx.b["bool_val"] == 0))
-            | (ctx.type_is(T_NUM) & (ctx.b["num_val"] == 0))
+            | (ctx.type_is(T_BOOL) & (ctx.lane("bool_val") == 0))
+            | (ctx.type_is(T_NUM) & (ctx.lane("num_val") == 0))
             | (ctx.type_is(T_STR) & ctx.heq("repr", hash_str("", tag="s")))
         )
     if isinstance(leaf, StrLeaf):
@@ -868,7 +939,7 @@ def leaf_row_pred(ctx: Ctx, leaf: Any) -> torch.Tensor:
                     p = _cmp_pred(ctx, c)
                     disj = p if disj is None else (disj | p)
                 if disj is None:  # unmatched range -> always false
-                    disj = ctx.false((ctx.N, ctx.R))
+                    disj = ctx.rconst(False)
                 conj = disj if conj is None else (conj & disj)
             if conj is not None:
                 pred = pred | conj
@@ -882,7 +953,7 @@ _ORD_OPS = {
 }
 
 
-def _ord_cmp(val: torch.Tensor, const: float, canon_eq: torch.Tensor, op: Operator) -> torch.Tensor:
+def _ord_cmp(val, const: float, canon_eq, op: Operator):
     """Ordered compare on f32 lanes; equality points are exact via the
     canonical hash, strict compares are exact except in the final ulp."""
     kind = _ORD_OPS[op]
@@ -900,42 +971,42 @@ def _ord_cmp(val: torch.Tensor, const: float, canon_eq: torch.Tensor, op: Operat
     return (val < c) | canon_eq
 
 
-def _cmp_pred(ctx: Ctx, c: Cmp) -> torch.Tensor:
+def _cmp_pred(ctx: Ctx, c: Cmp):
     """One operator+operand term (pattern.go:207 validateString trial
     order: duration, then quantity, then string)."""
     if c.op not in _ORD_OPS:
-        return ctx.false((ctx.N, ctx.R))
-    res: Optional[torch.Tensor] = None
-    processed: Optional[torch.Tensor] = None
+        return ctx.rconst(False)
+    res = None
+    processed = None
     if c.dur_ns is not None:
-        has = ctx.b["has_dur"] == 1
-        r = _ord_cmp(ctx.b["dur_val"], c.dur_ns / 1e9, ctx.heq("dur", canon_duration(c.dur_ns)), c.op)
-        res, processed = torch.where(has, r, False), has
+        has = ctx.lane("has_dur") == 1
+        r = _ord_cmp(ctx.lane("dur_val"), c.dur_ns / 1e9, ctx.heq("dur", canon_duration(c.dur_ns)), c.op)
+        res, processed = rowfold.where(has, r, False), has
     if c.qty is not None:
-        has_q = (ctx.b["has_qty"] == 1)
+        has_q = (ctx.lane("has_qty") == 1)
         if processed is not None:
             has_q = has_q & ~processed
-        r = _ord_cmp(ctx.b["qty_val"], float(c.qty), ctx.heq("qty", canon_quantity(c.qty)), c.op)
+        r = _ord_cmp(ctx.lane("qty_val"), float(c.qty), ctx.heq("qty", canon_quantity(c.qty)), c.op)
         if res is None:
-            res, processed = torch.where(has_q, r, False), has_q
+            res, processed = rowfold.where(has_q, r, False), has_q
         else:
-            res = torch.where(has_q, r, res)
+            res = rowfold.where(has_q, r, res)
             processed = processed | has_q
     # string branch (only Equal / NotEqual ever succeed, pattern.go:272)
     if c.op in (Operator.EQUAL, Operator.NOT_EQUAL):
-        has_repr = ctx.b["has_repr"] == 1
+        has_repr = ctx.lane("has_repr") == 1
         if c.operand == "*":
-            m = ctx.true((ctx.N, ctx.R))
+            m = ctx.rconst(True)
         elif c.is_glob:
             m = ctx.glob_rows(c.operand)
         else:
             m = ctx.heq("repr", hash_str(c.operand, tag="s"))
         s = has_repr & (~m if c.op is Operator.NOT_EQUAL else m)
     else:
-        s = ctx.false((ctx.N, ctx.R))
+        s = ctx.rconst(False)
     if res is None:
         return s
-    return torch.where(processed, res, s)
+    return rowfold.where(processed, res, s)
 
 
 # ---------------------------------------------------------------------------
@@ -1001,10 +1072,12 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
     children = ctx.rows_with_parent(P)
     is_map = ctx.row_any(map_rows & ctx.type_is(T_MAP))
     nonstring = ctx.row_any(children & ~ctx.type_is(T_STR))
-    accept = children & ctx.glob_key_rows(wc.glob)
+    accept = ctx.row(children) & ctx.glob_key_rows(wc.glob)
     pred = leaf_row_pred(ctx, wc.leaf)
     # any matching row, and the leaf at the FIRST matching row (row 0
-    # when none matches, as jnp.argmax gives) — kernel K8
+    # when none matches, as jnp.argmax gives) — kernel K8, on the planes
+    # the row tape stores
+    accept, pred = ctx.planes([accept, pred])
     fn = kernels.first_true_take_plain if ctx.plain \
         else kernels.first_true_take
     has, val_ok = fn(accept.contiguous(),
@@ -1115,7 +1188,7 @@ def _eval_array_maps(ctx: Ctx, scope, node: ArrayMapsNode) -> torch.Tensor:
         elem = eval_node(ctx, inst2, node.element)
         # second-level joins cap at max_instances; overflowing arrays
         # route the resource to host for this rule
-        over = (mask & (ctx.b["s2_overflow"] == 1)).any(dim=-1)
+        over = (mask & (ctx.lane("s2_overflow") == 1)).any(dim=-1)
         ctx.host_acc.append(over)
     else:
         raise Unsupported("array-of-maps nested beyond two levels")
@@ -1248,7 +1321,7 @@ def _eval_literal_vs_collect(
     if ks is None:
         hit = ctx.false(shape)
     else:
-        rows = ctx.false((ctx.N, ctx.R))
+        rows = ctx.rconst(False)
         for st in ec.states:
             if st.mode == "keys":
                 m = ctx.rows_with_parent(prefix + st.segs) & ctx.heq("key", hash_str(ks, tag="k"))
@@ -1310,7 +1383,7 @@ def _dyn_in_set(ctx: Ctx, slot: int, mask: torch.Tensor) -> torch.Tensor:
     ln = ctx.b["dyn_list_n"][slot]
     lh = ctx.b["dyn_list_h"][slot]       # (N, L, 2)
     shi, slo = ctx.b["sprint_hi"], ctx.b["sprint_lo"]
-    in_set = ctx.false((ctx.N, ctx.R))
+    in_set = ctx.rconst(False)
     for l in range(lh.shape[1]):
         live = (l < ln)[:, None]
         eq = (shi == lh[:, l, 0][:, None]) & (slo == lh[:, l, 1][:, None])
@@ -1349,7 +1422,7 @@ def _eval_path_vs_dyn_list(ctx: Ctx, pc, op: str, ref: DynValueRef,
         mode = _IN_MODES[op]
         pos = mode in ("any_in", "all_in", "in_strict")
         return is_list & hit if pos else is_list & ~hit, err
-    mask = ctx.false((ctx.N, ctx.R))
+    mask = ctx.rconst(False)
     for st in pc.states:
         m = ctx.rows_at(prefix + st.segs)
         if st.no_arr:
@@ -1530,8 +1603,8 @@ def _collect_masks(
     lits = [l for l in lits if l is not None]
     sprint_set = [hash_str(l, tag="s") for l in lits]
     key_set = [hash_str(l, tag="k") for l in lits]
-    mask = ctx.false((ctx.N, ctx.R))
-    in_set = ctx.false((ctx.N, ctx.R))
+    mask = ctx.rconst(False)
+    in_set = ctx.rconst(False)
     for st in pc.states:
         if st.mode == "keys":
             m = ctx.rows_with_parent(prefix + st.segs)
@@ -1582,9 +1655,9 @@ def _scalar_falsy(ctx: Ctx, mask: torch.Tensor, scope) -> torch.Tensor:
     exists = scope.any(mask)
     null = scope.any(ctx.typed(mask, T_NULL))
     empty_str = scope.any(mask & ctx.type_is(T_STR) & ctx.heq("repr", hash_str("", tag="s")))
-    false_b = scope.any(mask & ctx.type_is(T_BOOL) & (ctx.b["bool_val"] == 0))
+    false_b = scope.any(mask & ctx.type_is(T_BOOL) & (ctx.lane("bool_val") == 0))
     empty_cont = scope.any(
-        mask & (ctx.type_is(T_MAP) | ctx.type_is(T_ARR)) & (ctx.b["arr_len"] == 0)
+        mask & (ctx.type_is(T_MAP) | ctx.type_is(T_ARR)) & (ctx.lane("arr_len") == 0)
     )
     return (~exists) | null | empty_str | false_b | empty_cont
 
@@ -1750,7 +1823,7 @@ def _apply_scalar_default(ctx: Ctx, pc: PathCollect, scope,
     return fold.where(falsy, alt, res)
 
 
-def _jcmp(kind: str, val, const: float, canon_eq) -> torch.Tensor:
+def _jcmp(kind: str, val, const: float, canon_eq):
     c = _f32(const)
     if kind == "ge":
         return (val > c) | canon_eq
@@ -1768,15 +1841,15 @@ def _eval_scalar_equals(
     shape = _cond_shape(ctx, scope)
     st = pc.states[0]
     mask = ctx.rows_at(prefix + st.segs)
-    b = ctx.b
+    lane = ctx.lane
     t_str = mask & ctx.type_is(T_STR)
     t_num = mask & ctx.type_is(T_NUM)
     t_bool = mask & ctx.type_is(T_BOOL)
     zero_repr = ctx.heq("repr", hash_str("0", tag="s"))
-    key_d_valid = t_str & (b["has_dur"] == 1) & ~zero_repr
+    key_d_valid = t_str & (lane("has_dur") == 1) & ~zero_repr
 
     if isinstance(v, bool):
-        return scope.any(t_bool & (b["bool_val"] == (1 if v else 0)))
+        return scope.any(t_bool & (lane("bool_val") == (1 if v else 0)))
     if v is None:
         return ctx.false(shape)
     if isinstance(v, (int, float)):
@@ -1796,20 +1869,20 @@ def _eval_scalar_equals(
             dur_eq_str = key_d_valid & ctx.heq("dur", canon_duration(vd))
             dur_proc_str = key_d_valid
         else:
-            dur_eq_str = torch.zeros_like(mask)
-            dur_proc_str = torch.zeros_like(mask)
-        has_q = t_str & (b["has_qty"] == 1)
+            dur_eq_str = ctx.rconst(False)
+            dur_proc_str = ctx.rconst(False)
+        has_q = t_str & (lane("has_qty") == 1)
         qty_eq = (has_q & ctx.heq("qty", canon_quantity(vq))) if vq is not None \
-            else torch.zeros_like(mask)
+            else ctx.rconst(False)
         exact = ctx.heq("repr", hash_str(v, tag="s"))
-        str_eq = torch.where(
-            dur_proc_str, dur_eq_str, torch.where(has_q, qty_eq, t_str & exact)
+        str_eq = rowfold.where(
+            dur_proc_str, dur_eq_str, rowfold.where(has_q, qty_eq, t_str & exact)
         )
         # numeric keys only try float(value) (equal.go _equals_number)
         if vf is not None:
             num_eq = t_num & ctx.heq("num", canon_number(float(vf)))
         else:
-            num_eq = torch.zeros_like(mask)
+            num_eq = ctx.rconst(False)
         return scope.any((t_str & str_eq) | num_eq)
     return ctx.false(shape)
 
@@ -1821,22 +1894,22 @@ def _eval_scalar_numeric(
     shape = _cond_shape(ctx, scope)
     st = pc.states[0]
     mask = ctx.rows_at(prefix + st.segs)
-    b = ctx.b
+    lane = ctx.lane
     t_str = mask & ctx.type_is(T_STR)
     t_num = mask & ctx.type_is(T_NUM)
     zero_repr = ctx.heq("repr", hash_str("0", tag="s"))
-    key_d_valid = t_str & (b["has_dur"] == 1) & ~zero_repr
-    z = torch.zeros_like(mask)
+    key_d_valid = t_str & (lane("has_dur") == 1) & ~zero_repr
+    z = ctx.rconst(False)
 
     if isinstance(v, bool) or v is None or isinstance(v, (list, dict)):
         return ctx.false(shape)
     if isinstance(v, (int, float)):
-        num_cmp = t_num & _jcmp(kind, b["num_val"], float(v), ctx.heq("num", canon_number(v)))
+        num_cmp = t_num & _jcmp(kind, lane("num_val"), float(v), ctx.heq("num", canon_number(v)))
         dur_cmp = key_d_valid & _jcmp(
-            kind, b["dur_val"], float(v), ctx.heq("dur", canon_duration(int(float(v) * 1e9))))
-        lane_num = t_str & (b["has_num"] == 1) & _jcmp(
-            kind, b["num_val"], float(v), ctx.heq("num", canon_number(v)))
-        str_cmp = torch.where(key_d_valid, dur_cmp, lane_num)
+            kind, lane("dur_val"), float(v), ctx.heq("dur", canon_duration(int(float(v) * 1e9))))
+        lane_num = t_str & (lane("has_num") == 1) & _jcmp(
+            kind, lane("num_val"), float(v), ctx.heq("num", canon_number(v)))
+        str_cmp = rowfold.where(key_d_valid, dur_cmp, lane_num)
         return scope.any(num_cmp | (t_str & str_cmp))
     # v is str
     vd = parse_duration(v) if v != "0" else None
@@ -1847,25 +1920,25 @@ def _eval_scalar_numeric(
         vf = None
     num_key = z
     if vd is not None:
-        num_key = t_num & _jcmp(kind, b["num_val"] * _f32(1e9), float(vd),
+        num_key = t_num & _jcmp(kind, lane("num_val") * _f32(1e9), float(vd),
                                 ctx.heq("dur", canon_duration(vd)))
     elif vf is not None:
-        num_key = t_num & _jcmp(kind, b["num_val"], vf, ctx.heq("num", canon_number(float(vf))))
+        num_key = t_num & _jcmp(kind, lane("num_val"), vf, ctx.heq("num", canon_number(float(vf))))
     # string key trial order: duration pair, quantity, float lane
     dur_b = z
     if vd is not None:
-        dur_b = key_d_valid & _jcmp(kind, b["dur_val"], vd / 1e9, ctx.heq("dur", canon_duration(vd)))
+        dur_b = key_d_valid & _jcmp(kind, lane("dur_val"), vd / 1e9, ctx.heq("dur", canon_duration(vd)))
     qty_b = z
     if vq is not None:
-        qty_b = t_str & (b["has_qty"] == 1) & _jcmp(
-            kind, b["qty_val"], float(vq), ctx.heq("qty", canon_quantity(vq)))
+        qty_b = t_str & (lane("has_qty") == 1) & _jcmp(
+            kind, lane("qty_val"), float(vq), ctx.heq("qty", canon_quantity(vq)))
     flt_b = z
     if vf is not None:
-        flt_b = t_str & (b["has_num"] == 1) & _jcmp(
-            kind, b["num_val"], vf, ctx.heq("num", canon_number(float(vf))))
+        flt_b = t_str & (lane("has_num") == 1) & _jcmp(
+            kind, lane("num_val"), vf, ctx.heq("num", canon_number(float(vf))))
     dur_proc = key_d_valid if vd is not None else z
-    qty_proc = (t_str & (b["has_qty"] == 1)) if vq is not None else z
-    str_key = torch.where(dur_proc, dur_b, torch.where(qty_proc, qty_b, flt_b))
+    qty_proc = (t_str & (lane("has_qty") == 1)) if vq is not None else z
+    str_key = rowfold.where(dur_proc, dur_b, rowfold.where(qty_proc, qty_b, flt_b))
     return scope.any(num_key | str_key)
 
 
@@ -2119,9 +2192,9 @@ def _glob_fallback(ctx: Ctx, prog: RuleProgram) -> torch.Tensor:
     acc = ctx.false((ctx.N,))
     for pfx, st in _membership_glob_states(prog):
         if st.mode == "keys":
-            m = ctx.rows_with_parent(pfx + st.segs) & (ctx.b["key_glob"] == 1)
+            m = ctx.rows_with_parent(pfx + st.segs) & (ctx.lane("key_glob") == 1)
         else:
-            m = ctx.rows_at(pfx + st.segs) & (ctx.b["has_glob"] == 1)
+            m = ctx.rows_at(pfx + st.segs) & (ctx.lane("has_glob") == 1)
         acc = acc | m.any(dim=-1)
     return acc
 
@@ -2317,17 +2390,19 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     compiler's record, ``CompiledPolicySet.nfa_globs``): K9 runs each
     family's in one packed launch a batch. Each rule's row of the table
     is written by one K11 launch of the rule's tape (``tpu/fold.py``),
+    after the K12 launches of its row tape (``tpu/rowfold.py``), both
     compiled once per program and kept in the returned function's
-    ``fold_cache``. The returned function's ``stats`` sums its runs'
+    ``fold_cache`` and ``row_cache``. The returned function's ``stats`` sums its runs'
     Ctx counters (``STAT_KEYS``)."""
 
     hash_consts: Dict[Any, torch.Tensor] = {}
     meta_tables: Dict[Any, Any] = {}
     bank_cols = bank_columns(dfa)
     nfa = NfaPacks(nfa_globs or {})
-    # each rule's compiled tape (K11's instructions), kept as the K6
-    # constants and K10 tables are
+    # each rule's compiled tapes (K11's and K12's instructions), kept as
+    # the K6 constants and K10 tables are
     fold_cache = fold.FoldCache()
+    row_cache = rowfold.RowCache()
     stats = dict.fromkeys(STAT_KEYS, 0)
 
     def run(batch: Dict[str, torch.Tensor]):
@@ -2337,12 +2412,16 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
         table = torch.empty((len(programs), ctx.N), dtype=torch.int32,
                             device=ctx.dev)
         # each rule's class logic is recorded on its tape and runs as
-        # one K11 launch writing its row of the table
+        # one K11 launch writing its row of the table, after the K12
+        # launch of its row tape that writes the reductions it reads
         for r, p in enumerate(programs):
             ctx.fold = fold.Tape(ctx.N, ctx.I, ctx.I, ctx.dev, fold_cache,
                                  plain, ctx.stats)
+            ctx.rows = rowfold.RowTape(ctx.N, ctx.R, ctx.dev, row_cache,
+                                       plain, ctx.fold, ctx.stats)
+            ctx.fold.prerun = ctx.rows.flush
             ctx.fold.run([eval_rule(ctx, p)], [table[r]])
-        ctx.fold = None
+        ctx.fold = ctx.rows = None
         for k, v in ctx.stats.items():
             stats[k] += v
         if not with_counts:
@@ -2356,4 +2435,5 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
 
     run.stats = stats  # the Ctx counters (STAT_KEYS) of all its runs
     run.fold_cache = fold_cache
+    run.row_cache = row_cache
     return run

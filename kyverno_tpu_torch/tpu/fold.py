@@ -184,6 +184,9 @@ class Tape:
         self.consts: Dict[int, int] = {}  # vid -> value of a CONST
         self.inputs: List[torch.Tensor] = []
         self._in: Dict[Tuple, FV] = {}
+        # run before the tape reads its inputs: the rule's row tape
+        # writes the reductions it handed over (``rowfold.RowTape.flush``)
+        self.prerun: Optional[Any] = None
 
     # -- recording
     def _emit(self, op: int, kind: int, dtype: int, a: int = 0, b: int = 0,
@@ -375,6 +378,8 @@ class Tape:
         """Compile (cached) and run the cone of ``outs`` into ``dests``
         (tensors of their shapes; bool or int32)."""
         vids = tuple(self.wrap(o).vid for o in outs)
+        if self.prerun is not None:
+            self.prerun()
         segs = self.cache.get(self.code, vids, self.J,
                               tuple(d.element_size() for d in dests))
         run_segments(segs, self.inputs, list(dests), self.plain,
@@ -386,6 +391,8 @@ class Tape:
         self.stats["fold_forced"] = self.stats.get("fold_forced", 0) + 1
         op, kind, dtype, a = self.code[v.vid][:4]
         if op == OP_LOAD:
+            if self.prerun is not None:
+                self.prerun()
             return self.inputs[a]
         out = torch.empty(v.shape, device=self.dev,
                           dtype=torch.bool if dtype == BOOL else torch.int32)

@@ -45,6 +45,7 @@ device's program, and never the plain-twin program.
 
 from __future__ import annotations
 
+import gc
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -140,6 +141,14 @@ class GraphedProgram:
         launches0 = dict(kernels.LAUNCHES)
         stats0 = dict(self.stats) if self.stats is not None else {}
         graph = torch.cuda.CUDAGraph()
+        # no cyclic collection while the graph records, a precaution:
+        # the program's tapes make thousands of objects, and an object
+        # freed mid-capture (a pinned host buffer) might call CUDA and
+        # invalidate the capture (``torch.cuda.graph`` collects once, at
+        # its start); a cause not reproduced (PERF.md). The collector is
+        # the process's: other threads run without it meanwhile
+        gc_was = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 outputs = self.run(inputs)
@@ -147,6 +156,8 @@ class GraphedProgram:
             raise kernels.KernelError(
                 f"CUDA graph capture failed: {type(e).__name__}: {e}") from e
         finally:
+            if gc_was:
+                gc.enable()
             # the capture ran nothing on the card: take its counts back,
             # to be added at each replay
             launches = {k: v - launches0[k]

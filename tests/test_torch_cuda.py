@@ -19,7 +19,8 @@ from kyverno_tpu_torch.tpu import dfa as tdfa
 from kyverno_tpu_torch.parallel.sharding import ShardedScanner
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
-from torch_kernel_cases import MIX_SOURCES, meta_any_mix
+from torch_kernel_cases import (MIX_SOURCES, meta_any_mix, random_row_tape,
+                                row_lanes)
 
 pytestmark = pytest.mark.cuda
 
@@ -985,4 +986,147 @@ def test_class_fold_kernel_equals_plain_on_the_dense_program(cuda):
     n_rules = len(eng.cps.device_programs)
     assert len(checked) == n_rules == kernels.LAUNCHES["class_fold"]
     assert run.stats["fold_forced"] == 0
+    _assert_same(out, eng.cps.device_fn(plain=True)(lanes))
+
+
+# ---------------------------------------------------------------------------
+# K12 row_fold
+
+
+def _row_flush(dev, seed, N, R, steps=80):
+    """A random row tape over lanes of every element type on ``dev``,
+    and a flush of it: (tape, outputs) with every output kind."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    lanes = row_lanes(seed, N, R, dev)
+    ft = fold.Tape(N, 1, 1, dev, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, dev, rowfold.RowCache(), False, ft)
+    vals = random_row_tape(rt, lanes, seed, steps)
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(vals), size=min(24, len(vals)), replace=False)
+    ops = (rowfold.ANY, rowfold.COUNT, rowfold.STORE)
+    outs = [(ops[k % 3], vals[i][0].vid) for k, i in enumerate(picks)]
+    return rt, outs
+
+
+def _row_dests(outs, N, R, dev):
+    from kyverno_tpu_torch.tpu import rowfold
+
+    return [torch.empty((N, R) if op == rowfold.STORE else (N,),
+                        dtype=torch.int32 if op == rowfold.COUNT
+                        else torch.bool, device=dev) for op, _ in outs]
+
+
+@pytest.mark.parametrize("R", [1, 40, 256])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 8192])
+@pytest.mark.parametrize("max_io", [None, 10])
+def test_row_fold_kernel_equals_plain_random_tapes(cuda, monkeypatch, N, R,
+                                                   max_io):
+    """K12 against its plain twin on random tapes over every instruction
+    and lane type (uint8, bool, a (1, R) broadcast, int32, float32 with
+    scaled compares, hash sets of 0 to 5 pairs); with ``max_io`` (a
+    value's cone reads at most the 8 lanes, so 10 always fits one) the
+    flush splits into segments."""
+    from kyverno_tpu_torch.tpu import rowfold
+
+    if max_io is not None:
+        monkeypatch.setattr(kernels, "ROW_FOLD_MAX_IO", max_io)
+    for seed in range(3):
+        rt, outs = _row_flush(cuda, seed + 10 * N + R, N, R)
+        segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
+        got, want = (_row_dests(outs, N, R, cuda) for _ in range(2))
+        before = kernels.LAUNCHES["row_fold"]
+        for seg in segs:
+            ios = [rt.inputs[i] for i in seg.ins]
+            kernels.row_fold(seg.code, ios + [got[k] for k in seg.outs], N, R)
+            kernels.row_fold_plain(seg.code, ios + [want[k] for k in seg.outs],
+                                   N, R)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["row_fold"] - before == len(segs)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("R", [1100, 33])
+def test_row_fold_kernel_unaligned_and_wide_rows(cuda, R):
+    """Rows past 1,024 (several words a value, a warp a resource) and
+    lanes whose rows are not vector-aligned (a view at an odd offset)
+    against the twin."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    N = 300
+    lanes = row_lanes(R, N, R + 1, cuda)
+    lanes = {k: v[:, 1:] for k, v in lanes.items()}
+    ft = fold.Tape(N, 1, 1, cuda, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, cuda, rowfold.RowCache(), False, ft)
+    vals = random_row_tape(rt, lanes, R, 60)
+    outs = [(op, vals[-1 - k][0].vid) for k, op in enumerate(
+        (rowfold.ANY, rowfold.COUNT, rowfold.STORE, rowfold.STORE))]
+    (seg,) = rowfold.compile_rows(rt.code, rt.etypes, outs)
+    ios = [rt.inputs[i] for i in seg.ins]
+    got, want = (_row_dests(outs, N, R, cuda) for _ in range(2))
+    kernels.row_fold(seg.code, ios + got, N, R)
+    kernels.row_fold_plain(seg.code, ios + want, N, R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+def test_row_fold_kernel_reads_an_unexpanded_row(cuda, dtype):
+    """A contiguous (1, R) lane (stride R) handed straight to the kernel
+    is the row every resource reads, as the twin's broadcast."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    N, R = 300, 40
+    row = torch.arange(R, dtype=dtype, device=cuda).remainder(5)[None]
+    assert row.stride(0) == R
+    ft = fold.Tape(N, 1, 1, cuda, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, cuda, rowfold.RowCache(), False, ft)
+    v = rt.lane(row) == 3
+    outs = [(rowfold.STORE, v.vid), (rowfold.COUNT, v.vid)]
+    (seg,) = rowfold.compile_rows(rt.code, rt.etypes, outs)
+    got, want = (_row_dests(outs, N, R, cuda) for _ in range(2))
+    kernels.row_fold(seg.code, [row] + got, N, R)
+    kernels.row_fold_plain(seg.code, [row] + want, N, R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], (row == 3).expand(N, R))
+
+
+def test_row_fold_kernel_equals_plain_on_the_dense_program(cuda):
+    """Every K12 launch of the dense PSS program, held against its plain
+    twin on the same inputs: no K6 launch but the path masks', no value
+    forced off a tape, and the program equals the plain-twin program."""
+    import chip_smoke
+    from kyverno_tpu_torch.tpu import rowfold
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()])
+    res, ops = chip_smoke.workload(700, 3)
+    padded, pops, _ = eng.pad(res, ops)
+    lanes = lanes_to_device(eng.encode(padded, None, pops)[0], cuda)
+    checked = []
+
+    def check(code, ios, N, R):
+        outs = list(ios[code.n_in:])
+        twin = [torch.empty_like(o) for o in outs]
+        kernels.row_fold_plain(code, list(ios[:code.n_in]) + twin, N, R)
+        for g, w in zip(outs, twin):
+            assert torch.equal(g, w)
+        checked.append(code)
+
+    run = eng.cps.device_fn()
+    _zero(run.stats)
+    kernels.reset_launches()
+    rowfold.CHECK = check
+    try:
+        out = run(lanes)
+    finally:
+        rowfold.CHECK = None
+    assert len(checked) == kernels.LAUNCHES["row_fold"] >= \
+        len(eng.cps.device_programs)
+    assert kernels.LAUNCHES["hash_match"] == 461
+    assert run.stats["rows_forced"] == 0 and run.stats["fold_forced"] == 0
     _assert_same(out, eng.cps.device_fn(plain=True)(lanes))
