@@ -87,9 +87,16 @@ tapes (``fold_forced``) are printed, and so is every K12 ``row_fold``
 launch of the same run (the rule's row-plane logic, recorded on its row
 tape by ``tpu/rowfold.py``), with the values forced off the row tapes
 (``rows_forced``), the run's K6 launches and its torch reductions over
-rows (none may remain on the dense path); K12 is timed over the run's
-launches beside its plain twin and bound; K11 is also timed over the run's
-launches (kept from that run) beside its plain twin and bound, at the
+rows (none may remain on the dense path) and the K12 launches that
+split a rule's flush (one K12 launch a rule otherwise); K12 is timed
+over the run's launches beside its plain twin and bound, and on the
+dense path the launches' own bytes are summed against the bound's
+distinct bytes and its slowest launches are printed with their launch
+plan (warps, tile, the blocks an SM holds), their bytes, a
+device-to-device copy of their inputs for a yardstick, and their time
+at every warp count (each held against its twin); each path's K12
+launches are counted by fill unit (uint8 batches, 4-byte lanes, hash
+lanes); K11 is also timed over the run's launches (kept from that run) beside its plain twin and bound, at the
 lane counts the host chose and at every lane count G (each launch held
 against its twin under each); on the dense path its slowest launches
 are timed alone at every G, the eager run's aten operations are counted by output shape kind
@@ -703,23 +710,108 @@ def row_work(kept):
     return nbytes, ops, rows
 
 
+def launch_bytes(ios) -> int:
+    """The distinct bytes one launch's descriptors read or write."""
+    seen, n = set(), 0
+    for t in ios:
+        key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+        if key not in seen:
+            seen.add(key)
+            n += _distinct_bytes(t)
+    return n
+
+
+def copy_floor(torch, ins) -> float:
+    """A yardstick for reading a launch's input bytes: one device-to-
+    device ``Tensor.copy_`` of each distinct input (a broadcast row
+    once), replayed in a CUDA graph. It reads and writes each byte."""
+    seen, srcs = set(), []
+    for t in ins:
+        key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+        if key not in seen:
+            seen.add(key)
+            srcs.append(t[:1] if t.stride(0) == 0 else t)
+    dsts = [torch.empty(s.shape, dtype=s.dtype, device=s.device)
+            for s in srcs]
+
+    def copy():
+        for d, s in zip(dsts, srcs):
+            d.copy_(s)
+
+    return graph_ms(torch, copy, reps=10)
+
+
+# the scalar entries of ``kernels.row_fold_plan`` a line prints
+PLAN_KEYS = ("warps", "T", "tiles", "grid", "rounds", "units",
+             "stage_bytes", "smem", "resident", "n_slots", "code_staged",
+             "slab", "rows", "bcast")
+
+
+def row_plan(kernels, code, ios, N, R, **kw):
+    plan = kernels.row_fold_plan(code, ios, N, R, **kw)
+    return {k: plan[k] for k in PLAN_KEYS}
+
+
 def row_slowest(torch, kernels, kept, phase, label, tag, top: int = 6):
     """Each K12 launch of one run timed alone (graph replay): the
-    ``top`` slowest with their code's shape, and the time by the number
-    of lanes a launch reads (where K12's time goes)."""
+    ``top`` slowest with their code's shape, launch plan (warps a block,
+    resources a tile T, tiles, grid, tiles a block, fill units,
+    stage and shared-memory bytes, the blocks an SM holds by the card's
+    count, value slots, inputs by staging kind), the bytes they read
+    and write, the copy floor of their input bytes (``copy_floor``) and
+    their time at every warp count that fits (``warps`` swept, each
+    launch held against its twin), and the time
+    by the number of lanes a launch reads and by plan (where K12's time
+    goes)."""
     rows = []
     for code, ios, (N, R) in kept:
         ms = graph_ms(torch, lambda: kernels.row_fold(code, ios, N, R),
                       reps=10)
         stores = sum(op == kernels.RF_STORE for op in code.out_ops)
-        rows.append((ms, code, stores))
+        rows.append((ms, code, stores, ios, N, R))
     rows.sort(key=lambda r: -r[0])
-    for ms, code, stores in rows[:top]:
+    for ms, code, stores, ios, N, R in rows[:top]:
+        plan = row_plan(kernels, code, ios, N, R)
+        nb = launch_bytes(ios)
+        floor = copy_floor(torch, ios[:code.n_in])
         say(phase, f"  row_fold {label} launch {ms:.4f} ms: {len(code.rows)} "
                    f"rows, {code.n_in} lanes, {code.n_out} outputs ({stores} "
-                   f"stored planes) {tag}")
+                   f"stored planes); plan "
+                   + ", ".join(f"{k} {v}" for k, v in plan.items())
+                   + f"; {nb} bytes read and written "
+                   f"({nb / (ms * 1e-3) / 1e12:.3f} TB/s); input copy floor "
+                   f"{floor:.4f} ms {tag}")
+        sweep = []
+        for w in (1, 2, 4, 8):
+            try:
+                kernels.row_fold_plan(code, ios, N, R, warps=w)
+            except ValueError:
+                continue
+            outs = [torch.empty_like(t) for t in ios[code.n_in:]]
+            twin = [torch.empty_like(t) for t in outs]
+            args = list(ios[:code.n_in])
+            kernels.row_fold(code, args + outs, N, R, warps=w)
+            kernels.row_fold_plain(code, args + twin, N, R)
+            for g, t in zip(outs, twin):
+                exact(torch, "row_fold", g, t)
+            w_ms = graph_ms(torch, lambda: kernels.row_fold(
+                code, args + outs, N, R, warps=w), reps=10)
+            sweep.append(f"{w} {w_ms:.4f}")
+        say(phase, f"    warps swept, ms (each equal to its twin): "
+                   + ", ".join(sweep) + f" {tag}")
+    by_plan = {}
+    for ms, code, _, ios, N, R in rows:
+        plan = row_plan(kernels, code, ios, N, R)
+        key = tuple((k, plan.get(k)) for k in ("warps", "T", "resident"))
+        n, t = by_plan.get(key, (0, 0.0))
+        by_plan[key] = (n + 1, t + ms)
+    say(phase, f"  row_fold {label} launches alone, by plan: "
+               + "; ".join(", ".join(f"{k} {v}" for k, v in key)
+                           + f": {n} launches {t:.4f} ms"
+                           for key, (n, t) in sorted(by_plan.items()))
+               + f" {tag}")
     by = {}
-    for ms, code, _ in rows:
+    for ms, code, *_ in rows:
         k = min(code.n_in // 4 * 4, 20)
         n, t = by.get(k, (0, 0.0))
         by[k] = (n + 1, t + ms)
@@ -727,6 +819,25 @@ def row_slowest(torch, kernels, kept, phase, label, tag, top: int = 6):
                + ", ".join(f"{k}+ {n} launches {t:.4f} ms"
                            for k, (n, t) in sorted(by.items()))
                + f"; sum {sum(r[0] for r in rows):.4f} ms {tag}")
+
+
+def row_units(kernels, kept) -> dict:
+    """The fill units of one run's K12 launches by kind (each a load step
+    of every tile, behind a block barrier; a HASH's two lanes share a
+    step): uint8 batches and the lanes in them, 4-byte lanes (LANE) and
+    hash lanes."""
+    n = {"u8_batches": 0, "u8_lanes": 0, "lanes4": 0, "hash_lanes": 0}
+    for code, _, _ in kept:
+        for u, lanes in zip(code.units, code.unit_lanes):
+            op = code.instrs[u & 0xFFFFFF][0] & 0xFF
+            if op == kernels.RF_BATCH:
+                n["u8_batches"] += 1
+                n["u8_lanes"] += len(lanes)
+            elif op == kernels.RF_LANE:
+                n["lanes4"] += 1
+            else:
+                n["hash_lanes"] += 1
+    return n
 
 
 def time_row_fold(torch, kernels, kept, err, phase, label, tag,
@@ -764,7 +875,23 @@ def time_row_fold(torch, kernels, kept, err, phase, label, tag,
                f"element operations): {r['ms']:.4f} ms (graph replay; eager "
                f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) {tag}")
+    u = r["units"] = row_units(kernels, kept)
+    steps = u["u8_batches"] + u["lanes4"] + u["hash_lanes"] // 2
+    say(phase, f"row_fold {label} load steps: {steps} ({u['u8_batches']} "
+               f"uint8 batches of {u['u8_lanes']} lanes, {u['lanes4']} "
+               f"4-byte lanes, {u['hash_lanes'] // 2} hash pairs); 4-byte "
+               f"lanes {u['lanes4'] / max(steps, 1):.3f} of the steps {tag}")
     if slowest:
+        # the bytes each launch reads and writes, summed over launches,
+        # against the distinct bytes of the bound: re-reads across
+        # launches times the rate within a launch
+        summed = sum(launch_bytes(ios) for _, ios, _ in kept)
+        r["launch_bytes"] = summed
+        say(phase, f"row_fold {label}: the launches' own bytes sum to "
+                   f"{summed} ({summed / max(nbytes, 1):.3f}x the "
+                   f"{nbytes} distinct bytes); over the launches' time "
+                   f"{summed / (r['ms'] * 1e-3) / 1e12:.3f} TB/s, "
+                   f"{bound(summed, 0)[0]:.4f} ms at the card's rate {tag}")
         row_slowest(torch, kernels, kept, phase, label, tag)
     return r
 
@@ -1046,7 +1173,10 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     held = (f"equals its plain twin on all {rchk.launches} launches of an "
             f"eager run (max abs err {rchk.max_abs_err})" if rchk.launches
             else "has no launch in an eager run")
-    say(phase, f"{label}: K12 row_fold {held}; rows_forced {rforced}; a run's K6 "
+    splits = counted[0][1]["row_splits"]
+    say(phase, f"{label}: K12 row_fold {held}; {counted[0][0]['row_fold']} "
+               f"launches a run, {splits} of them splits of a rule's flush; "
+               f"rows_forced {rforced}; a run's K6 "
                f"hash_match launches {counted[0][0]['hash_match']}, torch "
                f"any/sum reductions over rows {n_red}, one replay "
                f"{rp['device_events']} device events {tag}")
@@ -1059,6 +1189,7 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
             "ops_replay": ops_replay, "launches": n_launch,
             "fold_checked": chk.launches, "fold_forced": forced,
             "rows_checked": rchk.launches, "rows_forced": rforced,
+            "row_splits": splits,
             "k6_launches": counted[0][0]["hash_match"],
             "row_reductions": n_red,
             "replay_events": rp["device_events"],
@@ -2453,16 +2584,18 @@ def tenant_phase(torch, kernels, eng, resources, batch_n, compile_s, tag):
     return lv, lt, gv, gt
 
 
-def mutate_leg_phase(torch, kernels, n, tile, tag):
-    """Phase 8: bench.py's mutate leg (bench_mutate) at its own sizes.
-    Returns the launch counts of the triage over the tiles."""
-    import copy
+def mutate_leg_pod(i, ns):
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"bench-{ns}-{i}", "namespace": ns},
+            "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
 
+
+def mutate_leg_setup(n, tile):
+    """bench.py's mutate leg (bench_mutate) at its own sizes: the engine
+    over its two stamp policies, the policies, ``n`` Pods (1 in 20 in ``prod``) in
+    tiles of ``tile``, and the namespace map."""
     from kyverno_tpu_torch.api.policy import ClusterPolicy
-    from kyverno_tpu_torch.mutation.coordinator import apply_mutations
-    from kyverno_tpu_torch.tpu.engine import (TorchEngine, build_scan_context,
-                                              lanes_to_device)
-    from kyverno_tpu_torch.tpu.evaluator import ERROR, FAIL, HOST, PASS
+    from kyverno_tpu_torch.tpu.engine import TorchEngine
 
     def pol(name, rule, overlay):
         return ClusterPolicy.from_dict({
@@ -2482,13 +2615,22 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
     eng = TorchEngine(policies)
     nsmap = {"prod": {}, "dev": {}}
 
-    def pod(i, ns):
-        return {"apiVersion": "v1", "kind": "Pod",
-                "metadata": {"name": f"bench-{ns}-{i}", "namespace": ns},
-                "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
-
-    resources = [pod(i, "prod" if i % 20 == 0 else "dev") for i in range(n)]
+    resources = [mutate_leg_pod(i, "prod" if i % 20 == 0 else "dev")
+                 for i in range(n)]
     tiles = [resources[i:i + tile] for i in range(0, n, tile)]
+    return eng, policies, tiles, nsmap
+
+
+def mutate_leg_phase(torch, kernels, n, tile, tag):
+    """Phase 8: bench.py's mutate leg (bench_mutate) at its own sizes.
+    Returns the launch counts of the triage over the tiles."""
+    import copy
+
+    from kyverno_tpu_torch.mutation.coordinator import apply_mutations
+    from kyverno_tpu_torch.tpu.engine import build_scan_context, lanes_to_device
+    from kyverno_tpu_torch.tpu.evaluator import ERROR, FAIL, HOST, PASS
+
+    eng, policies, tiles, nsmap = mutate_leg_setup(n, tile)
     ladder_reset()
     eng.triage_mutate(tiles[0], nsmap)  # first-use costs outside timing
     padded, _, _ = eng.pad(tiles[0])
@@ -2555,7 +2697,7 @@ def mutate_leg_phase(torch, kernels, n, tile, tag):
     say("8", f"all {len(routed)} patched outputs equal the scalar chain "
              f"({templates} template stamps); all {len(negatives)} negatives "
              "come back unchanged")
-    untouched = [pod(i, "dev") for i in range(10_000, 10_512)]
+    untouched = [mutate_leg_pod(i, "dev") for i in range(10_000, 10_512)]
     d0 = eng.triage_dispatches
     t0 = time.perf_counter()
     ures = eng.triage_mutate(untouched, nsmap)
@@ -2824,7 +2966,8 @@ def main() -> int:
                  f"({gr['replay_device_ms']:.3f} ms), K11 launches "
                  f"{gr['fold_checked']} (checked), fold_forced "
                  f"{gr['fold_forced']}, K12 launches {gr['rows_checked']} "
-                 f"(checked), rows_forced {gr['rows_forced']}, K6 launches "
+                 f"(checked, {gr['row_splits']} splits), rows_forced "
+                 f"{gr['rows_forced']}, K6 launches "
                  f"{gr['k6_launches']}, torch reductions over rows "
                  f"{gr['row_reductions']}, bound {gr['bound_ms']:.4f} ms "
                  f"({gr['io_bytes']} bytes) {tag}")
@@ -2877,6 +3020,7 @@ def main() -> int:
             e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
         by_name["row_fold"].setdefault("paths", []).append(
             {"path": path, "launches_timed": r["launches"],
+             "row_splits": gr["row_splits"],
              "rows_forced": gr["rows_forced"], "k6_launches": gr["k6_launches"],
              "row_reductions": gr["row_reductions"],
              "replay_events": gr["replay_events"]}

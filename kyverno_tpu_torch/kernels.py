@@ -44,7 +44,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,7 +105,8 @@ _SIGNATURES = {
                               _P, _P, _P]),
     "class_fold": ("class_fold", [_P, _I, _I, _I, _P, _I, _L, _I, _I, _I,
                                   _I, _I, _P]),
-    "row_fold": ("row_fold", [_P, _I, _I, _P, _I, _L, _I, _I, _I, _P]),
+    "row_fold": ("row_fold", [_P, _I, _I, _P, _I, _I, _L, _I, _I, _P, _P]),
+    "row_fold_occupancy": ("row_fold", [_I, _L, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -601,19 +602,24 @@ def scope8(scope1: torch.Tensor, valid: torch.Tensor, n_inst: int
 
 def instance_count_plain(pred: torch.Tensor, scope1: torch.Tensor,
                          valid: torch.Tensor, n_inst: int,
-                         scope2: Optional[torch.Tensor] = None
+                         scope2: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """(N, R) bool rows -> (N, I) int32 (or (N, I, I) with ``scope2``)
     counts of rows that are true and valid, by scope index; rows whose
-    scope lies outside [0, I) count nowhere."""
+    scope lies outside [0, I) count nowhere. Written into ``out`` when
+    given."""
     ar = torch.arange(n_inst, device=pred.device, dtype=scope1.dtype)
     live = pred & valid
     oh1 = scope1[:, :, None] == ar[None, None, :]
     if scope2 is None:
-        return (oh1 & live[:, :, None]).sum(dim=1, dtype=torch.int32)
-    oh2 = scope2[:, :, None] == ar[None, None, :]
-    both = (oh1[:, :, :, None] & oh2[:, :, None, :]) & live[:, :, None, None]
-    return both.sum(dim=1, dtype=torch.int32)
+        got = (oh1 & live[:, :, None]).sum(dim=1, dtype=torch.int32)
+    else:
+        oh2 = scope2[:, :, None] == ar[None, None, :]
+        both = (oh1[:, :, :, None] & oh2[:, :, None, :]) \
+            & live[:, :, None, None]
+        got = both.sum(dim=1, dtype=torch.int32)
+    return got if out is None else out.copy_(got)
 
 
 def _wants(preds: Sequence[torch.Tensor], want) -> List[str]:
@@ -624,30 +630,70 @@ def _wants(preds: Sequence[torch.Tensor], want) -> List[str]:
     return wants
 
 
+def instance_count_outs(N: int, n_inst: int, wants: Sequence[str],
+                        device) -> List[torch.Tensor]:
+    """The (N, I) outputs of one ``instance_count_many`` launch: one
+    buffer per dtype (int32 counts, bool anys), a slice of it per
+    predicate."""
+    n_any = list(wants).count("any")
+    bufs = {"count": iter(torch.empty((len(wants) - n_any, N, n_inst),
+                                      dtype=torch.int32, device=device)),
+            "any": iter(torch.empty((n_any, N, n_inst), dtype=torch.bool,
+                                    device=device))}
+    return [next(bufs[w]) for w in wants]
+
+
+def _count_outs(outs: Optional[Sequence[torch.Tensor]], N: int, n_inst: int,
+                wants: Sequence[str], device) -> List[torch.Tensor]:
+    if outs is None:
+        return instance_count_outs(N, n_inst, wants, device)
+    if len(outs) != len(wants):
+        raise ValueError(f"instance_count: {len(outs)} outputs for "
+                         f"{len(wants)} predicates")
+    for o, w in zip(outs, wants):
+        dt = torch.bool if w == "any" else torch.int32
+        if o.dtype != dt or tuple(o.shape) != (N, n_inst) \
+                or not o.is_contiguous() or o.device != device:
+            raise ValueError(f"instance_count: an output {tuple(o.shape)} "
+                             f"{o.dtype} on {o.device}; want a contiguous "
+                             f"({N}, {n_inst}) {dt} on {device}")
+    return list(outs)
+
+
 def instance_count_many_plain(preds: Sequence[torch.Tensor],
                               scope: torch.Tensor, n_inst: int,
-                              want="count") -> List[torch.Tensor]:
+                              want="count",
+                              out: Optional[Sequence[torch.Tensor]] = None
+                              ) -> List[torch.Tensor]:
     """Each (N, R) (or broadcastable) bool predicate over the (N, R)
     uint8 ``scope8`` -> (N, I) int32 counts, or (N, I) bool "count > 0"
-    where ``want`` (one word, or one per predicate) is "any"."""
+    where ``want`` (one word, or one per predicate) is "any"; written
+    into ``out`` (one tensor a predicate) when given."""
     ar = torch.arange(n_inst, device=scope.device, dtype=torch.uint8)
     oh = scope[:, :, None] == ar[None, None, :]
-    out = []
-    for p, w in zip(preds, _wants(preds, want)):
+    wants = _wants(preds, want)
+    got = []
+    for p, w in zip(preds, wants):
         hit = oh & p.expand(scope.shape)[:, :, None]
-        out.append(hit.any(dim=1) if w == "any"
+        got.append(hit.any(dim=1) if w == "any"
                    else hit.sum(dim=1, dtype=torch.int32))
-    return out
+    if out is None:
+        return got
+    outs = _count_outs(out, scope.shape[0], n_inst, wants, scope.device)
+    return [o.copy_(g) for o, g in zip(outs, got)]
 
 
 def instance_count_many(preds: Sequence[torch.Tensor], scope: torch.Tensor,
-                        n_inst: int, want="count") -> List[torch.Tensor]:
+                        n_inst: int, want="count",
+                        out: Optional[Sequence[torch.Tensor]] = None
+                        ) -> List[torch.Tensor]:
     """K3, one level: up to 8 (N, R) bool predicates on one ``scope8``
-    in one launch -> one (N, I) int32 (or bool for "any") per predicate.
-    A predicate's rows must be contiguous; its row stride may be 0 (a
+    in one launch -> one (N, I) int32 (or bool for "any") per predicate,
+    written into ``out`` when given (``instance_count_outs``). A
+    predicate's rows must be contiguous; its row stride may be 0 (a
     (1, R) predicate expanded over the batch, read without a copy)."""
     if scope.device.type == "cpu":
-        return instance_count_many_plain(preds, scope, n_inst, want)
+        return instance_count_many_plain(preds, scope, n_inst, want, out)
     dev = scope.device
     wants = _wants(preds, want)
     _check(scope, "scope8", torch.uint8, dev, 2)
@@ -666,14 +712,8 @@ def instance_count_many(preds: Sequence[torch.Tensor], scope: torch.Tensor,
         if R > 1 and p.stride(1) != 1:
             raise ValueError(f"predicate strides {p.stride()}: rows must be "
                              f"contiguous")
-    # one output buffer per dtype, a (N, I) slice of it per predicate
     k = len(preds)
-    n_any = wants.count("any")
-    bufs = {"count": iter(torch.empty((k - n_any, N, n_inst),
-                                      dtype=torch.int32, device=dev)),
-            "any": iter(torch.empty((n_any, N, n_inst), dtype=torch.bool,
-                                    device=dev))}
-    outs = [next(bufs[w]) for w in wants]
+    outs = _count_outs(out, N, n_inst, wants, dev)
     if N:
         args = (ctypes.c_longlong * (3 * k))(
             *[p.data_ptr() for p in preds], *[p.stride(0) for p in preds],
@@ -697,10 +737,13 @@ def instance_count(pred: torch.Tensor, scope1: torch.Tensor,
 
 def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
                     scope2: torch.Tensor, valid: torch.Tensor,
-                    n_inst: int) -> torch.Tensor:
-    """K3, two levels: (N, R) -> (N, I, I) int32."""
+                    n_inst: int, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K3, two levels: (N, R) -> (N, I, I) int32 (into ``out`` when
+    given)."""
     if pred.device.type == "cpu":
-        return instance_count_plain(pred, scope1, valid, n_inst, scope2)
+        return instance_count_plain(pred, scope1, valid, n_inst, scope2,
+                                    out)
     dev = pred.device
     _check(pred, "pred", torch.bool, dev, 2)
     _check(valid, "valid", torch.bool, dev, 2)
@@ -712,7 +755,12 @@ def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
     if not 0 < n_inst <= 64:
         raise ValueError(f"instance_count: I={n_inst} outside (0, 64]")
     N, R = pred.shape
-    out = torch.empty((N, n_inst, n_inst), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((N, n_inst, n_inst), dtype=torch.int32, device=dev)
+    _check(out, "out", torch.int32, dev, 3)
+    if tuple(out.shape) != (N, n_inst, n_inst):
+        raise ValueError(f"instance_count2: out {tuple(out.shape)}, want "
+                         f"({N}, {n_inst}, {n_inst})")
     if N:
         _call("instance_count2", _ptr(pred), _ptr(scope1), _ptr(scope2),
               _ptr(valid), N, R, n_inst, _ptr(out))
@@ -1024,20 +1072,27 @@ def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 # _eval_wildcard_anchor. Bound by the bytes of the two masks.
 
 
-def first_true_take_plain(accept: torch.Tensor, pred: torch.Tensor):
+def first_true_take_plain(accept: torch.Tensor, pred: torch.Tensor,
+                          out: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None):
     """(n, R) bool, (n, R) bool -> (has (n,), val_ok (n,)): any true
-    row, and ``pred`` at the first true row (row 0 when none)."""
+    row, and ``pred`` at the first true row (row 0 when none); written
+    into ``out`` when given."""
     has = accept.any(dim=-1)
     # argmax returns the first maximum (bool cast to uint8)
     idx = accept.to(torch.uint8).argmax(dim=-1)
     val_ok = torch.gather(pred, -1, idx[:, None])[:, 0]
-    return has, val_ok
+    if out is None:
+        return has, val_ok
+    return out[0].copy_(has), out[1].copy_(val_ok)
 
 
-def first_true_take(accept: torch.Tensor, pred: torch.Tensor):
-    """K8: one warp per resource."""
+def first_true_take(accept: torch.Tensor, pred: torch.Tensor,
+                    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """K8: one warp per resource (into ``out``, two (n,) bool tensors,
+    when given)."""
     if accept.device.type == "cpu":
-        return first_true_take_plain(accept, pred)
+        return first_true_take_plain(accept, pred, out)
     dev = accept.device
     _check(accept, "accept", torch.bool, dev, 2)
     _check(pred, "pred", torch.bool, dev, 2)
@@ -1045,8 +1100,14 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor):
         raise ValueError(f"accept {tuple(accept.shape)} vs pred "
                          f"{tuple(pred.shape)}")
     N, R = accept.shape
-    has = torch.empty((N,), dtype=torch.bool, device=dev)
-    val_ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    has, val_ok = out if out is not None else (
+        torch.empty((N,), dtype=torch.bool, device=dev),
+        torch.empty((N,), dtype=torch.bool, device=dev))
+    for t in (has, val_ok):
+        _check(t, "out", torch.bool, dev, 1)
+        if t.shape[0] != N:
+            raise ValueError(f"first_true_take: out {tuple(t.shape)}, want "
+                             f"({N},)")
     if N:
         _call("first_true_take", _ptr(accept), _ptr(pred), N, R, _ptr(has),
               _ptr(val_ok))
@@ -1872,8 +1933,13 @@ def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
 
 ROW_FOLD_MAX_IO = 128         # kMaxIO in csrc/row_fold.cu
 ROW_FOLD_MAX_SMEM = 232448    # kMaxSmem: 227 KB of shared memory a block
-ROW_FOLD_MAX_WARPS = 4        # kMaxWarps: warps a block
+ROW_FOLD_MAX_WARPS = 8        # kMaxWarps: warps a block
 ROW_FOLD_BATCH = 4            # kBatch: uint8 lanes a batch reads together
+ROW_FOLD_STAGES = 2           # kStages: stages of a block's ring
+# how an input's slab is staged (csrc/row_fold.cu, Kind): one bulk copy
+# of a tile's adjacent rows, cp.async of each resource's rows (any other
+# resource stride), one bulk copy of a broadcast row a block
+RF_SLAB, RF_ROWS, RF_BCAST = range(3)
 # instructions (csrc/row_fold.cu lists them): a lane group, a hash
 # group, the logic and the outputs, and a batch of uint8 lane groups
 (RF_LANE, RF_HASH, RF_CONST, RF_NOT, RF_AND, RF_OR, RF_WHERE, RF_ANY,
@@ -1894,7 +1960,12 @@ class RowCode:
     ``in_types`` the element type of each input descriptor (RF_U8,
     RF_I32, RF_F32) and ``out_ops`` the output each later descriptor
     receives (RF_ANY: bool (N,), RF_COUNT: int32 (N,), RF_STORE: bool
-    (N, R)). Built once per program and flush."""
+    (N, R)); ``units``, the fill units of its load instructions (K12
+    stages a tile's lanes one unit at a time: a BATCH's lanes, a LANE's,
+    each lane of a HASH), each the instruction's position ORed with the
+    HASH lane's part (1 hi, 2 lo) shifted by 24, and ``unit_lanes``, the
+    descriptors each stages in the order their slabs lie in a stage.
+    Built once per program and flush."""
 
     def __init__(self, rows: np.ndarray, n_slots: int,
                  in_types: Sequence[int], out_ops: Sequence[int]):
@@ -1910,33 +1981,47 @@ class RowCode:
 
     def _check_lanes(self) -> None:
         """A LANE group reads a 4-byte lane (int32 or float32) and a BATCH
-        reads uint8 lanes: the kernel has no other lane path."""
+        reads uint8 lanes: the kernel has no other lane path. Lists the
+        fill units (``units``, ``unit_lanes``)."""
         pc, rows = 0, self.instrs
+        self.units: List[int] = []
+        self.unit_lanes: List[Tuple[int, ...]] = []
         while pc < len(rows):
             x, a, b, c = rows[pc]
             op = x & 0xFF
+            at = pc
             pc += 1
             if op == RF_LANE:
                 if b not in (RF_I32, RF_F32) or self.in_types[a] != b:
                     raise ValueError(f"row_fold: a LANE group of type {b} "
                                      f"over input {a}; LANE reads int32 or "
                                      "float32 lanes, BATCH uint8 ones")
+                self.units.append(at)
+                self.unit_lanes.append((a,))
                 pc += c
             elif op == RF_HASH:
+                self.units += [at | 1 << 24, at | 2 << 24]
+                self.unit_lanes += [(a,), (b,)]
                 pc += c
             elif op == RF_BATCH:
-                for d, _, _, _ in rows[pc:pc + (x >> 8)]:
+                step = tuple(d for d, _, _, _ in rows[pc:pc + (x >> 8)])
+                for d in step:
                     if self.in_types[d] != RF_U8:
                         raise ValueError(f"row_fold: a BATCH reads input {d}"
                                          " of a 4-byte type")
+                self.units.append(at)
+                self.unit_lanes.append(step)
                 pc += (x >> 8) + a
 
     def on(self, device) -> torch.Tensor:
-        """The rows on ``device`` (a CUDA copy made once, from pinned
-        memory kept with the code, without waiting)."""
+        """The rows, then the load table (``units``, four an int4 row),
+        on ``device`` (a CUDA copy made once, from pinned memory kept
+        with the code, without waiting)."""
         key = str(device)
         if key not in self._on:
-            t = torch.from_numpy(self.rows)
+            units = np.zeros((-(-len(self.units) // 4), 4), np.int32)
+            units.reshape(-1)[:len(self.units)] = self.units
+            t = torch.from_numpy(np.concatenate([self.rows, units]))
             if torch.device(device).type != "cpu":
                 pinned = t.pin_memory()
                 self._pinned.append(pinned)
@@ -2077,18 +2162,21 @@ def _row_stride(t: torch.Tensor) -> int:
 
 
 def _row_vec(t: torch.Tensor) -> bool:
-    """Whether a lane may read (or write) its 32 adjacent rows of ``t`` as
+    """Whether a STORE output's 32 adjacent rows may be written as
     16-byte vectors: the resource's row 0 aligned to 16 bytes."""
     return t.data_ptr() % 16 == 0 \
         and (_row_stride(t) * t.element_size()) % 16 == 0
 
 
 def row_fold(code: RowCode, ios: Sequence[torch.Tensor], N: int,
-             R: int) -> None:
+             R: int, warps: Optional[int] = None,
+             grid: Optional[int] = None) -> None:
     """K12: one launch runs a compiled flush over all N resources
     (``row_lanes(R)`` lanes a resource, 32 rows a lane in each of
-    ``row_words(R)`` words), reading its input descriptors by pointer
-    and resource stride and writing its outputs in place, as
+    ``row_words(R)`` words), a persistent grid of blocks that stage each
+    tile's lanes in shared memory one fill unit at a time
+    (``row_fold_plan``; ``warps`` and ``grid`` override its choice), reading its input descriptors by pointer and resource
+    stride and writing its outputs in place, as
     ``row_fold_plain``. On the CPU the plain twin runs; on a CUDA tensor
     the kernel launches or this raises."""
     dev = ios[0].device
@@ -2101,19 +2189,131 @@ def row_fold(code: RowCode, ios: Sequence[torch.Tensor], N: int,
     if len(ios) > ROW_FOLD_MAX_IO:
         raise ValueError(f"row_fold: {len(ios)} descriptors, at most "
                          f"{ROW_FOLD_MAX_IO}")
-    G, W = row_lanes(R), row_words(R)
-    per_warp = 4 * 32 * W * code.n_slots
-    warps = next((w for w in (ROW_FOLD_MAX_WARPS, 2, 1)
-                  if w * per_warp <= ROW_FOLD_MAX_SMEM), 0)
-    if not warps:
-        raise ValueError(f"row_fold: {per_warp} bytes of values a warp, "
-                         "more shared memory than a block has")
     if N == 0 or not len(code.rows):
         return
-    k = len(ios)
-    io = (ctypes.c_longlong * (3 * k))(
+    plan = row_fold_plan(code, ios, N, R, warps, grid)
+    k, pad = len(ios), [0] * (len(ios) - code.n_in)
+    io = (ctypes.c_longlong * (6 * k))(
         *[t.data_ptr() for t in ios], *[_row_stride(t) for t in ios],
-        *[int(_row_vec(t)) for t in ios])
+        *[t.element_size() for t in ios], *plan["kinds"], *pad,
+        *plan["boffs"], *pad, *[int(_row_vec(t)) for t in ios])
+    args = (ctypes.c_longlong * 11)(
+        plan["warps"], plan["T"], plan["grid"], *plan["layout"],
+        plan["smem"], len(code.units), int(plan["rows"] > 0))
     _call("row_fold", _ptr(code.on(dev)), len(code.rows), code.n_slots,
-          ctypes.cast(io, _P), k, N, R, G.bit_length() - 1, warps)
+          ctypes.cast(io, _P), k, code.n_in, N, R,
+          row_lanes(R).bit_length() - 1, ctypes.cast(args, _P))
     LAUNCHES["row_fold"] += 1
+
+
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _a128(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _row_layout(code: RowCode, ins: Sequence[torch.Tensor], R: int,
+                T: int, warps: int, staged: bool):
+    """A block's shared memory at T resources a tile (csrc/row_fold.cu's
+    Layout): the mbarriers, the code and its load table (when
+    ``staged``), the broadcast rows, a ring of two stages each holding
+    the largest fill unit's slabs, the warps' value slots.
+    Returns (kinds, broadcast offsets, [code, bcast, stage, stage bytes,
+    vals], bytes in all)."""
+    kinds, boffs, slab = [], [], []
+    bcast = 0
+    for t in ins:
+        es, sn = t.element_size(), _row_stride(t)
+        kind = RF_BCAST if sn == 0 else RF_SLAB if sn == R else RF_ROWS
+        kinds.append(kind)
+        boffs.append(bcast)
+        if kind == RF_BCAST:
+            bcast += _a16(R * es) + 16
+        slab.append(0 if kind == RF_BCAST else
+                    T * (_a16(R * es) + 16) if kind == RF_ROWS else
+                    _a16(T * R * es) + 16)
+    stage = max((sum(slab[d] for d in unit) for unit in code.unit_lanes),
+                default=0)
+    code_bytes = 16 * (len(code.rows) + -(-len(code.units) // 4))
+    bars = 8 * ROW_FOLD_STAGES
+    at_code = bars if staged else -1
+    at_bcast = _a16(bars + (code_bytes if staged else 0))
+    at_stage = _a128(at_bcast + bcast)
+    stage_bytes = _a128(stage)
+    at_vals = at_stage + ROW_FOLD_STAGES * stage_bytes
+    smem = at_vals + warps * 4 * 32 * row_words(R) * code.n_slots
+    return kinds, boffs, [at_code, at_bcast, at_stage, stage_bytes,
+                          at_vals], smem
+
+
+@functools.lru_cache(maxsize=4096)
+def _row_resident(threads: int, smem: int) -> int:
+    """The blocks of ``threads`` threads and ``smem`` bytes an SM of the
+    current device holds (the card's own count)."""
+    out = ctypes.c_int(0)
+    _call("row_fold_occupancy", threads, smem, ctypes.byref(out))
+    return out.value
+
+
+def row_fold_plan(code: RowCode, ios: Sequence[torch.Tensor], N: int,
+                  R: int, warps: Optional[int] = None,
+                  grid: Optional[int] = None,
+                  sms: Optional[int] = None) -> Dict[str, Any]:
+    """How ``row_fold`` launches ``code`` over ``ios`` at (N, R): warps a
+    block (T = warps x 32 / G resources a tile), the shared-memory
+    layout (``_row_layout``; the code staged when it fits), the grid
+    (persistent: min(tiles, SMs x the blocks an SM holds, by the card's
+    count, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the
+    inputs' staging kinds. Without ``warps``, the most warps (up to 8)
+    that fit in shared memory and still give every SM a tile (else one
+    warp): on an H100, in ``chip_smoke.py``'s sweep over the dense
+    program's slowest launches, 8 warps read fastest (a larger tile
+    shares its copies, decode and barriers among more resources).
+    ``grid`` overrides the grid (the GPU tests force the persistent loop
+    with it). Off a CUDA device ``sms`` is given, and the grid, the
+    blocks an SM holds and the tiles a block are None: such a plan is
+    not launched."""
+    per = 32 // row_lanes(R)
+    ins = list(ios[:code.n_in])
+    dev = ios[0].device if ios else torch.device("cpu")
+    if sms is None:
+        if dev.type != "cuda":
+            raise ValueError("row_fold_plan: give the SMs off a CUDA device")
+        sms = _sm_count(dev.index if dev.index is not None else
+                        torch.cuda.current_device())
+    fits = []
+    for w in ([warps] if warps else (1, 2, 4, 8)):
+        if not 1 <= w <= ROW_FOLD_MAX_WARPS:
+            raise ValueError(f"row_fold: {w} warps a block")
+        for staged in (True, False):
+            lay = _row_layout(code, ins, R, w * per, w, staged)
+            if lay[-1] <= ROW_FOLD_MAX_SMEM:
+                fits.append((w, staged, lay))
+                break
+    if not fits:
+        raise ValueError(f"row_fold: the fill units of {len(ins)} lanes at "
+                         f"R = {R} and {code.n_slots} value slots do not "
+                         "fit in shared memory")
+    w, staged, lay = next((f for f in reversed(fits)
+                           if -(-N // (f[0] * per)) >= sms), fits[0])
+    kinds, boffs, layout, smem = lay
+    tiles = max(1, -(-N // (w * per)))
+    resident = blocks = rounds = None
+    if dev.type == "cuda":
+        resident = _row_resident(32 * w, smem)
+        blocks = max(1, min(grid or sms * resident, tiles))
+        rounds = -(-tiles // blocks)
+    return {"warps": w, "T": w * per, "tiles": tiles, "grid": blocks,
+            "rounds": rounds,
+            "units": len(code.units), "stage_bytes": layout[3],
+            "smem": smem, "resident": resident, "n_slots": code.n_slots,
+            "code_staged": staged, "slab": kinds.count(RF_SLAB),
+            "rows": kinds.count(RF_ROWS), "bcast": kinds.count(RF_BCAST),
+            "kinds": kinds, "boffs": boffs, "layout": layout}

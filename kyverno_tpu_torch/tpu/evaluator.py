@@ -42,8 +42,9 @@ on the batch's device. These pieces are kernels (``kernels.py``):
   hash equalities), ``type_is`` / ``typed``, the collect masks and the
   reductions over rows are handles on the rule's row tape
   (``Ctx.rows``), read from the lanes by ``Ctx.lane`` compares; the tape
-  runs as a K12 launch before a K3 or K8 launch that needs a plane it
-  stores, and before the rule's K11 launch, which reads its reductions.
+  runs as one K12 launch at the rule's end, then the K3 and K8 launches
+  that read planes it stores (recorded mid-rule, ``Ctx.after``), then
+  the rule's K11 launch, which reads their outputs and its reductions.
 
 The program has no data-dependent Python branch (no ``.item()``,
 ``bool(tensor)`` or ``.any()`` in control flow): one eager run reads
@@ -276,12 +277,14 @@ def densify(batch: Dict[str, torch.Tensor], record: bool = False,
 # a Ctx's counters, which a program adds up over its runs: one-level
 # (inst) and two-level (inst2) count requests, memo hits and kernel
 # calls issued, NFA-route globs outside the program's packs (each ran as
-# a pack of one), and class-tape and row-tape values a torch operation
+# a pack of one), class-tape and row-tape values a torch operation
 # outside the tapes made materialize (``fold.Tape.force``,
-# ``rowfold.RowTape.force``)
+# ``rowfold.RowTape.force``), and the K12 launches past one a row-tape
+# flush (``row_splits``: a flush whose descriptors overflow K12's
+# parameter block)
 STAT_KEYS = ("inst_calls", "inst_hits", "inst_issued", "inst2_calls",
              "inst2_hits", "inst2_issued", "nfa_unpacked", "fold_forced",
-             "rows_forced")
+             "rows_forced", "row_splits")
 
 
 def _usable_bank(dfa: Optional[DfaBank]) -> Optional[DfaBank]:
@@ -387,8 +390,10 @@ class Ctx:
 
     def lift(self, t: torch.Tensor):
         """A class-shaped tensor as an input of the rule's tape (itself
-        when no rule is being recorded)."""
-        return t if self.fold is None else self.fold.input(t)
+        when no rule is being recorded, or when it is a tape value)."""
+        if self.fold is None or isinstance(t, fold.FV):
+            return t
+        return self.fold.input(t)
 
     def row_any(self, plane):
         """Any over a (N, R) row plane's rows: on the row tape, its
@@ -423,12 +428,24 @@ class Ctx:
                           device=self.dev)
 
     def planes(self, xs: Sequence) -> List[torch.Tensor]:
-        """Row planes as tensors for another kernel (K3, K8): the row
-        tape stores them in one flush."""
+        """Row planes as tensors for another kernel (K3, K8): the rule's
+        flush stores them, and the kernel's launch is recorded with
+        ``after`` to run once they are written."""
         if self.rows is not None and any(isinstance(x, rowfold.RV)
                                          for x in xs):
-            return self.rows.store(xs)
+            return self.rows.stored(xs)
         return list(xs)
+
+    def after(self, launch) -> None:
+        """Run a launch that reads ``planes``' tensors: while a rule is
+        recorded, at its end (``rowfold.RowTape.run``: the rule's K12
+        flush, then K3 and K8 in the order recorded, then K11); else
+        now. Its outputs are allocated by the caller, so the class tape
+        takes them by pointer before they are written."""
+        if self.rows is not None:
+            self.rows.defer(launch)
+        else:
+            launch()
 
     # -- row masks
 
@@ -527,7 +544,9 @@ class Ctx:
         ((N, I) bool) of row predicates, at scope ``level`` 1 (by scope1)
         or 2 ((N, I, I), by scope1 and scope2). A predicate the memo
         knows is counted once a batch (an "any" reuses its count); the
-        rest go to K3 together, up to 8 a launch at level 1."""
+        rest go to K3 together, up to 8 a launch at level 1. While a rule
+        is recorded they are values of its class tape: K3 runs at the
+        rule's end, and a torch operation on one forces the tape."""
         tag = "inst" if level == 1 else "inst2"
         out: List[Optional[torch.Tensor]] = [None] * len(items)
         # memo key (the item's index when its predicate has none) ->
@@ -542,7 +561,12 @@ class Ctx:
                 if got is None and want == "any":
                     got = self._counts.get((level, pk, "count"))
                     if got is not None:
-                        got = self._counts[key] = got > 0
+                        # "count > 0": on the class tape while a rule is
+                        # recorded (its count may not be written yet)
+                        if self.fold is not None:
+                            got = self.fold.input(got) != 0
+                        else:
+                            got = self._counts[key] = got > 0
                 if got is not None:
                     self.stats[tag + "_hits"] += 1
                     out[i] = got
@@ -560,10 +584,7 @@ class Ctx:
             ps, ws = preds[c:c + step], wants[c:c + step]
             self.stats[tag + "_issued"] += 1
             if level == 1:
-                fn = kernels.instance_count_many_plain if self.plain \
-                    else kernels.instance_count_many
-                got = fn([self._row_operand(p) for p in ps],
-                         self.scope8(), self.I, ws)
+                got = self._count1(ps, ws)
             else:
                 got = [self._count2(p, w) for p, w in zip(ps, ws)]
             for k, g in zip(chunk, got):
@@ -571,7 +592,7 @@ class Ctx:
                     self._counts[k] = g
                 for i in todo[k]:
                     out[i] = g
-        return out
+        return [self.lift(t) for t in out]
 
     def _pred_key(self, pred) -> Optional[Tuple]:
         """The count memo's key of a row predicate, or None."""
@@ -579,14 +600,38 @@ class Ctx:
             return pred.tape.keys.get(pred.vid)
         return self._pred_keys.get(id(pred))
 
+    def _count1(self, preds: Sequence[torch.Tensor], wants: Sequence[str]
+                ) -> List[torch.Tensor]:
+        """One K3 one-level launch (``after``) over up to 8 predicates."""
+        fn = kernels.instance_count_many_plain if self.plain \
+            else kernels.instance_count_many
+        ops = [self._row_operand(p) for p in preds]
+        scope = self.scope8()
+        outs = kernels.instance_count_outs(self.N, self.I, wants, self.dev)
+        self.after(lambda: fn(ops, scope, self.I, list(wants), out=outs))
+        return outs
+
     def _count2(self, rowpred: torch.Tensor, want: str) -> torch.Tensor:
-        pred = rowpred.expand(self.N, self.R).contiguous()
-        s1, s2 = self.b["scope1"], self.b["scope2"]
-        if self.plain:
-            c = kernels.instance_count_plain(pred, s1, self._valid, self.I, s2)
-        else:
-            c = kernels.instance_count2(pred, s1, s2, self._valid, self.I)
-        return c > 0 if want == "any" else c
+        """One K3 two-level launch (``after``), and its ``> 0`` for an
+        "any"."""
+        pred = self._row_operand(rowpred).contiguous()
+        s1, s2, valid = self.b["scope1"], self.b["scope2"], self._valid
+        c = torch.empty((self.N, self.I, self.I), dtype=torch.int32,
+                        device=self.dev)
+        got = c if want != "any" else torch.empty(c.shape, dtype=torch.bool,
+                                                  device=self.dev)
+
+        def launch():
+            if self.plain:
+                kernels.instance_count_plain(pred, s1, valid, self.I, s2,
+                                             out=c)
+            else:
+                kernels.instance_count2(pred, s1, s2, valid, self.I, out=c)
+            if want == "any":
+                torch.gt(c, 0, out=got)
+
+        self.after(launch)
+        return got
 
     # -- pattern matching over byte lanes. Every pattern of a lane
     # family is stepped through the compiled DFA bank (tpu/dfa.py) in
@@ -892,10 +937,9 @@ class _Counted:
     def many(self, items: Sequence[Tuple[torch.Tensor, str]]
              ) -> List[torch.Tensor]:
         """Counts ("count") or their ``> 0`` ("any") of several row
-        predicates, issued together (Ctx.inst_counts); inputs of the
+        predicates, issued together (Ctx.inst_counts); values of the
         rule's tape while one is recorded."""
-        return [self.ctx.lift(t)
-                for t in self.ctx.inst_counts(self.level, items)]
+        return self.ctx.inst_counts(self.level, items)
 
 
 class InstScope(_Counted):
@@ -1076,13 +1120,16 @@ def _eval_wildcard_anchor(ctx: Ctx, wc, kind: str, literal_cls: torch.Tensor) ->
     pred = leaf_row_pred(ctx, wc.leaf)
     # any matching row, and the leaf at the FIRST matching row (row 0
     # when none matches, as jnp.argmax gives) — kernel K8, on the planes
-    # the row tape stores
+    # the row tape stores, at the rule's end (Ctx.after)
     accept, pred = ctx.planes([accept, pred])
     fn = kernels.first_true_take_plain if ctx.plain \
         else kernels.first_true_take
-    has, val_ok = fn(accept.contiguous(),
-                     pred.expand(ctx.N, ctx.R).contiguous())
-    has, val_ok = ctx.lift(has), ctx.lift(val_ok)
+    accept = accept.contiguous()
+    pred = pred.expand(ctx.N, ctx.R).contiguous()
+    outs = tuple(torch.empty((ctx.N,), dtype=torch.bool, device=ctx.dev)
+                 for _ in range(2))
+    ctx.after(lambda: fn(accept, pred, out=outs))
+    has, val_ok = (ctx.lift(t) for t in outs)
     if kind == "condition":
         m_cls = fold.where(val_ok, PASS, SKIP)
     elif kind == "negation":  # expanded key exists -> negation fails
@@ -2419,7 +2466,7 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
                                  plain, ctx.stats)
             ctx.rows = rowfold.RowTape(ctx.N, ctx.R, ctx.dev, row_cache,
                                        plain, ctx.fold, ctx.stats)
-            ctx.fold.prerun = ctx.rows.flush
+            ctx.fold.prerun = ctx.rows.run
             ctx.fold.run([eval_rule(ctx, p)], [table[r]])
         ctx.fold = ctx.rows = None
         for k, v in ctx.stats.items():

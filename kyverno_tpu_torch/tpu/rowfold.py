@@ -26,18 +26,20 @@ what another kernel or the class tape reads.
 - **Outputs** are reductions over rows, ``any`` (bool (N,)) and
   ``count`` (int32 (N,)), whose tensors are allocated when they are
   recorded and join the rule's class tape as inputs, and stored planes
-  (``store``): K3's operands and K8's ``accept`` / ``pred``.
+  (``stored``): K3's operands and K8's ``accept`` / ``pred``, whose
+  launches wait for the flush that writes them (``defer``).
 - **Escapes**: a handle that reaches another torch function is
   materialized through its cone and counted in the program's
   ``stats["rows_forced"]``.
 
 Recording folds constants and merges identical instructions (XLA's
-CSE). The tape runs when a stored plane is needed (before a K3 or K8
-launch, or a forced value) and before the rule's class tape runs
-(``fold.Tape.prerun``): each such flush is one K12 launch (more when
-its descriptors overflow K12's parameter block, ``kernels.
-ROW_FOLD_MAX_IO``; each segment then recomputes its cone from the
-lanes). So a rule's launch order is K12 -> K3 / K8 -> K12 ... -> K11.
+CSE). The tape runs once, at the rule's end (``run``, the class tape's
+``fold.Tape.prerun``): one flush of everything recorded (one K12
+launch; more when its descriptors overflow K12's parameter block,
+``kernels.ROW_FOLD_MAX_IO``, each segment then recomputing its cone
+from the lanes), then the K3 and K8 launches recorded with ``defer``,
+in order. So a rule's launch order is K12 -> K3 / K8 -> K11. A forced
+value flushes at once.
 ``compile_rows`` turns a flush into ``kernels.RowCode``: each lane read
 once (every compare on it grouped under one load: the uint8 lanes
 first, in batches of ``kernels.ROW_FOLD_BATCH`` read together, the
@@ -50,7 +52,7 @@ graph capture only reads it.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -230,6 +232,9 @@ class RowTape:
         # outputs recorded and not yet run, and those already run
         self.pending: List[Tuple[int, int, torch.Tensor]] = []
         self._outs: Dict[Tuple[int, int], Any] = {}
+        # launches of other kernels (K3, K8) that read stored planes,
+        # recorded to run after the rule's flush (``run``)
+        self.after: List[Callable[[], Any]] = []
 
     # -- recording
     def _emit(self, ins: Tuple) -> RV:
@@ -364,9 +369,17 @@ class RowTape:
         return got
 
     def store(self, xs: Sequence) -> List[torch.Tensor]:
-        """Materialize planes as contiguous (N, R) bool tensors (K3's
-        and K8's operands): runs the tape now, with whatever it holds
-        pending. A tensor passes through."""
+        """Materialize planes as contiguous (N, R) bool tensors: runs
+        the tape now, with whatever it holds pending. A tensor passes
+        through."""
+        out = self.stored(xs)
+        self.flush()
+        return out
+
+    def stored(self, xs: Sequence) -> List[torch.Tensor]:
+        """The contiguous (N, R) bool tensors the next flush writes
+        planes into (K3's and K8's operands, read by a launch ``defer``
+        records). A tensor passes through."""
         out: List[Optional[torch.Tensor]] = []
         for x in xs:
             if isinstance(x, torch.Tensor):
@@ -383,7 +396,6 @@ class RowTape:
                     self.pending.append((STORE, v.vid, got))
                 self._outs[(STORE, v.vid)] = got
             out.append(got)
-        self.flush()
         return out
 
     def force(self, v: RV) -> torch.Tensor:
@@ -393,6 +405,20 @@ class RowTape:
         return self.store([v])[0]
 
     # -- running
+    def defer(self, launch: Callable[[], Any]) -> None:
+        """Record a launch that reads planes ``stored`` hands out: it
+        runs at the rule's end, after the flush that writes them."""
+        self.after.append(launch)
+
+    def run(self) -> None:
+        """The rule's end (``fold.Tape.prerun``, before its class tape
+        reads its inputs): one flush of everything recorded, then the
+        deferred launches in the order they were recorded."""
+        self.flush()
+        after, self.after = self.after, []
+        for launch in after:
+            launch()
+
     def flush(self) -> None:
         """Run every output recorded since the last flush (one K12
         launch a segment)."""
@@ -402,6 +428,8 @@ class RowTape:
         dests = [t for _, _, t in self.pending]
         self.pending = []
         segs = self.cache.get(self.code, self.etypes, outs)
+        self.stats["row_splits"] = self.stats.get("row_splits", 0) \
+            + len(segs) - 1
         run_segments(segs, self.inputs, dests, self.plain, self.N, self.R)
 
 

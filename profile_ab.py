@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""One tree's K12 kernel on tapes of one lane kind, and one mutate-leg
+tile's replay: the parts that compare two commits on one card.
+
+    python3 profile_ab.py [--root DIR] [--samples 200] [--out FILE]
+
+Imports ``kyverno_tpu_torch`` from ``--root`` (default: this script's
+checkout) and ``chip_smoke.py``'s helpers from this script's own
+checkout. Run it once a tree, in turns (parent, change, change,
+parent), in one call on one card. It reports:
+
+- K12 ``row_fold`` on a seeded row tape over 12 lanes of one kind at
+  the dense shape (16,384, 256): uint8 lanes (``== k``), int32 lanes
+  (``== k``), float32 lanes (scaled, ``> k``) and int32 hash lane pairs
+  (a set of one pair); every compare's ``any``, and the OR of all of
+  them counted and stored. Each launch equals its plain twin, exactly;
+  time: CUDA events around one replay of 20 launches in a CUDA graph
+  (``chip_smoke.graph_ms``); bytes: each input read once, each output
+  written once.
+- ``chip_smoke.py``'s phase-8 tile (bench.py's mutate leg, 1,024 Pods):
+  its program's replay, ``--samples`` calls each timed on the host clock
+  to a sync (median, 10th and 90th percentiles) beside the host time to
+  issue one call, and one replay's device events and device time
+  (``torch.profiler``, ``chip_smoke.device_profile``).
+
+It prints the card's name and power limit first and one JSON object
+last. It imports nothing of JAX and nothing of ``kyverno_tpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+KINDS = ("u8", "i32", "f32", "hash")
+N, R, LANES = 16384, 256, 12
+
+
+def tape(torch, fold, rowfold, kind, N, R, n_lanes, gen, dev):
+    """A row tape over ``n_lanes`` seeded lanes of one kind and the
+    flush's outputs ((op, value id) pairs)."""
+    ft = fold.Tape(N, 1, 1, dev, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, dev, rowfold.RowCache(), False, ft)
+
+    def lane(dtype, hi):
+        x = torch.randint(0, hi, (N, R), generator=gen, dtype=torch.int32)
+        return x.to(dtype).to(dev)
+
+    vals = []
+    if kind == "hash":
+        for i in range(n_lanes // 2):
+            vals.append(rt.heq(lane(torch.int32, 4), lane(torch.int32, 4),
+                               [(i % 4, (i + 1) % 4)]))
+    else:
+        for i in range(n_lanes):
+            if kind == "f32":
+                x = torch.rand((N, R), generator=gen).mul_(100.0).to(dev)
+                vals.append(rt.lane(x) * 0.5 > float(4 * i))
+            else:
+                dtype = torch.uint8 if kind == "u8" else torch.int32
+                vals.append(rt.lane(lane(dtype, 8)) == i % 8)
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = acc | v
+    outs = [(rowfold.ANY, v.vid) for v in vals]
+    outs += [(rowfold.COUNT, acc.vid), (rowfold.STORE, acc.vid)]
+    return rt, outs
+
+
+def k12_case(torch, kernels, fold, rowfold, cs, kind, N, R, n_lanes, seed,
+             dev):
+    gen = torch.Generator().manual_seed(seed)
+    rt, outs = tape(torch, fold, rowfold, kind, N, R, n_lanes, gen, dev)
+    segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
+
+    def dests():
+        return [torch.empty((N, R) if op == rowfold.STORE else (N,),
+                            dtype=torch.int32 if op == rowfold.COUNT
+                            else torch.bool, device=dev) for op, _ in outs]
+
+    got, want = dests(), dests()
+    launches = []
+    for seg in segs:
+        ios = [rt.inputs[i] for i in seg.ins]
+        kernels.row_fold(seg.code, ios + [got[k] for k in seg.outs], N, R)
+        kernels.row_fold_plain(seg.code, ios + [want[k] for k in seg.outs],
+                               N, R)
+        launches.append((seg.code, ios + [got[k] for k in seg.outs]))
+    torch.cuda.synchronize()
+    err = max(cs.exact(torch, "row_fold", g, w) for g, w in zip(got, want))
+
+    def k12():
+        for code, ios in launches:
+            kernels.row_fold(code, ios, N, R)
+
+    ms = cs.graph_ms(torch, k12)
+    nbytes = sum(t.numel() * t.element_size() for t in rt.inputs) \
+        + sum(t.numel() * t.element_size() for t in got)
+    return {"lanes": len(rt.inputs), "launches": len(segs),
+            "instructions": sum(len(s.code.rows) for s in segs), "ms": ms,
+            "bytes": nbytes, "tb_s": nbytes / (ms * 1e-3) / 1e12,
+            "max_abs_err": err}
+
+
+def mutate_tile(torch, cs, samples):
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng, _, tiles, nsmap = cs.mutate_leg_setup(1024, 1024)
+    eng.triage_mutate(tiles[0], nsmap)  # first-use costs
+    padded, _, _ = eng.pad(tiles[0])
+    lanes = lanes_to_device(eng.encode(padded, nsmap)[0], eng.device)
+    g = eng.cps.mutate_device_fn(device=eng.device)
+    for _ in range(3):  # eager, capture, replay
+        g(lanes)
+    torch.cuda.synchronize()
+    issue, total = [], []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g(lanes)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        issue.append((t1 - t0) * 1e3)
+        total.append((t2 - t0) * 1e3)
+
+    def q(xs, p):
+        return sorted(xs)[min(len(xs) - 1, int(p * len(xs)))]
+
+    prof = cs.device_profile(torch, lambda: g(lanes))
+    return {"samples": samples, "replay_ms_median": statistics.median(total),
+            "replay_ms_p10": q(total, 0.1), "replay_ms_p90": q(total, 0.9),
+            "issue_ms_median": statistics.median(issue),
+            "device_events": prof["device_events"],
+            "device_ms": prof["device_ms"], "captures": g.captures,
+            "replays": g.replays}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--samples", type=int, default=200)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_ab: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    # this checkout's helpers, whichever tree the package comes from
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from kyverno_tpu_torch import kernels
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    if not kernels.__file__.startswith(root + os.sep):
+        raise AssertionError(f"kyverno_tpu_torch from {kernels.__file__}, "
+                             f"not {root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    out = {"root": root, "card": card, "torch": torch.__version__,
+           "N": N, "R": R, "k12": {}}
+    for i, kind in enumerate(KINDS):
+        r = out["k12"][kind] = k12_case(torch, kernels, fold, rowfold, cs,
+                                        kind, N, R, LANES, i, dev)
+        print(f"row_fold, {r['lanes']} {kind} lanes at ({N}, {R}):"
+              f" {r['ms']:.4f} ms, {r['launches']} launches, {r['bytes']} "
+              f"bytes ({r['tb_s']:.3f} TB/s), max abs err "
+              f"{r['max_abs_err']} ({card})", flush=True)
+    m = out["mutate_tile"] = mutate_tile(torch, cs, args.samples)
+    print(f"mutate-leg tile replay: median {m['replay_ms_median']:.4f} ms "
+          f"(p10 {m['replay_ms_p10']:.4f}, p90 {m['replay_ms_p90']:.4f}) of "
+          f"{m['samples']}, issue {m['issue_ms_median']:.4f} ms; one replay "
+          f"{m['device_events']} device events, {m['device_ms']:.4f} ms of "
+          f"device time ({card})", flush=True)
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -742,6 +742,62 @@ def test_dense_program_replay_equals_eager_and_plain(cuda):
     assert g.captures == 2 and g.live_graphs == 2
 
 
+RULE_END_KERNELS = ("row_fold", "instance_count_many", "instance_count2",
+                    "first_true_take", "class_fold")
+
+
+def rule_launch_order(monkeypatch, run, lanes):
+    """The kernel entries one eager run of ``run`` calls, in order, cut
+    into rules at each K11 launch: [[name, ...] a rule]."""
+    calls = []
+    for name in RULE_END_KERNELS:
+        real = getattr(kernels, name)
+
+        def rec(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kernels, name, rec)
+    run(lanes)
+    monkeypatch.undo()
+    rules, cur = [], []
+    for name in calls:
+        cur.append(name)
+        if name == "class_fold":
+            rules.append(cur)
+            cur = []
+    return rules
+
+
+def test_deferred_counts_and_anchor_replay_equals_eager(cuda, monkeypatch):
+    """K3 and K8 are recorded mid-rule and launched at the rule's end:
+    each rule of an eager dense run launches K12 once, then its K3 / K8
+    launches, then K11; the program captured as a CUDA graph replays
+    equal to its eager run and to the plain-twin program."""
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()])
+    padded, _, _ = eng.pad(_pss_pods(200, 4))
+    lanes = lanes_to_device(eng.encode(padded)[0], cuda)
+    g = eng.cps.device_fn(device=cuda)
+    rules = rule_launch_order(monkeypatch, g.run, lanes)
+    assert len(rules) == len(eng.cps.device_programs)
+    seen = set()
+    for names in rules:
+        k12 = [i for i, n in enumerate(names) if n == "row_fold"]
+        assert len(k12) <= 1 and (not k12 or k12[0] == 0)
+        assert names[-1] == "class_fold"
+        seen.update(names)
+    assert {"instance_count_many", "instance_count2",
+            "first_true_take"} <= seen
+    eager = g.run(lanes)
+    for _ in range(3):  # eager, capture, replay
+        out = g(lanes)
+    assert g.replays >= 1
+    _assert_same(out, eager)
+    _assert_same(out, eng.cps.device_fn(plain=True)(lanes))
+
+
 def test_step_replay_equals_eager_and_plain(cuda):
     from kyverno_tpu_torch.tpu.evaluator import build_program
 
@@ -1017,59 +1073,120 @@ def _row_dests(outs, N, R, dev):
                         else torch.bool, device=dev) for op, _ in outs]
 
 
-@pytest.mark.parametrize("R", [1, 40, 256])
-@pytest.mark.parametrize("N", [1, 31, 32, 33, 8192])
+def _row_launches(rt, outs, N, R, dev, **kw):
+    """Run a flush's segments through K12 (``kw``: ``warps`` / ``grid``)
+    and its plain twin; every output equal, one launch a segment."""
+    from kyverno_tpu_torch.tpu import rowfold
+
+    segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
+    got, want = (_row_dests(outs, N, R, dev) for _ in range(2))
+    before = kernels.LAUNCHES["row_fold"]
+    for seg in segs:
+        ios = [rt.inputs[i] for i in seg.ins]
+        kernels.row_fold(seg.code, ios + [got[k] for k in seg.outs], N, R,
+                         **kw)
+        kernels.row_fold_plain(seg.code, ios + [want[k] for k in seg.outs],
+                               N, R)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_fold"] - before == len(segs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return segs
+
+
+@pytest.mark.parametrize("R", [1, 40, 256, 1100])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, "T-1", "T", "T+1", 16391])
 @pytest.mark.parametrize("max_io", [None, 10])
 def test_row_fold_kernel_equals_plain_random_tapes(cuda, monkeypatch, N, R,
                                                    max_io):
     """K12 against its plain twin on random tapes over every instruction
-    and lane type (uint8, bool, a (1, R) broadcast, int32, float32 with
-    scaled compares, hash sets of 0 to 5 pairs); with ``max_io`` (a
+    and lane type (uint8, bool, a (1, R) broadcast staged once a block,
+    int32, float32 with scaled compares, hash sets of 0 to 5 pairs); N
+    "T-1", "T" and "T+1" are a tile of two warps (T = 2 x 32 / G
+    resources) less one, exactly and plus one; with ``max_io`` (a
     value's cone reads at most the 8 lanes, so 10 always fits one) the
     flush splits into segments."""
-    from kyverno_tpu_torch.tpu import rowfold
-
+    warps = None
+    if isinstance(N, str):
+        warps = 2
+        N = 2 * (32 // kernels.row_lanes(R)) + int(N[1:] or 0)
     if max_io is not None:
         monkeypatch.setattr(kernels, "ROW_FOLD_MAX_IO", max_io)
-    for seed in range(3):
+    for seed in range(1 if N * R > 1 << 22 else 3):
         rt, outs = _row_flush(cuda, seed + 10 * N + R, N, R)
-        segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
-        got, want = (_row_dests(outs, N, R, cuda) for _ in range(2))
-        before = kernels.LAUNCHES["row_fold"]
-        for seg in segs:
-            ios = [rt.inputs[i] for i in seg.ins]
-            kernels.row_fold(seg.code, ios + [got[k] for k in seg.outs], N, R)
-            kernels.row_fold_plain(seg.code, ios + [want[k] for k in seg.outs],
-                                   N, R)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["row_fold"] - before == len(segs)
-        for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
+        _row_launches(rt, outs, N, R, cuda, warps=warps)
 
 
-@pytest.mark.parametrize("R", [1100, 33])
-def test_row_fold_kernel_unaligned_and_wide_rows(cuda, R):
+@pytest.mark.parametrize("warps,grid", [(1, 1), (2, 3), (8, 2), (None, 5)])
+def test_row_fold_kernel_persistent_loop(cuda, warps, grid):
+    """More tiles than blocks: each block walks many tiles through both
+    stages (the next tile's copies in flight while one computes), a tail
+    tile included."""
+    from kyverno_tpu_torch.tpu import rowfold
+
+    N, R = 16391, 256
+    rt, outs = _row_flush(cuda, 5, N, R)
+    segs = rowfold.compile_rows(rt.code, rt.etypes, outs)
+    ios = [rt.inputs[i] for i in segs[0].ins] + _row_dests(
+        [outs[k] for k in segs[0].outs], N, R, cuda)
+    plan = kernels.row_fold_plan(segs[0].code, ios, N, R, warps, grid)
+    assert plan["rounds"] >= 3 and plan["tiles"] > plan["grid"]
+    assert N % plan["T"]
+    _row_launches(rt, outs, N, R, cuda, warps=warps, grid=grid)
+
+
+@pytest.mark.parametrize("view", ["rows", "slab"])
+@pytest.mark.parametrize("R", [1100, 33, 256])
+def test_row_fold_kernel_unaligned_and_wide_rows(cuda, R, view):
     """Rows past 1,024 (several words a value, a warp a resource) and
-    lanes whose rows are not vector-aligned (a view at an odd offset)
-    against the twin."""
+    lanes whose rows are not 16-byte aligned against the twin: "rows",
+    a view at an odd offset of a wider tensor (resource stride R + 1,
+    staged by cp.async); "slab", adjacent rows at an odd base (one bulk
+    copy of the aligned span around each tile's slab)."""
     from kyverno_tpu_torch.tpu import fold, rowfold
 
     N = 300
-    lanes = row_lanes(R, N, R + 1, cuda)
-    lanes = {k: v[:, 1:] for k, v in lanes.items()}
+    if view == "rows":
+        lanes = {k: v[:, 1:] for k, v in row_lanes(R, N, R + 1, cuda).items()}
+    else:
+        lanes = {}
+        for k, v in row_lanes(R, N, R, cuda).items():
+            flat = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)
+            lanes[k] = flat[1:].view(v.shape)
+            lanes[k].copy_(v)
     ft = fold.Tape(N, 1, 1, cuda, fold.FoldCache(), False)
     rt = rowfold.RowTape(N, R, cuda, rowfold.RowCache(), False, ft)
     vals = random_row_tape(rt, lanes, R, 60)
     outs = [(op, vals[-1 - k][0].vid) for k, op in enumerate(
         (rowfold.ANY, rowfold.COUNT, rowfold.STORE, rowfold.STORE))]
-    (seg,) = rowfold.compile_rows(rt.code, rt.etypes, outs)
+    (seg,) = _row_launches(rt, outs, N, R, cuda)
     ios = [rt.inputs[i] for i in seg.ins]
-    got, want = (_row_dests(outs, N, R, cuda) for _ in range(2))
-    kernels.row_fold(seg.code, ios + got, N, R)
-    kernels.row_fold_plain(seg.code, ios + want, N, R)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    plan = kernels.row_fold_plan(seg.code, ios + _row_dests(outs, N, R, cuda),
+                                 N, R)
+    assert plan["rows" if view == "rows" else "slab"] > 0
+
+
+def test_row_fold_kernel_at_the_descriptor_limit(cuda):
+    """One launch of ``ROW_FOLD_MAX_IO`` descriptors: 120 uint8 lanes,
+    each staged, and 8 outputs of every kind."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    N, R = 3000, 40
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lanes = [torch.randint(0, 4, (N, R), dtype=torch.uint8, device=cuda,
+                           generator=gen) for _ in range(120)]
+    ft = fold.Tape(N, 1, 1, cuda, fold.FoldCache(), False)
+    rt = rowfold.RowTape(N, R, cuda, rowfold.RowCache(), False, ft)
+    ops = (rowfold.ANY, rowfold.COUNT, rowfold.STORE)
+    outs = []
+    for o in range(8):
+        v = rt.lane(lanes[15 * o]) == 1
+        for i in range(15 * o + 1, 15 * o + 15):
+            v = (v | (rt.lane(lanes[i]) == i % 4)) if i % 2 else \
+                (v & (rt.lane(lanes[i]) != i % 4))
+        outs.append((ops[o % 3], v.vid))
+    (seg,) = _row_launches(rt, outs, N, R, cuda)
+    assert seg.code.n_in + seg.code.n_out == kernels.ROW_FOLD_MAX_IO
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])

@@ -188,6 +188,77 @@ def test_any_of_a_counted_mask_reuses_the_count():
         jev.InstScope(jctx).any(jnp.asarray(m.numpy()))))
 
 
+@pytest.mark.parametrize("typed", [False, True])
+@pytest.mark.parametrize("level", [1, 2])
+def test_any_of_a_counted_mask_on_a_rule_tape(level, typed):
+    """A rule recorded on its tapes, as ``build_program`` runs it: K3's
+    count is recorded and launched at the rule's end, after the row
+    tape's flush stores its plane (``typed``: a typed mask, a row-tape
+    value carrying its memo key); the later "any" of the same mask is a
+    memo hit that becomes "count != 0" on the class tape. The rule's end
+    (row flush, K3, K11) gives the JAX package's count and any."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    b, jctx, tctx = _ctxs(5)
+    N, R, I = tctx.N, tctx.R, tctx.I
+    m = _keyed_mask(tctx, np.random.default_rng(5), 7)
+    tctx.fold = fold.Tape(N, I, I, "cpu", fold.FoldCache(), True, tctx.stats)
+    tctx.rows = rowfold.RowTape(N, R, "cpu", rowfold.RowCache(), True,
+                                tctx.fold, tctx.stats)
+    tctx.fold.prerun = tctx.rows.run
+    pred = tctx.typed(m, T_ARR) if typed else m
+    assert isinstance(pred, rowfold.RV) == typed
+    scope = (tev.InstScope if level == 1 else tev.Inst2Scope)(tctx)
+    n = scope.count(pred)
+    tag = "inst" if level == 1 else "inst2"
+    issued = tctx.stats[tag + "_issued"]
+    a = scope.any(pred)
+    assert tctx.stats[tag + "_issued"] == issued == 1
+    assert tctx.stats[tag + "_hits"] == 1
+    # nothing ran yet: one K3 launch waits for the rule's end
+    assert len(tctx.rows.after) == 1
+    assert isinstance(n, fold.FV) and isinstance(a, fold.FV)
+    shape = (N, I) if level == 1 else (N, I, I)
+    got_n = torch.empty(shape, dtype=torch.int32)
+    got_a = torch.empty(shape, dtype=torch.bool)
+    tctx.fold.run([n, a], [got_n, got_a])
+    assert not tctx.rows.after and not tctx.rows.pending
+    jm = jnp.asarray(m.numpy())
+    if typed:
+        jm = jm & (jnp.asarray(b["type_tag"]) == T_ARR)
+    jscope = (jev.InstScope if level == 1 else jev.Inst2Scope)(jctx)
+    assert np.array_equal(got_n.numpy(), np.asarray(jscope.count(jm)))
+    assert np.array_equal(got_a.numpy(), np.asarray(jscope.any(jm)))
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_a_torch_op_on_a_deferred_count_forces_the_rule(level):
+    """While a rule is recorded, K3's outputs are written only at its
+    end, so ``Ctx.inst_counts`` hands out class-tape values: a torch
+    operation on one mid-rule runs the rule's end first (row flush,
+    K3), is counted in ``fold_forced`` and reads the JAX package's
+    count, never unwritten memory."""
+    from kyverno_tpu_torch.tpu import fold, rowfold
+
+    b, jctx, tctx = _ctxs(6)
+    N, R, I = tctx.N, tctx.R, tctx.I
+    m = _keyed_mask(tctx, np.random.default_rng(6), 11)
+    tctx.fold = fold.Tape(N, I, I, "cpu", fold.FoldCache(), True, tctx.stats)
+    tctx.rows = rowfold.RowTape(N, R, "cpu", rowfold.RowCache(), True,
+                                tctx.fold, tctx.stats)
+    tctx.fold.prerun = tctx.rows.run
+    pred = tctx.typed(m, T_ARR)
+    (n,) = tctx.inst_counts(level, [(pred, "count")])
+    assert isinstance(n, fold.FV) and len(tctx.rows.after) == 1
+    forced = tctx.stats.get("fold_forced", 0)
+    got = torch.add(n, 0)
+    assert tctx.stats["fold_forced"] == forced + 1
+    assert not tctx.rows.after and not tctx.rows.pending
+    jm = jnp.asarray(m.numpy()) & (jnp.asarray(b["type_tag"]) == T_ARR)
+    jscope = (jev.InstScope if level == 1 else jev.Inst2Scope)(jctx)
+    assert np.array_equal(got.numpy(), np.asarray(jscope.count(jm)))
+
+
 def test_typed_masks_are_kept_and_keyed():
     _, _, tctx = _ctxs(3)
     m = _keyed_mask(tctx, np.random.default_rng(3), 9)

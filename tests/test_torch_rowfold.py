@@ -404,6 +404,70 @@ def test_uint8_lanes_only_in_batches():
     kernels.RowCode(batch_i32, 1, [kernels.RF_U8], [kernels.RF_ANY])
 
 
+@pytest.mark.parametrize("N", [1, 64, 16384])
+@pytest.mark.parametrize("R", [1, 40, 256, 1100])
+def test_launch_plan_stages_every_fill_unit(N, R):
+    """``kernels.row_fold_plan`` (on an H100's 132 SMs): the fill units
+    cover every load instruction (a HASH's two lanes apart), each input
+    is staged by the kind its strides give (adjacent rows, a view of a
+    wider tensor, a broadcast row), a stage holds every unit's slabs at
+    the plan's T, and the layout fits a block's shared memory in the
+    kernel's alignment."""
+    n = min(N, 64)
+    L = row_lanes(4, n, R)
+    L["plane2"] = torch.zeros((n, R + 3), dtype=torch.bool)[:, 1:R + 1]
+    _, rt = _tapes(n, R)
+    vals = random_row_tape(rt, L, R, 40)
+    outs = [(op, vals[-1 - k][0].vid) for k, op in enumerate(
+        (rowfold.ANY, rowfold.COUNT, rowfold.STORE))]
+
+    def at_n(t):  # the lane's dtype and strides at N resources (untouched)
+        if t.stride(0) == 0 or t.shape[0] == 1:
+            return t[:1]
+        if t.stride(0) != R:
+            return torch.empty((N, R + 3), dtype=t.dtype)[:, 1:R + 1]
+        return torch.empty((N, R), dtype=t.dtype)
+
+    for seg in rowfold.compile_rows(rt.code, rt.etypes, outs):
+        code = seg.code
+        ins = [at_n(rt.inputs[i]) for i in seg.ins]
+        loads = [pc for pc in range(len(code.instrs))
+                 if code.instrs[pc][0] & 0xFF in
+                 (kernels.RF_LANE, kernels.RF_HASH, kernels.RF_BATCH)
+                 and pc in {u & 0xFFFFFF for u in code.units}]
+        hashes = [u for u in code.units if u >> 24]
+        assert len(hashes) % 2 == 0
+        assert [u >> 24 for u in hashes] == [1, 2] * (len(hashes) // 2)
+        assert sorted({u & 0xFFFFFF for u in code.units}) == loads
+        assert sorted(d for unit in code.unit_lanes for d in unit) \
+            == list(range(code.n_in))
+        plan = kernels.row_fold_plan(code, ins, N, R, sms=132)
+        G = kernels.row_lanes(R)
+        assert plan["T"] == plan["warps"] * (32 // G)
+        assert plan["warps"] in (1, 2, 4, 8)
+        assert plan["smem"] <= kernels.ROW_FOLD_MAX_SMEM
+        want = [kernels.RF_BCAST if t.shape[0] == 1 else
+                kernels.RF_SLAB if t.stride(0) == R else kernels.RF_ROWS
+                for t in ins]
+        assert plan["kinds"] == want
+        at_code, at_bcast, at_stage, stage_bytes, at_vals = plan["layout"]
+        assert at_bcast % 16 == 0 and at_stage % 128 == 0
+        assert stage_bytes % 128 == 0 and at_vals == at_stage \
+            + kernels.ROW_FOLD_STAGES * stage_bytes
+        T = plan["T"]
+        for unit in code.unit_lanes:
+            need = 0
+            for d in unit:
+                es = ins[d].element_size()
+                need += {kernels.RF_SLAB: -(-T * R * es // 16) * 16 + 16,
+                         kernels.RF_ROWS: T * (-(-R * es // 16) * 16 + 16),
+                         kernels.RF_BCAST: 0}[want[d]]
+            assert need <= stage_bytes
+        # the grid follows the card's occupancy count: none off the card
+        assert plan["tiles"] == -(-N // T)
+        assert plan["grid"] is plan["resident"] is plan["rounds"] is None
+
+
 def test_an_unexpanded_row_is_read_by_every_resource():
     """A contiguous (1, R) lane handed straight to the wrapper is the row
     every resource reads (stride 0), as the plain twin's ``expand``."""
@@ -438,15 +502,18 @@ from torch_parity_util import (CORPUS_PARAMS, assert_scan_equal,  # noqa: E402
 
 
 class _Calls:
-    """Counts calls of kernel entries (plain twins on the CPU)."""
+    """Counts calls of kernel entries (plain twins on the CPU), and
+    appends their names to ``order`` when given."""
 
-    def __init__(self, monkeypatch, names):
+    def __init__(self, monkeypatch, names, order=None):
         self.n = dict.fromkeys(names, 0)
         for name in names:
             real = getattr(kernels, name)
 
             def f(*a, _real=real, _name=name, **k):
                 self.n[_name] += 1
+                if order is not None:
+                    order.append(_name)
                 return _real(*a, **k)
 
             monkeypatch.setattr(kernels, name, f)
@@ -458,12 +525,23 @@ def pss():
     return jeng, port_engine(jeng)
 
 
+# the dense PSS program's K3 requests, memo hits and launches a run,
+# one level and two (the same before and after K3 moved to the rules'
+# ends), and its K8 launches
+PSS_K3 = {"inst_calls": 1794, "inst_hits": 1107, "inst_issued": 339,
+          "inst2_calls": 81, "inst2_hits": 18, "inst2_issued": 63}
+PSS_K8 = 3
+
+
 @pytest.mark.parametrize("seed", [7, 21])
 def test_pss_program_with_row_tapes_equals_reference(pss, monkeypatch, seed):
     """The dense PSS program (66 rules): bit for bit the JAX program's
     table and counts; K6 runs only the path masks (one a distinct path,
-    no heq / hset), every rule runs its row tape, and no value is forced
-    off either tape."""
+    no heq / hset); each rule with row logic runs its row tape in one K12
+    launch (more only for a split, counted in ``row_splits``) at the
+    rule's end, then its K3 and K8 launches, then K11; K3's requests,
+    memo hits and launches are the stated ones; no value is forced off
+    either tape."""
     import random
 
     jeng, teng = pss
@@ -474,14 +552,41 @@ def test_pss_program_with_row_tapes_equals_reference(pss, monkeypatch, seed):
     run = teng.cps.device_fn()
     for k in run.stats:
         run.stats[k] = 0
-    calls = _Calls(monkeypatch, ("hash_match_plain", "row_fold_plain",
-                                 "class_fold_plain"))
+    order: list = []
+    names = ("row_fold_plain", "instance_count_many_plain",
+             "instance_count_plain", "first_true_take_plain",
+             "class_fold_plain")
+    calls = _Calls(monkeypatch, ("hash_match_plain",) + names, order)
+    flushes = []
+    real_flush = rowfold.RowTape.flush
+
+    def flush(self):
+        flushes.append(bool(self.pending))
+        return real_flush(self)
+
+    monkeypatch.setattr(rowfold.RowTape, "flush", flush)
     ttab, tcnt = run(lanes_to_device(batch, "cpu"))
     assert np.array_equal(ttab.numpy(), np.asarray(jtab))
     assert np.array_equal(tcnt.numpy(), np.asarray(jcnt))
     assert run.stats["rows_forced"] == 0 and run.stats["fold_forced"] == 0
     assert calls.n["class_fold_plain"] == 66
-    assert calls.n["row_fold_plain"] >= 66
+    # one flush a rule, at its end; K12 launches = rules with row logic
+    # plus the splits
+    assert len(flushes) == 66
+    assert calls.n["row_fold_plain"] == sum(flushes) \
+        + run.stats["row_splits"] == 66
+    assert {k: run.stats[k] for k in PSS_K3} == PSS_K3
+    assert calls.n["instance_count_many_plain"] == PSS_K3["inst_issued"]
+    assert calls.n["instance_count_plain"] == PSS_K3["inst2_issued"]
+    assert calls.n["first_true_take_plain"] == PSS_K8
+    # each rule: K12, then K3 / K8, then K11
+    rule: list = []
+    for name in (n for n in order if n != "hash_match_plain"):
+        rule.append(name)
+        if name == "class_fold_plain":
+            k12 = [i for i, n in enumerate(rule) if n == "row_fold_plain"]
+            assert k12 == list(range(len(k12))), rule
+            rule = []
     # 461 distinct path masks, each one K6 call a run (PERF.md)
     assert calls.n["hash_match_plain"] == 461
     assert len(run.row_cache) > 0
