@@ -8,7 +8,8 @@
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
 1. the card (``nvidia-smi --query-gpu=name,power.limit``);
-2. the kernel build (one ``nvcc`` per CUDA source, started together);
+2. the kernel build (one ``nvcc`` per CUDA source, started together)
+   and each kernel's registers;
 3. every kernel against its plain PyTorch twin on the card, exactly:
    K1 at strides 1, 2 and 4 on the PSS bank and on an approximated
    small-budget bank, over seeded subjects with non-ASCII bytes and
@@ -18,10 +19,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    scopes and on hazard scopes (-1, >= I, valid zeros); K4; and, on one
    encoded tile of the background scan (its vocabulary lanes and
    shapes), K5 over index widths uint8, uint16 and int32 with hostile
-   indices, K6 with 0, 1, 5 and 40 constants, K7 on a strided DFA
-   accept column, K8, and K4's uint8 output; K9's packed launch over the
-   tenant's NFA-route globs and every pattern class (packs of one 32-bit
-   word and of 1, 2 and 8 64-bit words) on the tenant batch's
+   indices (its launch plan, its time with no, the tile's and every
+   cell gathering a live row, and a fill of its output bytes beside
+   it), K6 with 0, 1, 5 and 40 constants, K7 on a strided DFA accept
+   column (and its form), K8, and K4's uint8 output; K9's packed launch
+   over the tenant's NFA-route globs and every pattern class (packs of
+   one 32-bit word and of 1, 2 and 8 64-bit words) on the tenant batch's
    namespace, name and pool lanes with real and hostile lengths, its
    pack of one there and on 320-byte seeded subjects (state words 2 to
    16), and K1's non-ASCII entry on its own; K10 ``meta_any`` on the
@@ -96,7 +99,17 @@ plan (warps, tile, the blocks an SM holds), their bytes, a
 device-to-device copy of their inputs for a yardstick, and their time
 at every warp count (each held against its twin); each path's K12
 launches are counted by fill unit (uint8 batches, 4-byte lanes, hash
-lanes); K11 is also timed over the run's launches (kept from that run) beside its plain twin and bound, at the
+lanes); every K7 ``pool_rows`` launch of the same run is kept
+(``PoolKeep``), held against its twin and timed (``time_pool_rows``):
+the run's launches together on the run's own lanes (which several
+launches share) beside their twins, ``torch.gather`` and a bound that
+reads each distinct lane once; the same launches on copies with their
+own storage, rotated through more bytes than the L2 holds
+(``rotated_ms``), beside a bound that reads each launch's lanes; their
+time in the replay's device trace; and each distinct shape alone on
+rotated copies with its plane's K, strides and the kernel's form;
+K11 is also timed over the run's launches (kept from that run) beside
+its plain twin and bound, at the
 lane counts the host chose and at every lane count G (each launch held
 against its twin under each); on the dense path its slowest launches
 are timed alone at every G, the eager run's aten operations are counted by output shape kind
@@ -134,6 +147,7 @@ HBM_BYTES_PER_S = 3.35e12
 # no integer rate is published beside the tensor-core ones; the
 # non-tensor fp32 rate (67 TFLOP/s) stands for the int32 ALU work
 ALU_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2 ** 20  # the H100 SXM's L2 cache
 
 KERNEL_META = {
     "dfa_scan_fused": ("kyverno_tpu_torch/csrc/dfa_scan.cu",
@@ -540,7 +554,8 @@ def op_census(torch, fn, N, I, R, sites=None):
 
 def device_profile(torch, fn, sites=None, top: int = 15):
     """One call of ``fn`` under ``torch.profiler``: device events and
-    their time by kernel name (the ``top`` longest), and with ``sites``
+    their time by kernel name (all, and the ``top`` longest), and with
+    ``sites``
     the device time of each innermost evaluator call site (kernels
     charged to the range that launched them)."""
     from torch.autograd import DeviceType
@@ -574,11 +589,10 @@ def device_profile(torch, fn, sites=None, top: int = 15):
                 break
             p = p.cpu_parent
         site_us[site] = site_us.get(site, 0.0) + sum(k.duration for k in ks)
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    ranked = [{"name": k[:120], "calls": c, "ms": t / 1e3} for k, (c, t)
+              in sorted(by_name.items(), key=lambda kv: -kv[1][1])]
     return {"device_events": n_dev, "device_ms": dev_us / 1e3,
-            "kernels": len(by_name),
-            "top": [{"name": k[:120], "calls": c, "ms": t / 1e3}
-                    for k, (c, t) in ranked[:top]],
+            "kernels": len(by_name), "top": ranked[:top], "all": ranked,
             "by_site_ms": {k: v / 1e3 for k, v in sorted(
                 site_us.items(), key=lambda kv: -kv[1])}}
 
@@ -672,6 +686,156 @@ class RowCheck:
                 self.torch, "row_fold", got, want))
         self.launches += 1
         self.kept.append((code, list(ios), (N, R)))
+
+
+class PoolKeep:
+    """While entered, every K7 ``pool_rows`` launch of a program run is
+    kept with its inputs and output (``kernels.pool_rows`` wrapped; the
+    evaluator looks it up at each call), for ``time_pool_rows``."""
+
+    def __init__(self, kernels):
+        self.kernels, self.kept = kernels, []
+
+    def __enter__(self):
+        self.fn = self.kernels.pool_rows
+
+        def keep(plane, slot):
+            out = self.fn(plane, slot)
+            self.kept.append((plane, slot, out))
+            return out
+
+        self.kernels.pool_rows = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.pool_rows = self.fn
+
+
+def pool_bytes(plane, slot) -> int:
+    """K7's bytes a launch: the slot lane read and the mask written
+    once, and each resource's K plane bytes read once."""
+    return slot.numel() * 5 + plane.shape[0] * plane.shape[1]
+
+
+def pool_work(kept) -> int:
+    """K7's bytes over launches that share lanes: each distinct slot
+    lane and plane read once, each launch's mask written once."""
+    seen, n = set(), 0
+    for plane, slot, out in kept:
+        for t in (plane, slot):
+            key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+            if key not in seen:
+                seen.add(key)
+                n += _distinct_bytes(t)
+        n += out.numel() * out.element_size()
+    return n
+
+
+def own(torch, t):
+    """A copy of ``t`` with its own storage, its strides and its
+    address modulo 16 kept (so a kernel takes the same form on it)."""
+    e = t.element_size()
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    off = t.data_ptr() % 16 // e
+    buf = torch.empty(span + 16 // e, dtype=t.dtype, device=t.device)
+    return buf.as_strided(t.size(), t.stride(), off).copy_(t)
+
+
+def rotated_ms(torch, fn, args, nbytes: int, reps: int = 3) -> float:
+    """Mean device time of ``fn(*args)`` with its inputs read from
+    memory, not from the L2: copies of ``args`` with their own storage,
+    enough that their bytes (``nbytes`` a call) are at least four times
+    the L2, called in turn in one CUDA graph (``graph_ms``)."""
+    n = max(1, -(-4 * L2_BYTES // max(1, nbytes)))
+    sets = [[own(torch, a) for a in args] for _ in range(n)]
+
+    def run():
+        for c in sets:
+            fn(*c)
+
+    ms = graph_ms(torch, run, reps=reps, warm=1) / n
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_pool_rows(torch, kernels, kept, phase, label, tag,
+                   trace_ms=None):
+    """K7 over the launches one eager run of a path made: each held
+    against its plain twin, exactly; the run's launches timed together
+    on the run's own lanes (one CUDA graph of one call each; launches
+    that share a slot lane find it in the L2) beside their twins, the
+    ``torch.gather`` yardstick on contiguous planes and a bound that
+    reads each distinct lane once (``pool_work``); the same launches
+    each on its own copies, rotated past the L2 (``rotated_ms``),
+    beside a bound that reads every launch's lanes; ``trace_ms``, their
+    time in one replay's device trace; and each distinct launch shape
+    alone on rotated copies beside its bound, with its plane's K and
+    strides and the form the kernel takes for it."""
+    if not kept:
+        say(phase, f"pool_rows: no launch on {label} {tag}")
+        return {"launches": 0}
+    err = 0.0
+    for plane, slot, out in kept:
+        err = max(err, exact(torch, f"pool_rows {label}", out,
+                             kernels.pool_rows_plain(plane, slot)))
+    lib_in = [(plane.contiguous(),
+               torch.clamp(slot, 0, plane.shape[1] - 1).to(torch.int64))
+              for plane, slot, _ in kept]
+
+    def k7():
+        for plane, slot, _ in kept:
+            kernels.pool_rows(plane, slot)
+
+    def twin():
+        for plane, slot, _ in kept:
+            kernels.pool_rows_plain(plane, slot)
+
+    def lib():
+        for pc, safe in lib_in:
+            torch.gather(pc, 1, safe)
+
+    def k7_each(*lanes):
+        for i in range(0, len(lanes), 2):
+            kernels.pool_rows(lanes[i], lanes[i + 1])
+
+    r = timed(torch, k7, twin, lib, plain_reps=1)
+    nbytes = pool_work(kept)
+    each = sum(pool_bytes(p, s) for p, s, _ in kept)
+    cold = rotated_ms(torch, k7_each, [t for p, s, _ in kept for t in (p, s)],
+                      each)
+    r.update(launches=len(kept), max_abs_err=err, bytes=nbytes,
+             bound=bound(nbytes, 0), rotated_ms=cold, rotated_bytes=each,
+             rotated_bound_ms=bound(each, 0)[0], trace_ms=trace_ms)
+    shapes = {}
+    for plane, slot, _ in kept:
+        key = (tuple(slot.shape), plane.shape[1], tuple(plane.stride()))
+        shapes.setdefault(key, []).append((plane, slot))
+    r["shapes"] = []
+    for (shape, K, strides), group in shapes.items():
+        plane, slot = group[0]
+        one = pool_bytes(plane, slot)
+        ms = rotated_ms(torch, kernels.pool_rows, [plane, slot], one)
+        b_ms, _ = bound(one, 0)
+        form = kernels.pool_rows_form(plane, slot)
+        r["shapes"].append({"shape": list(shape), "K": K,
+                            "strides": list(strides), "launches": len(group),
+                            "ms": ms, "bound_ms": b_ms, "form": form})
+        say(phase, f"K7 pool_rows {label}: {len(group)} launches at slot "
+                   f"{shape}, plane K {K} strides {strides}, form {form}: "
+                   f"{ms:.4f} ms a launch alone on rotated copies, bound "
+                   f"{b_ms:.4f} ms {tag}")
+    lib_ms = r["library_ms"]
+    trace = "not traced" if trace_ms is None else f"{trace_ms:.4f} ms"
+    say(phase, f"K7 pool_rows over the {len(kept)} launches of {label}: "
+               f"{r['ms']:.4f} ms on the run's lanes (eager "
+               f"{r['eager_ms']:.4f} ms), bound {r['bound'][0]:.4f} ms "
+               f"({nbytes} distinct bytes); {cold:.4f} ms on rotated "
+               f"copies, bound {r['rotated_bound_ms']:.4f} ms ({each} "
+               f"bytes); in the replay's trace {trace}; plain "
+               f"{r['plain_ms']:.4f} ms, torch.gather {lib_ms:.4f} ms; each "
+               f"equal to its twin (max abs err {err}) {tag}")
+    return r
 
 
 def row_work(kept):
@@ -1131,10 +1295,14 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     zero_stats(g)
     fold.CHECK, rowfold.CHECK = chk, rchk
     try:
-        g.run(lanes)
+        with PoolKeep(kernels) as pk:
+            g.run(lanes)
         torch.cuda.synchronize()
     finally:
         fold.CHECK = rowfold.CHECK = None
+    if len(pk.kept) != counted[0][0]["pool_rows"]:
+        raise AssertionError(f"{label}: {len(pk.kept)} K7 launches kept, "
+                             f"{counted[0][0]['pool_rows']} counted")
     forced, rforced = g.stats["fold_forced"], g.stats["rows_forced"]
     if chk.launches <= 0 or chk.launches != counted[0][0]["class_fold"]:
         raise AssertionError(f"{label}: {chk.launches} K11 launches checked, "
@@ -1200,7 +1368,11 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
                                    slowest=top),
             "k12": time_row_fold(torch, kernels, rchk.kept,
                                  rchk.max_abs_err, phase, label, tag,
-                                 slowest=top)}
+                                 slowest=top),
+            "k7": time_pool_rows(
+                torch, kernels, pk.kept, phase, label, tag,
+                trace_ms=sum(t["ms"] for t in rp["all"]
+                             if "pool_rows_kernel" in t["name"]))}
 
 
 def busy_share(torch, fn, reps: int = 3):
@@ -1709,8 +1881,47 @@ def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
                        + sum(src.numel() * src.element_size() for src in srcs)
                        + out_bytes, 0),
     }
-    say("3", f"K5 vocab_gather bound inputs: {idx.numel()} cells, "
-             f"{out_bytes} bytes written")
+    pad = float((kernels._index_plain(idx) == 0).float().mean())
+    floor_t = torch.zeros(1, dtype=torch.int32, device=dev)
+    results["launch_floor_ms"] = graph_ms(torch, floor_t.zero_)
+    say("3", f"K5 vocab_gather bound inputs: {idx.numel()} cells "
+             f"({pad:.4f} of them padding, index 0), {out_bytes} bytes "
+             f"written; one launch's floor (a 4-byte fill replayed): "
+             f"{results['launch_floor_ms']:.4f} ms")
+    # the launch plan
+    elems = [src.element_size() for src in srcs]
+    plan = kernels.VocabPlan(elems, idx.numel())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # the share of cells that gather a live row (the rest read row 0),
+    # and a fill of the same bytes (the stores alone)
+    def as_index(t):  # int32 values -> the tile's index dtype
+        if idx.dtype == torch.uint16:
+            return t.to(torch.int16).view(torch.uint16).to(dev)
+        return t.to(idx.dtype).to(dev)
+
+    shape = tuple(idx.shape)
+    live = {label: graph_ms(torch, lambda ix=ix: kernels.vocab_gather(
+        srcs, ix, fills)) for label, ix in (
+        ("none", as_index(torch.zeros(shape, dtype=torch.int32))),
+        ("the tile's", idx),
+        ("all", as_index(torch.randint(1, V, shape, generator=gen,
+                                       dtype=torch.int32))))}
+    fill_out = torch.empty(out_bytes, dtype=torch.uint8, device=dev)
+    fill_ms = graph_ms(torch, lambda: fill_out.fill_(7))
+    del fill_out
+    results["vocab_gather"].update(
+        plan={"lanes_1": plan.n1, "lanes_4": len(elems) - plan.n1,
+              "chunks_1": plan.chunks1, "chunks_4": plan.chunks4,
+              "sms": sms},
+        live_ms=live, fill_ms=fill_ms)
+    say("3", f"K5 vocab_gather plan: {plan.n1} 1-byte lanes in "
+             f"{plan.chunks1} chunks and {len(elems) - plan.n1} 4-byte lanes "
+             f"in {plan.chunks4} chunks of {kernels.VOCAB_GATHER_THREADS} "
+             f"vectors, looped over by the blocks {sms} SMs hold resident")
+    say("3", "K5 vocab_gather ms by the cells that gather a live row: "
+             + ", ".join(f"{k} {t:.4f}" for k, t in live.items())
+             + f"; a fill of its {out_bytes} output bytes {fill_ms:.4f} ms")
 
     # K5, the pool rows and their lengths
     sidx, svocab, slen = lanes["pool_sidx"], lanes["pool_svocab"], \
@@ -1791,7 +2002,8 @@ def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
         err = max(err, exact(torch, f"pool_rows {lane}", got,
                              kernels.pool_rows_plain(plane, slot)))
         say("3", f"K7 pool_rows plane {tuple(plane.shape)} strides "
-                 f"{plane.stride()} by {lane} {tuple(slot.shape)}: "
+                 f"{plane.stride()} by {lane} {tuple(slot.shape)} "
+                 f"({kernels.pool_rows_form(plane, slot)}): "
                  f"{int(got.sum())} rows, max abs err {err}")
     slot = view["byte_slot"]
     safe = torch.clamp(slot, 0, plane.shape[1] - 1).to(torch.int64)
@@ -3035,6 +3247,26 @@ def main() -> int:
                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                  f"rows_forced {gr['rows_forced']} {tag}")
+    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+        r = gr["k7"]
+        if not r["launches"]:
+            continue
+        b_ms, b_by = r["bound"]
+        by_name["pool_rows"].setdefault("paths", []).append(
+            {"path": path, "launches_timed": r["launches"],
+             "shapes": r["shapes"]}
+            | {k: r[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
+                                 "bytes", "max_abs_err", "rotated_ms",
+                                 "rotated_bytes", "rotated_bound_ms",
+                                 "trace_ms")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
+        say("6", f"pool_rows {path}: {r['launches']} launches of one run "
+                 f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), bound "
+                 f"{b_ms:.4f} ms ({b_by}, distinct lanes); rotated copies "
+                 f"{r['rotated_ms']:.4f} ms, bound "
+                 f"{r['rotated_bound_ms']:.4f} ms; replay trace "
+                 f"{r['trace_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, "
+                 f"torch.gather {r['library_ms']:.4f} ms {tag}")
     p3 = results["row_fold_phase3"]
     by_name["row_fold"]["phase3"] = {
         k: p3[k] for k in ("ms", "eager_ms", "plain_ms", "max_abs_err")} | {

@@ -93,11 +93,12 @@ _SIGNATURES = {
                             [_P, _I, ctypes.c_uint, _P, _L, _I, _I, _P]),
     "instance_count2": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
     "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P, _P]),
-    "vocab_gather": ("vocab_gather", [_P, _P, _P, _P, _I, _P, _I, _L, _L, _P]),
+    "vocab_gather": ("vocab_gather", [_P, _P, _P, _I, _I, _L, _L, _P, _I, _L,
+                                      _L, _P]),
     "vocab_gather_rows": ("vocab_gather",
                           [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P]),
     "hash_match": ("hash_match", [_P, _P, _P, _L, _P, _I, _P, _P]),
-    "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _P, _P]),
+    "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _I, _I, _P, _P]),
     "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
     "glob_nfa_pack": ("glob_nfa",
                       [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
@@ -900,6 +901,41 @@ def _index_width(idx: torch.Tensor) -> int:
     return widths[idx.dtype]
 
 
+VOCAB_GATHER_THREADS = 256  # kThreads: vectors a chunk (a block's step)
+# cells a thread owns a lane, by element size: one 16-byte store
+VOCAB_GATHER_VEC = {1: 16, 4: 4}
+
+
+class VocabPlan:
+    """K5's launch plan over a tile's lanes (csrc/vocab_gather.cu).
+
+    ``order``: the lanes in launch order, the ``n1`` 1-byte lanes first,
+    then the 4-byte lanes, each group in its given order. ``chunks1`` /
+    ``chunks4``: the chunks of ``VOCAB_GATHER_THREADS`` vectors of
+    ``VOCAB_GATHER_VEC[elem]`` cells that cover a lane of each group (0
+    for an empty group). A lane's last vector, when the cell count is no
+    multiple of the vector, is loaded and stored a cell at a time."""
+
+    def __init__(self, elems: Sequence[int], cells: int):
+        n = len(elems)
+        if not 0 < n <= VOCAB_GATHER_MAX_LANES:
+            raise ValueError(f"vocab_gather: {n} lanes "
+                             f"(1..{VOCAB_GATHER_MAX_LANES})")
+        if any(e not in VOCAB_GATHER_VEC for e in elems):
+            raise ValueError(f"vocab_gather: element sizes {sorted(set(elems))}"
+                             f", want 1 or 4")
+        self.order = [i for e in VOCAB_GATHER_VEC
+                      for i, x in enumerate(elems) if x == e]
+        self.n1 = list(elems).count(1)
+
+        def chunks(e, lanes):
+            vecs = -(-cells // VOCAB_GATHER_VEC[e])
+            return max(1, -(-vecs // VOCAB_GATHER_THREADS)) if lanes else 0
+
+        self.chunks1 = chunks(1, self.n1)
+        self.chunks4 = chunks(4, n - self.n1)
+
+
 def vocab_gather(srcs: List[torch.Tensor], idx: torch.Tensor,
                  fills: List[int]) -> List[torch.Tensor]:
     """K5, many lanes in one launch: each (V,) lane (1- or 4-byte
@@ -907,30 +943,30 @@ def vocab_gather(srcs: List[torch.Tensor], idx: torch.Tensor,
     if idx.device.type == "cpu":
         return [vocab_gather_plain(s, idx, f) for s, f in zip(srcs, fills)]
     dev = idx.device
-    if len(srcs) != len(fills) or not 0 < len(srcs) <= VOCAB_GATHER_MAX_LANES:
+    if len(srcs) != len(fills):
         raise ValueError(f"vocab_gather: {len(srcs)} lanes, {len(fills)} "
-                         f"fills (1..{VOCAB_GATHER_MAX_LANES})")
+                         f"fills")
     width = _index_width(idx)
     _check(idx, "row_idx", idx.dtype, dev)
-    V = srcs[0].shape[0]
-    outs, elems = [], []
+    V = srcs[0].shape[0] if srcs else 0
+    outs = []
     for s in srcs:
         _check(s, "vocab lane", s.dtype, dev, 1)
-        if s.shape[0] != V or s.element_size() not in (1, 4):
+        if s.shape[0] != V or s.element_size() not in VOCAB_GATHER_VEC:
             raise ValueError(f"vocab lane {tuple(s.shape)} {s.dtype}: want "
                              f"({V},) with 1- or 4-byte elements")
         outs.append(torch.empty(tuple(idx.shape), dtype=s.dtype, device=dev))
-        elems.append(s.element_size())
     cells = idx.numel()
+    plan = VocabPlan([s.element_size() for s in srcs], cells)
     if cells:
-        n = len(srcs)
-        src_a = (ctypes.c_void_p * n)(*[s.data_ptr() for s in srcs])
-        dst_a = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
-        elem_a = (ctypes.c_int * n)(*elems)
-        fill_a = (ctypes.c_uint32 * n)(*[int(f) & 0xFFFFFFFF for f in fills])
+        n, o = len(srcs), plan.order
+        src_a = (ctypes.c_void_p * n)(*[srcs[i].data_ptr() for i in o])
+        dst_a = (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in o])
+        fill_a = (ctypes.c_uint32 * n)(*[int(fills[i]) & 0xFFFFFFFF
+                                         for i in o])
         _call("vocab_gather", ctypes.cast(src_a, _P), ctypes.cast(dst_a, _P),
-              ctypes.cast(elem_a, _P), ctypes.cast(fill_a, _P), n, _ptr(idx),
-              width, cells, V)
+              ctypes.cast(fill_a, _P), n, plan.n1, plan.chunks1, plan.chunks4,
+              _ptr(idx), width, cells, V)
         LAUNCHES["vocab_gather"] += 1
     return outs
 
@@ -1044,6 +1080,36 @@ def pool_rows_plain(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return got & (slot >= 0)
 
 
+POOL_ROWS_MAX_WORDS = 8  # kMaxWords in csrc/pool_rows.cu: K <= 256
+
+
+def pool_rows_words(K: int) -> int:
+    """The 32-bit masks of a plane row K7 holds in registers (1, 2, 4 or
+    8, the fewest that cover K), or 0 when K is too wide and the kernel
+    reads the plane in global memory."""
+    if K > 32 * POOL_ROWS_MAX_WORDS:
+        return 0
+    w = 1
+    while 32 * w < K:
+        w *= 2
+    return w
+
+
+def _pool_rows_vec(slot: torch.Tensor) -> bool:
+    """16-byte slot loads (4 rows a lane) and 4-byte stores: R a
+    multiple of 4 and the slot lane 16-byte aligned."""
+    return slot.shape[1] % 4 == 0 and slot.data_ptr() % 16 == 0
+
+
+def pool_rows_form(plane: torch.Tensor, slot: torch.Tensor) -> str:
+    """How K7 runs on these inputs: where the plane row lives, and how
+    the slots are read."""
+    w = pool_rows_words(plane.shape[1])
+    where = f"{w} mask words in registers" if w else "plane read in global"
+    loads = "4 slots a load" if _pool_rows_vec(slot) else "1 slot a load"
+    return f"{where}, {loads}"
+
+
 def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """K7: the plane may have any strides (a column of the bank's
     accepts); the slot lane is contiguous."""
@@ -1061,7 +1127,8 @@ def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N, R), dtype=torch.bool, device=dev)
     if N * R:
         _call("pool_rows", _ptr(plane), plane.stride(0), plane.stride(1), K,
-              _ptr(slot), N, R, _ptr(out))
+              _ptr(slot), N, R, pool_rows_words(K), int(_pool_rows_vec(slot)),
+              _ptr(out))
         LAUNCHES["pool_rows"] += 1
     return out
 

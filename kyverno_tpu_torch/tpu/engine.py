@@ -656,6 +656,19 @@ class TorchEngine:
 
     # -- the guarded dispatch ladder (kyverno_tpu/tpu/engine.py:840-1043)
 
+    def set_pending_counts(self, counts: Optional[np.ndarray]) -> None:
+        """Stash the device's per-rule verdict-class counts for the
+        caller that follows on this thread
+        (kyverno_tpu/tpu/engine.py:set_pending_counts). With a
+        corrupt-mode fault armed at the dispatch site the table read
+        back may be altered behind the counts: drop them, so the caller
+        counts the (corrupted) table it actually serves."""
+        if counts is not None:
+            spec = global_faults.armed().get(SITE_TPU_DISPATCH)
+            if spec is not None and spec.mode == "corrupt":
+                counts = None
+        self._tls.pending_counts = counts
+
     def take_pending_counts(self) -> Optional[np.ndarray]:
         """The last dispatch's (device rules, 7) counts over its live
         columns on this thread (None after a fallback)."""
@@ -768,7 +781,7 @@ class TorchEngine:
                 # bucket-pad columns are encoded empties, not workload
                 counts = counts.astype(np.int64) - class_counts(
                     table[:, n_live:])
-            self._tls.pending_counts = counts
+            self.set_pending_counts(counts)
             return table
 
         D = len(self.cps.device_programs)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""One tree's K12 kernel on tapes of one lane kind, and one mutate-leg
-tile's replay: the parts that compare two commits on one card.
+"""One tree's K12 kernel on tapes of one lane kind, its K7 kernel at the
+main paths' shapes, and one mutate-leg tile's replay: the parts that
+compare two commits on one card.
 
     python3 profile_ab.py [--root DIR] [--samples 200] [--out FILE]
 
@@ -17,6 +18,14 @@ parent), in one call on one card. It reports:
   time: CUDA events around one replay of 20 launches in a CUDA graph
   (``chip_smoke.graph_ms``); bytes: each input read once, each output
   written once.
+- K7 ``pool_rows`` alone at each shape the main paths launch it with
+  (``K7_SHAPES``: the background tile, the dense program and the tenant
+  scan's two plane layouts), on a seeded plane of K = 32 (a column of a
+  bool bank, so strided as on the paths) and a seeded slot lane (three
+  cells in four -1, as padding, the rest in [0, K)); each launch equals
+  its plain twin, exactly; time: ``chip_smoke.rotated_ms`` (copies of
+  the inputs rotated through four times the L2, so they come from
+  memory) beside the byte bound (``chip_smoke.pool_bytes``).
 - ``chip_smoke.py``'s phase-8 tile (bench.py's mutate leg, 1,024 Pods):
   its program's replay, ``--samples`` calls each timed on the host clock
   to a sync (median, 10th and 90th percentiles) beside the host time to
@@ -41,6 +50,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KINDS = ("u8", "i32", "f32", "hash")
 N, R, LANES = 16384, 256, 12
+# K7 on the main paths: (label, (N, R), planes a bank row (the plane's
+# stride over K; 1: a contiguous plane)); K = 32 on every path
+K7_SHAPES = (("tile", (8192, 128), 2), ("dense", (16384, 256), 2),
+             ("tenant (96, 3)", (16384, 256), 3),
+             ("tenant (32, 1)", (16384, 256), 1))
 
 
 def tape(torch, fold, rowfold, kind, N, R, n_lanes, gen, dev):
@@ -107,6 +121,26 @@ def k12_case(torch, kernels, fold, rowfold, cs, kind, N, R, n_lanes, seed,
             "instructions": sum(len(s.code.rows) for s in segs), "ms": ms,
             "bytes": nbytes, "tb_s": nbytes / (ms * 1e-3) / 1e12,
             "max_abs_err": err}
+
+
+def k7_case(torch, kernels, cs, shape, planes, seed, dev):
+    """K7 alone at one main-path shape on rotated copies of seeded
+    inputs, held against its plain twin."""
+    gen = torch.Generator().manual_seed(seed)
+    n, r = shape
+    bank = torch.randint(0, 2, (n, 32, planes), generator=gen,
+                         dtype=torch.uint8).to(torch.bool).to(dev)
+    plane = bank[..., 0]
+    slot = torch.randint(0, 32, shape, generator=gen, dtype=torch.int32)
+    pad = torch.randint(0, 4, shape, generator=gen) != 0
+    slot = torch.where(pad, torch.full_like(slot, -1), slot).to(dev)
+    err = cs.exact(torch, "pool_rows", kernels.pool_rows(plane, slot),
+                   kernels.pool_rows_plain(plane, slot))
+    nbytes = cs.pool_bytes(plane, slot)
+    return {"shape": list(shape), "strides": list(plane.stride()),
+            "ms": cs.rotated_ms(torch, kernels.pool_rows, [plane, slot],
+                                nbytes),
+            "bound_ms": cs.bound(nbytes, 0)[0], "max_abs_err": err}
 
 
 def mutate_tile(torch, cs, samples):
@@ -182,6 +216,14 @@ def main() -> int:
         print(f"row_fold, {r['lanes']} {kind} lanes at ({N}, {R}):"
               f" {r['ms']:.4f} ms, {r['launches']} launches, {r['bytes']} "
               f"bytes ({r['tb_s']:.3f} TB/s), max abs err "
+              f"{r['max_abs_err']} ({card})", flush=True)
+    out["k7"] = {}
+    for i, (label, shape, planes) in enumerate(K7_SHAPES):
+        r = out["k7"][label] = k7_case(torch, kernels, cs, shape, planes, i,
+                                       dev)
+        print(f"pool_rows {label} at {tuple(shape)}, plane strides "
+              f"{tuple(r['strides'])}: {r['ms']:.4f} ms a launch on rotated "
+              f"copies, bound {r['bound_ms']:.4f} ms, max abs err "
               f"{r['max_abs_err']} ({card})", flush=True)
     m = out["mutate_tile"] = mutate_tile(torch, cs, args.samples)
     print(f"mutate-leg tile replay: median {m['replay_ms_median']:.4f} ms "

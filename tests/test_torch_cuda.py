@@ -313,6 +313,68 @@ def test_vocab_gather_kernel_equals_plain(cuda, idx_dtype):
         assert torch.equal(_bits(o.cpu()), _bits(want))
 
 
+def _lanes_of(g, sizes, V):
+    """Seeded vocabulary lanes of the given element sizes (1: uint8; 4:
+    int32, uint32 bits or float32 in turn) and their fills."""
+    srcs, fills = [], []
+    for i, e in enumerate(sizes):
+        if e == 1:
+            srcs.append(torch.randint(0, 256, (V,), generator=g,
+                                      dtype=torch.uint8))
+            fills.append(0xFF)
+        elif i % 3 == 2:
+            srcs.append(torch.randn((V,), generator=g))
+            fills.append(0x7FC00000)
+        else:
+            srcs.append(torch.randint(-2 ** 31, 2 ** 31 - 1, (V,),
+                                      generator=g, dtype=torch.int32))
+            fills.append(0xFFFFFFFF if i % 3 else 0x80000000)
+    return srcs, fills
+
+
+@pytest.mark.parametrize("n_lanes", [1, 2, 7, 17, 40])
+@pytest.mark.parametrize("cells", [1, 15, 16, 17, 4095, 4097, 1100001])
+@pytest.mark.parametrize("idx_dtype", ["uint8", "uint16", "int32"])
+def test_vocab_gather_plan_forms_equal_plain(cuda, n_lanes, cells,
+                                             idx_dtype):
+    """K5's row entry over 1 to 40 lanes of mixed sizes, at cell counts
+    one either side of the 16- and 4-cell vectors and of a chunk's
+    4,096 cells, and past a resident grid's chunks (1,100,001 cells: the
+    grid-stride loop), with an aligned and an unaligned index view."""
+    g = torch.Generator().manual_seed(n_lanes * 7919 + cells)
+    V = 3000
+    sizes = [1 if (i * 5) % 3 == 0 else 4 for i in range(n_lanes)]
+    srcs, fills = _lanes_of(g, sizes, V)
+    if idx_dtype == "uint8":
+        big = torch.randint(0, 256, (cells + 1,), generator=g,
+                            dtype=torch.uint8)
+    elif idx_dtype == "uint16":
+        big = torch.randint(0, 65536, (cells + 1,), generator=g,
+                            dtype=torch.int32).to(torch.int16).view(
+                                torch.uint16)
+    else:
+        big = torch.randint(-V - 50, V + 50, (cells + 1,), generator=g,
+                            dtype=torch.int32)
+    dev_srcs = [s.to(cuda) for s in srcs]
+    dbig = big.to(cuda)
+    for off in (0, 1):  # the second view starts one element in
+        idx = dbig[off:off + cells].view(1, cells)
+        want = [kernels.vocab_gather_plain(s, big[off:off + cells].view(
+            1, cells), f) for s, f in zip(srcs, fills)]
+        got = kernels.vocab_gather(dev_srcs, idx, fills)
+        for o, w in zip(got, want):
+            assert torch.equal(_bits(o.cpu()), _bits(w)), off
+
+
+def test_vocab_gather_rejects_41_lanes(cuda):
+    g = torch.Generator().manual_seed(1)
+    srcs, fills = _lanes_of(g, [1] * 41, 10)
+    with pytest.raises(ValueError):
+        kernels.vocab_gather([s.to(cuda) for s in srcs],
+                             torch.zeros((2, 3), dtype=torch.uint8,
+                                         device=cuda), fills)
+
+
 def test_vocab_gather_rows_kernel_equals_plain(cuda):
     g = torch.Generator().manual_seed(8)
     Sv, W, N, K = 300, 96, 513, 32
@@ -360,6 +422,37 @@ def test_pool_rows_kernel_equals_plain(cuda):
         plane = accepts[..., p]
         got = kernels.pool_rows(accepts.to(cuda)[..., p], slot.to(cuda))
         assert torch.equal(got.cpu(), kernels.pool_rows_plain(plane, slot))
+
+
+@pytest.mark.parametrize("K", [1, 32, 33, 64, 100, 200, 256, 300])
+@pytest.mark.parametrize("R", [1, 3, 4, 128, 130, 256])
+def test_pool_rows_forms_equal_plain(cuda, K, R):
+    """K7 in every form: a plane row of one, two, four or eight mask
+    words in registers and one read in global memory (K 300); 4 slots a
+    load (R a multiple of 4) and 1 (R 1, 3, 130, or a slot view one
+    int32 off 16-byte alignment); strided and contiguous planes; N above
+    one wave (20,000 resources are 2,500 blocks of 8); INT_MIN, -1 and
+    out-of-range slots."""
+    g = torch.Generator().manual_seed(K * 1000 + R)
+    N = 20000 if R == 128 else 1031
+    accepts = torch.rand((N, K, 3), generator=g) < 0.4
+    big = torch.randint(-2, K + 3, (N * R + 1,), generator=g,
+                        dtype=torch.int32)
+    big[5] = -2 ** 31
+    big[-1] = 2 ** 31 - 1
+    dacc, dbig = accepts.to(cuda), big.to(cuda)
+    for off in (0, 1):
+        slot = big[off:off + N * R].view(N, R)
+        dslot = dbig[off:off + N * R].view(N, R)
+        for plane, dplane in ((accepts[..., 1], dacc[..., 1]),
+                              (accepts[..., 2].contiguous(),
+                               dacc[..., 2].contiguous())):
+            form = kernels.pool_rows_form(dplane, dslot)
+            assert ("global" in form) == (K > 256), form
+            assert ("4 slots" in form) == (R % 4 == 0 and off == 0), form
+            got = kernels.pool_rows(dplane, dslot)
+            assert torch.equal(got.cpu(), kernels.pool_rows_plain(plane,
+                                                                  slot))
 
 
 @pytest.mark.parametrize("R", [1, 31, 64, 256, 300])

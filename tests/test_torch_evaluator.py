@@ -210,6 +210,36 @@ def test_pool_rows_twin_equals_reference(seed):
                 want)
 
 
+@pytest.mark.parametrize("R", [1, 3, 130])
+@pytest.mark.parametrize("K", [1, 32, 33, 200])
+def test_pool_rows_twin_equals_reference_at_kernel_forms(R, K):
+    """K7's twin against the reference ``_rows_from_pool`` at the row
+    counts and plane widths that pick the kernel's forms (R no multiple
+    of 4; K in one, two and eight mask words), on a strided plane, with
+    INT_MIN, -1 and out-of-range slots."""
+    rng = np.random.default_rng(R * 1000 + K)
+    N = 9
+    slot = rng.integers(-1, K + 5, size=(N, R)).astype(np.int32)
+    slot[0, 0] = -2 ** 31
+    slot[-1, -1] = 2 ** 31 - 1
+    batch = {"norm_hi": np.zeros((N, R), np.uint32),
+             "valid": np.ones((N, R), np.uint8), "byte_slot": slot,
+             "key_byte_slot": np.flip(slot, axis=1).copy()}
+    jctx, tctx = _ctxs(batch)
+    accepts = rng.random((N, K, 2)) < 0.5
+    for p in range(2):
+        tplane = torch.from_numpy(accepts)[..., p]  # strides (2K, 2)
+        for lane in ("byte_slot", "key_byte_slot"):
+            want = np.asarray(jctx._rows_from_pool(
+                jnp.asarray(accepts[..., p]), lane))
+            assert np.array_equal(tctx._rows_from_pool(tplane, lane).numpy(),
+                                  want)
+    words = kernels.pool_rows_words(K)
+    assert words in (1, 2, 4, 8) and 32 * (words // 2) < K <= 32 * words
+    assert "registers" in kernels.pool_rows_form(tplane, tctx.b["byte_slot"])
+    assert kernels.pool_rows_words(257) == 0
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_first_true_take_twin_equals_reference(seed):
     """has / val_ok as _eval_wildcard_anchor computes them: any true

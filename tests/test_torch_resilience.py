@@ -51,8 +51,8 @@ from kyverno_tpu_torch.resilience.breaker import CLOSED, OPEN, tpu_breaker
 from kyverno_tpu_torch.resilience.faults import (SITE_MUTATE_TRIAGE,
                                                  SITE_TPU_DISPATCH,
                                                  global_faults)
-from kyverno_tpu_torch.tpu.engine import TorchEngine
-from kyverno_tpu_torch.tpu.evaluator import ERROR, HOST, PASS
+from kyverno_tpu_torch.tpu.engine import TorchEngine, class_counts
+from kyverno_tpu_torch.tpu.evaluator import ERROR, FAIL, HOST, PASS
 
 from test_torch_mutation import bench_policies, port_scalar_chain
 from test_torch_mutation import _pod as _ns_pod
@@ -265,3 +265,63 @@ def test_kernel_error_is_raised_not_answered_all_host(pss4, scanners,
     assert global_registry.kernel_errors.value() - kerr0 == 2
     assert (_fallbacks("error"), _fallbacks("open")) == (err0, open0)
     assert tpu_breaker().state == CLOSED
+
+
+def _ref_dispatch(jeng, resources):
+    """One dispatch of the reference's ladder on ``resources``, as its
+    ``_scan_uncached`` makes it -> the live columns of its table."""
+    n = len(resources)
+    padded = list(resources) + [{} for _ in range(jeng.bucket_size(n) - n)]
+    batch, _, _ = jeng.encode(padded, None, None, None)
+    return jeng._dispatch(batch, len(padded), n)[:, :n]
+
+
+def _port_dispatch(teng, resources):
+    n = len(resources)
+    padded, ops, infos = teng.pad(resources, None, None)
+    batch, _, _ = teng.encode(padded, None, ops, infos)
+    return teng._dispatch(batch, len(padded), n)[:, :n]
+
+
+@pytest.mark.parametrize("fault", [None, "flip"])
+def test_counts_beside_a_corrupted_table(pss4, monkeypatch, fault):
+    """A value-corrupting fault at ``tpu.dispatch`` keeps the table's
+    shape, so the ladder serves it: the program's counts of the table
+    before the flip must not stand beside it. Both packages drop the
+    stash under the fault; ``scan_device`` then counts the table it
+    returns. Without the fault the program's counts are used."""
+    jeng, teng = pss4
+    teng.breaker.reset(failure_threshold=5)
+    jeng.breaker.reset(failure_threshold=5)
+    resources = [_pod("a", True), _pod("b", False), _pod("c", True)]
+    if fault:
+        _arm(SITE_TPU_DISPATCH, mode="corrupt", flip=True)
+    want = _ref_dispatch(jeng, copy.deepcopy(resources))
+    got = _port_dispatch(teng, copy.deepcopy(resources))
+    assert np.array_equal(want, got)
+    jstash, tstash = jeng.take_pending_counts(), teng.take_pending_counts()
+    if fault:
+        assert jstash is None and tstash is None
+        assert ((want == PASS) | (want == FAIL)).any()  # cells the flip swaps
+    else:
+        assert np.array_equal(jstash, tstash)
+
+    taken = []
+    take = teng.take_pending_counts
+
+    def spy():
+        taken.append(take())
+        return taken[-1]
+
+    monkeypatch.setattr(teng, "take_pending_counts", spy)
+    table, counts = teng.scan_device(copy.deepcopy(resources))
+    assert np.array_equal(table, want)
+    assert np.array_equal(counts, class_counts(table))
+    assert len(taken) == 1
+    if fault:
+        assert taken[0] is None
+        assert global_faults.armed()[SITE_TPU_DISPATCH].fired == 2
+    else:
+        # the program's own counts, not a recount of the table
+        assert taken[0] is not None
+        assert np.array_equal(counts, taken[0])

@@ -152,6 +152,73 @@ def test_vocab_gather_twin_follows_jnp_take_on_hostile_indices(dtype):
         assert np.array_equal(_bits(alone), _bits(want))
 
 
+_PLAN_CASES = [  # lanes' numpy dtypes, (n, R) of the index table
+    ([np.uint8], (1, 1)),
+    ([np.float32, np.uint8, np.int32, np.uint8, np.uint32], (3, 7)),
+    ([np.uint8] * 17 + [np.int32] * 23, (5, 13)),
+    ([np.uint32, np.float32, np.int32], (4, 16)),
+    ([np.uint8, np.int32] * 6, (33, 65)),
+    ([np.uint8] * 3, (1, 17)),
+    ([np.int32, np.uint8], (2, 255)),
+    ([np.float32] * 40, (64, 64)),
+]
+
+
+@pytest.mark.parametrize("index", ["uint8", "uint16", "int32"])
+@pytest.mark.parametrize("case", range(len(_PLAN_CASES)))
+def test_vocab_plan_with_the_twin_follows_jnp_take(index, case):
+    """K5's host plan: the 1-byte lanes first, then the 4-byte lanes,
+    each group in its given order; each group's chunks of 256 vectors
+    (16 or 4 cells) cover the cells, the last vector partly when the
+    cell count is no multiple of it. The lanes in the plan's order,
+    each through the plain twin, equal ``jnp.take`` on hostile indices
+    (wrapping negatives, past V, the top of each width) at such cell
+    counts, lanes of mixed sizes."""
+    dtypes, shape = _PLAN_CASES[case]
+    rng = np.random.default_rng(case)
+    V = 300 if index != "uint8" else 200
+    srcs_np = [rng.integers(0, 250, size=V).astype(d) for d in dtypes]
+    if index == "uint8":
+        idx = rng.integers(0, 256, size=shape).astype(np.uint8)
+    elif index == "uint16":
+        idx = rng.integers(0, 1 << 16, size=shape).astype(np.uint16)
+        idx.flat[0] = 0xFFFF
+    else:
+        idx = rng.integers(-V - 9, V + 9, size=shape).astype(np.int32)
+        idx.flat[-1] = -2 ** 31
+    t = lanes_to_device({f"s{i}": a for i, a in enumerate(srcs_np)}
+                        | {"i": idx}, "cpu")
+    srcs = [t[f"s{i}"] for i in range(len(dtypes))]
+    fills = [kernels.TAKE_FILL[np.dtype(d)] for d in dtypes]
+    elems = [s.element_size() for s in srcs]
+    cells = idx.size
+    plan = kernels.VocabPlan(elems, cells)
+    n1 = elems.count(1)
+    assert plan.n1 == n1
+    assert plan.order == ([i for i, e in enumerate(elems) if e == 1]
+                          + [i for i, e in enumerate(elems) if e == 4])
+    for elem, chunks in ((1, plan.chunks1), (4, plan.chunks4)):
+        if elem not in elems:
+            assert chunks == 0
+            continue
+        span = kernels.VOCAB_GATHER_THREADS * kernels.VOCAB_GATHER_VEC[elem]
+        assert (chunks - 1) * span < cells <= chunks * span
+    jidx = jnp.asarray(idx).astype(jnp.int32)
+    for i in plan.order:
+        got = kernels.vocab_gather_plain(srcs[i], t["i"], fills[i])
+        want = np.asarray(jnp.take(jnp.asarray(srcs_np[i]), jidx, axis=0))
+        assert np.array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_vocab_plan_lane_limit():
+    """At most ``VOCAB_GATHER_MAX_LANES`` (40) lanes, at least one, of 1
+    or 4 bytes."""
+    assert len(kernels.VocabPlan([4] * 40, 100).order) == 40
+    for elems in ([], [1] * 41, [1, 2], [8]):
+        with pytest.raises(ValueError):
+            kernels.VocabPlan(elems, 100)
+
+
 def test_vocab_gather_rows_twin_follows_jnp_take_on_hostile_indices():
     rng = np.random.default_rng(4)
     Sv, W = 6, 16
