@@ -16,13 +16,18 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    lengths that are not multiples of the stride; K3's one-level entry
    with 1 and 5 predicates (counts, any, both; contiguous, strided,
    unaligned and broadcast) and its two-level entry, on the main path's
-   scopes and on hazard scopes (-1, >= I, valid zeros); K4; and, on one
+   scopes and on hazard scopes (-1, >= I, valid zeros); K4 on a seeded
+   table at the dense shape; and, on one
    encoded tile of the background scan (its vocabulary lanes and
    shapes), K5 over index widths uint8, uint16 and int32 with hostile
    indices (its launch plan, its time with no, the tile's and every
    cell gathering a live row, and a fill of its output bytes beside
    it), K6 with 0, 1, 5 and 40 constants, K7 on a strided DFA accept
-   column (and its form), K8, and K4's uint8 output; K9's packed launch
+   column (and its form), K8 (and on seeded masks at the dense shape,
+   16,384 x 256), and K4's uint8 output (K4 and K8 each timed on its
+   inputs, L2-warm, and on copies rotated past the L2, beside its byte
+   bound and one launch's floor, with the form its plan function
+   picks); K9's packed launch
    over the tenant's NFA-route globs and every pattern class (packs of
    one 32-bit word and of 1, 2 and 8 64-bit words) on the tenant batch's
    namespace, name and pool lanes with real and hostile lengths, its
@@ -100,7 +105,7 @@ device-to-device copy of their inputs for a yardstick, and their time
 at every warp count (each held against its twin); each path's K12
 launches are counted by fill unit (uint8 batches, 4-byte lanes, hash
 lanes); every K7 ``pool_rows`` launch of the same run is kept
-(``PoolKeep``), held against its twin and timed (``time_pool_rows``):
+(``Keep``), held against its twin and timed (``time_pool_rows``):
 the run's launches together on the run's own lanes (which several
 launches share) beside their twins, ``torch.gather`` and a bound that
 reads each distinct lane once; the same launches on copies with their
@@ -108,6 +113,11 @@ own storage, rotated through more bytes than the L2 holds
 (``rotated_ms``), beside a bound that reads each launch's lanes; their
 time in the replay's device trace; and each distinct shape alone on
 rotated copies with its plane's K, strides and the kernel's form;
+every K4 ``verdict_counts`` and K8 ``first_true_take`` launch of the
+same run is kept too, held against its twin and timed together on the
+run's own inputs and on rotated copies, beside their byte bound, their
+time in the replay's trace and a launch's floor (``time_kept``); the
+replay's device-to-device copies are counted;
 K11 is also timed over the run's launches (kept from that run) beside
 its plain twin and bound, at the
 lane counts the host chose and at every lane count G (each launch held
@@ -688,27 +698,30 @@ class RowCheck:
         self.kept.append((code, list(ios), (N, R)))
 
 
-class PoolKeep:
-    """While entered, every K7 ``pool_rows`` launch of a program run is
-    kept with its inputs and output (``kernels.pool_rows`` wrapped; the
-    evaluator looks it up at each call), for ``time_pool_rows``."""
+class Keep:
+    """While entered, every launch of the named kernel wrappers in a
+    program run is kept as its arguments and its output
+    (``kernels.<name>`` wrapped; the evaluator looks each up at its
+    call): ``kept[name]``, a list of ``(*args, out)``."""
 
-    def __init__(self, kernels):
-        self.kernels, self.kept = kernels, []
+    def __init__(self, kernels, *names):
+        self.kernels, self.names = kernels, names
+        self.kept = {n: [] for n in names}
 
     def __enter__(self):
-        self.fn = self.kernels.pool_rows
+        self.fns = {n: getattr(self.kernels, n) for n in self.names}
+        for n, fn in self.fns.items():
+            def keep(*args, _n=n, _fn=fn, **kw):
+                out = _fn(*args, **kw)
+                self.kept[_n].append((*args, out))
+                return out
 
-        def keep(plane, slot):
-            out = self.fn(plane, slot)
-            self.kept.append((plane, slot, out))
-            return out
-
-        self.kernels.pool_rows = keep
+            setattr(self.kernels, n, keep)
         return self
 
     def __exit__(self, *exc):
-        self.kernels.pool_rows = self.fn
+        for n, fn in self.fns.items():
+            setattr(self.kernels, n, fn)
 
 
 def pool_bytes(plane, slot) -> int:
@@ -836,6 +849,116 @@ def time_pool_rows(torch, kernels, kept, phase, label, tag,
                f"{r['plain_ms']:.4f} ms, torch.gather {lib_ms:.4f} ms; each "
                f"equal to its twin (max abs err {err}) {tag}")
     return r
+
+
+# K4 and K8 wrappers a path's run keeps (``Keep``), and the name each
+# kernel's device events carry
+KEPT = {"first_true_take": "first_true_take_",
+        "verdict_counts": "verdict_counts_kernel",
+        "verdict_counts_u8": "verdict_counts_kernel"}
+
+
+def take_bytes(accept, pred) -> int:
+    """K8's bytes on these masks: accept up to each resource's first
+    true row (all R rows when none), one 32-byte sector of pred, and the
+    two output bytes."""
+    import torch
+
+    N, R = accept.shape
+    first = accept.to(torch.uint8).argmax(dim=-1).to(torch.int64)
+    need = torch.where(accept.any(dim=-1), first + 1,
+                       torch.full_like(first, R))
+    return int(need.sum()) + N * 32 + N * 2
+
+
+def counts_bytes(table, u8: bool = False) -> int:
+    """K4's bytes: the int32 table read once, the counts written (and
+    the uint8 table with ``u8``)."""
+    rules, N = table.shape
+    return rules * N * (5 if u8 else 4) + rules * 7 * 4
+
+
+def kept_work(name, args):
+    """(bytes, operations) of one kept K4 or K8 launch."""
+    if name == "first_true_take":
+        nbytes = take_bytes(*args)
+        return nbytes, nbytes - args[0].shape[0] * 34
+    table = args[0]
+    return counts_bytes(table, name == "verdict_counts_u8"), table.numel() * 7
+
+
+def kernel_form(kernels, name, args) -> str:
+    """The form the kernel takes on these inputs (its plan function)."""
+    if name == "first_true_take":
+        accept = args[0]
+        lanes = kernels.first_true_take_form(accept.shape[1],
+                                             accept.data_ptr() % 16 == 0)
+        return f"{lanes} lanes a resource" if lanes else "warp walk"
+    table = args[0]
+    C, threads, vector = kernels.verdict_counts_plan(
+        table.shape[1], table.data_ptr() % 16 == 0)
+    blocks = f"a cluster of {C} blocks" if C > 1 else "one block"
+    return (f"{blocks} of {threads} threads a rule, "
+            f"{'16-byte' if vector else '4-byte'} loads")
+
+
+def time_kept(torch, kernels, name, kept, phase, label, tag, trace_ms=None):
+    """K4 or K8 over the launches one eager run of a path made: each
+    held against its plain twin, exactly; the run's launches together on
+    the run's own inputs (one CUDA graph; L2-warm, as the path finds
+    them after K11 or K12 wrote them) and on copies rotated past the L2
+    (``rotated_ms``), each beside the byte bound of every launch's
+    inputs and outputs; ``trace_ms``, their time in one replay's device
+    trace; and the one launch's floor."""
+    if not kept:
+        return {"launches": 0}
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    err = 0.0
+    for *args, out in kept:
+        got = out if isinstance(out, tuple) else (out,)
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            err = max(err, exact(torch, f"{name} {label}", g, w))
+    n_args = len(kept[0]) - 1
+    ins = [t for *args, _ in kept for t in args]
+
+    def each(*ts):
+        for i in range(0, len(ts), n_args):
+            fn(*ts[i:i + n_args])
+
+    work = [kept_work(name, args) for *args, _ in kept]
+    nbytes, ops = sum(w[0] for w in work), sum(w[1] for w in work)
+    ms = graph_ms(torch, lambda: each(*ins))
+    cold = rotated_ms(torch, each, ins, nbytes)
+    b_ms, b_by = bound(nbytes, ops)
+    floor = launch_floor_ms(torch)
+    forms = sorted({kernel_form(kernels, name, args) for *args, _ in kept})
+    shapes = sorted({tuple(args[0].shape) for *args, _ in kept})
+    trace = "not traced" if trace_ms is None else f"{trace_ms:.4f} ms"
+    say(phase, f"{name} over the {len(kept)} launches of {label} at "
+               f"{shapes} ({'; '.join(forms)}): {ms:.4f} ms on the run's "
+               f"own inputs, {cold:.4f} ms on rotated copies, in the "
+               f"replay's trace {trace}; bound {b_ms:.5f} ms ({b_by}, "
+               f"{nbytes} bytes), {len(kept)} x a launch's floor "
+               f"{len(kept) * floor:.4f} ms; each equal to its twin (max "
+               f"abs err {err}) {tag}")
+    return {"launches": len(kept), "ms": ms, "rotated_ms": cold,
+            "trace_ms": trace_ms, "bytes": nbytes, "bound": (b_ms, b_by),
+            "floor_ms": floor, "forms": forms,
+            "shapes": [list(x) for x in shapes], "max_abs_err": err}
+
+
+_FLOOR = {}
+
+
+def launch_floor_ms(torch) -> float:
+    """One launch's floor on this card: a 4-byte fill replayed in a CUDA
+    graph (``graph_ms``), measured once a run."""
+    if "ms" not in _FLOOR:
+        t = torch.zeros(1, dtype=torch.int32, device="cuda")
+        _FLOOR["ms"] = graph_ms(torch, t.zero_)
+    return _FLOOR["ms"]
 
 
 def row_work(kept):
@@ -1295,14 +1418,15 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     zero_stats(g)
     fold.CHECK, rowfold.CHECK = chk, rchk
     try:
-        with PoolKeep(kernels) as pk:
+        with Keep(kernels, "pool_rows", *KEPT) as pk:
             g.run(lanes)
         torch.cuda.synchronize()
     finally:
         fold.CHECK = rowfold.CHECK = None
-    if len(pk.kept) != counted[0][0]["pool_rows"]:
-        raise AssertionError(f"{label}: {len(pk.kept)} K7 launches kept, "
-                             f"{counted[0][0]['pool_rows']} counted")
+    for name, kept in pk.kept.items():
+        if len(kept) != counted[0][0][name]:
+            raise AssertionError(f"{label}: {len(kept)} {name} launches "
+                                 f"kept, {counted[0][0][name]} counted")
     forced, rforced = g.stats["fold_forced"], g.stats["rows_forced"]
     if chk.launches <= 0 or chk.launches != counted[0][0]["class_fold"]:
         raise AssertionError(f"{label}: {chk.launches} K11 launches checked, "
@@ -1317,6 +1441,8 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
         n_red = row_reductions(torch, lambda: g.run(lanes), *rl.shape,
                                sites)
     rp = device_profile(torch, lambda: g(lanes))
+    copies = sum(t["calls"] for t in rp["all"] if "Memcpy DtoD" in t["name"])
+    copies_ms = sum(t["ms"] for t in rp["all"] if "Memcpy DtoD" in t["name"])
     # the program's bound: every lane read once, its outputs written once
     outs = eager_out if isinstance(eager_out, tuple) else (eager_out,)
     io_bytes = sum(t.numel() * t.element_size() for t in lanes.values()) \
@@ -1348,6 +1474,8 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
                f"hash_match launches {counted[0][0]['hash_match']}, torch "
                f"any/sum reductions over rows {n_red}, one replay "
                f"{rp['device_events']} device events {tag}")
+    say(phase, f"{label}: one replay {copies} device-to-device copies, "
+               f"{copies_ms:.4f} ms {tag}")
     if top:
         for t in rp["top"]:
             say(phase, f"  replay kernel {t['ms']:.3f} ms {t['calls']} x "
@@ -1369,10 +1497,16 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
             "k12": time_row_fold(torch, kernels, rchk.kept,
                                  rchk.max_abs_err, phase, label, tag,
                                  slowest=top),
+            "copies": copies, "copies_ms": copies_ms,
             "k7": time_pool_rows(
-                torch, kernels, pk.kept, phase, label, tag,
+                torch, kernels, pk.kept["pool_rows"], phase, label, tag,
                 trace_ms=sum(t["ms"] for t in rp["all"]
-                             if "pool_rows_kernel" in t["name"]))}
+                             if "pool_rows_kernel" in t["name"])),
+            **{name: time_kept(
+                torch, kernels, name, pk.kept[name], phase, label, tag,
+                trace_ms=sum(t["ms"] for t in rp["all"]
+                             if KEPT[name] in t["name"]))
+               for name in KEPT}}
 
 
 def busy_share(torch, fn, reps: int = 3):
@@ -1795,24 +1929,48 @@ def check_row_fold(torch, kernels, lanes, seed, results):
              f"{r['bound'][0]:.4f} ms ({r['bound'][1]})")
 
 
-def check_verdict_counts(torch, kernels, dev, rules, N, seed, results):
+def phase3_kernel(torch, kernels, name, args, results, tag, lib=None,
+                  key=None, plain_reps: int = 3):
+    """One K4 or K8 launch on seeded or path inputs in phase 3: held
+    against its plain twin, exactly; timed on these inputs (graph
+    replay; L2-warm) beside its twin and ``lib``, and on copies rotated
+    past the L2; its byte bound and one launch's floor; kept in
+    ``results[key]`` (default ``name``)."""
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    got, want = fn(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(exact(torch, name, g, w) for g, w in zip(got, want))
+    nbytes, ops = kept_work(name, args)
+    r = timed(torch, lambda: fn(*args), lambda: plain(*args), lib,
+              plain_reps=plain_reps)
+    r.update(max_abs_err=err, bound=bound(nbytes, ops), bytes=nbytes,
+             rotated_ms=rotated_ms(torch, fn, list(args), nbytes),
+             floor_ms=launch_floor_ms(torch),
+             form=kernel_form(kernels, name, args),
+             shape=list(args[0].shape))
+    results[key or name] = r
+    say("3", f"{name} {tuple(args[0].shape)} ({r['form']}): max abs err "
+             f"{err}; {r['ms']:.4f} ms on these inputs (eager "
+             f"{r['eager_ms']:.4f}), {r['rotated_ms']:.4f} ms on rotated "
+             f"copies; bound {r['bound'][0]:.5f} ms ({r['bound'][1]}, "
+             f"{nbytes} bytes), a launch's floor {r['floor_ms']:.4f} ms; "
+             f"plain {r['plain_ms']:.4f} ms {tag}")
+    return got
+
+
+def check_verdict_counts(torch, kernels, dev, rules, N, seed, results, tag):
+    """K4 on a seeded (rules, N) table of the codes 0..6, at the dense
+    path's shape."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     table = torch.randint(0, 7, (rules, N), generator=gen,
                           dtype=torch.int32).to(dev)
-    got = kernels.verdict_counts(table)
-    want = kernels.verdict_counts_plain(table)
-    err = exact(torch, "verdict_counts", got, want)
+    ar = torch.arange(7, device=dev, dtype=torch.int32)
+    got, = phase3_kernel(torch, kernels, "verdict_counts", (table,), results,
+                         tag, lib=lambda: (table[..., None] == ar).sum(1),
+                         plain_reps=20)
     if int(got.sum()) != rules * N:
         raise AssertionError("verdict_counts: counts do not cover the table")
-    say("3", f"K4 verdict_counts: {tuple(got.shape)}, max abs err {err}")
-    ar = torch.arange(7, device=dev, dtype=torch.int32)
-    results["verdict_counts"] = {
-        "max_abs_err": err,
-        **timed(torch, lambda: kernels.verdict_counts(table),
-                lambda: kernels.verdict_counts_plain(table),
-                lambda: (table[..., None] == ar).sum(1), plain_reps=20),
-        "bound": bound(rules * N * 4 + rules * 7 * 4, rules * N * 7),
-    }
 
 
 def uint16_index(rng, shape, V: int):
@@ -1828,7 +1986,7 @@ def uint16_index(rng, shape, V: int):
 
 
 def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
-                        results):
+                        results, tag):
     """K5 (both entries), K6, K7, K8 and K4's uint8 output against their
     plain twins on one encoded tile of the background scan: its
     vocabulary lanes, index tables and shapes."""
@@ -1882,8 +2040,7 @@ def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
                        + out_bytes, 0),
     }
     pad = float((kernels._index_plain(idx) == 0).float().mean())
-    floor_t = torch.zeros(1, dtype=torch.int32, device=dev)
-    results["launch_floor_ms"] = graph_ms(torch, floor_t.zero_)
+    results["launch_floor_ms"] = launch_floor_ms(torch)
     say("3", f"K5 vocab_gather bound inputs: {idx.numel()} cells "
              f"({pad:.4f} of them padding, index 0), {out_bytes} bytes "
              f"written; one launch's floor (a 4-byte fill replayed): "
@@ -2023,43 +2180,40 @@ def check_vocab_kernels(torch, kernels, dfa_mod, scanner, lanes, seed,
         "container.apparmor.security.beta.kubernetes.io/*"])
     accept = kernels.pool_rows(acc[..., col], view["key_byte_slot"])
     pred = view["type_tag"] == 4  # string rows
-    has, val_ok = kernels.first_true_take(accept, pred)
-    whas, wval = kernels.first_true_take_plain(accept, pred)
-    err = max(exact(torch, "first_true_take has", has, whas),
-              exact(torch, "first_true_take val_ok", val_ok, wval))
+    has, _ = phase3_kernel(torch, kernels, "first_true_take", (accept, pred),
+                           results, tag)
     say("3", f"K8 first_true_take {tuple(accept.shape)}: {int(has.sum())} "
-             f"resources with a true row, max abs err {err}")
-    # the bytes this tile's masks need: accept up to each resource's
-    # first true row (all R rows when none), one 32-byte sector of pred
-    # at that row, and the two output bytes
-    first = accept.to(torch.uint8).argmax(dim=-1).to(torch.int64)
-    accept_bytes = int(torch.where(has, first + 1,
-                                   torch.full_like(first, R)).sum())
-    results["first_true_take"] = {
-        "max_abs_err": err,
-        **timed(torch, lambda: kernels.first_true_take(accept, pred),
-                lambda: kernels.first_true_take_plain(accept, pred)),
-        "bound": bound(accept_bytes + N * 32 + N * 2, accept_bytes),
-    }
-    say("3", f"K8 bound inputs: {accept_bytes} accept bytes to the first "
-             f"true rows of {N} resources ({N * R} cells)")
+             f"resources with a true row")
+    # K8 at the dense and tenant programs' shape, on seeded masks with
+    # the tile's share of resources that have a true row, at a random
+    # row (the first or the last row for some)
+    share = float(has.float().mean())
+    phase3_kernel(torch, kernels, "first_true_take",
+                  take_masks(torch, 16384, 256, share, seed, dev), results,
+                  tag, key="first_true_take_dense")
 
     # K4's uint8 output on a (rules, tile) table
     rules = len(scanner.cps.device_programs)
     table = torch.randint(0, 7, (rules, N), generator=gen,
                           dtype=torch.int32).to(dev)
-    t8, c = kernels.verdict_counts_u8(table)
-    w8, wc = kernels.verdict_counts_u8_plain(table)
-    err = max(exact(torch, "verdict_counts_u8 table", t8, w8),
-              exact(torch, "verdict_counts_u8 counts", c, wc))
-    say("3", f"K4 verdict_counts_u8 {tuple(table.shape)}: max abs err {err}")
-    results["verdict_counts_u8"] = {
-        "max_abs_err": err,
-        **timed(torch, lambda: kernels.verdict_counts_u8(table),
-                lambda: kernels.verdict_counts_u8_plain(table),
-                plain_reps=20),
-        "bound": bound(rules * N * 5 + rules * 7 * 4, rules * N * 7),
-    }
+    phase3_kernel(torch, kernels, "verdict_counts_u8", (table,), results, tag,
+                  plain_reps=20)
+
+
+def take_masks(torch, N, R, share, seed, dev):
+    """Seeded K8 masks: ``share`` of the resources have one true accept
+    row, at a random row (one in eight of them the first, one in eight
+    the last), the rest none; pred is true in half the rows."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    live = torch.rand((N,), generator=gen) < share
+    row = torch.randint(0, R, (N,), generator=gen)
+    pick = torch.randint(0, 8, (N,), generator=gen)
+    row = torch.where(pick == 0, torch.zeros_like(row), row)
+    row = torch.where(pick == 1, torch.full_like(row, R - 1), row)
+    accept = torch.zeros((N, R), dtype=torch.bool)
+    accept[torch.nonzero(live).reshape(-1), row[live]] = True
+    pred = torch.rand((N, R), generator=gen) < 0.5
+    return accept.to(dev), pred.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -3143,10 +3297,10 @@ def main() -> int:
     check_instance_count(torch, kernels, lanes, eng.cps.encode_cfg.max_instances,
                          args.seed + 2, results)
     check_verdict_counts(torch, kernels, eng.device, len(eng.cps.device_programs),
-                         len(padded), args.seed + 3, results)
+                         len(padded), args.seed + 3, results, tag)
     check_row_fold(torch, kernels, lanes, args.seed + 7, results)
     check_vocab_kernels(torch, kernels, dfa_mod, scanner, tile_lanes,
-                        args.seed + 5, results)
+                        args.seed + 5, results, tag)
     check_glob_nfa(torch, kernels, tenant_lanes, nfa, args.seed + 6, results)
     check_dfa_tenant(torch, kernels, dfa_mod, tenant.cps.dfa, tenant_lanes,
                      results)
@@ -3267,6 +3421,34 @@ def main() -> int:
                  f"{r['rotated_bound_ms']:.4f} ms; replay trace "
                  f"{r['trace_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms, "
                  f"torch.gather {r['library_ms']:.4f} ms {tag}")
+    for name in KEPT:
+        e = by_name[name]
+        e.update({k: results[name][k] for k in ("rotated_ms", "floor_ms",
+                                                 "form", "shape")})
+        for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+            r = gr[name]
+            if not r["launches"]:
+                continue
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+            e.setdefault("paths", []).append(
+                {"path": path, "launches_timed": r["launches"],
+                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+                | {k: r[k] for k in ("ms", "rotated_ms", "trace_ms", "bytes",
+                                     "floor_ms", "forms", "shapes")})
+            trace = "not traced" if r["trace_ms"] is None \
+                else f"{r['trace_ms']:.4f} ms"
+            say("6", f"{name} {path}: {r['launches']} launches of one run "
+                     f"{r['ms']:.4f} ms on its own inputs, "
+                     f"{r['rotated_ms']:.4f} ms on rotated copies, replay "
+                     f"trace {trace}; bound "
+                     f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+                     f"{r['launches']} x a launch's floor "
+                     f"{r['launches'] * r['floor_ms']:.4f} ms {tag}")
+    r = results["first_true_take_dense"]
+    by_name["first_true_take"]["dense_shape"] = {
+        k: r[k] for k in ("shape", "form", "ms", "eager_ms", "plain_ms",
+                          "rotated_ms", "floor_ms", "max_abs_err")} | {
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
     p3 = results["row_fold_phase3"]
     by_name["row_fold"]["phase3"] = {
         k: p3[k] for k in ("ms", "eager_ms", "plain_ms", "max_abs_err")} | {

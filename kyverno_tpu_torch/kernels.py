@@ -92,14 +92,15 @@ _SIGNATURES = {
     "instance_count_many": ("instance_count",
                             [_P, _I, ctypes.c_uint, _P, _L, _I, _I, _P]),
     "instance_count2": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
-    "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P, _P]),
+    "verdict_counts": ("verdict_counts", [_P, _I, _L, _P, _P, _I, _I, _I,
+                                          _P]),
     "vocab_gather": ("vocab_gather", [_P, _P, _P, _I, _I, _L, _L, _P, _I, _L,
                                       _L, _P]),
     "vocab_gather_rows": ("vocab_gather",
                           [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P]),
     "hash_match": ("hash_match", [_P, _P, _P, _L, _P, _I, _P, _P]),
     "pool_rows": ("pool_rows", [_P, _L, _L, _I, _P, _L, _I, _I, _I, _P, _P]),
-    "first_true_take": ("first_true_take", [_P, _P, _L, _I, _P, _P, _P]),
+    "first_true_take": ("first_true_take", [_P, _P, _L, _I, _I, _P, _P, _P]),
     "glob_nfa_pack": ("glob_nfa",
                       [_P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P]),
     "meta_any": ("meta_any", [_P, _I, _P, _I, _P, _P, _P, _P, _P, _L, _I,
@@ -774,6 +775,38 @@ def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
 # kyverno_tpu/tpu/evaluator.py build_program.run. Bound by reading the
 # table once.
 
+VERDICT_COUNTS_THREADS = 512   # a block of one rule, at most
+VERDICT_COUNTS_CLUSTER_THREADS = 128  # a block of a cluster, at least
+VERDICT_COUNTS_MAX_CLUSTER = 8  # the portable cluster size
+VERDICT_COUNTS_LOADS = 4        # kLoads: 16-byte loads in flight a thread
+
+
+def verdict_counts_plan(N: int, aligned: bool = True
+                        ) -> Tuple[int, int, bool]:
+    """How K4 runs on a (rules, N) table: (C, threads, vector). Each
+    thread takes ``VERDICT_COUNTS_LOADS`` vectors of 4 cells (one round
+    of loads in flight). A row that a block of at most 512 threads
+    covers so (N <= 8,192) is one block's; a longer row goes to a
+    cluster of C blocks (a power of two, at most 8) of 128 threads or
+    more: C = 8 at N = 16,384. At N = 8,192 one block of 512 threads a
+    rule beats every cluster of the same threads on an H100 (the
+    cluster's barrier costs more than the SMs it adds; ``profile_ab.py``
+    sweeps the plans). ``vector`` is the 16-byte form, taken when
+    N % 4 == 0 and the tensors are ``aligned`` (the table 16-byte, the
+    uint8 output 4-byte), else a cell a thread a step."""
+    if N < 1:
+        raise ValueError(f"verdict_counts_plan: N={N}")
+    per_thread = 4 * VERDICT_COUNTS_LOADS
+    vector = bool(aligned and N % 4 == 0)
+    if N <= VERDICT_COUNTS_THREADS * per_thread:
+        return 1, 32 * -(-N // (32 * per_thread)), vector
+    C = 1
+    while C < VERDICT_COUNTS_MAX_CLUSTER and \
+            C * VERDICT_COUNTS_CLUSTER_THREADS * per_thread < N:
+        C *= 2
+    threads = 32 * -(-N // (32 * per_thread * C))
+    return C, min(VERDICT_COUNTS_THREADS, threads), vector
+
 
 def verdict_counts_plain(table: torch.Tensor) -> torch.Tensor:
     """(rules, N) int32 -> (rules, 7) int32 class histogram."""
@@ -782,19 +815,31 @@ def verdict_counts_plain(table: torch.Tensor) -> torch.Tensor:
     return (table[:, :, None] == ar).sum(dim=1, dtype=torch.int32)
 
 
+def _verdict_counts(table: torch.Tensor, out8: Optional[torch.Tensor]
+                    ) -> torch.Tensor:
+    """Launch K4 (a cluster of blocks a rule) into new counts."""
+    rules, N = table.shape
+    out = torch.empty((rules, NUM_VERDICT_CLASSES), dtype=torch.int32,
+                      device=table.device)
+    if rules and N:
+        aligned = table.data_ptr() % 16 == 0 and (
+            out8 is None or out8.data_ptr() % 4 == 0)
+        C, threads, vector = verdict_counts_plan(N, aligned)
+        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), _ptr(out8),
+              C, threads, int(vector))
+    elif rules:
+        out.zero_()
+    return out
+
+
 def verdict_counts(table: torch.Tensor) -> torch.Tensor:
     """K4: (rules, N) int32 -> (rules, 7) int32."""
     if table.device.type == "cpu":
         return verdict_counts_plain(table)
     _check(table, "table", torch.int32, table.device, 2)
-    rules, N = table.shape
-    out = torch.empty((rules, NUM_VERDICT_CLASSES), dtype=torch.int32,
-                      device=table.device)
-    if rules and N:
-        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), None)
+    out = _verdict_counts(table, None)
+    if table.numel():
         LAUNCHES["verdict_counts"] += 1
-    elif rules:
-        out.zero_()
     return out
 
 
@@ -812,15 +857,11 @@ def verdict_counts_u8(table: torch.Tensor
     if table.device.type == "cpu":
         return verdict_counts_u8_plain(table)
     _check(table, "table", torch.int32, table.device, 2)
-    rules, N = table.shape
-    out = torch.empty((rules, NUM_VERDICT_CLASSES), dtype=torch.int32,
-                      device=table.device)
-    out8 = torch.empty((rules, N), dtype=torch.uint8, device=table.device)
-    if rules and N:
-        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), _ptr(out8))
+    out8 = torch.empty(tuple(table.shape), dtype=torch.uint8,
+                       device=table.device)
+    out = _verdict_counts(table, out8)
+    if table.numel():
         LAUNCHES["verdict_counts_u8"] += 1
-    elif rules:
-        out.zero_()
     return out8, out
 
 
@@ -1138,6 +1179,24 @@ def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
 # take_along_axis pair of kyverno_tpu/tpu/evaluator.py
 # _eval_wildcard_anchor. Bound by the bytes of the two masks.
 
+FIRST_TRUE_TAKE_MAX_R = 512  # 32 lanes of 16 rows: a warp a resource
+
+
+def first_true_take_form(R: int, aligned: bool = True) -> int:
+    """How K8 reads an (N, R) accept mask: the lanes that own a
+    resource in the segment form (a 16-byte load a lane; R / 16 rounded
+    up to a power of two), taken when R % 16 == 0, R <= 512 and the
+    mask is 16-byte ``aligned``; else 0, the warp walk (a warp a
+    resource, 32 rows a step)."""
+    if R < 1:
+        raise ValueError(f"first_true_take_form: R={R}")
+    if not aligned or R % 16 or R > FIRST_TRUE_TAKE_MAX_R:
+        return 0
+    lanes = 1
+    while 16 * lanes < R:
+        lanes *= 2
+    return lanes
+
 
 def first_true_take_plain(accept: torch.Tensor, pred: torch.Tensor,
                           out: Optional[Tuple[torch.Tensor,
@@ -1156,8 +1215,8 @@ def first_true_take_plain(accept: torch.Tensor, pred: torch.Tensor,
 
 def first_true_take(accept: torch.Tensor, pred: torch.Tensor,
                     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """K8: one warp per resource (into ``out``, two (n,) bool tensors,
-    when given)."""
+    """K8 (into ``out``, two (n,) bool tensors, when given), in the form
+    ``first_true_take_form`` picks."""
     if accept.device.type == "cpu":
         return first_true_take_plain(accept, pred, out)
     dev = accept.device
@@ -1176,8 +1235,9 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor,
             raise ValueError(f"first_true_take: out {tuple(t.shape)}, want "
                              f"({N},)")
     if N:
-        _call("first_true_take", _ptr(accept), _ptr(pred), N, R, _ptr(has),
-              _ptr(val_ok))
+        lanes = first_true_take_form(R, accept.data_ptr() % 16 == 0)
+        _call("first_true_take", _ptr(accept), _ptr(pred), N, R, lanes,
+              _ptr(has), _ptr(val_ok))
         LAUNCHES["first_true_take"] += 1
     return has, val_ok
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""One tree's K12 kernel on tapes of one lane kind, its K7 kernel at the
-main paths' shapes, and one mutate-leg tile's replay: the parts that
-compare two commits on one card.
+"""One tree's K12 kernel on tapes of one lane kind, its K7, K4 and K8
+kernels at the main paths' shapes, and one mutate-leg tile's replay:
+the parts that compare two commits on one card.
 
     python3 profile_ab.py [--root DIR] [--samples 200] [--out FILE]
 
@@ -26,6 +26,24 @@ parent), in one call on one card. It reports:
   its plain twin, exactly; time: ``chip_smoke.rotated_ms`` (copies of
   the inputs rotated through four times the L2, so they come from
   memory) beside the byte bound (``chip_smoke.pool_bytes``).
+- K4 ``verdict_counts`` at each shape the main paths launch it with
+  (``K4_SHAPES``: the dense program's (66, 16,384) table, the tenant
+  scan's (69, 16,384), the background step's (66, 8,192) with its uint8
+  output) on a seeded table of the codes 0..6, and K8
+  ``first_true_take`` at each of its shapes (``K8_SHAPES``: the
+  background tile's (8,192, 128), the dense and tenant programs'
+  (16,384, 256)) on seeded masks (``chip_smoke.take_masks``: one
+  resource in five with a true row, as chip_smoke's workload annotates
+  one in five); each launch equals its plain twin, exactly; time on the
+  seeded inputs (L2-warm, as the path finds a table or mask just
+  written; ``chip_smoke.graph_ms``) and on rotated copies
+  (``chip_smoke.rotated_ms``), beside the byte bound
+  (``chip_smoke.kept_work``) and one launch's floor;
+- on a tree whose K4 takes a launch plan (``kernels.verdict_counts_plan``),
+  K4 at each of those shapes under every plan of ``K4_PLANS`` (C blocks
+  a rule, threads a block; C = 1 takes no cluster barrier), each launch
+  equal to its twin, timed on the seeded table and on rotated copies:
+  the sweep the plan function's choice rests on;
 - ``chip_smoke.py``'s phase-8 tile (bench.py's mutate leg, 1,024 Pods):
   its program's replay, ``--samples`` calls each timed on the host clock
   to a sync (median, 10th and 90th percentiles) beside the host time to
@@ -55,6 +73,17 @@ N, R, LANES = 16384, 256, 12
 K7_SHAPES = (("tile", (8192, 128), 2), ("dense", (16384, 256), 2),
              ("tenant (96, 3)", (16384, 256), 3),
              ("tenant (32, 1)", (16384, 256), 1))
+
+# K4 on the main paths: (label, rules, N, uint8 output)
+K4_SHAPES = (("dense", 66, 16384, False), ("tenant", 69, 16384, False),
+             ("step", 66, 8192, True))
+# K8 on the main paths: (label, N, R); the tenant scan's shape is the
+# dense one
+K8_SHAPES = (("tile", 8192, 128), ("dense", 16384, 256))
+K8_SHARE = 0.2
+# K4 launch plans swept: (C, threads)
+K4_PLANS = ((1, 512), (1, 1024), (2, 256), (2, 512), (4, 128), (4, 256),
+            (8, 128), (8, 256))
 
 
 def tape(torch, fold, rowfold, kind, N, R, n_lanes, gen, dev):
@@ -143,6 +172,46 @@ def k7_case(torch, kernels, cs, shape, planes, seed, dev):
             "bound_ms": cs.bound(nbytes, 0)[0], "max_abs_err": err}
 
 
+def take_count_case(torch, kernels, cs, name, args):
+    """K4 or K8 on seeded inputs: equal to its plain twin, timed on the
+    inputs (L2-warm) and on rotated copies, beside its bound."""
+    fn, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+    got, want = fn(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(cs.exact(torch, name, g, w) for g, w in zip(got, want))
+    nbytes, ops = cs.kept_work(name, args)
+    return {"shape": list(args[0].shape),
+            "ms": cs.graph_ms(torch, lambda: fn(*args)),
+            "rotated_ms": cs.rotated_ms(torch, fn, list(args), nbytes),
+            "bound_ms": cs.bound(nbytes, ops)[0], "bytes": nbytes,
+            "floor_ms": cs.launch_floor_ms(torch), "max_abs_err": err}
+
+
+def k4_plans(torch, kernels, cs, table, u8):
+    """K4 on ``table`` under each plan of ``K4_PLANS`` (16-byte form),
+    each held against its twin: {"C x threads": (ms, rotated ms)}."""
+    rules, n = table.shape
+    want = kernels.verdict_counts_plain(table)
+    out = torch.empty((rules, 7), dtype=torch.int32, device=table.device)
+    out8 = torch.empty((rules, n), dtype=torch.uint8,
+                       device=table.device) if u8 else None
+    got = {}
+    for C, threads in K4_PLANS:
+        def k4(t=table):
+            kernels._call("verdict_counts", kernels._ptr(t), rules, n,
+                          kernels._ptr(out), kernels._ptr(out8), C, threads,
+                          1)
+
+        out.zero_()
+        k4()
+        cs.exact(torch, f"verdict_counts plan {C} x {threads}", out, want)
+        got[f"{C} x {threads}"] = (
+            cs.graph_ms(torch, k4),
+            cs.rotated_ms(torch, k4, [table], cs.counts_bytes(table, u8)))
+    return got
+
+
 def mutate_tile(torch, cs, samples):
     from kyverno_tpu_torch.tpu.engine import lanes_to_device
 
@@ -225,6 +294,34 @@ def main() -> int:
               f"{tuple(r['strides'])}: {r['ms']:.4f} ms a launch on rotated "
               f"copies, bound {r['bound_ms']:.4f} ms, max abs err "
               f"{r['max_abs_err']} ({card})", flush=True)
+    out["k4"], out["k8"] = {}, {}
+    for i, (label, rules, n, u8) in enumerate(K4_SHAPES):
+        gen = torch.Generator().manual_seed(100 + i)
+        table = torch.randint(0, 7, (rules, n), generator=gen,
+                              dtype=torch.int32).to(dev)
+        name = "verdict_counts_u8" if u8 else "verdict_counts"
+        r = out["k4"][label] = take_count_case(torch, kernels, cs, name,
+                                               (table,))
+        print(f"{name} {label} at ({rules}, {n}): {r['ms']:.4f} ms on the "
+              f"seeded table, {r['rotated_ms']:.4f} ms on rotated copies, "
+              f"bound {r['bound_ms']:.5f} ms, a launch's floor "
+              f"{r['floor_ms']:.4f} ms, max abs err {r['max_abs_err']} "
+              f"({card})", flush=True)
+        if hasattr(kernels, "verdict_counts_plan"):
+            r["plans"] = k4_plans(torch, kernels, cs, table, u8)
+            print(f"{name} {label} by plan (C x threads: ms, rotated ms): "
+                  + "; ".join(f"{k}: {a:.4f}, {b:.4f}"
+                              for k, (a, b) in r["plans"].items())
+                  + f" ({card})", flush=True)
+    for i, (label, n, r_) in enumerate(K8_SHAPES):
+        masks = cs.take_masks(torch, n, r_, K8_SHARE, 200 + i, dev)
+        r = out["k8"][label] = take_count_case(torch, kernels, cs,
+                                               "first_true_take", masks)
+        print(f"first_true_take {label} at ({n}, {r_}): {r['ms']:.4f} ms on "
+              f"the seeded masks, {r['rotated_ms']:.4f} ms on rotated "
+              f"copies, bound {r['bound_ms']:.5f} ms, a launch's floor "
+              f"{r['floor_ms']:.4f} ms, max abs err {r['max_abs_err']} "
+              f"({card})", flush=True)
     m = out["mutate_tile"] = mutate_tile(torch, cs, args.samples)
     print(f"mutate-leg tile replay: median {m['replay_ms_median']:.4f} ms "
           f"(p10 {m['replay_ms_p10']:.4f}, p90 {m['replay_ms_p90']:.4f}) of "

@@ -477,6 +477,93 @@ def test_verdict_counts_u8_kernel_equals_plain(cuda):
     assert torch.equal(counts.cpu(), wc)
 
 
+def _table(rules, N, seed, offset=0):
+    """A (rules, N) int32 table of the codes 0..6 with 7 and -1 mixed in;
+    ``offset`` cells into its buffer (4 bytes: no 16-byte row start)."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randint(-1, 8, (offset + rules * N,), generator=g,
+                         dtype=torch.int32)
+    return flat[offset:].view(rules, N)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("N", [1, 3, 1000, 5000, 8192, 16384, 16387])
+@pytest.mark.parametrize("rules", [1, 66])
+def test_verdict_counts_forms_equal_plain(cuda, rules, N, offset):
+    table = _table(rules, N, rules * N + offset, offset)
+    if offset:  # the same misaligned view on the card
+        flat = torch.empty(offset + rules * N, dtype=torch.int32,
+                           device=cuda)
+        dev = flat[offset:].view(rules, N).copy_(table)
+        assert dev.data_ptr() % 16 != 0
+    else:
+        dev = table.to(cuda)
+    counts = kernels.verdict_counts(dev)
+    t8, counts8 = kernels.verdict_counts_u8(dev)
+    want8, wantc = kernels.verdict_counts_u8_plain(table)
+    assert torch.equal(counts.cpu(), wantc)
+    assert torch.equal(counts8.cpu(), wantc)
+    assert t8.dtype == torch.uint8 and torch.equal(t8.cpu(), want8)
+
+
+def test_verdict_counts_cluster_launch_replays_in_a_graph(cuda):
+    table = _table(66, 8192, 12).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.verdict_counts_u8(table)  # built and loaded before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        t8, counts = kernels.verdict_counts_u8(table)
+    table.copy_(_table(66, 8192, 13).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    want8, wantc = kernels.verdict_counts_u8_plain(table.cpu())
+    assert torch.equal(t8.cpu(), want8) and torch.equal(counts.cpu(), wantc)
+
+
+def test_verdict_counts_refused_launch_raises_kernel_error(cuda):
+    table = _table(2, 64, 1).to(cuda)
+    out = torch.empty((2, 7), dtype=torch.int32, device=cuda)
+    kernels.build_all()
+    with pytest.raises(kernels.KernelError):  # 2,048 threads a block
+        kernels._call("verdict_counts", kernels._ptr(table), 2, 64,
+                      kernels._ptr(out), None, 1, 2048, 1)
+    # nothing sticky: the next launch runs
+    assert torch.equal(kernels.verdict_counts(table).cpu(),
+                       kernels.verdict_counts_plain(table.cpu()))
+
+
+def _take_masks(N, R, seed):
+    """Rows whose only true cell is the first or the last, rows with
+    none, and random rows."""
+    g = torch.Generator().manual_seed(seed)
+    accept = torch.rand((N, R), generator=g) < 2.0 / R
+    accept[0::4] = False
+    accept[1::4] = False
+    accept[1::4, 0] = True
+    accept[2::4] = False
+    accept[2::4, R - 1] = True
+    pred = torch.rand((N, R), generator=g) < 0.5
+    return accept, pred
+
+
+@pytest.mark.parametrize("N", [1, 7, 1000])
+@pytest.mark.parametrize("R", [1, 16, 31, 45, 128, 256, 300, 600])
+def test_first_true_take_forms_equal_plain(cuda, R, N):
+    accept, pred = _take_masks(N, R, R * 10 + N)
+    want = kernels.first_true_take_plain(accept, pred)
+    got = kernels.first_true_take(accept.to(cuda), pred.to(cuda))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    # an accept mask off 16 bytes takes the warp walk
+    flat = torch.zeros(1 + N * R, dtype=torch.bool, device=cuda)
+    off = flat[1:].view(N, R).copy_(accept.to(cuda))
+    got = kernels.first_true_take(off, pred.to(cuda))
+    want = kernels.first_true_take_plain(accept, pred)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
 def test_sharded_scanner_on_the_card_equals_cpu(cuda):
     policies = [expand_policy(p) for p in load_pss_policies()]
     sc = ShardedScanner(policies)
