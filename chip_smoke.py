@@ -32,7 +32,12 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    one 32-bit word and of 1, 2 and 8 64-bit words) on the tenant batch's
    namespace, name and pool lanes with real and hostile lengths, its
    pack of one there and on 320-byte seeded subjects (state words 2 to
-   16), and K1's non-ASCII entry on its own; K10 ``meta_any`` on the
+   16), and B4's standalone non-ASCII entry at the tenant scan and
+   triage shapes (the namespace lane and seeded subjects); K1's
+   non-ASCII flag from both entries (the walk of pattern 0) on seeded
+   ASCII subjects with an accented letter inside and past the length,
+   and at the tenant bank's shapes, timed with and without the flag;
+   K10 ``meta_any`` on the
    tenant policy's 3,264-entry ``namespaces`` list at the tenant scan
    and triage shapes, under every tile a block may serve; K12
    ``row_fold`` on the dense lanes at the main shape, a seeded tape of
@@ -55,8 +60,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    that the step never waits for the device, and the tile's lane bytes
    against the dense form's;
 6. the ``kernels`` JSON line (launches by path: dense, background
-   scan, tenant validate, tenant triage, mutate leg), then the device
-   JSON line (last line);
+   scan, tenant validate, tenant triage, mutate leg; the standalone
+   non-ASCII entry must launch on none: each path's K1 launches give
+   the flags), then the device JSON line (last line);
 7. the tenant path: the 18 PSS policies and a tenant policy (a
    validate and a mutate rule over 3,200 + 64 namespace globs) that
    fill the DFA bank's 60,000 states, so hundreds of globs run on K9:
@@ -80,6 +86,19 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    and an armed ``mutate.triage`` fault: every table equals the clean
    scan and the CPU run, the triage batch is all-HOST and patches as the
    clean one.
+10. the pipelined background scan: phase 5's snapshot through
+   ``tpu/pipeline.py:PipelinedScanner`` in chunks of the tile, (a) fed
+   by an encode thread, (b) by an encoder pool of min(8, cpu_count - 2)
+   worker processes, (c) cold and then warm in a columnar store (a
+   temporary directory) with the encode cache on: resources/s,
+   ``encode_s``, ``encode_wait_s``, ``device_s``, ``host_s`` and
+   ``overlap_ratio`` of each; each table equals phase 5's, the pool
+   encodes every chunk (no bypass, no infra failure, no worker that
+   loaded torch or JAX), the warm rescan walks no JSON. Then a repeat
+   ``TorchEngine.scan`` of the dense batch with the verdict cache on
+   (its table equals the cold one; the hit rate is printed). Phases 3
+   to 9 run with both content caches off and no columnar store, so
+   they time the device, not cache hits.
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -131,8 +150,8 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phase 9; phase 6's lines come
-last.
+Phases 7 and 8 run after phase 5, then phases 9 and 10; phase 6's
+lines come last.
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -204,10 +223,13 @@ SCAN_KERNELS = ("vocab_gather", "vocab_gather_rows", "hash_match",
                 "pool_rows", "first_true_take", "verdict_counts_u8",
                 "dfa_scan_fused", "instance_count", "instance_count2",
                 "class_fold", "row_fold")
-TENANT_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold",
-                  "row_fold")
+TENANT_KERNELS = ("glob_nfa", "meta_any", "class_fold", "row_fold")
 # the mutate triage programs match on metadata alone: no row planes
-TRIAGE_KERNELS = ("glob_nfa", "nonascii", "meta_any", "class_fold")
+TRIAGE_KERNELS = ("glob_nfa", "meta_any", "class_fold")
+# kernels no path may launch: every family whose non-ASCII flag a path
+# needs is scanned by one of its K1 launches, which writes the flag
+# (the standalone entry serves a family no K1 launch scans)
+NOT_ON_A_PATH = ("nonascii",)
 # eager aten operations a tenant triage batch may issue (46,747 before
 # K10 took the per-entry loop over the namespace globs)
 TRIAGE_OPS_MAX = 5000
@@ -1547,9 +1569,29 @@ def busy_share(torch, fn, reps: int = 3):
 # phase 3: every kernel against its plain twin
 
 
+def accented(torch, gen, S: int, W: int, dev):
+    """Seeded (S, W) ASCII subjects and (S,) lengths in [0, W + 8]:
+    about one row in ten carries an 'e' with an acute accent (0xC3
+    0xA9) at a random position, inside or past its length, and half the
+    rows hold 0xFF past their length, so a flag that reads a byte past
+    the length is caught."""
+    b = torch.randint(32, 127, (S, W), generator=gen, dtype=torch.uint8)
+    ln = torch.randint(0, W + 9, (S,), generator=gen, dtype=torch.int32)
+    rows = torch.nonzero(torch.rand(S, generator=gen) < 0.1).flatten()
+    at = torch.randint(0, W - 1, (rows.numel(),), generator=gen)
+    b[rows, at] = 0xC3
+    b[rows, at + 1] = 0xA9
+    past = torch.arange(W)[None, :] >= ln[:, None]
+    b[past & (torch.rand(S, generator=gen) < 0.5)[:, None]] = 0xFF
+    return b.to(dev), ln.to(dev)
+
+
 def check_dfa(torch, kernels, dfa_mod, pool, pool_len, seed, results):
     """K1 at strides 1, 2, 4 on the PSS patterns (over the main path's
-    pool lanes) and on an approximated bank (over seeded subjects)."""
+    pool lanes) and on an approximated bank (over seeded random bytes,
+    and over seeded ASCII subjects with an accented letter inside or
+    past the length); both entries' non-ASCII flags (B4, written by the
+    walk of pattern 0) against ``nonascii_plain``."""
     dev = pool.device
     W = pool.shape[-1]
     subj = pool.reshape(-1, W).contiguous()
@@ -1570,7 +1612,9 @@ def check_dfa(torch, kernels, dfa_mod, pool, pool_len, seed, results):
     old = os.environ.get("KYVERNO_TPU_DFA_STATE_BUDGET")
     for label, patterns, budget, (b, ln) in (
             ("pss", pss_patterns, None, (subj, slen)),
-            ("approx", approx_patterns, "12", (rb, rl))):
+            ("approx", approx_patterns, "12", (rb, rl)),
+            ("accented", approx_patterns, "12",
+             accented(torch, gen, subj.shape[0], W, dev))):
         for stride in (4, 2, 1):
             if budget is not None:
                 os.environ["KYVERNO_TPU_DFA_STATE_BUDGET"] = budget
@@ -1664,9 +1708,12 @@ def check_dfa_tenant(torch, kernels, dfa_mod, bank, lanes, results):
                              ("triage", min(1024, byt.shape[0]))):
                 b, l = byt[:n].contiguous(), ln[:n].contiguous()
                 out = torch.empty((n, len(sub)), dtype=torch.bool, device=dev)
-                got = kfn(b, l, tiles, out)[0]
+                got, na = kfn(b, l, tiles, out, want_nonascii=True)
                 err = exact(torch, f"{name} tenant {family} {shape}", got,
                             tiles.plain_scan(b, l))
+                err = max(err, exact(torch, f"{name} tenant {family} {shape}"
+                                     " non-ASCII flag", na,
+                                     kernels.nonascii_plain(b, l)))
                 nbytes, steps, table_bytes = k1_work(torch, tiles, b, l)
                 row = {"name": name, "family": family, "shape": shape,
                        "K": len(sub), "S": n, "W": b.shape[1],
@@ -1676,6 +1723,9 @@ def check_dfa_tenant(torch, kernels, dfa_mod, bank, lanes, results):
                                lambda: tiles.plain_scan(b, l),
                                plain_eager=True),
                        "bound": bound(nbytes, steps * len(sub) * 4),
+                       "flag_ms": graph_ms(torch, lambda: kfn(
+                           b, l, tiles, out, want_nonascii=True)),
+                       "nonascii": int(na.sum()),
                        "chunk_ms": k1_chunk_sweep(torch, kernels, kfn, tiles,
                                                   b, l, out)}
                 rows.append(row)
@@ -1685,9 +1735,11 @@ def check_dfa_tenant(torch, kernels, dfa_mod, bank, lanes, results):
                          + k1_layout(tiles, b))
                 say("3", f"K1 {name} tenant {family} {shape}: "
                          f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}),"
+                         f" with the non-ASCII flag {row['flag_ms']:.4f} ms,"
                          f" plain {row['plain_ms']:.4f} ms, bound "
                          f"{row['bound'][0]:.6f} ms ({row['bound'][1]}), "
-                         f"{int(got.sum())} hits, max abs err {err}")
+                         f"{int(got.sum())} hits, {row['nonascii']} "
+                         f"non-ASCII subjects, max abs err {err}")
                 say("3", f"K1 {name} tenant {family} {shape}: chunks a tile"
                          f" -> ms (the wrapper's rule: "
                          f"{-(-n // tiles.chunk(n, b.shape[1], dev))}): "
@@ -2391,7 +2443,8 @@ def dense_phase(torch, kernels, eng, policies, resources, ops, padded, pops,
 
 def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     """Phase 5: the background scan (ShardedScanner.scan_stream over the
-    vocabulary form). Returns its launch counts."""
+    vocabulary form). Returns its launch counts, the step's graph check
+    and the snapshot with its table (phase 10's feed)."""
     import warnings
 
     import numpy as np
@@ -2527,7 +2580,9 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
              f"{len([k for k in host if k.startswith('vocab_')])} vocabulary "
              f"lanes of {host['vocab_valid'].shape[0]} rows")
     ladder_check("5")
-    return launches, gr
+    feed = {"resources": resources, "ops": ops, "verdicts": res.verdicts,
+            "scan_s": scan_s, "stats": stats}
+    return launches, gr, feed
 
 
 # ---------------------------------------------------------------------------
@@ -2634,7 +2689,8 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
     64-bit state words); the pack of one (``glob_nfa``) against the same
     rows and on 320-byte seeded subjects (2 to 16 state words). Then the
     packed launch timed on the namespace lane beside the pack of one,
-    and K1's non-ASCII entry."""
+    and B4's standalone non-ASCII entry at the tenant scan and triage
+    shapes."""
     import numpy as np
 
     dev = lanes["meta_ns_bytes"].device
@@ -2724,24 +2780,41 @@ def check_glob_nfa(torch, kernels, lanes, nfa, seed, results):
              f"pack of one {r['pack_of_one_ms']:.4f} ms x {P} = "
              f"{r['pack_of_one_ms'] * P:.4f} ms")
 
-    # K1's non-ASCII entry alone (what the NFA route's '?' globs launch)
-    na = kernels.nonascii(byt, ln)
-    nerr = exact(torch, "nonascii", na, kernels.nonascii_plain(byt, ln))
-    live = torch.clamp(ln, 0, W).to(torch.int64)
-    pos = torch.arange(W, device=dev)[None, :]
-    high = (byt >= 0x80) & (pos < live[:, None])
-    first = torch.where(high.any(-1), high.to(torch.uint8).argmax(-1) + 1,
-                        live)
-    nbytes = int(first.sum())
-    results["nonascii"] = {
-        "max_abs_err": nerr,
-        **timed(torch, lambda: kernels.nonascii(byt, ln),
-                lambda: kernels.nonascii_plain(byt, ln)),
-        "bound": bound(nbytes + S * 4 + S, nbytes),
-    }
-    say("3", f"K1 nonascii on the namespace lane {tuple(byt.shape)}: "
-             f"{int(na.sum())} non-ASCII subjects, max abs err {nerr}; "
-             f"{nbytes} bytes up to the first non-ASCII byte or the length")
+    # B4's standalone entry (a family no K1 launch scans): on the
+    # namespace lane at the tenant scan and triage shapes, and on seeded
+    # accented subjects of the same shapes
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    floor = launch_floor_ms(torch)
+    shapes = []
+    for label, (b, l) in (
+            ("namespace lane, scan", (byt, ln)),
+            ("namespace lane, triage", (byt[:1024].contiguous(),
+                                        ln[:1024].contiguous())),
+            ("seeded, scan", accented(torch, gen, S, W, dev)),
+            ("seeded, triage", accented(torch, gen, min(1024, S), W, dev))):
+        na = kernels.nonascii(b, l)
+        nerr = exact(torch, f"nonascii {label}", na,
+                     kernels.nonascii_plain(b, l))
+        n, w = b.shape
+        live = torch.clamp(l, 0, w).to(torch.int64)
+        pos = torch.arange(w, device=dev)[None, :]
+        high = (b >= 0x80) & (pos < live[:, None])
+        first = torch.where(high.any(-1), high.to(torch.uint8).argmax(-1) + 1,
+                            live)
+        nbytes = int(first.sum())
+        row = {"label": label, "shape": [n, w], "max_abs_err": nerr,
+               "nonascii": int(na.sum()), "floor_ms": floor,
+               **timed(torch, lambda: kernels.nonascii(b, l),
+                       lambda: kernels.nonascii_plain(b, l)),
+               "bound": bound(nbytes + n * 4 + n, nbytes)}
+        shapes.append(row)
+        say("3", f"B4 nonascii alone, {label} {tuple(b.shape)}: "
+                 f"{row['ms']:.4f} ms (eager {row['eager_ms']:.4f}), plain "
+                 f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.6f} ms "
+                 f"({nbytes} bytes up to the first non-ASCII byte or the "
+                 f"length), a launch's floor {floor:.4f} ms, "
+                 f"{row['nonascii']} non-ASCII subjects, max abs err {nerr}")
+    results["nonascii"] = dict(shapes[0], shapes=shapes)
 
 
 def check_meta_any(torch, kernels, eng, resources, lanes, batch_n, results):
@@ -3194,6 +3267,254 @@ def fault_phase(torch, kernels, eng, scanner, tenant, resources, ops,
     ladder_reset()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the pipelined background scan, the encoder pool and the caches
+
+
+def pipeline_phase(torch, kernels, scanner, eng, feed, dense_res, dense_ops,
+                   tile, cache_caps, tenant, triage_res, tag):
+    """Phase 10: phase 5's snapshot through ``PipelinedScanner`` over
+    the same scanner, in chunks of ``tile``: (a) the feed an encode
+    thread, (b) an encoder pool of min(8, cpu_count - 2) workers, (c) a
+    rescan warm in a columnar store (in a temporary directory) with the
+    encode cache on, after the cold run that fills it. Each run's table
+    must equal phase 5's ``scan_stream`` table (which runs again first,
+    its step's graph captured, as the baseline); (b) must encode every
+    chunk on the pool (no bypass, no infra failure, workers that loaded
+    neither torch nor JAX) and (c)'s warm rescan must walk no JSON and
+    encode no segment. Then what the caches' default costs cold traffic
+    (``cache_cost``), and a repeat ``TorchEngine.scan`` of the dense
+    batch with the verdict cache on: equal to the cold scan, its hit
+    rate printed. The caches and the store are off again, and the pool
+    stopped, when it returns."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kyverno_tpu_torch.cluster.columnar import (configure_store,
+                                                    reset_store)
+    from kyverno_tpu_torch.encode import EncoderPool
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+    from kyverno_tpu_torch.tpu import cache as tcache
+    from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner
+
+    resources, ops, want = feed["resources"], feed["ops"], feed["verdicts"]
+    n = len(resources)
+    chunks = [resources[i:i + tile] for i in range(0, n, tile)]
+    op_chunks = [ops[i:i + tile] for i in range(0, n, tile)]
+    s5 = feed["stats"]
+    say("10", f"scan_stream (phase 5) {n} resources: {feed['scan_s']:.3f} s,"
+              f" {n / feed['scan_s']:.1f} resources/s, encode_s "
+              f"{s5['encode_s']:.3f}, device_s {s5['device_s']:.3f}, host_s "
+              f"{s5['host_s']:.3f} {tag}")
+
+    def run(label, pool=None, depth=2):
+        ladder_reset()
+        out = {}
+        t0 = time.perf_counter()
+        st = PipelinedScanner(scanner, depth=depth,
+                              encode_pool=pool).scan_chunks(
+            chunks, operations=op_chunks,
+            on_result=lambda i, r: out.__setitem__(i, r.verdicts))
+        wall = time.perf_counter() - t0
+        if sorted(out) != list(range(len(chunks))):
+            raise AssertionError(f"pipelined {label}: chunks {sorted(out)}")
+        table = np.concatenate([out[i] for i in range(len(chunks))], axis=1)
+        if table.shape != want.shape or not (table == want).all():
+            raise AssertionError(f"pipelined {label}: verdicts differ from "
+                                 "phase 5's scan_stream")
+        if st["encode_fallback_chunks"]:
+            raise AssertionError(f"pipelined {label}: "
+                                 f"{st['encode_fallback_chunks']} chunks "
+                                 "fell back to the serial scan")
+        paths = [t["path"] for t in st["timeline"]]
+        if paths != ["device"] * len(chunks):
+            raise AssertionError(f"pipelined {label}: chunk paths {paths}")
+        per = [t["encode_s"] for t in st["timeline"]]
+        say("10", f"pipelined scan, {label}: {n} resources in "
+                  f"{len(chunks)} chunks of {tile}: {wall:.3f} s, "
+                  f"{n / wall:.1f} resources/s, encode_s "
+                  f"{st['encode_s']:.3f}, encode_wait_s "
+                  f"{st['encode_wait_s']:.3f}, device_s "
+                  f"{st['device_s']:.3f}, host_s {st['host_s']:.3f}, "
+                  f"overlap_ratio {st['overlap_ratio']}, depth {depth}, a "
+                  f"chunk's encode median {statistics.median(per):.3f} s "
+                  f"(max {max(per):.3f}); verdicts equal scan_stream's "
+                  f"{tag}")
+        ladder_check("10")
+        return st
+
+    # the serial scan again, its step's graph already captured: the
+    # baseline of the runs below
+    t0 = time.perf_counter()
+    again, s0 = scanner.scan_stream(resources, tile=tile, operations=ops)
+    wall = time.perf_counter() - t0
+    if not (again.verdicts == want).all():
+        raise AssertionError("scan_stream differs from its first run")
+    say("10", f"scan_stream again (warm): {wall:.3f} s, {n / wall:.1f} "
+              f"resources/s, encode_s {s0['encode_s']:.3f}, device_s "
+              f"{s0['device_s']:.3f}, host_s {s0['host_s']:.3f} {tag}")
+
+    # (a) the feed an encode thread of this process
+    run("(a) no pool")
+
+    # (b) an encoder pool
+    cpus = os.cpu_count() or 1
+    workers = max(1, min(8, cpus - 2))
+    say("10", f"os.cpu_count() {cpus}: a pool of {workers} workers")
+    outcomes = ("ok", "retried_ok", "bypass", "infra_fail", "encode_error",
+                "poison")
+    before = {o: reg.encode_pool_chunks.value({"outcome": o})
+              for o in outcomes}
+    t0 = time.perf_counter()
+    pool = EncoderPool(workers).start()
+    try:
+        ready = pool.wait_ready(120)
+        say("10", f"pool of {workers}: {ready} ready in "
+                  f"{time.perf_counter() - t0:.3f} s")
+        slots = pool.state()["worker_slots"]
+        loaded = [(w["torch_loaded"], w["jax_loaded"]) for w in slots]
+        if ready != workers or any(a or b for a, b in loaded):
+            raise AssertionError(f"pool: {ready} of {workers} ready, "
+                                 f"(torch, jax) loaded {loaded}")
+        # as many chunks ahead as there are workers, so every worker has
+        # a chunk to encode
+        st = run(f"(b) a pool of {workers} workers", pool, depth=workers)
+        moved = {o: reg.encode_pool_chunks.value({"outcome": o}) - before[o]
+                 for o in outcomes}
+        summary = pool.summary()
+        say("10", f"pool chunks by outcome {moved}; summary "
+                  f"{json.dumps(summary)}; each worker loaded neither torch "
+                  f"nor jax")
+        if (moved["ok"] != len(chunks) or moved["bypass"]
+                or moved["infra_fail"] or moved["retried_ok"]
+                or summary["breaker"] != "closed" or summary["restarts"]
+                or st.get("encode_pool", {}).get("alive") != workers):
+            raise AssertionError(f"pool did not encode every chunk: {moved},"
+                                 f" {summary}")
+    finally:
+        pids = pool.worker_pids()
+        pool.stop()
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and any(
+            os.path.exists(f"/proc/{p}") for p in pids):
+        time.sleep(0.05)
+    if any(os.path.exists(f"/proc/{p}") for p in pids):
+        raise AssertionError(f"pool workers left running: {pids}")
+
+    # (c) the columnar store and the encode cache
+    tmp = tempfile.mkdtemp(prefix="columnar-")
+    try:
+        tcache.configure(0, cache_caps[1])
+        configure_store(directory=tmp, enabled=True)
+        run("(c) columnar store, cold (fills the store)")
+        walks = reg.encode_json_walks.value()
+        segs = reg.encode_diff_segments.value()
+        run("(c) columnar store, warm rescan")
+        dw = reg.encode_json_walks.value() - walks
+        ds = reg.encode_diff_segments.value() - segs
+        say("10", f"warm rescan: {dw} JSON walks, {ds} segment encodes")
+        if dw or ds:
+            raise AssertionError(f"warm rescan walked JSON ({dw}) or encoded "
+                                 f"segments ({ds})")
+    finally:
+        reset_store()
+        tcache.configure(0, 0)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    cache_cost(eng, dense_res, dense_ops, tenant, triage_res, cache_caps,
+               tag)
+
+    # the verdict cache on a repeat dense scan
+    tcache.configure(*cache_caps)
+    try:
+        ladder_reset()
+        t0 = time.perf_counter()
+        cold = eng.scan(dense_res, operations=dense_ops)
+        cold_s = time.perf_counter() - t0
+        hits = reg.verdict_cache.value({"outcome": "hit"})
+        miss = reg.verdict_cache.value({"outcome": "miss"})
+        t0 = time.perf_counter()
+        warm = eng.scan(dense_res, operations=dense_ops)
+        warm_s = time.perf_counter() - t0
+        dh = reg.verdict_cache.value({"outcome": "hit"}) - hits
+        dm = reg.verdict_cache.value({"outcome": "miss"}) - miss
+        if not (warm.verdicts == cold.verdicts).all():
+            raise AssertionError("cached dense scan differs from the cold "
+                                 "scan")
+        say("10", f"TorchEngine.scan of {len(dense_res)} dense resources "
+                  f"with the verdict cache on: cold {cold_s:.3f} s, repeat "
+                  f"{warm_s:.3f} s, {dh} hits and {dm} misses (hit rate "
+                  f"{dh / max(dh + dm, 1):.4f}); the repeat's table equals "
+                  f"the cold one {tag}")
+        ladder_check("10")
+    finally:
+        tcache.configure(0, 0)
+
+
+def cache_cost(eng, dense_res, dense_ops, tenant, triage_res, cache_caps,
+               tag, runs=3):
+    """What the caches' default capacities cost traffic they cannot
+    serve (every lookup a miss, as admission's mostly unique resources):
+    a cold dense ``TorchEngine.scan`` and a cold tenant
+    ``triage_mutate`` batch with both caches off (0, 0) and at their
+    defaults emptied first, interleaved ``runs`` times, on the host
+    clock; and the content hashing alone (``verdict_cache_keys``, which
+    the scan makes once and the encode cache again). Each run's table
+    must equal the first cache-free one. The caches are off on
+    return."""
+    from kyverno_tpu_torch.tpu import cache as tcache
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    times = {(what, mode): [] for what in ("scan", "triage")
+             for mode in ("off", "default")}
+    want = {}
+    ladder_reset()
+    try:
+        for _ in range(runs):
+            for mode, caps in (("off", (0, 0)), ("default", cache_caps)):
+                for what, fn in (
+                        ("scan", lambda: eng.scan(dense_res,
+                                                  operations=dense_ops)),
+                        ("triage", lambda: tenant.triage_mutate(triage_res))):
+                    tcache.global_verdict_cache.clear()
+                    tcache.global_encode_cache.clear()
+                    tcache.configure(*caps)
+                    sec, got = timed(fn)
+                    if what not in want:
+                        want[what] = got.verdicts
+                    elif not (got.verdicts == want[what]).all():
+                        raise AssertionError(f"cold {what} with the caches "
+                                             f"{mode} differs")
+                    times[(what, mode)].append(sec)
+        ladder_check("10")
+        tcache.configure(0, 0)
+        hash_s = [timed(lambda: eng.verdict_cache_keys(
+            dense_res, operations=dense_ops))[0] for _ in range(runs)]
+    finally:
+        tcache.global_verdict_cache.clear()
+        tcache.global_encode_cache.clear()
+        tcache.configure(0, 0)
+    for what, n in (("scan", len(dense_res)), ("triage", len(triage_res))):
+        off, on = times[(what, "off")], times[(what, "default")]
+        say("10", f"cold {what} of {n}: caches off "
+                  + ", ".join(f"{t:.3f}" for t in off) + " s; at their "
+                  f"defaults {cache_caps} (all misses) "
+                  + ", ".join(f"{t:.3f}" for t in on) + f" s; medians "
+                  f"{statistics.median(off):.3f} -> "
+                  f"{statistics.median(on):.3f} s "
+                  f"({statistics.median(on) / statistics.median(off):.3f}x)"
+                  f"; tables equal {tag}")
+    say("10", f"content hashing of the {len(dense_res)} dense resources "
+              "(verdict_cache_keys): " + ", ".join(f"{t:.3f}" for t in hash_s)
+              + f" s {tag}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -3231,6 +3552,16 @@ def main() -> int:
         print(f"chip_smoke: the kyverno_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 3
+
+    # phases 3-9 time the device, not cache hits: both content caches
+    # off and no columnar store until phase 10
+    from kyverno_tpu_torch.cluster.columnar import reset_store
+    from kyverno_tpu_torch.tpu import cache as tcache
+
+    cache_caps = (tcache.global_verdict_cache._lru.capacity,
+                  tcache.global_encode_cache._lru.capacity)
+    tcache.configure(0, 0)
+    reset_store()
 
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3312,8 +3643,9 @@ def main() -> int:
     dense, g_dense = dense_phase(torch, kernels, eng, policies, resources,
                                  ops, padded, pops, args.n, tag, results)
     # phase 5: the background scan through the user's entry point
-    scan, g_step = scan_phase(torch, kernels, scanner, policies, args.scan_n,
-                              args.tile, args.seed + 10, tag)
+    scan, g_step, feed = scan_phase(torch, kernels, scanner, policies,
+                                    args.scan_n, args.tile, args.seed + 10,
+                                    tag)
     # phase 7: the tenant set's scan and triage
     tv, tt, g_tv, g_tt = tenant_phase(torch, kernels, tenant, tenant_res,
                                       args.tenant_batch, tenant_compile_s,
@@ -3324,6 +3656,12 @@ def main() -> int:
     # phase 9: the guarded dispatch ladder under faults
     fault_phase(torch, kernels, eng, scanner, tenant, resources, ops,
                 tenant_res, tag)
+    # phase 10: the pipelined background scan, the encoder pool and the
+    # caches (the only phase that turns them on)
+    pipeline_phase(torch, kernels, scanner, eng, feed, resources, ops,
+                   args.tile, cache_caps, tenant,
+                   tenant_res[:args.tenant_batch], tag)
+    del feed
     for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
         say("6", f"graphs {path}: eager {gr['eager_ms']:.3f} ms, replay "
                  f"{gr['replay_ms']:.3f} ms, captures {gr['captures']}, aten "
@@ -3358,7 +3696,10 @@ def main() -> int:
                  f"bound {b_ms:.4f} ms ({b_by}), library "
                  f"{'none' if lib is None else f'{lib:.4f} ms'}, launches "
                  + ", ".join(f"{p} {k}" for p, k in per.items()) + f" {tag}")
-        if n_launch <= 0:
+        if name in NOT_ON_A_PATH:
+            if n_launch:
+                raise AssertionError(f"{name} launched on a path: {per}")
+        elif n_launch <= 0:
             raise AssertionError(f"{name} was launched on no path")
     # K1 at the tenant bank's shapes, beside the rows above
     by_name = {e["name"]: e for e in out}
@@ -3460,16 +3801,22 @@ def main() -> int:
                               "bytes", "ms", "eager_ms", "plain_ms", "tile",
                               "tile_ms")}
             | {"bound_ms": b_ms, "bound_by": b_by})
+    for r in results["nonascii"]["shapes"]:
+        by_name["nonascii"].setdefault("shapes", []).append(
+            {k: r[k] for k in ("label", "shape", "ms", "eager_ms", "plain_ms",
+                               "floor_ms", "nonascii")}
+            | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
     for r in results["dfa_tenant"]:
         b_ms, b_by = r["bound"]
         by_name[r["name"]].setdefault("tenant_shapes", []).append({
             k: r[k] for k in ("family", "shape", "K", "S", "W", "steps",
-                              "table_bytes", "ms", "eager_ms", "plain_ms",
-                              "chunk_ms")}
+                              "table_bytes", "ms", "flag_ms", "eager_ms",
+                              "plain_ms", "chunk_ms")}
             | {"bound_ms": b_ms, "bound_by": b_by})
         say("6", f"{r['name']} tenant {r['family']} {r['shape']} (K "
                  f"{r['K']}, S {r['S']}): {r['ms']:.4f} ms (eager "
-                 f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                 f"{r['eager_ms']:.4f} ms; with the non-ASCII flag "
+                 f"{r['flag_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                  f"bound {b_ms:.6f} ms ({b_by}) {tag}")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

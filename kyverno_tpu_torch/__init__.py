@@ -9,7 +9,9 @@ rewritten as PyTorch code around hand-written CUDA kernels
 Entry points: ``kyverno_tpu_torch.tpu.engine.TorchEngine`` (a batch
 scan, dense lanes, completed on the scalar engine) and
 ``kyverno_tpu_torch.parallel.ShardedScanner`` (the tiled background
-scan over the vocabulary form). They run on ``device="cuda"`` unless
+scan over the vocabulary form), which ``tpu.pipeline.PipelinedScanner``
+drives with its encode on a feed thread or an ``encode.EncoderPool`` of
+spawned worker processes. They run on ``device="cuda"`` unless
 the caller asks for ``device="cpu"``, where every kernel is replaced by
 its plain PyTorch twin.
 

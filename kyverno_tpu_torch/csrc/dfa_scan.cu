@@ -56,6 +56,14 @@
 // (which only pads the window) needs no code; the accept is
 // accept[state / pitch]. A subject of length 0 takes no step.
 //
+// The non-ASCII flag (B4, dfa.py:nonascii_mask) costs no load of its
+// own: in the directory's first tile, the lane that walks pattern 0 of a
+// subject ORs the words it reads (the fused walk masking the bytes of
+// its last word at or past min(len, W)) and writes the flag. The walks
+// with the flag are instantiations of their own (kFlag), chosen once a
+// block, so a launch or a tile without it runs the walk unchanged. A
+// family no K1 launch scans takes dfa_nonascii_kernel below.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (kyverno_tpu_torch/kernels.py does this).
 
@@ -70,15 +78,15 @@ constexpr int kWide = 1;
 constexpr int kGlobal = 2;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
 
-__device__ __forceinline__ bool any_nonascii(const uint8_t* b, int lim) {
-  for (int w = 0; w < lim; ++w) {
-    if (b[w] >= 0x80) return true;
-  }
-  return false;
-}
-
 __device__ __forceinline__ int clamp_len(int len, int W) {
   return len < 0 ? 0 : (len < W ? len : W);
+}
+
+// the high bits of a word's first v bytes (v >= 4: all four), little
+// endian: byte i of a word is bits 8i..8i+7
+__device__ __forceinline__ uint32_t live_mask(int v) {
+  return v >= 4 ? 0x80808080u
+                : (v <= 0 ? 0u : 0x80808080u & ((1u << (8 * v)) - 1u));
 }
 
 // the block's tile into shared memory, 16 bytes a thread a step
@@ -90,12 +98,15 @@ __device__ __forceinline__ void stage_tile(uint8_t* dst, const uint8_t* src,
 }
 
 // the chunk's (subject, pattern) pairs through one stride-1 tile T
-// (shared or global); a subject's live bytes are read a word at a time
-template <typename E>
+// (shared or global); a subject's live bytes are read a word at a time.
+// kFlag: the walk of pattern 0 also writes the subject's non-ASCII flag
+// (a separate instantiation, so a walk without it does no added work)
+template <typename E, bool kFlag>
 __device__ __forceinline__ void walk_stride1(
     const uint8_t* T, int P, const uint8_t* __restrict__ bytes,
     const int32_t* __restrict__ lens, int W, int ld, long long c0, int n,
-    uint8_t* __restrict__ out, long long ostride) {
+    uint8_t* __restrict__ out, long long ostride,
+    uint8_t* __restrict__ nonascii) {
   const int* f = reinterpret_cast<const int*>(T);
   const uint8_t* cms = T + 16 * P;
   for (int i = threadIdx.x; i < n * P; i += blockDim.x) {
@@ -109,16 +120,23 @@ __device__ __forceinline__ void walk_stride1(
     const int C = (int)(packed & 0xFFFFu);
     int state = (int)(packed >> 16);
     const uint8_t* cm = cms + k * kCmPitch;
+    uint32_t high = 0;  // the high bits of the live bytes (B4)
     int w = 0;
     for (; w + 4 <= lc; w += 4) {
       const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(b + w));
+      if (kFlag) high |= x;
       state = rows[state * C + cm[x & 0xFFu]];
       state = rows[state * C + cm[(x >> 8) & 0xFFu]];
       state = rows[state * C + cm[(x >> 16) & 0xFFu]];
       state = rows[state * C + cm[x >> 24]];
     }
-    for (; w < lc; ++w) state = rows[state * C + cm[__ldg(b + w)]];
+    for (; w < lc; ++w) {
+      const uint32_t x = __ldg(b + w);
+      if (kFlag) high |= x;
+      state = rows[state * C + cm[x]];
+    }
     out[s * ostride + f[3 * P + k]] = T[f[P + k] + state];
+    if (kFlag && k == 0) nonascii[s] = (high & 0x80808080u) != 0;
   }
 }
 
@@ -126,13 +144,13 @@ __device__ __forceinline__ void walk_stride1(
 // or global), two pairs (a word of the subject) a step. A pair wholly at
 // or past min(len, W) is (pad, pad), the identity, so a word's second
 // pair may be taken past the live ones, and the bytes of the word past
-// W (rows are ld >= W bytes) are read as pad.
-template <typename E>
+// W (rows are ld >= W bytes) are read as pad. kFlag as in walk_stride1.
+template <typename E, bool kFlag>
 __device__ __forceinline__ void walk_fused(
     const uint8_t* T, int P, const int* pairs,
     const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
     int W, int ld, int pitch, long long c0, int n, uint8_t* __restrict__ out,
-    long long ostride) {
+    long long ostride, uint8_t* __restrict__ nonascii) {
   const int* f = reinterpret_cast<const int*>(T);
   for (int i = threadIdx.x; i < n * P; i += blockDim.x) {
     const int j = i / P;
@@ -142,8 +160,10 @@ __device__ __forceinline__ void walk_fused(
     const uint8_t* b = bytes + s * ld;
     const E* tab = reinterpret_cast<const E*>(T + f[k]);
     int state = f[2 * P + k];
+    uint32_t high = 0;  // the high bits of the live bytes (B4)
     for (int p0 = 0; p0 < lc; p0 += 4) {
       const uint32_t x = __ldg(reinterpret_cast<const uint32_t*>(b + p0));
+      if (kFlag) high |= x & live_mask(lc - p0);
       const int u0 =
           pairs[x & 0xFFu] +
           pairs[512 + ((x >> 8) & 0xFFu) + (p0 + 1 >= lc ? 256 : 0)];
@@ -154,15 +174,7 @@ __device__ __forceinline__ void walk_fused(
       state = (int)tab[state + u1];
     }
     out[s * ostride + f[3 * P + k]] = T[f[P + k] + state / pitch];
-  }
-}
-
-__device__ __forceinline__ void chunk_nonascii(
-    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
-    int W, int ld, long long c0, int n, uint8_t* __restrict__ nonascii) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const long long s = c0 + j;
-    nonascii[s] = any_nonascii(bytes + s * ld, clamp_len(lens[s], W)) ? 1 : 0;
+    if (kFlag && k == 0) nonascii[s] = (high & 0x80808080u) != 0;
   }
 }
 
@@ -178,13 +190,20 @@ __global__ void __launch_bounds__(kThreads, 2) dfa_scan_stride1_kernel(
   const int n = (int)(S - c0 < chunk ? S - c0 : chunk);
   const bool staged = !(d.w & kGlobal);
   if (staged) stage_tile(smem, blob + d.x, d.y);
-  if (nonascii != nullptr && blockIdx.y == 0)
-    chunk_nonascii(bytes, lens, W, ld, c0, n, nonascii);
+  // the flag is written by the walks of the directory's first tile
+  const bool flag = nonascii != nullptr && blockIdx.y == 0;
   __syncthreads();
   // a walk of its own for each memory, so that the staged one reads
   // shared memory with shared-memory loads
-#define K1_WALK(T, E) \
-  walk_stride1<E>(T, d.z, bytes, lens, W, ld, c0, n, out, ostride)
+#define K1_WALK(T, E)                                                        \
+  do {                                                                       \
+    if (flag)                                                                \
+      walk_stride1<E, true>(T, d.z, bytes, lens, W, ld, c0, n, out, ostride, \
+                            nonascii);                                       \
+    else                                                                     \
+      walk_stride1<E, false>(T, d.z, bytes, lens, W, ld, c0, n, out,         \
+                             ostride, nonascii);                             \
+  } while (0)
   if (staged) {
     if (d.w & kWide) K1_WALK(smem, uint16_t);
     else K1_WALK(smem, uint8_t);
@@ -212,11 +231,18 @@ __global__ void __launch_bounds__(kThreads) dfa_scan_fused_kernel(
   if (staged) stage_tile(smem, blob + d.x, d.y);
   int* pairs = reinterpret_cast<int*>(smem + smem_tile);
   for (int i = threadIdx.x; i < 1024; i += blockDim.x) pairs[i] = pairs_g[i];
-  if (nonascii != nullptr && blockIdx.y == 0)
-    chunk_nonascii(bytes, lens, W, ld, c0, n, nonascii);
+  // the flag is written by the walks of the directory's first tile
+  const bool flag = nonascii != nullptr && blockIdx.y == 0;
   __syncthreads();
-#define K1_WALK(T, E) \
-  walk_fused<E>(T, d.z, pairs, bytes, lens, W, ld, pitch, c0, n, out, ostride)
+#define K1_WALK(T, E)                                                       \
+  do {                                                                      \
+    if (flag)                                                               \
+      walk_fused<E, true>(T, d.z, pairs, bytes, lens, W, ld, pitch, c0, n,  \
+                          out, ostride, nonascii);                          \
+    else                                                                    \
+      walk_fused<E, false>(T, d.z, pairs, bytes, lens, W, ld, pitch, c0, n, \
+                           out, ostride, nonascii);                         \
+  } while (0)
   if (staged) {
     if (d.w & kWide) K1_WALK(smem, int32_t);
     else K1_WALK(smem, uint16_t);
@@ -228,16 +254,43 @@ __global__ void __launch_bounds__(kThreads) dfa_scan_fused_kernel(
 #undef K1_WALK
 }
 
-// B4: the non-ASCII flag alone, one thread a subject
-__global__ void dfa_nonascii_kernel(const uint8_t* __restrict__ bytes,
-                                    const int32_t* __restrict__ lens,
-                                    long long n_subj, int W,
-                                    uint8_t* __restrict__ nonascii) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_subj) return;
-  const int len = lens[s];
-  const int lim = len < W ? len : W;
-  nonascii[s] = any_nonascii(bytes + s * (long long)W, lim) ? 1 : 0;
+// B4: the non-ASCII flag alone, for a lane family no K1 launch scans (a
+// '?' glob on the NFA route). What bounds it: the subjects' live bytes,
+// read once. A subject's row (ld bytes, a multiple of 16, from a 16-byte
+// aligned base) takes G = min(ld / 16, 32) lanes of a warp, rounded up
+// to a power of two; each lane reads 16 bytes a step with one vector
+// load (its first beside the length's load, so the two wait together),
+// skips the chunks wholly at or past min(len, W), masks the bytes past
+// it, and the group's flags combine in one ballot. Neighbouring
+// lanes read neighbouring 16 bytes, so a warp's loads are whole
+// sectors.
+__global__ void __launch_bounds__(256) dfa_nonascii_kernel(
+    const uint8_t* __restrict__ bytes, const int32_t* __restrict__ lens,
+    long long n_subj, int W, int ld, int G, uint8_t* __restrict__ nonascii) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const long long s =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  uint32_t high = 0;
+  if (s < n_subj) {
+    const int chunks = ld / 16;
+    const uint4* row = reinterpret_cast<const uint4*>(bytes + s * ld);
+    // the lane's first 16 bytes are loaded beside the length, not after
+    // it (the row holds them whatever the length); later ones only while
+    // they hold live bytes
+    uint4 x = g < chunks ? __ldg(row + g) : make_uint4(0u, 0u, 0u, 0u);
+    const int lim = clamp_len(__ldg(lens + s), W);
+    for (int c = g; c < chunks && c * 16 < lim; c += G) {
+      if (c != g) x = __ldg(row + c);
+      const int v = lim - c * 16;
+      high |= (x.x & live_mask(v)) | (x.y & live_mask(v - 4)) |
+              (x.z & live_mask(v - 8)) | (x.w & live_mask(v - 12));
+    }
+  }
+  const unsigned votes = __ballot_sync(0xFFFFFFFFu, high != 0);
+  const unsigned group = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u);
+  if (g == 0 && s < n_subj)
+    nonascii[s] = ((votes >> (lane & ~(G - 1))) & group) != 0;
 }
 
 constexpr int kNonasciiThreads = 256;
@@ -294,11 +347,15 @@ extern "C" int dfa_scan_fused(const void* bytes, const void* lens,
 }
 
 extern "C" int dfa_nonascii(const void* bytes, const void* lens,
-                            long long n_subj, int W, void* nonascii,
+                            long long n_subj, int W, int ld, void* nonascii,
                             void* stream) {
-  const int blocks = (int)((n_subj + kNonasciiThreads - 1) / kNonasciiThreads);
+  if (ld % 16 != 0 || ld < W) return (int)cudaErrorInvalidValue;
+  int G = 1;
+  while (G < 32 && G * 16 < ld) G *= 2;
+  const long long threads = n_subj * G;
+  const int blocks = (int)((threads + kNonasciiThreads - 1) / kNonasciiThreads);
   dfa_nonascii_kernel<<<blocks, kNonasciiThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int32_t*)lens, n_subj, W,
+      (const uint8_t*)bytes, (const int32_t*)lens, n_subj, W, ld, G,
       (uint8_t*)nonascii);
   return (int)cudaGetLastError();
 }

@@ -88,7 +88,7 @@ _SIGNATURES = {
                                     _I, _I, _P, _L, _P, _P]),
     "dfa_scan_stride1": ("dfa_scan", [_P, _P, _L, _I, _I, _P, _P, _I, _I,
                                       _I, _P, _L, _P, _P]),
-    "dfa_nonascii": ("dfa_scan", [_P, _P, _L, _I, _P, _P]),
+    "dfa_nonascii": ("dfa_scan", [_P, _P, _L, _I, _I, _P, _P]),
     "instance_count_many": ("instance_count",
                             [_P, _I, ctypes.c_uint, _P, _L, _I, _I, _P]),
     "instance_count2": ("instance_count", [_P, _P, _P, _P, _L, _I, _I, _P, _P]),
@@ -525,13 +525,9 @@ def _dfa_scan(kind: str, bytes_: torch.Tensor, lens: torch.Tensor,
         else None
     if S == 0:
         return out, na
-    if W % 4 or bytes_.data_ptr() % 4:
-        # the kernels read a subject a word at a time: rows of a multiple
-        # of 4 bytes from a 4-byte aligned base (the bytes past W are
-        # never live, the lengths being clamped to W)
-        rows = bytes_.new_zeros((S, -(-W // 4) * 4))
-        rows[:, :W] = bytes_
-        bytes_ = rows
+    # the kernels read a subject a word at a time (the lengths are
+    # clamped to W)
+    bytes_ = _padded_rows(bytes_, 4)
     head = (_ptr(bytes_), _ptr(lens), S, W, bytes_.shape[1], _ptr(tiles.blob),
             _ptr(tiles.tiles), tiles.n_tiles, tiles.smem_tile)
     chunk = tiles.chunk(S, W, dev)
@@ -566,17 +562,36 @@ def dfa_scan_stride1(bytes_: torch.Tensor, lens: torch.Tensor,
 
 
 def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """K1's non-ASCII output alone, counted as ``nonascii``: (S, W)
-    uint8, (S,) int32 -> (S,) bool."""
+    """B4 alone, counted as ``nonascii``: (S, W) uint8, (S,) int32 ->
+    (S,) bool, for a lane family no K1 launch scans (K1 gives the flag
+    of the families it scans, ``want_nonascii``). The kernel reads a row
+    16 bytes a lane: rows whose pitch is no multiple of 16, or whose
+    base is not 16-byte aligned, are padded first."""
     if bytes_.device.type == "cpu":
         return nonascii_plain(bytes_, lens)
     dev = _dfa_args(bytes_, lens)
     S, W = bytes_.shape
     na = torch.empty((S,), dtype=torch.bool, device=dev)
     if S:
-        _call("dfa_nonascii", _ptr(bytes_), _ptr(lens), S, W, _ptr(na))
+        bytes_ = _padded_rows(bytes_, 16)
+        _call("dfa_nonascii", _ptr(bytes_), _ptr(lens), S, W,
+              bytes_.shape[1], _ptr(na))
         LAUNCHES["nonascii"] += 1
     return na
+
+
+def _padded_rows(bytes_: torch.Tensor, m: int) -> torch.Tensor:
+    """Contiguous (S, W) uint8 as a kernel that reads a row ``m`` bytes
+    at a time takes it: rows of a multiple of ``m`` bytes from an
+    ``m``-byte aligned base, zero-padded past W where they are not (the
+    bytes past W are never live). K1 reads words (``m`` = 4), the
+    standalone B4 entry 16-byte vectors."""
+    S, W = bytes_.shape
+    if W % m or bytes_.data_ptr() % m:
+        rows = bytes_.new_zeros((S, -(-W // m) * m))
+        rows[:, :W] = bytes_
+        return rows
+    return bytes_
 
 
 # ---------------------------------------------------------------------------

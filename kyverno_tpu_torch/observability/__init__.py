@@ -1,5 +1,5 @@
 """Observability for the port: metrics, tracing, the operator log, the
-flight recorder and per-phase profiling (copies of
+flight recorder, per-phase profiling and the rule analytics (copies of
 ``kyverno_tpu/observability/{metrics,tracing,log,flightrecorder,
-profiling}.py``; profiling traces with ``torch.profiler``). The rule
-analytics, events and shadow verification are not ported yet."""
+profiling,analytics}.py``; profiling traces with ``torch.profiler``).
+Events and shadow verification are not ported yet."""

@@ -1,6 +1,5 @@
-# Copied from kyverno_tpu/observability/metrics.py (the per-rule analytics
-# exposition only where observability/analytics.py is importable; one
-# comment reworded).
+# Copied from kyverno_tpu/observability/metrics.py (the port's
+# kernel_errors counter added; one comment reworded).
 """Metrics — counters/gauges/histograms with Prometheus exposition.
 
 The reference instruments via OpenTelemetry with a Prometheus exporter
@@ -705,14 +704,10 @@ class MetricsRegistry:
         # rendering kyverno_rule_* / kyverno_policy_device_coverage with
         # bounded label cardinality (top-K policies + one _overflow
         # series). Lazy import: analytics must stay importable first.
-        # The port has no analytics module yet: no rule-stats series.
-        try:
-            from .analytics import RuleStatsCollector
-        except ImportError:
-            self.rule_stats = None
-        else:
-            self.rule_stats = RuleStatsCollector()
-            self._instruments["kyverno_rule_stats"] = self.rule_stats
+        from .analytics import RuleStatsCollector
+
+        self.rule_stats = RuleStatsCollector()
+        self._instruments["kyverno_rule_stats"] = self.rule_stats
         # pre-collect hooks: window-decaying gauges (SLO burn rates,
         # starvation ratio) refresh here so a scrape between records
         # still sees live values

@@ -24,8 +24,11 @@ the scalar engine completes it. ``scan_stream`` raises on either, as
 the reference's does.
 
 ``n_devices`` is 1: the multi-GPU scanner (``torch.distributed``) is
-not ported yet. The encode uses the library default (no columnar store,
-no encoder pool).
+not ported yet. With a columnar store configured
+(``cluster.columnar.configure_store``) ``encode`` gathers a tile's rows
+from the store instead of walking its JSON; ``tpu/pipeline.py`` drives
+``encode`` and the step with the encode on a feed thread or the
+encoder pool.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"`` (every kernel replaced by its plain twin).
@@ -40,7 +43,14 @@ import numpy as np
 import torch
 
 from ..api.policy import ClusterPolicy
-from ..tpu.compiler import CompiledPolicySet, compile_policy_set
+from ..tpu.compiler import (CompiledPolicySet, compile_policy_set,
+                            nonascii_families)
+from ..observability.analytics import class_counts, global_starvation
+from ..observability.metrics import global_registry
+from ..observability.profiling import (PHASE_DISPATCH, PHASE_ENCODE,
+                                       PHASE_HOST_COMPLETE, PHASE_READBACK,
+                                       global_profiler)
+from ..observability.tracing import global_tracer
 from ..tpu.engine import (ScanResult, TorchEngine, lanes_to_device,
                           resolve_device)
 from ..tpu.evaluator import HOST, build_program
@@ -82,7 +92,10 @@ class ShardedScanner:
         step = build_program(
             self.cps.device_programs, self.cps.encode_cfg.max_instances,
             dfa=self.cps.dfa, verdicts_u8=True,
-            nfa_globs=self.cps.nfa_globs)
+            nfa_globs=self.cps.nfa_globs,
+            na_families=nonascii_families(self.cps.dfa,
+                                          self.cps.device_programs,
+                                          self.cps.nfa_globs))
         self._step = graphed(step, self.device)
         # recording run: which compact lanes does THIS program read?
         # encode() drops everything else before transfer (meta lanes a
@@ -127,10 +140,29 @@ class ShardedScanner:
         d = self.n_devices
         return ((b + d - 1) // d) * d
 
-    def encode(self, resources, namespace_labels=None, operations=None):
+    def encode(self, resources, namespace_labels=None, operations=None,
+               content_hashes=None):
         """The vocabulary-form host dict of one batch (pruned to the
-        lanes the program reads) and its live resource count."""
+        lanes the program reads) and its live resource count
+        (kyverno_tpu/parallel/sharding.py:ShardedScanner.encode). With
+        the columnar store on, rows gather from the store (misses
+        encode into it); ``content_hashes`` skips re-serializing the
+        resources whose canonical hash the caller holds."""
+        from ..cluster.columnar import get_store
         from ..encode.tasks import encode_vocab_host
+
+        store = get_store()
+        if store is not None and store.enabled:
+            hashes = list(content_hashes or [])
+
+            def encoder(res, cfg, bp, kbp):
+                return store.encode_vocab(res, cfg, bp, kbp,
+                                          hashes=hashes[: len(res)])
+        else:
+            # late-bound through this module, so a patched
+            # sharding.encode_resources_vocab still intercepts
+            def encoder(*a, **kw):
+                return encode_resources_vocab(*a, **kw)
 
         host, n, buckets = encode_vocab_host(
             resources, namespace_labels, operations,
@@ -140,7 +172,7 @@ class ShardedScanner:
             getattr(self, "_used_keys", None),
             self.n_devices,
             (self._vbucket, self._sbucket, self._rbucket),
-            encoder=encode_resources_vocab)
+            encoder=encoder)
         self._vbucket, self._sbucket, self._rbucket = buckets
         return host, n
 
@@ -184,8 +216,13 @@ class ShardedScanner:
         D = len(self.cps.device_programs)
 
         def run():
-            v, _ = self._step(self.put(batch))
-            return v.cpu().numpy()[:, :n].astype(np.int32)
+            v, c = self._step(self.put(batch))
+            v = v.cpu().numpy()
+            # the step's counts are the rule analytics' source: drop
+            # the pad columns and stash them for the assemble() below
+            eng.set_pending_counts(c.cpu().numpy().astype(np.int64)
+                                   - class_counts(v[:, n:]))
+            return v[:, :n].astype(np.int32)
 
         table = eng.guarded_dispatch(run, (D, n))
         if table is None:
@@ -218,17 +255,29 @@ class ShardedScanner:
         tables: List[np.ndarray] = []
         # (device verdicts, pinned buffers, tile slice, n_valid)
         pending: List[Tuple[torch.Tensor, list, slice, int]] = []
+        # every tile span is an explicit child of one scan-level span
+        scan_span = global_tracer.start_span(
+            "scan_stream", resources=n, tile=tile)
+        scan_ctx = scan_span.context
 
         def drain():
             dv, _pinned, sl, nv = pending.pop(0)
             t0 = time.perf_counter()
-            table = dv.cpu().numpy()[:, :nv]  # waits for the device
-            stats["device_s"] += time.perf_counter() - t0
+            with global_profiler.phase(PHASE_READBACK), \
+                    global_tracer.span("scan_device_wait", parent=scan_ctx,
+                                       tile=nv):
+                table = dv.cpu().numpy()[:, :nv]  # waits for the device
+            dt = time.perf_counter() - t0
+            stats["device_s"] += dt
+            global_starvation.record(busy_s=dt)
             if eng is not None:
                 t0 = time.perf_counter()
-                res = eng.assemble(
-                    table, resources[sl], namespace_labels,
-                    operations[sl] if operations else None)
+                with global_profiler.phase(PHASE_HOST_COMPLETE), \
+                        global_tracer.span("scan_host_complete",
+                                           parent=scan_ctx, tile=nv):
+                    res = eng.assemble(
+                        table, resources[sl], namespace_labels,
+                        operations[sl] if operations else None)
                 # HOST and CONFIRM cells both resolved on the host
                 stats["host_cells"] += int((table >= HOST).sum())
                 stats["host_s"] += time.perf_counter() - t0
@@ -236,27 +285,54 @@ class ShardedScanner:
             else:
                 tables.append(table)
 
-        for start in range(0, max(n, 1), tile):
-            sl = slice(start, min(start + tile, n))
-            chunk = resources[sl]
-            nv = len(chunk)
-            t0 = time.perf_counter()
-            padded = list(chunk) + [{} for _ in range(tile - nv)]
-            ops = None
-            if operations:
-                ops = list(operations[sl]) + [""] * (tile - nv)
-            batch, _ = self.encode(padded, namespace_labels, ops)
-            stats["encode_s"] += time.perf_counter() - t0
-            # asynchronous copy then launch: the H2D copy of tile k+1
-            # overlaps the device work of tiles k, k-1, ...
-            pinned: list = []
-            verdicts, _ = self._step(self.put(batch, pinned))
-            pending.append((verdicts, pinned, sl, nv))
-            stats["tiles"] += 1
-            while len(pending) > max(in_flight, 1):
+        try:
+            for start in range(0, max(n, 1), tile):
+                sl = slice(start, min(start + tile, n))
+                chunk = resources[sl]
+                nv = len(chunk)
+                t0 = time.perf_counter()
+                with global_profiler.phase(PHASE_ENCODE), \
+                        global_tracer.span("scan_encode", parent=scan_ctx,
+                                           tile=nv):
+                    padded = list(chunk) + [{} for _ in range(tile - nv)]
+                    ops = None
+                    if operations:
+                        ops = list(operations[sl]) + [""] * (tile - nv)
+                    batch, _ = self.encode(padded, namespace_labels, ops)
+                enc_dt = time.perf_counter() - t0
+                stats["encode_s"] += enc_dt
+                if not pending:
+                    # no tile in flight while this one encoded: the
+                    # device sat idle waiting on the host
+                    global_starvation.record(starved_s=enc_dt)
+                # asynchronous copy then launch: the H2D copy of tile
+                # k+1 overlaps the device work of tiles k, k-1, ...
+                pinned: list = []
+                with global_profiler.phase(PHASE_DISPATCH), \
+                        global_tracer.span("scan_dispatch", parent=scan_ctx,
+                                           tile=nv):
+                    verdicts, _ = self._step(self.put(batch, pinned))
+                pending.append((verdicts, pinned, sl, nv))
+                stats["tiles"] += 1
+                while len(pending) > max(in_flight, 1):
+                    drain()
+            while pending:
                 drain()
-        while pending:
-            drain()
+        except BaseException as e:
+            scan_span.set_status("error", f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            scan_span.attributes["tiles"] = stats["tiles"]
+            global_tracer.end_span(scan_span)
+        # phase timings land in metrics too, exemplar-linked to the
+        # scan's trace
+        ex = {"trace_id": scan_ctx.trace_id}
+        global_registry.scan_encode_seconds.observe(stats["encode_s"],
+                                                    exemplar=ex)
+        global_registry.scan_device_seconds.observe(stats["device_s"],
+                                                    exemplar=ex)
+        global_registry.scan_host_seconds.observe(stats["host_s"],
+                                                  exemplar=ex)
 
         total = np.concatenate(tables, axis=1) if tables else np.zeros(
             (len(self.cps.rules if eng else self.cps.device_programs), 0),

@@ -1,3 +1,3 @@
-"""Fault-injection sites, retry budgets and the circuit breaker of the
-device plane (copies of ``kyverno_tpu/resilience/{faults,retry,
-breaker}.py``). The storage ladder is not part of the port yet."""
+"""Fault-injection sites, retry budgets, the circuit breaker of the
+device plane and the storage ladder every durable write goes through
+(copies of ``kyverno_tpu/resilience/{faults,retry,breaker,storage}.py``)."""

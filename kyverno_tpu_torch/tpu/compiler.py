@@ -10,8 +10,10 @@ the validate rules. Every glob and regex a device rule of either bank
 evaluates is registered with one DFA bank (dfa.py), finalized for the
 strided scan.
 
-Not ported: the lifecycle quarantine, the verdict-cache identity
-(``cache_key``), the bank-size gauges and the observability spans.
+The compiled set carries the verdict-cache identity (``cache_key``),
+the analytics identities (``policy_spec_hashes``) and the bank-size
+gauges (``publish_dfa_gauges``). Not ported: the lifecycle quarantine
+and the observability spans.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..api.policy import ClusterPolicy, Rule
 from ..engine.operator import Operator
 from ..utils.wildcard import contains_wildcard
 from .dfa import DfaBank, DfaUnsupported, state_budget
-from .evaluator import build_program
+from .evaluator import bank_columns, build_program
 from .flatten import EncodeConfig, plan_byte_pool
 from .graphs import graphed
 from .ir import (
@@ -167,6 +169,33 @@ def _register_program_patterns(bank: DfaBank, prog: RuleProgram,
     return refused
 
 
+def nonascii_families(bank: Optional[DfaBank],
+                      programs: Sequence[RuleProgram],
+                      nfa_globs: Dict[str, List[str]]) -> frozenset:
+    """The lane families whose K1 launch writes the non-ASCII flag for
+    ``programs``: those the programs scan through the bank that need
+    the flag, for a bank pattern with ``confirm_nonascii`` or a '?'
+    glob of the family on the NFA route. Another family's flag (a '?'
+    glob of a family no bank pattern of these programs scans) takes the
+    standalone B4 entry; no family scanned without need asks for it."""
+    cols = bank_columns(bank)
+    if not cols:
+        return frozenset()
+    scanned: Set[str] = set()
+    need: Set[str] = {f for f, globs in nfa_globs.items()
+                      if any("?" in g for g in globs)}
+    for prog in programs:
+        for kind, pattern, family in _program_pattern_specs(prog):
+            pid = (bank.glob_ids if kind == "glob"
+                   else bank.re2_ids).get(pattern)
+            if pid is None or pid not in cols.get(family, {}):
+                continue
+            scanned.add(family)
+            if bank.patterns[pid].confirm_nonascii:
+                need.add(family)
+    return frozenset(scanned & need)
+
+
 def _note_nfa_globs(nfa_globs: Dict[str, List[str]],
                     refused: List[Tuple[str, str]]) -> None:
     """Add a committed program's NFA-route globs to each family's list
@@ -208,6 +237,8 @@ class CompiledPolicySet:
     _fns: Dict[bool, Callable] = field(default_factory=dict, repr=False)
     _mutate_fns: Dict[bool, Callable] = field(default_factory=dict,
                                               repr=False)
+    _cache_key: Optional[str] = field(default=None, repr=False)
+    _policy_spec_hashes: Optional[List[str]] = field(default=None, repr=False)
 
     @property
     def host_rule_policies(self) -> List[int]:
@@ -223,7 +254,9 @@ class CompiledPolicySet:
         if plain not in self._fns:
             self._fns[plain] = build_program(
                 self.device_programs, self.encode_cfg.max_instances,
-                dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs)
+                dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs,
+                na_families=nonascii_families(
+                    self.dfa, self.device_programs, self.nfa_globs))
         return graphed(self._fns[plain], device, plain)
 
     @property
@@ -243,7 +276,9 @@ class CompiledPolicySet:
             self._mutate_fns[plain] = build_program(
                 self.mutate_programs, self.encode_cfg.max_instances,
                 with_counts=False, dfa=self.dfa, plain=plain,
-                nfa_globs=self.mutate_nfa_globs)
+                nfa_globs=self.mutate_nfa_globs,
+                na_families=nonascii_families(
+                    self.dfa, self.mutate_programs, self.mutate_nfa_globs))
         return graphed(self._mutate_fns[plain], device, plain)
 
     def coverage(self) -> Tuple[int, int]:
@@ -254,6 +289,85 @@ class CompiledPolicySet:
         dev = sum(1 for e in self.mutate_entries
                   if e.device_row is not None)
         return dev, len(self.mutate_entries)
+
+    # the three below are copied from kyverno_tpu/tpu/compiler.py
+
+    def policy_spec_hashes(self) -> List[str]:
+        """Per-policy analytics identity (spec-content hash), memoized
+        — RuleStatsAccumulator keys rule rows with these so stats
+        survive snapshot swaps and renames."""
+        if self._policy_spec_hashes is None:
+            from ..observability.analytics import policy_spec_hash
+
+            self._policy_spec_hashes = [policy_spec_hash(p)
+                                        for p in self.policies]
+        return self._policy_spec_hashes
+
+    def publish_dfa_gauges(self) -> None:
+        """Point the bank-size gauges at THIS set. Called when a set
+        becomes the serving artifact (engine construction) — NOT on
+        every compile."""
+        if self.dfa is None:
+            return
+        try:
+            from ..observability.metrics import global_registry as _reg
+
+            stats = self.dfa.stats()
+            _reg.dfa_tables.set(stats["tables"])
+            _reg.dfa_states.set(stats["states"])
+            _reg.dfa_bytes.set(stats["bytes"])
+            for k, n in stats["stride_hist"].items():
+                _reg.dfa_stride_tables.set(n, {"stride": k})
+            _reg.dfa_stride_bytes.set(stats["stride_bytes"])
+            _reg.dfa_approx_states_merged.set(stats["states_merged"])
+            _reg.dfa_approx_error_max.set(stats["max_approx_error"])
+        except Exception:  # noqa: BLE001
+            pass  # metrics must never block the serving path
+
+    def cache_key(self) -> str:
+        """Content identity of this compiled artifact — the policy-set
+        half of every verdict-cache key (tpu/cache.py). Covers
+        everything that can change a verdict column for a fixed
+        (resource, request): policy content, encode and metadata caps,
+        the content hashes of every compile-folded context dependency
+        and the DFA bank's digest. The reference's key also holds its
+        quarantine set, which the port's compile has none of: the empty
+        list stands in its place, so both packages key a set alike."""
+        if self._cache_key is None:
+            from .cache import digest
+
+            self._cache_key = digest(
+                [policy_content_hash(p) for p in self.policies],
+                [],
+                sorted(self.context_deps.items()),
+                (self.encode_cfg.max_rows, self.encode_cfg.max_instances,
+                 self.encode_cfg.byte_pool_slots,
+                 self.encode_cfg.byte_pool_width),
+                sorted(vars(self.meta_cfg).items()),
+                sorted(self.byte_paths), sorted(self.key_byte_paths),
+                self.dfa.digest() if self.dfa is not None else "")
+        return self._cache_key
+
+
+def policy_content_hash(policy) -> str:
+    """Stable content hash of one policy — copied from
+    kyverno_tpu/lifecycle/snapshot.py:policy_content_hash. The raw
+    parsed document is the canonical content; policies built without
+    one hash their identity + spec repr."""
+    import hashlib
+    import json
+
+    raw = getattr(policy, "raw", None)
+    if raw:
+        payload = json.dumps(raw, sort_keys=True, default=str)
+    else:
+        payload = "|".join((
+            getattr(policy, "namespace", "") or "",
+            getattr(policy, "name", "") or "",
+            getattr(policy, "resource_version", "") or "",
+            repr(getattr(policy, "spec", None)),
+        ))
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
 def compile_policy_set(

@@ -1238,13 +1238,16 @@ def scan_groups(bank: DfaBank, ids: Sequence[int], device):
 
 
 def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
-               plain: bool = False):
+               plain: bool = False, want_nonascii: bool = False):
     """Evaluate the bank patterns ``ids`` against padded byte tensors.
 
     bytes_: (..., W) uint8, lens: (...) int32 -> (..., K) bool accepts,
     K = len(ids) — kyverno_tpu/tpu/dfa.py:bank_match. Each stride group
     writes its columns of the plane in place. ``plain`` runs the
-    kernels' plain PyTorch twins whatever the device."""
+    kernels' plain PyTorch twins whatever the device. With
+    ``want_nonascii`` it returns (accepts, (...) bool non-ASCII flags),
+    the flags (``nonascii_mask``) written by the first group's K1
+    launch from the words it reads anyway."""
     import torch
 
     from .. import kernels
@@ -1255,14 +1258,25 @@ def bank_match(bank: DfaBank, ids: Sequence[int], bytes_, lens,
     groups = scan_groups(bank, ids, b.device)
     out = torch.empty((b.shape[0], len(ids)), dtype=torch.bool,
                       device=b.device)
+    na = None
     for g in groups:
+        want = want_nonascii and na is None
         if plain:
             out[:, g.cols] = g.plain_scan(b, ln)
+            if want:
+                na = kernels.nonascii_plain(b, ln)
         elif g.kind == "stride1":
-            kernels.dfa_scan_stride1(b, ln, g, out)
+            _, na_g = kernels.dfa_scan_stride1(b, ln, g, out, want)
+            na = na_g if want else na
         else:
-            kernels.dfa_scan_fused(b, ln, g, out)
-    return out.reshape(lead + (len(ids),))
+            _, na_g = kernels.dfa_scan_fused(b, ln, g, out, want)
+            na = na_g if want else na
+    plane = out.reshape(lead + (len(ids),))
+    if not want_nonascii:
+        return plane
+    if na is None:  # no pattern to scan
+        na = (kernels.nonascii_plain if plain else kernels.nonascii)(b, ln)
+    return plane, na.reshape(lead)
 
 
 def nonascii_mask(bytes_, lens, plain: bool = False):

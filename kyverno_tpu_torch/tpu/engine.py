@@ -37,11 +37,18 @@ kernel cannot hide behind the scalar engine. A batch whose host encode
 raises is quarantined (``_scan_quarantining``): the resources that
 encode alone are scanned again, the others complete on the scalar
 engine, with per-rule ERROR where that engine fails too. Triage
-answers both failures all-HOST.
+answers both failures all-HOST. The pipelined scan (``tpu/pipeline.py``)
+takes the same ladder in two halves, ``guarded_launch`` (enqueue the
+copy, the replay and the table's copy back, record an event) and
+``guarded_complete`` (wait on the event, validate).
 
-Not ported: the verdict and encode caches, the encoder pool, the
-pipelined ladder (``guarded_launch``/``guarded_complete``) and the rule
-analytics fold.
+``scan`` and ``triage_mutate`` serve warm (resource, request) columns
+from the process-wide verdict cache (``tpu/cache.py``) and send the
+misses through ``_scan_uncached`` / ``_triage_uncached``; the row
+encode restores unchanged resources from the encode cache and the
+columnar store, and encodes the misses on the encoder pool when one is
+configured (``_encode_rows``). Every assembled batch is folded into the
+rule analytics (``observability/analytics.py``), as the reference's is.
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of running elsewhere.
@@ -50,6 +57,7 @@ Entry points run on ``device="cuda"`` unless the caller passes
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -64,16 +72,20 @@ from ..engine.match import RequestInfo
 from ..engine.policycontext import PolicyContext
 from ..engine.response import EngineResponse
 from ..kernels import KernelError
+from ..observability.analytics import (NUM_CLASSES, RuleIdent, class_counts,
+                                       global_pattern_cells,
+                                       global_rule_stats, global_starvation)
 from ..observability.profiling import (PATH_DEVICE, PATH_SCALAR_FALLBACK,
                                        PHASE_DISPATCH, PHASE_ENCODE,
-                                       PHASE_READBACK, global_profiler,
+                                       PHASE_HOST_COMPLETE, PHASE_READBACK,
+                                       global_profiler, last_dispatch_path,
                                        maybe_xla_trace, set_dispatch_path)
 from ..observability.tracing import global_tracer
 from ..resilience.faults import (SITE_MUTATE_TRIAGE, SITE_TPU_DISPATCH,
                                  global_faults)
 from .compiler import CompiledPolicySet, compile_policy_set
-from .evaluator import (ERROR, FAIL, HOST, NOT_MATCHED,
-                        NUM_VERDICT_CLASSES, PASS, SKIP, batch_to_host)
+from .evaluator import (CONFIRM, ERROR, FAIL, HOST, NOT_MATCHED, PASS, SKIP,
+                        batch_to_host)
 from .flatten import EncodeConfig, encode_resources
 from .metadata import MetaConfig, encode_metadata
 
@@ -101,19 +113,6 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def class_counts(table: np.ndarray) -> np.ndarray:
-    """(rules, N) verdict table -> (rules, 7) int64 per-class counts on
-    the host (one bincount)."""
-    table = np.asarray(table)
-    d = table.shape[0]
-    if table.size == 0:
-        return np.zeros((d, NUM_VERDICT_CLASSES), dtype=np.int64)
-    idx = (table.astype(np.int64)
-           + np.arange(d, dtype=np.int64)[:, None] * NUM_VERDICT_CLASSES)
-    return np.bincount(idx.ravel(), minlength=d * NUM_VERDICT_CLASSES
-                       ).reshape(d, NUM_VERDICT_CLASSES)
 
 
 def lanes_to_device(batch: Dict[str, np.ndarray], device,
@@ -365,6 +364,33 @@ class TorchEngine:
         # encode raised (answered all-HOST, as the reference does)
         self.triage_dispatches = 0
         self.triage_encode_fallbacks = 0
+        # verdict-cache identity (tpu/cache.py): exceptions change
+        # verdicts without changing the compiled set, so they join the
+        # policy-set content key
+        from .cache import digest as _digest
+
+        self._exceptions_digest = _digest(
+            [e if isinstance(e, dict) else getattr(e, "raw", None) or repr(e)
+             for e in exceptions]) if exceptions else ""
+        self._cache_ident: Optional[str] = None
+        self._cache_eligible: Optional[bool] = None
+        self._mutate_cache_eligible: Optional[bool] = None
+        self._encode_cache_key: Optional[str] = None
+        # encoder-pool profile for the rows feed, registered lazily per
+        # pool instance (a reconfigured pool gets a fresh profile)
+        self._pool_profile: Optional[Tuple[Any, int]] = None
+        # per-rule analytics identities (observability/analytics.py)
+        self._rule_idents: Optional[List[RuleIdent]] = None
+        try:
+            global_rule_stats.register(self.rule_idents())
+        except Exception:
+            pass  # analytics must never block engine construction
+        self.cps.publish_dfa_gauges()
+
+    @classmethod
+    def from_compiled(cls, cps: CompiledPolicySet,
+                      device=None) -> "TorchEngine":
+        return cls(cps=cps, device=device)
 
     @property
     def rules(self) -> List[Tuple[str, str]]:
@@ -391,8 +417,7 @@ class TorchEngine:
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
     ):
-        rows = encode_resources(resources, self.cps.encode_cfg,
-                                self.cps.byte_paths, self.cps.key_byte_paths)
+        rows = self._encode_rows(resources)
         meta = encode_metadata(resources, namespace_labels, operations,
                                admission_infos, self.cps.meta_cfg)
         batch = batch_to_host(rows, meta)
@@ -400,6 +425,126 @@ class TorchEngine:
             batch.update(self._encode_dyn_lanes(resources, operations,
                                                 admission_infos))
         return batch, rows, meta
+
+    # _encode_rows and _encode_rows_pooled are copied from
+    # kyverno_tpu/tpu/engine.py
+
+    def _encode_rows(self, resources: Sequence[Dict[str, Any]]):
+        """Row encoding through the content-addressed encode cache: an
+        unchanged resource's lane rows restore from the LRU (or the
+        columnar store under it) instead of re-walking the JSON tree.
+        Keyed by encode config + compiled byte-path sets, NOT policy
+        content. With an encoder pool configured, cache MISSES encode
+        on a worker process and the pooled results populate the shared
+        cache; a pool bypass or infra failure falls back to in-process
+        encode, and a poison resource comes back flagged for host
+        fallback exactly like an encode-cap overflow."""
+        from ..cluster.columnar import get_store
+        from .cache import (EncodeRowCache, apply_rows_multi, extract_rows,
+                            global_encode_cache, resource_content_hash)
+        from .flatten import RowBatch
+
+        ec = global_encode_cache
+        store = get_store()
+        if not ec.enabled and store is None:
+            return encode_resources(resources, self.cps.encode_cfg,
+                                    self.cps.byte_paths,
+                                    self.cps.key_byte_paths)
+        if self._encode_cache_key is None:
+            self._encode_cache_key = EncodeRowCache.encode_key(
+                self.cps.encode_cfg, self.cps.byte_paths,
+                self.cps.key_byte_paths)
+        batch = RowBatch(len(resources), self.cps.encode_cfg)
+        misses: List[Tuple[int, Optional[Tuple[str, str]]]] = []
+        hit_entries: List[Any] = []
+        hit_idx: List[int] = []
+        for i, res in enumerate(resources):
+            h = resource_content_hash(res)
+            key = (self._encode_cache_key, h) if h is not None else None
+            entry = (ec.get_entry(key)
+                     if key is not None and ec.enabled else None)
+            if entry is None and key is not None and store is not None:
+                # columnar tier under the LRU
+                entry = store.get_entry(self._encode_cache_key, h)
+            if entry is None:
+                misses.append((i, key))
+            else:
+                hit_entries.append(entry)
+                hit_idx.append(i)
+        # all hits land in one vectorized scatter per lane
+        apply_rows_multi(hit_entries, batch, hit_idx)
+        if misses and self._encode_rows_pooled(resources, batch, misses, ec):
+            return batch
+        if misses:
+            sub = encode_resources([resources[i] for i, _ in misses],
+                                   self.cps.encode_cfg, self.cps.byte_paths,
+                                   self.cps.key_byte_paths)
+            sub_arrays = sub.arrays()
+            batch_arrays = batch.arrays()
+            for j, (i, key) in enumerate(misses):
+                for name, arr in sub_arrays.items():
+                    batch_arrays[name][i] = arr[j]
+                if key is not None:
+                    entry = extract_rows(sub, j)
+                    ec.put_entry(key, entry)
+                    if store is not None:
+                        store.put_entry(self.cps.encode_cfg,
+                                        self.cps.byte_paths,
+                                        self.cps.key_byte_paths,
+                                        key[1], entry)
+        return batch
+
+    # pooling a miss set smaller than this costs more in IPC round-trip
+    # than the in-process encode it replaces
+    POOL_ROWS_MIN = 4
+
+    def _encode_rows_pooled(self, resources, batch, misses, ec) -> bool:
+        """Encode the cache misses on the encoder pool; True when the
+        batch rows were filled (False -> caller encodes in-process)."""
+        if len(misses) < self.POOL_ROWS_MIN:
+            return False
+        from ..encode import (KIND_ROWS, PoolBypassed, PoolInfraError,
+                              WorkerEncodeError, get_pool, profile_spec)
+        from .cache import apply_rows
+
+        pool = get_pool()
+        if pool is None or not pool.running:
+            return False
+        try:
+            if (self._pool_profile is None
+                    or self._pool_profile[0] is not pool):
+                self._pool_profile = (pool, pool.register_profile(
+                    profile_spec(self.cps.encode_cfg,
+                                 byte_paths=self.cps.byte_paths,
+                                 key_byte_paths=self.cps.key_byte_paths)))
+            out = pool.encode_chunk(
+                self._pool_profile[1], KIND_ROWS,
+                {"resources": [resources[i] for i, _ in misses]})
+        except (PoolBypassed, PoolInfraError, WorkerEncodeError):
+            # breaker open / infra out -> in-process path; a worker-
+            # reported encode error re-raises in-process too, where the
+            # quarantine ladder owns it
+            return False
+        from ..cluster.columnar import get_store
+
+        store = get_store()
+        poison = set(out.get("poison") or ())
+        for j, (i, key) in enumerate(misses):
+            if j in poison:
+                # quarantined: empty lanes + the fallback flag route
+                # this column to the scalar engine (HOST)
+                batch.fallback[i] = 1
+                continue
+            entry = out["rows"][j]
+            apply_rows(entry, batch, i)
+            if key is not None:
+                ec.put_entry(key, entry)
+                if store is not None:
+                    store.put_entry(self.cps.encode_cfg,
+                                    self.cps.byte_paths,
+                                    self.cps.key_byte_paths,
+                                    key[1], entry)
+        return True
 
     def _encode_dyn_lanes(self, resources, operations, admission_infos):
         """Host-resolved context operands (SURVEY §7 context-dependent
@@ -625,19 +770,191 @@ class TorchEngine:
             counts = class_counts(table)
         return table, counts.astype(np.int32)
 
+    # -- rule analytics (observability/analytics.py); this section and
+    # the verdict-column caching below are copied from
+    # kyverno_tpu/tpu/engine.py
+
+    def rule_idents(self) -> List[RuleIdent]:
+        """Per-rule analytics identities aligned with cps.rules rows:
+        (policy spec hash, names, on-device placement). Exception-named
+        rules report as host — that is where their verdicts resolve."""
+        if self._rule_idents is None:
+            hashes = self.cps.policy_spec_hashes()
+            self._rule_idents = [
+                RuleIdent(policy_hash=hashes[e.policy_idx],
+                          policy_name=e.policy_name,
+                          rule_name=e.rule_name,
+                          on_device=(e.device_row is not None
+                                     and ri not in self._exception_rules))
+                for ri, e in enumerate(self.cps.rules)]
+        return self._rule_idents
+
+    def confirm_seen(self) -> bool:
+        """Did the last scan() on this thread resolve any pattern-
+        CONFIRM cell? Batch-scoped — scan() clears it at entry,
+        assemble() sets it from the device table."""
+        return bool(getattr(self._tls, "confirm_seen", False))
+
+    # -- verdict-column caching (tpu/cache.py)
+
+    @property
+    def cache_eligible(self) -> bool:
+        """A compiled set may serve verdicts from the content-addressed
+        cache only when evaluation is a pure function of the cache key:
+        no runtime dyn-operand slots, and no statically host-routed
+        rule with context entries."""
+        if self._cache_eligible is None:
+            eligible = not self.cps.dyn_slots
+            if eligible:
+                for ri, entry in enumerate(self.cps.rules):
+                    if (entry.device_row is not None
+                            and ri not in self._exception_rules):
+                        continue
+                    policy = self.cps.policies[entry.policy_idx]
+                    for rule in policy.get_rules():
+                        if rule.name == entry.rule_name and rule.context:
+                            eligible = False
+            self._cache_eligible = eligible
+        return self._cache_eligible
+
+    def verdict_cache_keys(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+        resource_hashes: Optional[Sequence[Optional[str]]] = None,
+    ) -> Optional[List[Optional[Tuple[str, str, str]]]]:
+        """Per-resource verdict-cache keys (policy-set key, resource
+        content hash, request digest), or None when this engine is not
+        cache eligible. An entry is None for a resource that cannot be
+        content-hashed (it bypasses the cache). ``resource_hashes``
+        lets a caller that holds the canonical sha-16 skip the
+        re-serialization."""
+        from .cache import request_digest, resource_content_hash
+
+        if not self.cache_eligible:
+            return None
+        if self._cache_ident is None:
+            self._cache_ident = self.cps.cache_key() + self._exceptions_digest
+        ns_labels = namespace_labels or {}
+        keys: List[Optional[Tuple[str, str, str]]] = []
+        for ci, res in enumerate(resources):
+            h = (resource_hashes[ci] if resource_hashes is not None
+                 else resource_content_hash(res))
+            if h is None:
+                keys.append(None)
+                continue
+            try:
+                meta = res.get("metadata") or {}
+                nsl = ns_labels.get(
+                    meta.get("name", "") if res.get("kind") == "Namespace"
+                    else meta.get("namespace", ""), {})
+            except Exception:  # not dict-shaped
+                keys.append(None)
+                continue
+            op = (operations[ci] if operations else "") or ""
+            info = admission_infos[ci] if admission_infos else None
+            keys.append((self._cache_ident, h,
+                         request_digest(nsl, op, info)))
+        return keys
+
     def scan(
         self,
         resources: Sequence[Dict[str, Any]],
         namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+        live_n: Optional[int] = None,
     ) -> ScanResult:
-        """The complete ScanResult over ALL rules: the device table
-        completed on the scalar engine (``assemble``) —
-        kyverno_tpu/tpu/engine.py:TpuEngine._scan_uncached. A batch
-        whose encode raises is quarantined (``_scan_quarantining``)."""
+        """The complete ScanResult over ALL rules. Verdict columns of
+        content-identical (resource, request) pairs restore from the
+        verdict cache; only the misses pay encode + dispatch through
+        ``_scan_uncached`` (columns are independent in the program, so
+        a miss-only sub-batch gives the same columns). ``live_n`` marks
+        the first N resources as real for the rule analytics (padding
+        resources must not inflate not-matched counts)."""
+        from .cache import global_verdict_cache as vc
+
+        self._tls.confirm_seen = False  # batch-scoped (see confirm_seen)
+        keys = (self.verdict_cache_keys(resources, namespace_labels,
+                                        operations, admission_infos)
+                if vc.enabled else None)
+        if keys is None:
+            if vc.enabled:
+                vc.bypass()
+            return self._scan_uncached(resources, namespace_labels,
+                                       operations, admission_infos,
+                                       live_n=live_n)
+        n = len(resources)
+        rules = [(e.policy_name, e.rule_name) for e in self.cps.rules]
+        total = np.full((len(rules), n), NOT_MATCHED, dtype=np.int32)
+        miss: List[int] = []
+        hits: List[int] = []
+        for i, key in enumerate(keys):
+            col = (vc.get(key, expect_rows=len(rules))
+                   if key is not None else None)
+            if col is None:
+                miss.append(i)
+            else:
+                hits.append(i)
+                total[:, i] = col
+        if miss:
+            # miss indices ascend and pad resources are a suffix, so the
+            # sub-batch's live prefix is a count
+            sub_live = (sum(1 for i in miss if i < live_n)
+                        if live_n is not None else None)
+            sub = self._scan_uncached(
+                [resources[i] for i in miss], namespace_labels,
+                [operations[i] for i in miss] if operations else None,
+                [admission_infos[i] for i in miss] if admission_infos
+                else None, live_n=sub_live)
+            for j, i in enumerate(miss):
+                total[:, i] = sub.verdicts[:, j]
+                if keys[i] is not None:
+                    vc.put(keys[i], sub.verdicts[:, j])
+        if hits and global_rule_stats.enabled:
+            # cache-served verdicts still count: replay the hit columns
+            # so a warm rescan reports the same rule stats as a cold one
+            live_hits = ([i for i in hits if i < live_n]
+                         if live_n is not None else hits)
+            if live_hits:
+                global_rule_stats.ingest_table(
+                    self.rule_idents(), total[:, live_hits],
+                    source="cached")
+                self.record_pattern_replay(len(live_hits))
+        return ScanResult(verdicts=total, rules=rules)
+
+    def record_pattern_replay(self, n_cols: int) -> None:
+        """Pattern-cell accounting for cache-served verdict columns, as
+        the cold scan that populated the cache counted them (cached
+        columns count as path=device)."""
+        if not n_cols:
+            return
+        for ri, entry in enumerate(self.cps.rules):
+            if entry.device_row is None or ri in self._exception_rules:
+                if entry.pattern_host:
+                    global_pattern_cells.record(entry.policy_name,
+                                                host=n_cols)
+                continue
+            if getattr(self.cps.device_programs[entry.device_row],
+                       "uses_patterns", False):
+                global_pattern_cells.record(entry.policy_name,
+                                            device=n_cols)
+
+    def _scan_uncached(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+        live_n: Optional[int] = None,
+    ) -> ScanResult:
+        """Encode, one guarded dispatch, ``assemble``. A batch whose
+        encode raises is quarantined (``_scan_quarantining``)."""
         n = len(resources)
         padded, ops, infos = self.pad(resources, operations, admission_infos)
+        t_enc0 = time.perf_counter()
         try:
             with global_profiler.phase(PHASE_ENCODE), \
                     global_tracer.span("tpu.encode", resources=n,
@@ -649,10 +966,18 @@ class TorchEngine:
             # the rest of the batch still evaluates (device or scalar),
             # and the bad resource degrades to scalar / per-rule ERROR
             return self._scan_quarantining(resources, namespace_labels,
-                                           operations, admission_infos)
+                                           operations, admission_infos,
+                                           live_n=live_n)
+        t_enc = time.perf_counter() - t_enc0
+        t_disp0 = time.perf_counter()
         table = self._dispatch(batch, len(padded), n)[:, :n]
+        # feed accounting: while the host encoded, the device sat idle;
+        # only when the device actually ran
+        if last_dispatch_path() == PATH_DEVICE:
+            global_starvation.record(busy_s=time.perf_counter() - t_disp0,
+                                     starved_s=t_enc)
         return self.assemble(table, resources, namespace_labels, operations,
-                             admission_infos)
+                             admission_infos, live_n=live_n)
 
     # -- the guarded dispatch ladder (kyverno_tpu/tpu/engine.py:840-1043)
 
@@ -674,6 +999,11 @@ class TorchEngine:
         columns on this thread (None after a fallback)."""
         counts = getattr(self._tls, "pending_counts", None)
         self._tls.pending_counts = None
+        if counts is not None and (
+                not isinstance(counts, np.ndarray)
+                or counts.shape != (len(self.cps.device_programs),
+                                    NUM_CLASSES)):
+            return None
         return counts
 
     def _breaker_open_fallback(self) -> None:
@@ -743,6 +1073,49 @@ class TorchEngine:
             self._record_dispatch_failure(e)
             return None
 
+    def guarded_launch(self, launch_fn) -> Optional[Tuple[Any]]:
+        """Phase 1 of the pipelined ladder (tpu/pipeline.py): breaker
+        gate, fault hook and ``launch_fn``, which enqueues the batch's
+        copy, the program and the table's copy back and returns at
+        once. Returns an opaque in-flight handle for
+        ``guarded_complete``, or None when the breaker is open or the
+        launch raised — the fallback of ``guarded_dispatch``. A
+        ``KernelError`` is counted and raised, as there."""
+        self._tls.pending_counts = None
+        if not self.breaker.allow():
+            self._breaker_open_fallback()
+            return None
+        try:
+            global_faults.fire(SITE_TPU_DISPATCH)
+            if _sanitizer.ENABLED:
+                _sanitizer.note_device_dispatch()
+            return (launch_fn(),)
+        except KernelError as e:
+            self._record_kernel_error(e)
+            raise
+        except Exception as e:
+            self._record_dispatch_failure(e)
+            return None
+
+    def guarded_complete(self, handle: Optional[Tuple[Any]], readback_fn,
+                         want_shape) -> Optional[np.ndarray]:
+        """Phase 2: ``readback_fn`` (waits for the launch and reads the
+        table back), the corrupt filter, shape/dtype validation and the
+        breaker's bookkeeping. A None handle (a failed launch) passes
+        through as None — the caller completes on the scalar engine, as
+        after a failed ``guarded_dispatch``."""
+        if handle is None:
+            return None
+        try:
+            return self._validate_device_table(readback_fn(handle[0]),
+                                               want_shape)
+        except KernelError as e:
+            self._record_kernel_error(e)
+            raise
+        except Exception as e:
+            self._record_dispatch_failure(e)
+            return None
+
     def _validate_device_table(self, table, want_shape) -> np.ndarray:
         table = global_faults.corrupt(SITE_TPU_DISPATCH, table)
         if not (isinstance(table, np.ndarray)
@@ -796,6 +1169,7 @@ class TorchEngine:
         namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+        live_n: Optional[int] = None,
     ) -> ScanResult:
         """Batch encode failed: split the batch into resources that
         encode alone (re-scanned as a clean sub-batch) and hostile ones,
@@ -830,7 +1204,9 @@ class TorchEngine:
                 [resources[i] for i in good], namespace_labels,
                 [operations[i] for i in good] if operations else None,
                 [admission_infos[i] for i in good] if admission_infos
-                else None)
+                else None,
+                live_n=(sum(1 for i in good if i < live_n)
+                        if live_n is not None else None))
             total[:, good] = sub.verdicts
         ns_labels = namespace_labels or {}
         for ci in bad:
@@ -857,6 +1233,13 @@ class TorchEngine:
                         continue
                     total[ri, ci] = ERROR if verdicts is None \
                         else verdicts.get(entry.rule_name, NOT_MATCHED)
+        # analytics: the good sub-batch ingested inside self.scan();
+        # only the quarantined columns are counted here
+        live_bad = [ci for ci in bad if live_n is None or ci < live_n]
+        if live_bad and global_rule_stats.enabled:
+            global_rule_stats.ingest_table(self.rule_idents(),
+                                           total[:, live_bad],
+                                           source="quarantine")
         return ScanResult(
             verdicts=total,
             rules=[(e.policy_name, e.rule_name) for e in self.cps.rules],
@@ -869,16 +1252,21 @@ class TorchEngine:
         namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+        live_n: Optional[int] = None,
     ) -> ScanResult:
         """Merge device verdicts with host completions (host rules,
-        exception-named rules, HOST and CONFIRM cells) —
-        kyverno_tpu/tpu/engine.py:TpuEngine.assemble without the
-        analytics fold."""
+        exception-named rules, HOST and CONFIRM cells), then fold the
+        batch into the rule analytics — kyverno_tpu/tpu/engine.py:
+        TpuEngine.assemble."""
         from ..engine.match import matches_resource_description
 
         n = len(resources)
         total = np.full((len(self.cps.rules), n), NOT_MATCHED, dtype=np.int32)
         ns_labels = namespace_labels or {}
+        # assigned, not sticky: the pipelined scan calls assemble() per
+        # chunk without going through scan()
+        self._tls.confirm_seen = bool(
+            (np.asarray(device_table) == CONFIRM).any())
 
         # requests whose identity strings carry globs defeat the
         # device's hash-equality userInfo lanes (_set_in matches
@@ -894,12 +1282,17 @@ class TorchEngine:
                     glob_identity_cis.append(ci)
 
         # which (policy, resource) pairs need the scalar engine? HOST
-        # and CONFIRM cells both resolve there
+        # and CONFIRM cells both resolve there; CONFIRM cells are
+        # attributed in the pattern-cell accounting
         host_cells: Dict[Tuple[int, int], None] = {}
+        live = n if live_n is None else min(live_n, n)
         for ri, entry in enumerate(self.cps.rules):
             if entry.device_row is None or ri in self._exception_rules:
                 for ci in range(n):
                     host_cells[(entry.policy_idx, ci)] = None
+                if entry.pattern_host and live:
+                    global_pattern_cells.record(entry.policy_name,
+                                                host=live)
             else:
                 row = device_table[entry.device_row].copy()
                 if glob_identity_cis and self.cps.device_programs[
@@ -908,41 +1301,63 @@ class TorchEngine:
                 total[ri] = row
                 for ci in np.nonzero(row >= HOST)[0]:
                     host_cells[(entry.policy_idx, int(ci))] = None
+                if live and getattr(
+                        self.cps.device_programs[entry.device_row],
+                        "uses_patterns", False):
+                    rowv = row[:live]
+                    c = int((rowv == CONFIRM).sum())
+                    h = int((rowv == HOST).sum())
+                    global_pattern_cells.record(entry.policy_name,
+                                                device=live - c - h,
+                                                confirm=c)
+                    if c:
+                        try:
+                            from ..observability.metrics import (
+                                global_registry as _reg)
+                            _reg.dfa_confirm_cells.inc(value=c)
+                        except Exception:  # noqa: BLE001
+                            pass
 
         cache: Dict[Tuple[int, int], Optional[Dict[str, int]]] = {}
-        for (pi, ci) in host_cells:
-            policy = self.cps.policies[pi]
-            res = resources[ci]
-            try:
-                kind = res.get("kind", "")
-                ns = (res.get("metadata") or {}).get("namespace", "")
-                nsl = ns_labels.get((res.get("metadata") or {}).get("name", "")
-                                    if kind == "Namespace" else ns, {})
-                op = (operations[ci] if operations else "") or ""
-                info = admission_infos[ci] if admission_infos else None
-                # pre-screen with the (cheap) matcher before paying for
-                # context construction + full validation
-                if not any(
-                        not matches_resource_description(
-                            res, rule, info, nsl,
-                            policy_namespace=policy.namespace,
-                            operation=op or "CREATE")
-                        for rule in policy.get_rules() if rule.has_validate()):
-                    cache[(pi, ci)] = {}  # every rule NOT_MATCHED
-                    continue
-                pctx = build_scan_context(policy, res, nsl, op, info)
-                cache[(pi, ci)] = _scalar_rule_verdicts(self.scalar, policy,
-                                                        pctx)
-            except Exception:
-                # the scalar engine itself choked on this (policy,
-                # resource): the cell reports per-rule ERROR, as the
-                # reference's does
-                cache[(pi, ci)] = None
+        with global_profiler.phase(PHASE_HOST_COMPLETE):
+            for (pi, ci) in host_cells:
+                policy = self.cps.policies[pi]
+                res = resources[ci]
+                try:
+                    kind = res.get("kind", "")
+                    ns = (res.get("metadata") or {}).get("namespace", "")
+                    nsl = ns_labels.get(
+                        (res.get("metadata") or {}).get("name", "")
+                        if kind == "Namespace" else ns, {})
+                    op = (operations[ci] if operations else "") or ""
+                    info = admission_infos[ci] if admission_infos else None
+                    # pre-screen with the (cheap) matcher before paying
+                    # for context construction + full validation
+                    if not any(
+                            not matches_resource_description(
+                                res, rule, info, nsl,
+                                policy_namespace=policy.namespace,
+                                operation=op or "CREATE")
+                            for rule in policy.get_rules()
+                            if rule.has_validate()):
+                        cache[(pi, ci)] = {}  # every rule NOT_MATCHED
+                        continue
+                    pctx = build_scan_context(policy, res, nsl, op, info)
+                    cache[(pi, ci)] = _scalar_rule_verdicts(self.scalar,
+                                                            policy, pctx)
+                except Exception:
+                    # the scalar engine itself choked on this (policy,
+                    # resource): the cell reports per-rule ERROR, as the
+                    # reference's does
+                    cache[(pi, ci)] = None
         # merge indexed by policy: each rule row only visits its own
         # policy's completed cells
         by_policy: Dict[int, List[Tuple[int, Optional[Dict[str, int]]]]] = {}
         for (pi, ci), verdicts in cache.items():
             by_policy.setdefault(pi, []).append((ci, verdicts))
+        # cells whose device verdict the host replaced, per device rule
+        # — the analytics correction set
+        replaced: Dict[int, List[int]] = {}
         for ri, entry in enumerate(self.cps.rules):
             cells = by_policy.get(entry.policy_idx)
             if not cells:
@@ -955,12 +1370,93 @@ class TorchEngine:
                     # whole policy was unmatched (HOST must not escape)
                     total[ri, ci] = ERROR if verdicts is None \
                         else verdicts.get(entry.rule_name, NOT_MATCHED)
+                    if not host_rule:
+                        replaced.setdefault(ri, []).append(ci)
+
+        self._ingest_assembled(total, device_table, replaced, live_n)
         return ScanResult(
             verdicts=total,
             rules=[(e.policy_name, e.rule_name) for e in self.cps.rules],
         )
 
+    def _ingest_assembled(self, total: np.ndarray, device_table: np.ndarray,
+                          replaced: Dict[int, List[int]],
+                          live_n: Optional[int]) -> None:
+        """Exact per-rule verdict counts for one assembled batch
+        (copied from kyverno_tpu/tpu/engine.py). With the device's
+        counts stashed by the dispatch, a device rule's counts are
+        those plus a correction per host-completed cell; without a
+        stash (breaker fallback, scalar completion) one host reduction
+        over the final table."""
+        if not global_rule_stats.enabled or total.shape[0] == 0:
+            return
+        rules_n, n = total.shape
+        dev_counts = self.take_pending_counts()
+        if dev_counts is None:
+            counts = class_counts(total)
+            source = "host"
+        else:
+            counts = np.zeros((rules_n, NUM_CLASSES), dtype=np.int64)
+            host_rows: List[int] = []
+            for ri, entry in enumerate(self.cps.rules):
+                if entry.device_row is None or ri in self._exception_rules:
+                    host_rows.append(ri)
+                    continue
+                c = dev_counts[entry.device_row].astype(np.int64).copy()
+                for ci in replaced.get(ri, ()):
+                    c[int(device_table[entry.device_row, ci])] -= 1
+                    c[int(total[ri, ci])] += 1
+                counts[ri] = c
+            if host_rows:
+                counts[host_rows] = class_counts(total[host_rows])
+            source = "device"
+        if live_n is not None and live_n < n:
+            counts = counts - class_counts(total[:, live_n:])
+        global_rule_stats.ingest_counts(self.rule_idents(), counts,
+                                        source=source)
+
     # -- mutate triage
+
+    # mutate_cache_eligible, mutate_triage_cache_keys and the cached
+    # triage_mutate are copied from kyverno_tpu/tpu/engine.py
+
+    @property
+    def mutate_cache_eligible(self) -> bool:
+        """Mutate-side purity: no host-routed or excepted mutate rule
+        carries context entries (the scalar patcher would load them
+        live per request). Device-compiled triage rules are pure by
+        construction."""
+        if self._mutate_cache_eligible is None:
+            eligible = True
+            for mi, entry in enumerate(self.cps.mutate_entries):
+                if (entry.device_row is not None
+                        and mi not in self._exception_mutate_rules):
+                    continue
+                policy = self.cps.policies[entry.policy_idx]
+                for rule in policy.get_rules():
+                    if rule.name == entry.rule_name and rule.context:
+                        eligible = False
+            self._mutate_cache_eligible = eligible
+        return self._mutate_cache_eligible
+
+    def mutate_triage_cache_keys(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> Optional[List[Optional[Tuple[str, str, str]]]]:
+        """Verdict-cache keys for triage rows: the validate keys with a
+        namespaced ident, so an (M,) triage column and an (R,) validate
+        column for the same (resource, request) never collide."""
+        if not self.mutate_cache_eligible:
+            return None
+        keys = self.verdict_cache_keys(resources, namespace_labels,
+                                       operations, admission_infos)
+        if keys is None:
+            return None
+        return [None if k is None else ("mutate|" + k[0], k[1], k[2])
+                for k in keys]
 
     def triage_mutate(
         self,
@@ -969,10 +1465,58 @@ class TorchEngine:
         operations: Optional[Sequence[str]] = None,
         admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
     ) -> MutateTriageResult:
-        """Needs-mutation triage over the compiled mutate bank, one
-        device batch (kyverno_tpu/tpu/engine.py:TpuEngine.triage_mutate
-        and _triage_uncached; the port has no verdict cache, so every
-        batch takes the uncached path, which gives the same table).
+        """Needs-mutation triage over the compiled mutate bank — the
+        cached ladder of scan(): verdict-cache columns for warm
+        (resource, request) pairs, ``_triage_uncached`` for the
+        misses."""
+        from ..observability.metrics import global_registry as reg
+        from .cache import global_verdict_cache as vc
+
+        rules = self.cps.mutate_rules
+        m, n = len(rules), len(resources)
+        if m == 0 or n == 0:
+            return MutateTriageResult(np.zeros((m, n), dtype=np.int32), rules)
+        keys = (self.mutate_triage_cache_keys(
+                    resources, namespace_labels, operations,
+                    admission_infos)
+                if vc.enabled else None)
+        if keys is None:
+            return self._triage_uncached(resources, namespace_labels,
+                                         operations, admission_infos)
+        total = np.full((m, n), HOST, dtype=np.int32)
+        miss: List[int] = []
+        hits = 0
+        for i, key in enumerate(keys):
+            col = (vc.get(key, expect_rows=m)
+                   if key is not None else None)
+            if col is None:
+                miss.append(i)
+            else:
+                hits += 1
+                total[:, i] = col
+        if hits:
+            reg.mutate_triage.inc({"outcome": "cached"}, hits)
+        if miss:
+            sub = self._triage_uncached(
+                [resources[i] for i in miss], namespace_labels,
+                [operations[i] for i in miss] if operations else None,
+                [admission_infos[i] for i in miss] if admission_infos
+                else None)
+            for j, i in enumerate(miss):
+                total[:, i] = sub.verdicts[:, j]
+                if keys[i] is not None:
+                    vc.put(keys[i], sub.verdicts[:, j])
+        return MutateTriageResult(verdicts=total, rules=rules)
+
+    def _triage_uncached(
+        self,
+        resources: Sequence[Dict[str, Any]],
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        operations: Optional[Sequence[str]] = None,
+        admission_infos: Optional[Sequence[Optional[RequestInfo]]] = None,
+    ) -> MutateTriageResult:
+        """One device batch over the mutate bank
+        (kyverno_tpu/tpu/engine.py:TpuEngine._triage_uncached).
         Host rows (bank host entries, excepted rules, userinfo globs)
         stay HOST; a host encode error or a failed dispatch (the guarded
         ladder, with the ``mutate.triage`` fault site) answers the whole
@@ -982,8 +1526,6 @@ class TorchEngine:
 
         rules = self.cps.mutate_rules
         m, n = len(rules), len(resources)
-        if m == 0 or n == 0:
-            return MutateTriageResult(np.zeros((m, n), dtype=np.int32), rules)
         total = np.full((m, n), HOST, dtype=np.int32)
         d = len(self.cps.mutate_programs)
         device_table = None

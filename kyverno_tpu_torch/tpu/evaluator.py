@@ -327,7 +327,8 @@ class Ctx:
                  hash_consts: Optional[Dict[Any, torch.Tensor]] = None,
                  nfa: Optional[NfaPacks] = None,
                  bank_cols: Optional[Dict[str, Dict[int, int]]] = None,
-                 meta_tables: Optional[Dict[Any, Any]] = None):
+                 meta_tables: Optional[Dict[Any, Any]] = None,
+                 na_families: frozenset = frozenset()):
         self.b = batch
         self.I = max_instances
         self.plain = plain
@@ -344,6 +345,9 @@ class Ctx:
         self._bank_cols = bank_columns(self.dfa) if bank_cols is None \
             else bank_cols
         self._nfa = nfa if nfa is not None else NfaPacks({})
+        # the lane families whose K1 launch also writes the non-ASCII
+        # flag (compiler.nonascii_families)
+        self._na_families = na_families
         # K10's entry tables by filter list (kept with the program)
         self._meta_tables = {} if meta_tables is None else meta_tables
         self._glob_cache: Dict[Tuple[str, str], Any] = {}
@@ -667,19 +671,33 @@ class Ctx:
         return self._bank_plane(family)[..., col], bank.patterns[pid]
 
     def _bank_plane(self, family: str) -> torch.Tensor:
+        """The family's accept plane (one K1 launch a stride group); on
+        a family of ``na_families`` K1 also writes the family's
+        non-ASCII flag, kept for ``_family_nonascii``."""
         key = ("\x00bank", family)
         if key not in self._glob_cache:
             byt, lens = self._family_tensors(family)
-            self._glob_cache[key] = bank_match(
-                self.dfa, self.dfa.families[family], byt, lens,
-                plain=self.plain)
+            got = bank_match(self.dfa, self.dfa.families[family], byt, lens,
+                             plain=self.plain,
+                             want_nonascii=family in self._na_families)
+            if family in self._na_families:
+                got, self._glob_cache[("\x00nonascii", family)] = got
+            self._glob_cache[key] = got
         return self._glob_cache[key]
 
     def _family_nonascii(self, family: str) -> torch.Tensor:
+        """The family's non-ASCII flag: from its K1 launch where the
+        bank scans it for this program (``na_families``), else the
+        standalone B4 entry (a '?' glob of a family no K1 launch
+        scans)."""
         key = ("\x00nonascii", family)
         if key not in self._glob_cache:
-            byt, lens = self._family_tensors(family)
-            self._glob_cache[key] = nonascii_mask(byt, lens, plain=self.plain)
+            if family in self._na_families:
+                self._bank_plane(family)
+            else:
+                byt, lens = self._family_tensors(family)
+                self._glob_cache[key] = nonascii_mask(byt, lens,
+                                                      plain=self.plain)
         return self._glob_cache[key]
 
     def _accept_confirm(self, kind: str, pattern: str, family: str):
@@ -2422,8 +2440,8 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
                   plain: bool = False,
                   verdicts_u8: bool = False,
                   with_counts: bool = True,
-                  nfa_globs: Optional[Dict[str, List[str]]] = None
-                  ) -> Callable:
+                  nfa_globs: Optional[Dict[str, List[str]]] = None,
+                  na_families: frozenset = frozenset()) -> Callable:
     """Returns fn(batch dict of tensors) -> ((num_rules, N) int32 table,
     (num_rules, NUM_VERDICT_CLASSES) int32 counts) — the reference's
     ``build_program(..., with_counts=True)``. The counts are kernel K4
@@ -2435,7 +2453,10 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     program). Dense and vocabulary (``row_idx``) batches both run.
     ``nfa_globs`` holds each lane family's globs the bank refused (the
     compiler's record, ``CompiledPolicySet.nfa_globs``): K9 runs each
-    family's in one packed launch a batch. Each rule's row of the table
+    family's in one packed launch a batch. ``na_families`` names the
+    lane families whose K1 launch also writes the family's non-ASCII
+    flag (``compiler.nonascii_families``); another family's flag takes
+    the standalone B4 entry. Each rule's row of the table
     is written by one K11 launch of the rule's tape (``tpu/fold.py``),
     after the K12 launches of its row tape (``tpu/rowfold.py``), both
     compiled once per program and kept in the returned function's
@@ -2455,7 +2476,8 @@ def build_program(programs: Sequence[RuleProgram], max_instances: int,
     def run(batch: Dict[str, torch.Tensor]):
         ctx = Ctx(densify(batch, plain=plain), max_instances, dfa=dfa,
                   plain=plain, hash_consts=hash_consts, nfa=nfa,
-                  bank_cols=bank_cols, meta_tables=meta_tables)
+                  bank_cols=bank_cols, meta_tables=meta_tables,
+                  na_families=na_families)
         table = torch.empty((len(programs), ctx.N), dtype=torch.int32,
                             device=ctx.dev)
         # each rule's class logic is recorded on its tape and runs as

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""One tree's K12 kernel on tapes of one lane kind, its K7, K4 and K8
-kernels at the main paths' shapes, and one mutate-leg tile's replay:
+"""One tree's K12 kernel on tapes of one lane kind, its K7, K4, K8 and
+K1 kernels at the main paths' shapes, and one mutate-leg tile's replay:
 the parts that compare two commits on one card.
 
     python3 profile_ab.py [--root DIR] [--samples 200] [--out FILE]
+        [--parts k12,k7,k4,k8,mutate,k1]
 
 Imports ``kyverno_tpu_torch`` from ``--root`` (default: this script's
 checkout) and ``chip_smoke.py``'s helpers from this script's own
@@ -44,6 +45,16 @@ parent), in one call on one card. It reports:
   a rule, threads a block; C = 1 takes no cluster barrier), each launch
   equal to its twin, timed on the seeded table and on rotated copies:
   the sweep the plan function's choice rests on;
+- K1 (``dfa_scan_stride1`` / ``dfa_scan_fused``) at the shapes the
+  main paths launch it with: the PSS bank's pool family over the dense
+  batch (16,384 ``chip_smoke.workload`` resources) and the tenant
+  bank's ``ns`` and ``name`` families over 16,384 tenant resources
+  (``chip_smoke.tenant_workload``) at the scan shape and the first
+  1,024 rows (the triage shape), each stride group alone, without and
+  with the non-ASCII flag; and the standalone non-ASCII entry on seeded
+  accented subjects (``chip_smoke.accented``) at (16,384, 64) and
+  (1,024, 64), beside a launch's floor. Every launch and flag equals its
+  plain twin; time: ``chip_smoke.graph_ms``;
 - ``chip_smoke.py``'s phase-8 tile (bench.py's mutate leg, 1,024 Pods):
   its program's replay, ``--samples`` calls each timed on the host clock
   to a sync (median, 10th and 90th percentiles) beside the host time to
@@ -246,12 +257,82 @@ def mutate_tile(torch, cs, samples):
             "replays": g.replays}
 
 
+def k1_cases(torch, kernels, cs, card, seed=0):
+    """K1 and the standalone non-ASCII entry at the main paths' shapes
+    (see the module docstring): a list of rows."""
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.policy.autogen import expand_policy
+    from kyverno_tpu_torch.tpu import dfa as dfa_mod
+    from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
+
+    dev = torch.device("cuda")
+    policies = [expand_policy(p) for p in load_pss_policies()]
+    eng = TorchEngine(policies)
+    res, ops = cs.workload(N, seed)
+    padded, pops, _ = eng.pad(res, ops)
+    dense = lanes_to_device(eng.encode(padded, None, pops)[0], dev)
+    tenant = TorchEngine(policies + [expand_policy(cs.tenant_policy())])
+    in_bank = [g for g in cs.TENANT_GLOBS if g in tenant.cps.dfa.glob_ids]
+    nfa = [g for g in cs.TENANT_GLOBS if g not in tenant.cps.dfa.glob_ids]
+    tres = cs.tenant_workload(N, seed + 20, in_bank, nfa)
+    tpadded, _, _ = tenant.pad(tres)
+    tl = lanes_to_device(tenant.encode(tpadded)[0], dev)
+    cases = [("dense pool", eng.cps.dfa, "pool",
+              dense["pool"].reshape(-1, dense["pool"].shape[-1]),
+              dense["pool_len"].reshape(-1), None)]
+    for family in ("ns", "name"):
+        for shape, n in (("scan", N), ("triage", 1024)):
+            cases.append((f"tenant {family} {shape}", tenant.cps.dfa,
+                          family, tl[f"meta_{family}_bytes"][:n],
+                          tl[f"meta_{family}_len"][:n], None))
+    rows = []
+    for label, bank, family, byt, ln, _ in cases:
+        b, l = byt.contiguous(), ln.to(torch.int32).contiguous()
+        ids = bank.families[family]
+        for tiles in dfa_mod.scan_groups(bank, ids, dev):
+            kfn = kernels.dfa_scan_stride1 if tiles.kind == "stride1" \
+                else kernels.dfa_scan_fused
+            out = torch.empty((b.shape[0], tiles.width), dtype=torch.bool,
+                              device=dev)
+            got, na = kfn(b, l, tiles, out, want_nonascii=True)
+            cs.exact(torch, f"K1 {label} {tiles.kind}", got[:, tiles.cols],
+                     tiles.plain_scan(b, l))
+            cs.exact(torch, f"K1 {label} {tiles.kind} flag", na,
+                     kernels.nonascii_plain(b, l))
+            r = {"label": label, "entry": tiles.kind,
+                 "shape": list(b.shape), "K": int(tiles.cols.numel()),
+                 "ms": cs.graph_ms(torch, lambda: kfn(b, l, tiles, out)),
+                 "flag_ms": cs.graph_ms(torch, lambda: kfn(
+                     b, l, tiles, out, want_nonascii=True))}
+            rows.append(r)
+            print(f"K1 {tiles.kind} {label} {tuple(b.shape)}, K {r['K']}: "
+                  f"{r['ms']:.4f} ms, with the non-ASCII flag "
+                  f"{r['flag_ms']:.4f} ms; equal to the plain twins "
+                  f"({card})", flush=True)
+    gen = torch.Generator().manual_seed(seed + 7)
+    floor = cs.launch_floor_ms(torch)
+    for S in (N, 1024):
+        b, l = cs.accented(torch, gen, S, 64, dev)
+        cs.exact(torch, f"nonascii ({S}, 64)", kernels.nonascii(b, l),
+                 kernels.nonascii_plain(b, l))
+        r = {"label": "nonascii alone", "entry": "nonascii",
+             "shape": [S, 64], "floor_ms": floor,
+             "ms": cs.graph_ms(torch, lambda: kernels.nonascii(b, l))}
+        rows.append(r)
+        print(f"nonascii alone ({S}, 64), seeded: {r['ms']:.4f} ms, a "
+              f"launch's floor {floor:.4f} ms ({card})", flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--samples", type=int, default=200)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--parts", default="k12,k7,k4,k8,mutate,k1",
+                    help="comma-separated parts to run")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
 
     import torch
 
@@ -279,7 +360,7 @@ def main() -> int:
     dev = torch.device("cuda")
     out = {"root": root, "card": card, "torch": torch.__version__,
            "N": N, "R": R, "k12": {}}
-    for i, kind in enumerate(KINDS):
+    for i, kind in enumerate(KINDS if "k12" in parts else ()):
         r = out["k12"][kind] = k12_case(torch, kernels, fold, rowfold, cs,
                                         kind, N, R, LANES, i, dev)
         print(f"row_fold, {r['lanes']} {kind} lanes at ({N}, {R}):"
@@ -287,7 +368,8 @@ def main() -> int:
               f"bytes ({r['tb_s']:.3f} TB/s), max abs err "
               f"{r['max_abs_err']} ({card})", flush=True)
     out["k7"] = {}
-    for i, (label, shape, planes) in enumerate(K7_SHAPES):
+    for i, (label, shape, planes) in enumerate(
+            K7_SHAPES if "k7" in parts else ()):
         r = out["k7"][label] = k7_case(torch, kernels, cs, shape, planes, i,
                                        dev)
         print(f"pool_rows {label} at {tuple(shape)}, plane strides "
@@ -295,7 +377,8 @@ def main() -> int:
               f"copies, bound {r['bound_ms']:.4f} ms, max abs err "
               f"{r['max_abs_err']} ({card})", flush=True)
     out["k4"], out["k8"] = {}, {}
-    for i, (label, rules, n, u8) in enumerate(K4_SHAPES):
+    for i, (label, rules, n, u8) in enumerate(
+            K4_SHAPES if "k4" in parts else ()):
         gen = torch.Generator().manual_seed(100 + i)
         table = torch.randint(0, 7, (rules, n), generator=gen,
                               dtype=torch.int32).to(dev)
@@ -313,7 +396,7 @@ def main() -> int:
                   + "; ".join(f"{k}: {a:.4f}, {b:.4f}"
                               for k, (a, b) in r["plans"].items())
                   + f" ({card})", flush=True)
-    for i, (label, n, r_) in enumerate(K8_SHAPES):
+    for i, (label, n, r_) in enumerate(K8_SHAPES if "k8" in parts else ()):
         masks = cs.take_masks(torch, n, r_, K8_SHARE, 200 + i, dev)
         r = out["k8"][label] = take_count_case(torch, kernels, cs,
                                                "first_true_take", masks)
@@ -322,12 +405,16 @@ def main() -> int:
               f"copies, bound {r['bound_ms']:.5f} ms, a launch's floor "
               f"{r['floor_ms']:.4f} ms, max abs err {r['max_abs_err']} "
               f"({card})", flush=True)
-    m = out["mutate_tile"] = mutate_tile(torch, cs, args.samples)
-    print(f"mutate-leg tile replay: median {m['replay_ms_median']:.4f} ms "
-          f"(p10 {m['replay_ms_p10']:.4f}, p90 {m['replay_ms_p90']:.4f}) of "
-          f"{m['samples']}, issue {m['issue_ms_median']:.4f} ms; one replay "
-          f"{m['device_events']} device events, {m['device_ms']:.4f} ms of "
-          f"device time ({card})", flush=True)
+    if "k1" in parts:
+        out["k1"] = k1_cases(torch, kernels, cs, card)
+    if "mutate" in parts:
+        m = out["mutate_tile"] = mutate_tile(torch, cs, args.samples)
+        print(f"mutate-leg tile replay: median {m['replay_ms_median']:.4f} "
+              f"ms (p10 {m['replay_ms_p10']:.4f}, p90 "
+              f"{m['replay_ms_p90']:.4f}) of {m['samples']}, issue "
+              f"{m['issue_ms_median']:.4f} ms; one replay "
+              f"{m['device_events']} device events, {m['device_ms']:.4f} ms "
+              f"of device time ({card})", flush=True)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:

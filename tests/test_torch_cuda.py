@@ -19,8 +19,8 @@ from kyverno_tpu_torch.tpu import dfa as tdfa
 from kyverno_tpu_torch.parallel.sharding import ShardedScanner
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
-from torch_kernel_cases import (MIX_SOURCES, meta_any_mix, random_row_tape,
-                                row_lanes)
+from torch_kernel_cases import (MIX_SOURCES, accented_subjects, meta_any_mix,
+                                random_row_tape, row_lanes)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,6 +30,31 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _uncached():
+    """The port's verdict and encode caches are on by default and keyed
+    by content, not by device: a CPU engine over the card engine's
+    compiled set would answer from the card's cached columns. Every test
+    here starts from empty caches and store, with both caches off, so a
+    card-vs-CPU comparison runs both scans; a test that wants a cache
+    turns it on itself."""
+    from kyverno_tpu_torch.cluster.columnar import reset_store
+    from kyverno_tpu_torch.tpu.cache import (global_encode_cache,
+                                             global_verdict_cache)
+
+    caches = (global_verdict_cache, global_encode_cache)
+    caps = [c._lru.capacity for c in caches]
+    for c in caches:
+        c.clear()
+        c.set_capacity(0)
+    reset_store()
+    yield
+    reset_store()
+    for c, cap in zip(caches, caps):
+        c.clear()
+        c.set_capacity(cap)
 
 
 def _subjects(seed, S=4096, W=96):
@@ -53,6 +78,46 @@ def test_dfa_scan_kernel_equals_plain(cuda, stride):
     assert torch.equal(got.cpu(), want)
     na = tdfa.nonascii_mask(byt.to(cuda), lens.to(cuda))
     assert torch.equal(na.cpu(), kernels.nonascii_plain(byt, lens))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("W", [64, 33])
+def test_k1_nonascii_flag_equals_plain(cuda, stride, W):
+    """K1's flag from the walk of pattern 0 (B4): on subjects with an
+    accented letter inside or past the length, both entries' flags
+    equal ``nonascii_plain``, and the plane the plain scan's."""
+    bank = tdfa.DfaBank(budget=12)
+    for p in ("a*b", "nginx-?", "*-suffix-*-mid-*-tail", "localhost/*"):
+        bank.add_glob(p, "pool")
+    bank.add_re2("^(ab|cd){1,10}x[0-9]{3}$", "pool")
+    bank.finalize(stride=stride)
+    byt, lens = (torch.from_numpy(a) for a in
+                 accented_subjects(stride * 100 + W, 4096, W))
+    ids = bank.families["pool"]
+    want = tdfa.bank_match(bank, ids, byt, lens)
+    got, na = tdfa.bank_match(bank, ids, byt.to(cuda), lens.to(cuda),
+                              want_nonascii=True)
+    flag = kernels.nonascii_plain(byt, lens)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(na.cpu(), flag) and 0 < int(flag.sum()) < 4096
+
+
+@pytest.mark.parametrize("S,W,offset", [(16384, 64, 0), (1024, 64, 0),
+                                        (3000, 33, 1), (500, 1000, 0)])
+def test_standalone_nonascii_equals_plain(cuda, S, W, offset):
+    """The standalone B4 entry: W/16 lanes a subject, one 16-byte load a
+    lane, one ballot; rows of another pitch or alignment are padded."""
+    byt, lens = (torch.from_numpy(a) for a in
+                 accented_subjects(S + W, S, W))
+    flat = torch.empty((byt.numel() + offset,), dtype=torch.uint8,
+                       device=cuda)
+    dev = flat[offset:].view(byt.shape)
+    dev.copy_(byt)
+    kernels.reset_launches()
+    na = kernels.nonascii(dev, lens.to(cuda))
+    assert kernels.LAUNCHES["nonascii"] == 1
+    flag = kernels.nonascii_plain(byt, lens)
+    assert torch.equal(na.cpu(), flag) and 0 < int(flag.sum()) < S
 
 
 def _tenant_bank(monkeypatch, n=300):
@@ -282,6 +347,31 @@ def test_pss_scan_on_the_card_equals_cpu(cuda):
     full, full_cpu = eng.scan(pods), cpu.scan(pods)
     assert np.array_equal(full.verdicts, full_cpu.verdicts)
     assert full.rules == full_cpu.rules
+
+
+def test_cached_scan_on_the_card_equals_uncached_cpu(cuda):
+    """With the verdict cache on (its default), a repeat scan on the card
+    restores every column from the cache and equals both its cold scan
+    and the CPU engine's scan taken with the cache off."""
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.tpu.cache import global_verdict_cache as vc
+
+    def hits():
+        return global_registry.verdict_cache.value({"outcome": "hit"})
+
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()])
+    pods = _pss_pods(100, 11)
+    want = TorchEngine(cps=eng.cps, device="cpu").scan(pods)
+    vc.set_capacity(65536)
+    cold = eng.scan(pods)
+    before = hits()
+    kernels.reset_launches()
+    warm = eng.scan(pods)
+    assert hits() - before == len(pods)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for got in (cold, warm):
+        assert np.array_equal(got.verdicts, want.verdicts)
+        assert got.rules == want.rules
 
 
 def _bits(t):
@@ -696,8 +786,9 @@ def test_glob_nfa_kernel_pattern_longer_than_subjects(cuda):
 
 def test_tenant_overflow_on_the_card_equals_cpu(cuda, monkeypatch):
     """A tenant set whose namespace globs overflow a lowered bank: the
-    scan and the mutate triage on the card launch K9 and the non-ASCII
-    entry, and equal the CPU run."""
+    scan and the mutate triage on the card launch K9, take the namespace
+    family's non-ASCII flag from its K1 launch (the bank scans the
+    family, so no standalone entry runs), and equal the CPU run."""
     from kyverno_tpu_torch.api.policy import ClusterPolicy
 
     monkeypatch.setattr(tdfa, "MAX_BANK_STATES", 200)
@@ -724,7 +815,10 @@ def test_tenant_overflow_on_the_card_equals_cpu(cuda, monkeypatch):
            for i in range(60)]
     kernels.reset_launches()
     got = eng.scan_device(res)
-    assert kernels.LAUNCHES["glob_nfa"] > 0 and kernels.LAUNCHES["nonascii"] > 0
+    assert kernels.LAUNCHES["glob_nfa"] > 0
+    assert kernels.LAUNCHES["nonascii"] == 0
+    assert kernels.LAUNCHES["dfa_scan_stride1"] + \
+        kernels.LAUNCHES["dfa_scan_fused"] > 0
     want = cpu.scan_device(res)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert np.array_equal(eng.scan(res).verdicts, cpu.scan(res).verdicts)
@@ -1427,3 +1521,80 @@ def test_row_fold_kernel_equals_plain_on_the_dense_program(cuda):
     assert kernels.LAUNCHES["hash_match"] == 461
     assert run.stats["rows_forced"] == 0 and run.stats["fold_forced"] == 0
     _assert_same(out, eng.cps.device_fn(plain=True)(lanes))
+
+
+def test_a_question_glob_off_the_bank_launches_the_standalone_flag(
+        cuda, monkeypatch):
+    """Every glob refused by the bank: each family with a '?' glob takes
+    its flag from the standalone B4 entry, once a run (the namespace, a
+    Namespace's name and the pool's '?*'), and the table equals the CPU
+    run's (CONFIRM cells of non-ASCII namespaces included)."""
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+
+    monkeypatch.setattr(tdfa, "MAX_BANK_STATES", 0)
+    pol = ClusterPolicy.from_dict({
+        "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+        "metadata": {"name": "nfa-only"},
+        "spec": {"validationFailureAction": "Enforce", "rules": [
+            {"name": "team", "match": {"any": [{"resources": {
+                "kinds": ["Pod"], "namespaces": ["t?-*", "x??y*"]}}]},
+             "validate": {"pattern": {"metadata": {"labels": {
+                 "team": "?*"}}}}}]}})
+    eng = TorchEngine([pol])
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    spaces = ["t1-a", "té-a", "tx-é", "xaby", "xéy", "x12y-z", "default"]
+    res = [{"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"p{i}", "namespace": spaces[i % 7]},
+            "spec": {"containers": [{"name": "c", "image": "nginx"}]}}
+           for i in range(70)]
+    kernels.reset_launches()
+    got = eng.scan_device(res)
+    assert set(eng.cps.nfa_globs) == {"ns", "name", "pool"}
+    assert kernels.LAUNCHES["nonascii"] == 3
+    want = cpu.scan_device(res)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    assert (got[0] == 6).any()  # CONFIRM
+
+
+def test_pipelined_scan_on_the_card_equals_scan_stream(cuda):
+    """PipelinedScanner over the PSS scanner on the card, without and
+    with a pool of two workers, and with the columnar store: every run's
+    verdicts equal ``scan_stream``'s and the CPU pipeline's; the feed
+    makes no CUDA call and the workers load no torch."""
+    from kyverno_tpu_torch.cluster.columnar import configure_store, reset_store
+    from kyverno_tpu_torch.encode import EncoderPool
+    from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner
+
+    policies = [expand_policy(p) for p in load_pss_policies()]
+    sc = ShardedScanner(policies)
+    cpu = ShardedScanner(policies, device="cpu")
+    pods = _pss_pods(600, 9)
+    chunks = [pods[i:i + 128] for i in range(0, len(pods), 128)]
+
+    def run(scanner, pool=None):
+        out = {}
+        stats = PipelinedScanner(scanner, encode_pool=pool).scan_chunks(
+            chunks, on_result=lambda i, r: out.__setitem__(i, r.verdicts))
+        assert stats["encode_fallback_chunks"] == 0
+        return np.concatenate([out[i] for i in range(len(chunks))], axis=1)
+
+    stream, _ = sc.scan_stream(pods, tile=128)
+    want = run(cpu)
+    assert np.array_equal(stream.verdicts, want)
+    kernels.reset_launches()
+    assert np.array_equal(run(sc), want)
+    assert kernels.LAUNCHES["verdict_counts_u8"] == len(chunks)
+    pool = EncoderPool(2).start()
+    try:
+        assert pool.wait_ready(60) == 2
+        assert not any(w["torch_loaded"] or w["jax_loaded"]
+                       for w in pool.state()["worker_slots"])
+        assert np.array_equal(run(sc, pool), want)
+    finally:
+        pool.stop()
+    try:
+        configure_store(enabled=True)
+        assert np.array_equal(run(sc), want)
+        assert np.array_equal(run(sc), want)
+    finally:
+        reset_store()

@@ -19,6 +19,7 @@ from test_tpu_pss_parity import _resource
 from torch_parity_util import (CORPUS_PARAMS, Recorded, assert_lanes_equal,
                                jax_encode, padded_args, port_engine,
                                port_infos, port_lanes_cpu, record_corpus)
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _port_encode(teng, jeng, rec):

@@ -30,6 +30,7 @@ from torch_parity_util import (CORPUS_PARAMS, Recorded,
                                assert_full_scan_equal, assert_same_program,
                                assert_scan_equal, port_engine,
                                port_policies, record_corpus)
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,8 +95,9 @@ def test_corpus_scan_equals_reference(monkeypatch, module, name):
 
 
 def test_port_loads_no_jax_and_nothing_of_the_reference():
-    """Importing the port and running a CPU scan and a mutate triage
-    loads no jax* and no kyverno_tpu.* module (a fresh interpreter)."""
+    """Importing the port and running a CPU scan, a pipelined scan and a
+    mutate triage loads no jax* and no kyverno_tpu.* module (a fresh
+    interpreter)."""
     code = (
         "import sys\n"
         "from kyverno_tpu_torch.policies import load_pss_policies\n"
@@ -123,6 +125,13 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "tri = eng.triage_mutate([pod])\n"
         "assert tri.verdicts.shape == (0, 1)\n"
         "assert not apply_mutations(eng, pod, tri.rows_for(0)).changed\n"
+        "import kyverno_tpu_torch.encode.pool, kyverno_tpu_torch.encode.worker\n"
+        "import kyverno_tpu_torch.cluster.columnar, kyverno_tpu_torch.tpu.cache\n"
+        "import kyverno_tpu_torch.resilience.storage\n"
+        "import kyverno_tpu_torch.observability.analytics\n"
+        "from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner\n"
+        "st = PipelinedScanner(sc).scan_chunks([[pod] * 3, [pod]])\n"
+        "assert st['chunks'] == 2 and st['encode_fallback_chunks'] == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"

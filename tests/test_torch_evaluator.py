@@ -25,6 +25,7 @@ from test_tpu_parity import (CAPABILITIES_DENY_RULE, HOST_NS_RULE,
                              PRIVILEGED_RULE, SECCOMP_RULE, VOLUME_TYPES_RULE,
                              make_policy)
 from torch_parity_util import port_engine
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _scope_batch(seed, N=24, R=40, I=16):

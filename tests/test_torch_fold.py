@@ -30,6 +30,7 @@ from test_tpu_foreach import ADD_CAPS_FOREACH, CAP_STRICT_FOREACH
 from test_tpu_nested_wildcard import APPARMOR_RULE, HOST_PORTS_RULE
 from test_tpu_parity import CAPABILITIES_DENY_RULE, make_policy
 from torch_parity_util import port_engine
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

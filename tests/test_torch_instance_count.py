@@ -25,6 +25,7 @@ from kyverno_tpu_torch.tpu import evaluator as tev
 from kyverno_tpu_torch.tpu.flatten import T_ARR, T_MAP
 
 import torch_parity_util  # noqa: F401  (one torch thread)
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _batch(seed, N=24, R=40, I=16):

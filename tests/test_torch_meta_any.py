@@ -40,6 +40,7 @@ from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
 from torch_parity_util import (Recorded, assert_full_scan_equal,
                                assert_same_program, assert_scan_equal,
                                padded_args, port_policies)
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 NAMESPACES = (["default", "kube-system"]
               + [f"tenant-{i:02d}-*-prod" for i in range(6)]

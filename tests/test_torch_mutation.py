@@ -46,6 +46,7 @@ from kyverno_tpu_torch.tpu.evaluator import HOST, NOT_MATCHED, SKIP
 from test_torch_glob_nfa import (BANK_STATES, tenant_policy,
                                  tenant_resources)
 from torch_parity_util import port_infos, port_policies
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 # functions of tests/test_mutation.py that compile a set with mutate
 # rules or triage resources

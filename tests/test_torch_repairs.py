@@ -42,6 +42,7 @@ from kyverno_tpu_torch.tpu.engine import ScanResult, lanes_to_device
 from test_tpu_pss_parity import _resource
 from torch_parity_util import (assert_result_equal, port_engine,
                                port_policies)
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _vocab_fields(vb):

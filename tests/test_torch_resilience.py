@@ -57,10 +57,12 @@ from kyverno_tpu_torch.tpu.evaluator import ERROR, FAIL, HOST, PASS
 from test_torch_mutation import bench_policies, port_scalar_chain
 from test_torch_mutation import _pod as _ns_pod
 from torch_parity_util import assert_result_equal, port_policies
+from torch_parity_util import (fresh_port_state,  # noqa: F401
+                               no_port_verdict_cache)
 
 
 @pytest.fixture(autouse=True)
-def _clean(no_verdict_cache):
+def _clean(no_verdict_cache, no_port_verdict_cache):
     for reg in (global_faults, jfaults.global_faults):
         reg.disarm()
     tpu_breaker().reset()

@@ -499,6 +499,7 @@ from kyverno_tpu_torch.tpu.engine import lanes_to_device  # noqa: E402
 from test_tpu_pss_parity import _resource  # noqa: E402
 from torch_parity_util import (CORPUS_PARAMS, assert_scan_equal,  # noqa: E402
                                port_engine, record_corpus)
+from torch_parity_util import fresh_port_state  # noqa: F401, E402
 
 
 class _Calls:

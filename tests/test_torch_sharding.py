@@ -27,6 +27,7 @@ from kyverno_tpu_torch.tpu.flatten import EncodeConfig
 from test_sharding import pods
 from test_tpu_pss_parity import _resource
 from torch_parity_util import port_policies
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _scanners(subset=None, max_rows=None):

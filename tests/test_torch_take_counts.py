@@ -25,6 +25,7 @@ from kyverno_tpu_torch.tpu import rowfold
 from kyverno_tpu_torch.tpu.engine import lanes_to_device
 
 from torch_parity_util import port_engine
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 # --- K4 ---------------------------------------------------------------

@@ -42,6 +42,7 @@ from kyverno_tpu_torch.tpu.metadata import MetaConfig
 
 from test_tpu_pss_parity import _resource
 from torch_parity_util import assert_lanes_equal, port_policies
+from torch_parity_util import fresh_port_state  # noqa: F401
 
 
 def _pss_resources(seed, n):

@@ -1,7 +1,8 @@
 """Seeded inputs for kernel K10 ``meta_any`` shared by the CPU tests
 (tests/test_torch_meta_any.py: a numpy model of the kernel's table) and
-the card's (tests/test_torch_cuda.py). Imports no JAX: the card's
-machine has none."""
+the card's (tests/test_torch_cuda.py), and the subjects of the K1 /
+B4 non-ASCII flag tests. Imports no JAX: the card's machine has
+none."""
 
 from typing import Sequence, Tuple
 
@@ -166,3 +167,22 @@ def random_row_tape(tape, lanes: dict, seed: int, steps: int = 60):
                 v = (rowfold.where(c, a, b), np.where(nc, na, nb))
         vals.append(v)
     return vals
+
+
+def accented_subjects(seed: int, S: int, W: int, rate: float = 0.1
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(S, W) uint8 ASCII subjects and (S,) int32 lengths in [0, W + 8]
+    (past W too): about ``rate`` of the rows carry an 'e' with an acute
+    accent (0xC3 0xA9) at a random position, inside or past the length,
+    and the bytes past the length are random ASCII or 0xFF, so a flag
+    that reads past the length is caught."""
+    rng = np.random.default_rng(seed)
+    byt = rng.integers(32, 127, (S, W), dtype=np.uint8)
+    lens = rng.integers(0, W + 9, S).astype(np.int32)
+    for i in np.nonzero(rng.random(S) < rate)[0]:
+        at = int(rng.integers(0, W - 1))
+        byt[i, at:at + 2] = (0xC3, 0xA9)
+    for i in range(S):
+        if lens[i] < W and rng.random() < 0.5:
+            byt[i, lens[i]:] = 0xFF
+    return byt, lens

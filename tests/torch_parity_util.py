@@ -27,6 +27,42 @@ from kyverno_tpu_torch.tpu.engine import TorchEngine, class_counts
 # which matters when several test workers share the cores.
 torch.set_num_threads(1)
 
+@pytest.fixture(autouse=True)
+def fresh_port_state():
+    """The port's verdict and encode caches, columnar store and rule
+    analytics are process-global, as the reference's are: every test
+    starts from empty ones (tests/conftest.py does the same for the JAX
+    package). Autouse in each test module that imports it."""
+    from kyverno_tpu_torch.cluster.columnar import reset_store
+    from kyverno_tpu_torch.observability.analytics import (
+        global_pattern_cells, global_rule_stats, global_slo,
+        global_starvation)
+    from kyverno_tpu_torch.tpu.cache import (global_encode_cache,
+                                             global_verdict_cache)
+
+    global_verdict_cache.clear()
+    global_encode_cache.clear()
+    reset_store()
+    for acc in (global_rule_stats, global_starvation, global_slo,
+                global_pattern_cells):
+        acc.reset()
+    yield
+    reset_store()
+
+
+@pytest.fixture
+def no_port_verdict_cache():
+    """The port's counterpart of tests/conftest.py's ``no_verdict_cache``:
+    for tests that count dispatches on repeat scans of identical
+    content (the cache legitimately skips those)."""
+    from kyverno_tpu_torch.tpu.cache import global_verdict_cache
+
+    cap = global_verdict_cache._lru.capacity
+    global_verdict_cache.set_capacity(0)
+    yield
+    global_verdict_cache.set_capacity(cap)
+
+
 # the functions of the JAX parity modules that scan, by module
 CORPORA = {
     "test_tpu_parity": [
