@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
-        [--mutate-tile 1024] [--seed 0]
+        [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
+        [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -99,6 +100,35 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    (its table equals the cold one; the hit rate is printed). Phases 3
    to 9 run with both content caches off and no columnar store, so
    they time the device, not cache hits.
+11. admission serving (``serving/``, ``lifecycle/``): the 18 PSS
+   policies (66 device rules) in ``TorchEngine(...,
+   EncodeConfig(max_rows=128))``, its buckets 16, 32 and 64 warmed twice
+   each (the eager run, then the capture), both content caches off;
+   ``AdmissionPipeline`` over the admission server's evaluator core.
+   (a) bench.py's config #5: 20,000 requests (``--adm-requests``; the
+   bench's 50,000 cut for the time limit) from 64 threads over 2,048
+   seeded resources, the flight recorder at its default sampling and
+   the shadow verifier at rate 0.1: requests/s, latency p50 / p99 /
+   p99.9, flushes by bucket and reason, the mean batch, eager runs,
+   captures and replays by bucket (one capture each); (b) bench.py's
+   mixed traffic (its ``BatchConfig``, a one-resource scan as the
+   scalar fallback): 200 unloaded critical requests, then 10,000 bulk
+   (``--adm-bulk``; the bench's 20,000 cut) from 32 threads beside 400
+   critical at 2 ms spacing: critical p99 unloaded and loaded, bulk
+   shed, hedges and their winners; (c) a ``PolicySetLifecycleManager``
+   (worker started, ``warm=True`` at the three buckets) behind the
+   pipeline's ``version_provider`` while 8 threads submit at least
+   4,000 requests: a policy added, then a policy whose compile faults
+   (``policyset.compile``, two raises) and is quarantined to the host:
+   swaps, quarantine entries, flushes by revision, captures by thread.
+   Gates: every answer equals a CPU engine's (plain twins) rows for its
+   resource under the revision its flush pinned; no divergence of the
+   verifier; every flush on the device; no kernel error; captures in
+   (c)'s traffic only on the worker. Then each bucket's flush: its
+   launches, its program call's device time, each kernel's trace time,
+   and ``graph_check`` (replay == eager == plain twins at every bucket;
+   the kernels timed at 64 alone, the admission path's row of the
+   ``graphs`` lines).
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -150,8 +180,10 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9 and 10; phase 6's
-lines come last.
+Phases 7 and 8 run after phase 5, then phases 9, 10 and 11; phase
+6's lines come last (the kernels line gives launches by path, the
+admission path's from part (a), and each kernel's launches and trace
+time in one flush at each admission bucket).
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -1381,7 +1413,7 @@ def time_class_fold(torch, kernels, kept, err, phase, label, tag,
 
 
 def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
-                top: bool = False):
+                top: bool = False, timing: bool = True):
     """One path's program as a CUDA graph (``tpu/graphs.py``) on one
     lane dict: the replay against the eager program (``g.run``) and the
     plain-twin program, exactly; the launches and program stats of one
@@ -1394,7 +1426,9 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     twin, the values forced off its row tapes (``rows_forced``), the K6
     launches and the torch reductions over rows of a run, and the K12
     launches timed together (``time_row_fold``); and the device events
-    of one replay (with ``top``, its 15 longest kernels by name)."""
+    of one replay (with ``top``, its 15 longest kernels by name).
+    Without ``timing``, only the checks up to the launches and stats of
+    an eager run against a replay."""
     from kyverno_tpu_torch.tpu import evaluator as ev
     from kyverno_tpu_torch.tpu import fold, rowfold
     from kyverno_tpu_torch.tpu.graphs import GraphedProgram
@@ -1432,6 +1466,14 @@ def graph_check(torch, kernels, phase, label, g, lanes, plain_fn, tag,
     if counted[0] != counted[1]:
         raise AssertionError(f"{label}: an eager run counts {counted[0]}, a "
                              f"replay {counted[1]}")
+    if not timing:
+        say(phase, f"{label} as a CUDA graph: replay equals the eager program "
+                   f"and the plain-twin program, with the same "
+                   f"{sum(counted[0][0].values())} launches and stats; eager "
+                   f"{eager_ms:.3f} ms, replay {replay_ms:.3f} ms (medians of "
+                   f"5); captures {g.captures}, replays {g.replays} {tag}")
+        return {"eager_ms": eager_ms, "replay_ms": replay_ms,
+                "captures": g.captures}
     ops_eager, _ = program_ops(torch, kernels, lambda: g.run(lanes))
     ops_replay, _ = program_ops(torch, kernels, lambda: g(lanes))
     n_launch = sum(counted[0][0].values())
@@ -3515,6 +3557,562 @@ def cache_cost(eng, dense_res, dense_ops, tenant, triage_res, cache_caps,
               + f" s {tag}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: admission serving on the card (serving/, lifecycle/)
+
+# the pipeline's buckets: BatchConfig(max_batch_size=64) over
+# TorchEngine.MIN_BUCKET (16)
+ADMISSION_BUCKETS = (16, 32, 64)
+# each kernel's events in a replay's device trace
+TRACE_NAMES = {"dfa_scan_fused": "dfa_scan_fused_kernel",
+               "instance_count": "count_many_kernel",
+               "instance_count2": "instance_count2_kernel",
+               "verdict_counts": "verdict_counts_kernel",
+               "hash_match": "hash_match_kernel",
+               "pool_rows": "pool_rows_kernel",
+               "first_true_take": "first_true_take_",
+               "class_fold": "class_fold_kernel",
+               "row_fold": "row_fold_kernel"}
+
+
+def admission_policy(name: str, image: str) -> dict:
+    """A one-rule policy on Pod images, for the hot swap (autogen adds
+    its Deployment and CronJob rules)."""
+    return {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": name},
+            "spec": {"validationFailureAction": "Enforce", "background": True,
+                     "rules": [{
+                         "name": "image",
+                         "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+                         "validate": {"message": f"{name}: image {image}",
+                                      "pattern": {"spec": {"containers": [
+                                          {"image": image}]}}}}]}}
+
+
+def pct_ms(lats, q) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(lats), q)) * 1e3 if lats else 0.0
+
+
+class Admission:
+    """The admission server's batch evaluator core (pad slots scan as
+    empty resources, ``scan(..., live_n=real)``, one ``resource_verdicts``
+    row list a real column), over ``resources`` by index, recording each
+    flush (revision, bucket, live requests, dispatch path, seconds) and
+    each request into the flight recorder."""
+
+    def __init__(self, resources, eng=None):
+        import threading
+
+        self.resources = resources
+        self.eng = eng
+        self.flushes = []
+        self.versions = {}
+        self.lock = threading.Lock()
+
+    def __call__(self, padded, version=None):
+        from kyverno_tpu_torch.observability.flightrecorder import global_flight
+        from kyverno_tpu_torch.observability.profiling import last_dispatch_path
+        from kyverno_tpu_torch.serving import resource_verdicts
+
+        eng = self.eng if version is None else version.engine
+        rev = 0 if version is None else version.revision
+        real = sum(1 for p in padded if p is not None)
+        res_list = [self.resources[p] if p is not None else {} for p in padded]
+        ops = ["CREATE" if p is not None else "" for p in padded]
+        t0 = time.perf_counter()
+        res = eng.scan(res_list, operations=ops, live_n=real)
+        dt = time.perf_counter() - t0
+        path = last_dispatch_path("none")
+        with self.lock:
+            self.flushes.append((rev, len(padded), real, path, dt))
+            if version is not None:
+                self.versions.setdefault(rev, version)
+        out = []
+        for ci in range(real):
+            rows = resource_verdicts(res, ci)
+            global_flight.record_admission(
+                res_list[ci], rows, "batched", engine=eng, revision=rev,
+                namespace=(res_list[ci].get("metadata") or {}).get(
+                    "namespace", ""), operation="CREATE")
+            out.append((rev, padded[ci], rows))
+        return out
+
+    def one(self, idx):
+        """The scalar fallback and hedge: a one-resource scan."""
+        from kyverno_tpu_torch.observability.flightrecorder import global_flight
+        from kyverno_tpu_torch.serving import resource_verdicts
+
+        res = self.eng.scan([self.resources[idx]], operations=["CREATE"])
+        rows = resource_verdicts(res, 0)
+        global_flight.record_admission(
+            self.resources[idx], rows, "scalar_fallback", engine=self.eng,
+            revision=0, operation="CREATE")
+        return (0, idx, rows)
+
+
+def admission_reference(eng, resources, idx):
+    """{index: rows} of one CPU TorchEngine (plain twins) scan of
+    ``resources[i]`` for i in ``idx``, under ``eng``'s compiled set."""
+    from kyverno_tpu_torch.serving import resource_verdicts
+    from kyverno_tpu_torch.tpu.engine import TorchEngine
+
+    idx = sorted(idx)
+    res = TorchEngine(cps=eng.cps, device="cpu").scan(
+        [resources[i] for i in idx], operations=["CREATE"] * len(idx))
+    return {i: resource_verdicts(res, ci) for ci, i in enumerate(idx)}
+
+
+def check_answers(label, answers, want_by_rev):
+    """Every answer (revision, index, rows) against the CPU rows of its
+    resource under the revision its flush pinned."""
+    bad = [(rev, i) for rev, i, rows in answers if rows != want_by_rev[rev][i]]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(answers)} answers "
+                             f"differ from the CPU engine's rows (first "
+                             f"{bad[:5]})")
+
+
+def key_counts_by_bucket(g):
+    out = {}
+    for key, n in g.key_counts.items():
+        b = key[0][1][0]
+        out[b] = {k: out.get(b, {}).get(k, 0) + v for k, v in n.items()}
+    return out
+
+
+def flush_device_ms(torch, g, lanes, reps: int = 10) -> float:
+    """Median device time of one flush's program call (copy into the
+    graph's inputs, the replay, the output clones) between CUDA events."""
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g(lanes)
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def admission_phase(torch, kernels, seed, tag, n_requests=20000,
+                    n_bulk=10000):
+    """Phase 11: micro-batched admission serving on the card. (a) steady
+    admission (bench.py's config #5), (b) mixed traffic (bench.py's
+    mixed leg), (c) a policy-set hot swap and a compile-time quarantine
+    under traffic. Returns the admission path's launches (of (a)'s run),
+    one flush's launches and trace times at each bucket, and each
+    bucket's ``graph_check``."""
+    import random as _random
+    import threading
+
+    from kyverno_tpu_torch.cluster.policycache import PolicyCache
+    from kyverno_tpu_torch.lifecycle import PolicySetLifecycleManager
+    from kyverno_tpu_torch.lifecycle.manager import default_compile_fn
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.observability.analytics import global_slo
+    from kyverno_tpu_torch.observability.flightrecorder import global_flight
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.observability.profiling import PATH_DEVICE
+    from kyverno_tpu_torch.observability.verification import global_verifier
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.policy.autogen import expand_policy
+    from kyverno_tpu_torch.resilience.faults import (SITE_POLICYSET_COMPILE,
+                                                     global_faults)
+    from kyverno_tpu_torch.serving import (AdmissionPipeline, BatchConfig,
+                                           QueueFullError, RequestClass)
+    from kyverno_tpu_torch.tpu import cache as tcache
+    from kyverno_tpu_torch.tpu import graphs
+    from kyverno_tpu_torch.tpu.engine import TorchEngine, lanes_to_device
+    from kyverno_tpu_torch.tpu.flatten import EncodeConfig
+
+    t_phase = time.perf_counter()
+    ladder_reset()
+    tcache.configure(0, 0)  # every flush reaches the program
+    kerr0 = global_registry.kernel_errors.value()
+    # every capture of the phase, by thread and batch size
+    captures = []
+    real_capture = graphs.GraphedProgram._capture
+
+    def capture(self, key, dev, lanes):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(self, key, dev, lanes)
+        finally:
+            captures.append((threading.current_thread().name, key[0][1][0],
+                             time.perf_counter() - t0))
+
+    graphs.GraphedProgram._capture = capture
+    try:
+        raw = load_pss_policies()
+        policies = [expand_policy(p) for p in raw]
+        t0 = time.perf_counter()
+        eng = TorchEngine(policies, encode_cfg=EncodeConfig(max_rows=128))
+        dev_rules = sum(e.device_row is not None for e in eng.cps.rules)
+        if dev_rules != 66:
+            raise AssertionError(f"admission engine: {dev_rules} device "
+                                 f"rules, want 66")
+        resources, _ = workload(2048, seed)
+        g = eng.cps.device_fn(device=eng.device)
+        eng.warm_buckets(ADMISSION_BUCKETS)
+        warm_s = time.perf_counter() - t0
+        kc = key_counts_by_bucket(g)
+        say("11", f"admission engine: 18 PSS policies, {dev_rules} device "
+                  f"rules, EncodeConfig(max_rows=128); compiled and warmed "
+                  f"buckets {ADMISSION_BUCKETS} twice each in {warm_s:.3f} s "
+                  f"{tag}: {kc}")
+
+        # -- (a) steady admission: bench.py config #5; each part starts
+        # with an empty admission-latency SLO window, as a fresh server
+        # would (the burn of one part must not shed the next's traffic)
+        global_slo.reset()
+        global_flight.reset()
+        global_verifier.reset()
+        global_verifier.configure(rate=0.1)
+        adm = Admission(resources, eng)
+        cfg = BatchConfig(max_batch_size=64, max_wait_ms=2.0)
+        cfg.min_bucket = TorchEngine.MIN_BUCKET
+        pipe = AdmissionPipeline(adm, config=cfg)
+        answers, lats, errors = [], [], []
+        lock = threading.Lock()
+        work = [n_requests]
+
+        def worker(wseed):
+            rng = _random.Random(wseed)
+            local, lat = [], []
+            while True:
+                with lock:
+                    if work[0] <= 0:
+                        break
+                    work[0] -= 1
+                i = rng.randrange(len(resources))
+                t = time.perf_counter()
+                try:
+                    local.append(pipe.submit(i))
+                    lat.append(time.perf_counter() - t)
+                except Exception as e:  # noqa: BLE001 - a gate below
+                    errors.append(f"{type(e).__name__}: {e}"[:300])
+            with lock:
+                answers.extend(local)
+                lats.extend(lat)
+
+        kernels.reset_launches()
+        threads = [threading.Thread(target=worker, args=(seed * 1000 + w,))
+                   for w in range(64)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        pipe.stop()
+        st = pipe.state()["stats"]
+        kc = key_counts_by_bucket(g)
+        if errors:
+            raise AssertionError(f"(a): {len(errors)} requests failed: "
+                                 f"{errors[:3]}")
+        for name in DENSE_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"admission path never launched {name}")
+        say("11", f"(a) steady admission: {n_requests} requests (bench.py's "
+                  f"50,000, cut for the smoke's time limit) from 64 threads "
+                  f"over 2,048 seeded resources in {wall:.3f} s: "
+                  f"{n_requests / wall:.1f} requests/s; latency p50 "
+                  f"{pct_ms(lats, 50):.3f} ms, p99 {pct_ms(lats, 99):.3f} ms, "
+                  f"p99.9 {pct_ms(lats, 99.9):.3f} ms {tag}")
+        say("11", f"(a) flushes {st['flushes']} by bucket "
+                  f"{st['flushes_by_bucket']} by reason {st['flush_reasons']}"
+                  f"; mean batch {pipe.mean_batch_size():.3f}, mean occupancy "
+                  f"{pipe.state()['mean_occupancy']}; eager runs, captures "
+                  f"and replays by bucket (warm-up included) {kc}")
+        by_b = {}
+        for _, b, _, _, dt in adm.flushes:
+            by_b.setdefault(b, []).append(dt)
+        say("11", "(a) a flush's scan (encode, copy-in, replay, readback, "
+                  "completion) by bucket, median ms: " + ", ".join(
+                      f"{b} {1e3 * statistics.median(v):.3f} ({len(v)})"
+                      for b, v in sorted(by_b.items())) + f" {tag}")
+        say("11", f"(a) launches {launches}")
+        for b in ADMISSION_BUCKETS:
+            if kc.get(b, {}).get("captures") != 1 \
+                    or kc.get(b, {}).get("eager") != 1:
+                raise AssertionError(f"(a) bucket {b}: {kc.get(b)}, want one "
+                                     f"eager run and one capture")
+        if set(st["flushes_by_bucket"]) - set(ADMISSION_BUCKETS):
+            raise AssertionError(f"(a) buckets {st['flushes_by_bucket']}")
+        flushes_a = list(adm.flushes)
+
+        # -- (b) mixed traffic: bench.py's mixed leg
+        CRIT = RequestClass("user", "CREATE", "critical")
+        BULK = RequestClass("kubelet", "CREATE", "bulk")
+        mcfg = BatchConfig(
+            max_batch_size=64, max_wait_ms=2.0, high_water=256,
+            bulk_share=0.5, critical_reserve=0.1, bulk_max_wait_ms=25.0,
+            hedge_threshold=0.25, bulk_shed_mode="fail",
+            shed_burn_bulk=1.0, shed_burn_default=0.0)
+        mcfg.min_bucket = TorchEngine.MIN_BUCKET
+        madm = Admission(resources, eng)
+        mpipe = AdmissionPipeline(madm, scalar_fallback=madm.one, config=mcfg)
+        m_answers = []
+
+        def trickle(n, spacing_s):
+            rng = _random.Random(seed + 5)
+            out = []
+            for _ in range(n):
+                i = rng.randrange(len(resources))
+                t = time.perf_counter()
+                m_answers.append(mpipe.submit(i, cls=CRIT))
+                out.append(time.perf_counter() - t)
+                if spacing_s:
+                    time.sleep(spacing_s)
+            return out
+
+        global_slo.reset()
+        unloaded = trickle(200, 0.0)
+        bulk = {"lat": [], "shed": 0, "errors": []}
+        bwork = [n_bulk]
+
+        def bulk_worker(wseed):
+            rng = _random.Random(wseed)
+            local, lat, shed = [], [], 0
+            while True:
+                with lock:
+                    if bwork[0] <= 0:
+                        break
+                    bwork[0] -= 1
+                i = rng.randrange(len(resources))
+                t = time.perf_counter()
+                try:
+                    local.append(mpipe.submit(i, cls=BULK))
+                    lat.append(time.perf_counter() - t)
+                except QueueFullError:
+                    shed += 1
+                except Exception as e:  # noqa: BLE001 - a gate below
+                    bulk["errors"].append(f"{type(e).__name__}: {e}"[:300])
+            with lock:
+                m_answers.extend(local)
+                bulk["lat"].extend(lat)
+                bulk["shed"] += shed
+
+        threads = [threading.Thread(target=bulk_worker,
+                                    args=(seed * 2000 + w,))
+                   for w in range(32)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        loaded = trickle(400, 0.002)
+        for th in threads:
+            th.join()
+        m_wall = time.perf_counter() - t0
+        mpipe.stop()
+        mst = mpipe.state()["stats"]
+        if bulk["errors"]:
+            raise AssertionError(f"(b): {len(bulk['errors'])} bulk requests "
+                                 f"failed: {bulk['errors'][:3]}")
+        say("11", f"(b) mixed traffic: critical p99 unloaded "
+                  f"{pct_ms(unloaded, 99):.3f} ms (200 requests), loaded "
+                  f"{pct_ms(loaded, 99):.3f} ms (400 at 2 ms spacing beside "
+                  f"{n_bulk} bulk requests from 32 threads, bench.py's "
+                  f"20,000 cut for the time limit, {m_wall:.3f} s); bulk "
+                  f"shed {bulk['shed']}, bulk p99 {pct_ms(bulk['lat'], 99):.3f}"
+                  f" ms; hedges {mst['hedges']} won by the scalar path "
+                  f"{mst['hedge_wins_scalar']}, by the device "
+                  f"{mst['hedge_wins_device']}; flushes by bucket "
+                  f"{mst['flushes_by_bucket']}, by reason "
+                  f"{mst['flush_reasons']}; shed {mst['shed']}, expired "
+                  f"{mst['expired']} {tag}")
+
+        # (a) and (b) against the CPU engine (one version: revision 0)
+        t0 = time.perf_counter()
+        asked = {i for _, i, _ in answers} | {i for _, i, _ in m_answers}
+        want0 = admission_reference(eng, resources, asked)
+        check_answers("(a)", answers, {0: want0})
+        check_answers("(b)", m_answers, {0: want0})
+        say("11", f"(a) {len(answers)} and (b) {len(m_answers)} answers "
+                  f"equal one CPU TorchEngine (plain twins) scan of their "
+                  f"{len(asked)} distinct resources "
+                  f"({time.perf_counter() - t0:.3f} s)")
+
+        # -- (c) hot swap and compile-time quarantine under traffic
+        cache = PolicyCache()
+        for p in raw:
+            cache.set(p)
+        mgr = PolicySetLifecycleManager(cache, compile_fn=default_compile_fn(
+            encode_cfg=EncodeConfig(max_rows=128), warm=True,
+            warm_buckets=ADMISSION_BUCKETS))
+        global_slo.reset()
+        n_cap0 = len(captures)
+        mgr.start()
+        v1 = mgr.acquire()
+        cadm = Admission(resources)
+        cpipe = AdmissionPipeline(cadm, config=cfg,
+                                  version_provider=mgr.acquire)
+        pool = _random.Random(seed + 7).sample(range(len(resources)), 128)
+        c_answers, c_errors = [], []
+        served = [0]
+        stop = threading.Event()
+
+        def c_worker(wseed):
+            rng = _random.Random(wseed)
+            local = []
+            while not stop.is_set():
+                try:
+                    local.append(cpipe.submit(rng.choice(pool)))
+                except Exception as e:  # noqa: BLE001 - a gate below
+                    c_errors.append(f"{type(e).__name__}: {e}"[:300])
+                with lock:
+                    served[0] += 1
+            with lock:
+                c_answers.extend(local)
+
+        def wait_for(cond, what, limit=120.0):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > limit:
+                    raise AssertionError(f"(c): no {what} in {limit} s")
+                time.sleep(0.01)
+
+        threads = [threading.Thread(target=c_worker, args=(seed * 3000 + w,))
+                   for w in range(8)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        cap_traffic0 = len(captures)
+        wait_for(lambda: served[0] >= 1000, "traffic")
+        cache.set(ClusterPolicy.from_dict(admission_policy(
+            "admission-registry", "!evil.io/*")))
+        wait_for(lambda: mgr.active.revision > v1.revision, "swap")
+        v2 = mgr.active
+        global_faults.arm(SITE_POLICYSET_COMPILE, mode="raise", count=2)
+        cache.set(ClusterPolicy.from_dict(admission_policy(
+            "admission-no-latest", "!*:latest")))
+        wait_for(lambda: mgr.active.quarantined, "quarantine")
+        v3 = mgr.active
+        wait_for(lambda: served[0] >= 4000, "4,000 requests")
+        stop.set()
+        for th in threads:
+            th.join()
+        c_wall = time.perf_counter() - t0
+        cpipe.stop()
+        global_faults.disarm()
+        cap_traffic = captures[cap_traffic0:]
+        mstate = mgr.state()
+        mgr.stop()
+        if c_errors:
+            raise AssertionError(f"(c): {len(c_errors)} requests failed: "
+                                 f"{c_errors[:3]}")
+        q_rules = [e for e in v3.engine.cps.rules
+                   if e.policy_name == "admission-no-latest"]
+        if not q_rules or not all(
+                e.device_row is None
+                and e.fallback_reason.startswith("quarantined:")
+                for e in q_rules):
+            raise AssertionError("(c): the quarantined policy's rules are "
+                                 "not host rules")
+        by_rev = {}
+        for rev, _, _, _, _ in cadm.flushes:
+            by_rev[rev] = by_rev.get(rev, 0) + 1
+        say("11", f"(c) hot swap under traffic: {served[0]} requests from 8 "
+                  f"threads over 128 of the resources in {c_wall:.3f} s; "
+                  f"revisions {v1.revision} -> {v2.revision} (policy added) "
+                  f"-> {v3.revision} (quarantined {v3.quarantined}, "
+                  f"{len(q_rules)} rules on the host) -> "
+                  f"{mstate['active_revision']}; swaps "
+                  f"{mstate['stats']['swaps']}, quarantine entries "
+                  f"{mstate['stats']['quarantine_enters']}, exits "
+                  f"{mstate['stats']['quarantine_exits']}; flushes by "
+                  f"revision {by_rev}; captures during traffic by thread "
+                  + str({t: sum(1 for c in cap_traffic if c[0] == t)
+                         for t in sorted({c[0] for c in cap_traffic})})
+                  + f", {len(captures) - n_cap0} in (c) in all "
+                  f"(median {statistics.median([c[2] for c in captures[n_cap0:]] or [0.0]):.3f} s) {tag}")
+        say("11", "(c) captures (thread, batch, s, before traffic): " + str(
+            [(t, n, round(d, 3), k < cap_traffic0)
+             for k, (t, n, d) in enumerate(captures) if k >= n_cap0]))
+        t0 = time.perf_counter()
+        want_c = {}
+        asked = {i for _, i, _ in c_answers}
+        for rev, v in cadm.versions.items():
+            if v.engine.cps.cache_key() == eng.cps.cache_key():
+                # (a)'s compiled set: its rows, and the rest scanned
+                want_c[rev] = want0 | admission_reference(
+                    eng, resources, asked - set(want0))
+            else:
+                want_c[rev] = admission_reference(v.engine, resources, asked)
+        check_answers("(c)", c_answers, want_c)
+        say("11", f"(c) {len(c_answers)} answers equal the CPU engine's rows "
+                  f"under the revision their flush pinned "
+                  f"({time.perf_counter() - t0:.3f} s)")
+
+        # the gates the three parts share
+        flushes = flushes_a + madm.flushes + cadm.flushes
+        off = [f for f in flushes if f[3] != PATH_DEVICE]
+        if off:
+            raise AssertionError(f"{len(off)} flushes were not answered on "
+                                 f"the device: {off[:3]}")
+        bad_caps = [c for c in cap_traffic
+                    if c[0] != "policyset-compile-ahead"]
+        if bad_caps:
+            raise AssertionError(f"(c): captures off the worker thread during "
+                                 f"traffic: {bad_caps}")
+        global_verifier.drain(timeout=60.0)
+        vst = global_verifier.state()["stats"]
+        global_verifier.configure(rate=0.0)
+        global_verifier.stop()
+        fst = global_flight.state()["stats"]
+        say("11", f"shadow verification (rate 0.1, flight recorder at its "
+                  f"default sampling, {fst['captured']} captured): checked "
+                  f"{vst['checked']}, divergences {vst['divergences']}, "
+                  f"skipped {vst['skipped_impure'] + vst['skipped_no_engine']}"
+                  f" + {vst['skipped_overflow']} overflow")
+        if vst["divergences"] or not vst["checked"]:
+            raise AssertionError(f"shadow verification: {vst}")
+        kerr = global_registry.kernel_errors.value() - kerr0
+        if kerr:
+            raise AssertionError(f"{kerr} kernel errors in the phase")
+        # the flushes' dispatch paths are the flusher's; one more scan
+        # through the ladder on this thread for ladder_check's
+        eng.scan(resources[:16], operations=["CREATE"] * 16)
+        ladder_check("11")
+
+        # one flush at each bucket: launches, device time, trace, graph_check
+        flush = {}
+        for b in ADMISSION_BUCKETS:
+            padded, _, _ = eng.pad(resources[:b], ["CREATE"] * b)
+            lanes = lanes_to_device(eng.encode(padded, None,
+                                               ["CREATE"] * b)[0], eng.device)
+            g(lanes)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            g(lanes)
+            torch.cuda.synchronize()
+            fl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            ms = flush_device_ms(torch, g, lanes)
+            rp = device_profile(torch, lambda: g(lanes))
+            trace = {k: sum(t["ms"] for t in rp["all"] if n in t["name"])
+                     for k, n in TRACE_NAMES.items()}
+            # every check at each bucket; the kernels timed at the largest
+            gr = graph_check(torch, kernels, "11", f"admission bucket {b}", g,
+                             lanes, eng.cps.device_fn(plain=True), tag,
+                             timing=b == ADMISSION_BUCKETS[-1])
+            flush[b] = {"launches": fl, "ms": ms, "trace_ms": trace,
+                        "graph": gr}
+            say("11", f"bucket {b}: one flush's program call {ms:.4f} ms of "
+                      f"device time (copy-in, replay, output clones; median "
+                      f"of 10), {rp['device_events']} device events; "
+                      f"launches {fl}; kernel trace ms "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in trace.items())
+                      + f" {tag}")
+        say("11", f"phase 11 in {time.perf_counter() - t_phase:.3f} s")
+        return {"launches": launches, "flush": flush}
+    finally:
+        graphs.GraphedProgram._capture = real_capture
+        global_faults.disarm()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -3531,6 +4129,10 @@ def main() -> int:
                     help="Pods in the mutate leg (bench.py bench_mutate)")
     ap.add_argument("--mutate-tile", type=int, default=1024,
                     help="Pods per mutate-leg triage tile")
+    ap.add_argument("--adm-requests", type=int, default=20000,
+                    help="requests in phase 11's steady admission")
+    ap.add_argument("--adm-bulk", type=int, default=10000,
+                    help="bulk requests in phase 11's mixed traffic")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -3662,7 +4264,14 @@ def main() -> int:
                    args.tile, cache_caps, tenant,
                    tenant_res[:args.tenant_batch], tag)
     del feed
-    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+    # phase 11: admission serving on the card
+    adm = admission_phase(torch, kernels, args.seed + 30, tag,
+                          n_requests=args.adm_requests, n_bulk=args.adm_bulk)
+    # each path's graph_check, and each admission bucket's
+    b = ADMISSION_BUCKETS[-1]
+    gpaths = list(zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg))) + [
+        (f"admission_{b}", adm["flush"][b]["graph"])]
+    for path, gr in gpaths:
         say("6", f"graphs {path}: eager {gr['eager_ms']:.3f} ms, replay "
                  f"{gr['replay_ms']:.3f} ms, captures {gr['captures']}, aten "
                  f"operations {gr['ops_eager']} eager / {gr['ops_replay']} "
@@ -3678,6 +4287,7 @@ def main() -> int:
 
     # phase 6: the kernels line, then the device line
     by_path = dict(zip(PATHS, (dense, scan, tv, tt, leg)))
+    by_path["admission"] = adm["launches"]
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
@@ -3687,6 +4297,10 @@ def main() -> int:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n_launch,
                     "launches_by_path": per,
+                    "admission_flush": {
+                        str(b): {"launches": f["launches"].get(name, 0),
+                                 "trace_ms": f["trace_ms"].get(name)}
+                        for b, f in adm["flush"].items()},
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": r["library_ms"]})
@@ -3703,7 +4317,7 @@ def main() -> int:
             raise AssertionError(f"{name} was launched on no path")
     # K1 at the tenant bank's shapes, beside the rows above
     by_name = {e["name"]: e for e in out}
-    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+    for path, gr in gpaths:
         r = gr["k11"]
         b_ms, b_by = r["bound"]
         # the largest error any path's launches measured
@@ -3719,7 +4333,7 @@ def main() -> int:
                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
                  f"{tag}")
-    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+    for path, gr in gpaths:
         r = gr["k12"]
         b_ms, b_by = r["bound"]
         e = by_name["row_fold"]
@@ -3742,7 +4356,7 @@ def main() -> int:
                  f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
                  f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
                  f"rows_forced {gr['rows_forced']} {tag}")
-    for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+    for path, gr in gpaths:
         r = gr["k7"]
         if not r["launches"]:
             continue
@@ -3766,7 +4380,7 @@ def main() -> int:
         e = by_name[name]
         e.update({k: results[name][k] for k in ("rotated_ms", "floor_ms",
                                                  "form", "shape")})
-        for path, gr in zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg)):
+        for path, gr in gpaths:
             r = gr[name]
             if not r["launches"]:
                 continue

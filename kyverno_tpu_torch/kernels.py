@@ -28,8 +28,10 @@ Each wrapper:
   else.
 
 A program replayed as a CUDA graph (``tpu/graphs.py``) runs no Python:
-``GraphedProgram`` takes back the counts its capture run added and adds
-them again at every replay, so ``LAUNCHES`` counts what the card runs.
+its capture counts into a dict of the capturing thread's own
+(``counting_into``), which ``GraphedProgram`` adds again at every
+replay, so ``LAUNCHES`` counts what the card runs, and a capture on one
+thread takes nothing from another thread's counts.
 
 The ``*_plain`` functions repeat each kernel's arithmetic in PyTorch;
 the CPU tests and ``chip_smoke.py`` hold the kernels against them.
@@ -37,6 +39,7 @@ the CPU tests and ``chip_smoke.py`` hold the kernels against them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -122,9 +125,38 @@ class KernelError(RuntimeError):
     program failed to be captured as a CUDA graph."""
 
 
+# several threads launch (the admission flusher, the lifecycle worker);
+# a thread recording a CUDA graph counts into its own dict instead
+_count_lock = threading.Lock()
+_capture_counts = threading.local()
+
+
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``name``: to the capturing thread's dict
+    while it records a graph (``counting_into``), else to ``LAUNCHES``."""
+    sink = getattr(_capture_counts, "counts", None)
+    if sink is not None:
+        sink[name] = sink.get(name, 0) + n
+        return
+    with _count_lock:
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def counting_into(counts: Dict[str, int]):
+    """This thread's launches count into ``counts`` meanwhile."""
+    prev = getattr(_capture_counts, "counts", None)
+    _capture_counts.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture_counts.counts = prev
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -541,7 +573,7 @@ def _dfa_scan(kind: str, bytes_: torch.Tensor, lens: torch.Tensor,
     else:
         _call("dfa_scan_stride1", *head, chunk, _ptr(out), out.stride(0),
               _ptr(na))
-    LAUNCHES[f"dfa_scan_{kind}"] += 1
+    count_launch(f"dfa_scan_{kind}")
     return out, na
 
 
@@ -576,7 +608,7 @@ def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
         bytes_ = _padded_rows(bytes_, 16)
         _call("dfa_nonascii", _ptr(bytes_), _ptr(lens), S, W,
               bytes_.shape[1], _ptr(na))
-        LAUNCHES["nonascii"] += 1
+        count_launch("nonascii")
     return na
 
 
@@ -738,7 +770,7 @@ def instance_count_many(preds: Sequence[torch.Tensor], scope: torch.Tensor,
         any_mask = sum(1 << q for q, w in enumerate(wants) if w == "any")
         _call("instance_count_many", ctypes.cast(args, _P), k, any_mask,
               _ptr(scope), N, R, n_inst)
-        LAUNCHES["instance_count"] += 1
+        count_launch("instance_count")
     return outs
 
 
@@ -781,7 +813,7 @@ def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
     if N:
         _call("instance_count2", _ptr(pred), _ptr(scope1), _ptr(scope2),
               _ptr(valid), N, R, n_inst, _ptr(out))
-        LAUNCHES["instance_count2"] += 1
+        count_launch("instance_count2")
     return out
 
 
@@ -854,7 +886,7 @@ def verdict_counts(table: torch.Tensor) -> torch.Tensor:
     _check(table, "table", torch.int32, table.device, 2)
     out = _verdict_counts(table, None)
     if table.numel():
-        LAUNCHES["verdict_counts"] += 1
+        count_launch("verdict_counts")
     return out
 
 
@@ -876,7 +908,7 @@ def verdict_counts_u8(table: torch.Tensor
                        device=table.device)
     out = _verdict_counts(table, out8)
     if table.numel():
-        LAUNCHES["verdict_counts_u8"] += 1
+        count_launch("verdict_counts_u8")
     return out8, out
 
 
@@ -1023,7 +1055,7 @@ def vocab_gather(srcs: List[torch.Tensor], idx: torch.Tensor,
         _call("vocab_gather", ctypes.cast(src_a, _P), ctypes.cast(dst_a, _P),
               ctypes.cast(fill_a, _P), n, plan.n1, plan.chunks1, plan.chunks4,
               _ptr(idx), width, cells, V)
-        LAUNCHES["vocab_gather"] += 1
+        count_launch("vocab_gather")
     return outs
 
 
@@ -1057,7 +1089,7 @@ def vocab_gather_rows(svocab: Optional[torch.Tensor],
     if cells and (rows is None or W):
         _call("vocab_gather_rows", _ptr(svocab), _ptr(slen), _ptr(idx), width,
               cells, V, W, _ptr(rows), _ptr(lens))
-        LAUNCHES["vocab_gather_rows"] += 1
+        count_launch("vocab_gather_rows")
     return rows, lens
 
 
@@ -1117,7 +1149,7 @@ def hash_match(hi: torch.Tensor, lo: torch.Tensor, consts: torch.Tensor,
     if cells:
         _call("hash_match", _ptr(hi), _ptr(lo), _ptr(valid), cells,
               _ptr(consts), consts.shape[0], _ptr(out))
-        LAUNCHES["hash_match"] += 1
+        count_launch("hash_match")
     return out
 
 
@@ -1185,7 +1217,7 @@ def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
         _call("pool_rows", _ptr(plane), plane.stride(0), plane.stride(1), K,
               _ptr(slot), N, R, pool_rows_words(K), int(_pool_rows_vec(slot)),
               _ptr(out))
-        LAUNCHES["pool_rows"] += 1
+        count_launch("pool_rows")
     return out
 
 
@@ -1253,7 +1285,7 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor,
         lanes = first_true_take_form(R, accept.data_ptr() % 16 == 0)
         _call("first_true_take", _ptr(accept), _ptr(pred), N, R, lanes,
               _ptr(has), _ptr(val_ok))
-        LAUNCHES["first_true_take"] += 1
+        count_launch("first_true_take")
     return has, val_ok
 
 
@@ -1457,7 +1489,7 @@ def glob_nfa_pack(pack: GlobPack, bytes_: torch.Tensor,
         _call("glob_nfa_pack", _ptr(bytes_), _ptr(lens), S, bytes_.shape[-1],
               _ptr(cmap), _ptr(tables), _ptr(ms), P, pack.classes, pack.nw,
               _ptr(out))
-        LAUNCHES["glob_nfa"] += 1
+        count_launch("glob_nfa")
     return out
 
 
@@ -1758,7 +1790,7 @@ def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
               k, _ptr(hashes[0]), _ptr(hashes[1]) if F > 1 else None,
               _ptr(is_ns), _ptr(nas[0]), _ptr(nas[1]), N, R, _ptr(hit),
               _ptr(conf))
-        LAUNCHES["meta_any"] += 1
+        count_launch("meta_any")
     return hit, conf
 
 
@@ -2061,7 +2093,7 @@ def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
           code.n_lane, ctypes.cast(io, _P), k, N, I, J,
           G.bit_length() - 1, ipl.bit_length() - 1,
           fold_block(code, N, I, G))
-    LAUNCHES["class_fold"] += 1
+    count_launch("class_fold")
 
 
 # ---------------------------------------------------------------------------
@@ -2345,7 +2377,7 @@ def row_fold(code: RowCode, ios: Sequence[torch.Tensor], N: int,
     _call("row_fold", _ptr(code.on(dev)), len(code.rows), code.n_slots,
           ctypes.cast(io, _P), k, code.n_in, N, R,
           row_lanes(R).bit_length() - 1, ctypes.cast(args, _P))
-    LAUNCHES["row_fold"] += 1
+    count_launch("row_fold")
 
 
 def _a16(x: int) -> int:

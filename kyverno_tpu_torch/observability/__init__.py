@@ -1,5 +1,14 @@
-"""Observability for the port: metrics, tracing, the operator log, the
-flight recorder, per-phase profiling and the rule analytics (copies of
-``kyverno_tpu/observability/{metrics,tracing,log,flightrecorder,
-profiling,analytics}.py``; profiling traces with ``torch.profiler``).
-Events and shadow verification are not ported yet."""
+"""Observability for the port: events, metrics, tracing, the operator log,
+the flight recorder, shadow verification, per-phase profiling and the
+rule analytics (copies of ``kyverno_tpu/observability``; profiling traces
+with ``torch.profiler``)."""
+
+from .analytics import (RuleIdent, RuleStatsAccumulator, SloTracker,
+                        StarvationTracker, global_rule_stats, global_slo,
+                        global_starvation)
+from .events import Event, EventGenerator
+from .metrics import MetricsRegistry, global_registry
+from .profiling import PhaseProfiler, global_profiler
+from .tracing import (OTLPJsonFileExporter, Span, SpanContext, Tracer,
+                      global_tracer)
+from .verification import ShadowVerifier, global_verifier

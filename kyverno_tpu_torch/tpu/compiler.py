@@ -12,8 +12,9 @@ strided scan.
 
 The compiled set carries the verdict-cache identity (``cache_key``),
 the analytics identities (``policy_spec_hashes``) and the bank-size
-gauges (``publish_dfa_gauges``). Not ported: the lifecycle quarantine
-and the observability spans.
+gauges (``publish_dfa_gauges``). ``quarantine=`` takes the policies the
+lifecycle manager (lifecycle/manager.py) quarantined out of lowering.
+Not ported: the observability spans.
 """
 
 from __future__ import annotations
@@ -221,6 +222,10 @@ class CompiledPolicySet:
     # global host-resolved operand slots (per-request context values
     # feeding the device program as canonical lanes)
     dyn_slots: List[DynSlot] = field(default_factory=list)
+    # lifecycle quarantine: policy indices excluded from lowering
+    # (their rules are host-fallback RuleEntries tagged "quarantined:"),
+    # with the compile error that put them there
+    quarantined: Dict[int, str] = field(default_factory=dict)
     # the policy set's compiled pattern tables (tpu/dfa.py)
     dfa: Optional[DfaBank] = None
     # mutate-rule bank (mutation/): one RuleEntry per mutate rule in
@@ -328,17 +333,17 @@ class CompiledPolicySet:
         """Content identity of this compiled artifact — the policy-set
         half of every verdict-cache key (tpu/cache.py). Covers
         everything that can change a verdict column for a fixed
-        (resource, request): policy content, encode and metadata caps,
-        the content hashes of every compile-folded context dependency
-        and the DFA bank's digest. The reference's key also holds its
-        quarantine set, which the port's compile has none of: the empty
-        list stands in its place, so both packages key a set alike."""
+        (resource, request): policy content, quarantine set, encode and
+        metadata caps, the content hashes of every compile-folded context
+        dependency and the DFA bank's digest — the reference's key, item
+        for item, so both packages key a set alike."""
         if self._cache_key is None:
+            from ..lifecycle.snapshot import policy_content_hash
             from .cache import digest
 
             self._cache_key = digest(
                 [policy_content_hash(p) for p in self.policies],
-                [],
+                sorted(self.quarantined.items()),
                 sorted(self.context_deps.items()),
                 (self.encode_cfg.max_rows, self.encode_cfg.max_instances,
                  self.encode_cfg.byte_pool_slots,
@@ -349,37 +354,25 @@ class CompiledPolicySet:
         return self._cache_key
 
 
-def policy_content_hash(policy) -> str:
-    """Stable content hash of one policy — copied from
-    kyverno_tpu/lifecycle/snapshot.py:policy_content_hash. The raw
-    parsed document is the canonical content; policies built without
-    one hash their identity + spec repr."""
-    import hashlib
-    import json
-
-    raw = getattr(policy, "raw", None)
-    if raw:
-        payload = json.dumps(raw, sort_keys=True, default=str)
-    else:
-        payload = "|".join((
-            getattr(policy, "namespace", "") or "",
-            getattr(policy, "name", "") or "",
-            getattr(policy, "resource_version", "") or "",
-            repr(getattr(policy, "spec", None)),
-        ))
-    return hashlib.sha256(payload.encode()).hexdigest()[:16]
-
-
 def compile_policy_set(
     policies: Sequence[ClusterPolicy],
     encode_cfg: Optional[EncodeConfig] = None,
     meta_cfg: Optional[MetaConfig] = None,
     data_sources=None,
+    quarantine: Optional[Dict[int, str]] = None,
 ) -> CompiledPolicySet:
     """Lower the validate rules of ``policies``, then the triage
-    predicates of their mutate rules into the mutate bank."""
+    predicates of their mutate rules into the mutate bank.
+
+    ``quarantine`` maps policy indices the lifecycle manager has
+    quarantined (their last compile CRASHED, not merely Unsupported) to
+    the error string; their rules skip lowering entirely and become
+    host-fallback entries, so the rest of the set still runs on the
+    device while the quarantined policy degrades to the scalar oracle
+    (per-rule ERROR when even the oracle cannot evaluate it)."""
     encode_cfg = encode_cfg or EncodeConfig()
     meta_cfg = meta_cfg or MetaConfig()
+    quarantine = dict(quarantine or {})
     entries: List[RuleEntry] = []
     programs: List[RuleProgram] = []
     byte_paths: Set[int] = set()
@@ -389,8 +382,13 @@ def compile_policy_set(
     nfa_globs: Dict[str, List[str]] = {}
     bank = DfaBank(state_budget())
     for pi, policy in enumerate(policies):
+        q_err = quarantine.get(pi)
         for rule in policy.get_rules():
             if not rule.has_validate():
+                continue
+            if q_err is not None:
+                entries.append(RuleEntry(pi, policy.name, rule.name, None,
+                                         f"quarantined: {q_err}"))
                 continue
             try:
                 prog = compile_rule(policy, rule, data_sources, deps)
@@ -448,6 +446,11 @@ def compile_policy_set(
         if tmpl is not None:
             tmpl.policy_name = policy.name
         mutate_templates.append(tmpl)
+        q_err = quarantine.get(pi)
+        if q_err is not None:
+            mutate_entries.append(RuleEntry(pi, policy.name, rule.name, None,
+                                            f"quarantined: {q_err}"))
+            continue
         if conflict:
             mutate_entries.append(RuleEntry(
                 pi, policy.name, rule.name, None,
@@ -509,6 +512,7 @@ def compile_policy_set(
         meta_cfg=meta_cfg,
         context_deps=deps,
         dyn_slots=dyn_slots,
+        quarantined=quarantine,
         dfa=bank,
         mutate_entries=mutate_entries,
         mutate_programs=mutate_programs,

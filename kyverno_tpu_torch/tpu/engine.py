@@ -740,6 +740,24 @@ class TorchEngine:
             if admission_infos else None
         return padded, ops, infos
 
+    def warm_buckets(self, buckets: Sequence[int]) -> None:
+        """Dispatch a batch of empty resources twice at each of
+        ``buckets`` (bucket sizes), past the verdict cache: on CUDA the
+        first dispatch is the bucket's eager run and the second captures
+        its graph (``tpu/graphs.py``), so traffic at those buckets only
+        replays. A failed capture raises ``KernelError``."""
+        if not self.cps.device_programs:
+            return
+        for b in buckets:
+            padded, _, _ = self.pad([{}] * b)
+            if len(padded) != b:
+                raise ValueError(f"{b} is not a bucket size (MIN_BUCKET "
+                                 f"{self.MIN_BUCKET} times a power of two)")
+            batch, _, _ = self.encode(padded)
+            for _ in range(2):
+                self._dispatch(batch, b, 0)
+                self.take_pending_counts()
+
     def run(self, lanes: Dict[str, torch.Tensor]):
         """The compiled program on device lanes -> (table, counts)
         tensors on the device (asynchronous on CUDA; a CUDA graph

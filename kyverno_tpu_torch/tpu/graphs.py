@@ -26,11 +26,27 @@ A capture that fails (a host sync inside the program, a kernel that
 does not launch) raises ``kernels.KernelError``: the guarded dispatch
 ladder passes it to the caller rather than answering all-HOST.
 
+Several threads drive one engine when it serves admission (the
+flusher, hedged and shed scans on the submitting threads, the
+lifecycle worker warming the next policy-set version), so a capture
+must not be broken by another thread's device work. In CUDA's default
+("global") capture mode, a call that might synchronize — a pinned-buffer
+allocation's event query, a readback — made by ANY thread while one
+thread records invalidates that recording (``profile_capture.py``
+reproduces it). Captures here use the "thread_local" mode: only the
+capturing thread's own calls can break its recording, and the other
+threads' copies, eager runs, replays and readbacks go on meanwhile. One
+capture runs at a time (``_CAPTURE_LOCK``): entering a capture
+synchronizes the device and empties the allocators' caches, which
+must not happen under another thread's recording.
+
 A replay runs no Python, so the counters the program keeps —
 ``kernels.LAUNCHES`` and the program's ``stats`` — would miss it. The
-capture run's increments are taken back after the capture, and added
-again at every replay: each call counts what the card runs for it, the
-same as an eager run.
+capture run counts its launches into a dict of its own thread's
+(``kernels.counting_into``) and takes back its ``stats`` increments
+(the program's lock keeps other calls of the program out meanwhile);
+both are added again at every replay: each call counts what the card
+runs for it, the same as an eager run.
 
 Each graph holds a private memory pool as large as one eager run's peak,
 so a program keeps at most ``MAX_GRAPHS`` of them, evicting the one used
@@ -56,6 +72,10 @@ from .. import kernels
 
 # live graphs per program: each holds a private memory pool
 MAX_GRAPHS = 4
+# CUDA stream-capture mode of every capture (see the module docstring)
+CAPTURE_MODE = "thread_local"
+# one capture at a time, process-wide
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _clone(out):
@@ -85,13 +105,15 @@ class GraphedProgram:
     """A compiled program (``evaluator.build_program``'s ``run``)
     replayed as one CUDA graph per lane-shape bucket (see the module
     docstring). ``captures`` counts graphs recorded, ``replays`` calls
-    answered by a replay."""
+    answered by a replay; ``key_counts`` splits the calls by key into
+    eager runs, captures and replays."""
 
     def __init__(self, run: Callable):
         self.run = run
         self.stats: Optional[Dict[str, int]] = getattr(run, "stats", None)
         self.captures = 0
         self.replays = 0
+        self.key_counts: Dict[Tuple, Dict[str, int]] = {}
         self._seen: set = set()
         self._graphs: "OrderedDict[Tuple, _Graph]" = OrderedDict()
         # a graph's static inputs and outputs serve one call at a time
@@ -112,18 +134,23 @@ class GraphedProgram:
                              f"; only CUDA lanes are graphed (call .run)")
         key = self.key(lanes)
         with self._lock:
+            n = self.key_counts.setdefault(
+                key, {"eager": 0, "captures": 0, "replays": 0})
             g = self._graphs.get(key)
             if g is None:
                 if key not in self._seen:
                     self._seen.add(key)
+                    n["eager"] += 1
                     return self.run(lanes)
                 g = self._capture(key, next(iter(devs)), lanes)
+                n["captures"] += 1
             self._graphs.move_to_end(key)
             g.load(lanes)
             g.graph.replay()
             self.replays += 1
+            n["replays"] += 1
             for k, v in g.launches.items():
-                kernels.LAUNCHES[k] += v
+                kernels.count_launch(k, v)
             if self.stats is not None:
                 for k, v in g.stats.items():
                     self.stats[k] += v
@@ -138,7 +165,7 @@ class GraphedProgram:
             old.graph.reset()
         inputs = {k: torch.empty(tuple(t.shape), dtype=t.dtype, device=dev)
                   for k, t in lanes.items()}
-        launches0 = dict(kernels.LAUNCHES)
+        launches: Dict[str, int] = {}
         stats0 = dict(self.stats) if self.stats is not None else {}
         graph = torch.cuda.CUDAGraph()
         # no cyclic collection while the graph records, a precaution:
@@ -147,27 +174,27 @@ class GraphedProgram:
         # invalidate the capture (``torch.cuda.graph`` collects once, at
         # its start); a cause not reproduced (PERF.md). The collector is
         # the process's: other threads run without it meanwhile
-        gc_was = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                outputs = self.run(inputs)
-        except Exception as e:
-            raise kernels.KernelError(
-                f"CUDA graph capture failed: {type(e).__name__}: {e}") from e
-        finally:
-            if gc_was:
-                gc.enable()
-            # the capture ran nothing on the card: take its counts back,
-            # to be added at each replay
-            launches = {k: v - launches0[k]
-                        for k, v in kernels.LAUNCHES.items() if v != launches0[k]}
-            kernels.LAUNCHES.update(launches0)
-            stats: Dict[str, Any] = {}
-            if self.stats is not None:
-                stats = {k: v - stats0[k] for k, v in self.stats.items()
-                         if v != stats0[k]}
-                self.stats.update(stats0)
+        with _CAPTURE_LOCK:
+            gc_was = gc.isenabled()
+            gc.disable()
+            try:
+                with kernels.counting_into(launches), \
+                        torch.cuda.graph(graph, capture_error_mode=CAPTURE_MODE):
+                    outputs = self.run(inputs)
+            except Exception as e:
+                raise kernels.KernelError(
+                    f"CUDA graph capture failed: {type(e).__name__}: {e}") from e
+            finally:
+                if gc_was:
+                    gc.enable()
+                # the capture ran nothing on the card: its launches
+                # (counted apart) and its stats are added at each
+                # replay instead
+                stats: Dict[str, Any] = {}
+                if self.stats is not None:
+                    stats = {k: v - stats0[k] for k, v in self.stats.items()
+                             if v != stats0[k]}
+                    self.stats.update(stats0)
         g = _Graph(graph, inputs, outputs, launches, stats)
         self._graphs[key] = g
         self.captures += 1

@@ -1598,3 +1598,185 @@ def test_pipelined_scan_on_the_card_equals_scan_stream(cuda):
         assert np.array_equal(run(sc), want)
     finally:
         reset_store()
+
+
+# --- admission serving: several threads, buckets 16-64 at max_rows 128 ---
+
+
+def _admission_engine(cps=None):
+    from kyverno_tpu_torch.tpu.flatten import EncodeConfig
+
+    if cps is not None:
+        return TorchEngine(cps=cps)
+    return TorchEngine([expand_policy(p) for p in load_pss_policies()],
+                       encode_cfg=EncodeConfig(max_rows=128))
+
+
+def _admission_pods(n, seed):
+    from chip_smoke import workload
+
+    return workload(n, seed)[0]
+
+
+def _loop_scans(eng, pods, want, stop, errors, counts):
+    """Scan ``pods`` on ``eng`` until ``stop``; errors and tables unlike
+    ``want`` are recorded."""
+    while not stop.is_set():
+        try:
+            got = eng.scan(pods).verdicts
+        except Exception as e:  # noqa: BLE001 - the test counts them
+            errors.append(repr(e))
+            continue
+        counts.append(1)
+        if not np.array_equal(got, want):
+            errors.append("table unlike the CPU's")
+
+
+@pytest.mark.parametrize("scenario", ["bucket", "swap"])
+def test_capture_while_another_thread_replays(cuda, scenario):
+    """Thread A replays bucket 16 in a loop while thread B's first two
+    calls capture a graph: at bucket 32 on the same engine ("bucket"),
+    or at bucket 16 of a second engine compiled afresh, as the lifecycle
+    worker warms the next version ("swap"). In CUDA's default capture
+    mode A's pinned copies and readbacks invalidate B's recording
+    (``KernelError``); the thread-local mode keeps both whole."""
+    import threading
+
+    from kyverno_tpu_torch.tpu.compiler import compile_policy_set
+
+    eng = _admission_engine()
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    pods = _admission_pods(48, 3)
+    a_pods, b_pods = pods[:16], pods[16:] if scenario == "bucket" else pods[:16]
+    want_a, want_b = cpu.scan(a_pods).verdicts, cpu.scan(b_pods).verdicts
+    eng.warm_buckets([16])
+    if scenario == "swap":
+        b_eng = TorchEngine(cps=compile_policy_set(eng.cps.policies,
+                                                   eng.cps.encode_cfg))
+    else:
+        b_eng = eng
+    g = b_eng.cps.device_fn(device=b_eng.device)
+    captures0 = g.captures
+    stop, errors, counts = threading.Event(), [], []
+    th = threading.Thread(target=_loop_scans,
+                          args=(eng, a_pods, want_a, stop, errors, counts))
+    th.start()
+    try:
+        for _ in range(3):  # eager, capture, replay
+            assert np.array_equal(b_eng.scan(b_pods).verdicts, want_b)
+    finally:
+        stop.set()
+        th.join()
+    assert errors == [] and counts
+    assert g.captures == captures0 + 1
+
+
+def test_two_threads_scan_buckets_16_and_64_at_once(cuda):
+    import threading
+
+    eng = _admission_engine()
+    cpu = TorchEngine(cps=eng.cps, device="cpu")
+    pods = _admission_pods(80, 4)
+    small, large = pods[:16], pods[16:]
+    want = {16: cpu.scan(small).verdicts, 64: cpu.scan(large).verdicts}
+    stop, errors, counts = threading.Event(), [], []
+    threads = [threading.Thread(target=_loop_scans,
+                                args=(eng, p, want[b], stop, errors, c))
+               for p, b, c in ((small, 16, counts), (large, 64, []))]
+    for th in threads:
+        th.start()
+    try:
+        import time
+
+        time.sleep(4.0)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join()
+    assert errors == [] and len(counts) >= 3
+    g = eng.cps.device_fn(device=eng.device)
+    assert g.captures == 2 and g.live_graphs == 2
+
+
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_admission_program_at_each_bucket_equals_plain(cuda, n):
+    """The PSS program at the admission shapes (N = 16, 32 and 64 at
+    max_rows 128: K4's plan, K8's form, K7's ballot form and K12's grid
+    with fewer tiles than SMs chosen for them): eager, captured and
+    replayed, equal to the plain-twin program."""
+    from kyverno_tpu_torch.tpu.engine import lanes_to_device
+
+    eng = _admission_engine()
+    g = eng.cps.device_fn(device=cuda)
+
+    def lanes_of(seed, k=n):
+        padded, _, _ = eng.pad(_admission_pods(k, seed))
+        assert len(padded) == n
+        return lanes_to_device(eng.encode(padded)[0], cuda)
+
+    _replay_equals_eager(g, eng.cps.device_fn(plain=True), lanes_of)
+
+
+def test_lifecycle_swap_captures_while_another_thread_replays(cuda):
+    """A PolicySetLifecycleManager with ``warm=True`` and its worker
+    started: a policy added to the cache compiles and captures the new
+    version's MIN_BUCKET graph on the worker while a serving thread
+    replays the old version's; every scan equals the CPU's under the
+    version it used."""
+    import threading
+    import time
+
+    from kyverno_tpu_torch.cluster.policycache import PolicyCache
+    from kyverno_tpu_torch.lifecycle import PolicySetLifecycleManager
+    from kyverno_tpu_torch.lifecycle.manager import default_compile_fn
+    from kyverno_tpu_torch.tpu.flatten import EncodeConfig
+
+    policies = load_pss_policies()  # the cache expands them
+    cache = PolicyCache()
+    for p in policies[:-1]:
+        cache.set(p)
+    mgr = PolicySetLifecycleManager(cache, compile_fn=default_compile_fn(
+        encode_cfg=EncodeConfig(max_rows=128), warm=True))
+    mgr.start()
+    pods = _admission_pods(16, 5)
+    want, errors, served = {}, [], []
+    stop = threading.Event()
+
+    def serve():
+        while not stop.is_set():
+            v = mgr.acquire()
+            try:
+                got = v.engine.scan(pods).verdicts
+            except Exception as e:  # noqa: BLE001 - the test counts them
+                errors.append(repr(e))
+                continue
+            served.append(v.revision)
+            if v.revision not in want:
+                want[v.revision] = TorchEngine(
+                    cps=v.engine.cps, device="cpu").scan(pods).verdicts
+            if not np.array_equal(got, want[v.revision]):
+                errors.append(f"revision {v.revision} unlike the CPU's")
+
+    try:
+        v1 = mgr.acquire()
+        g1 = v1.engine.cps.device_fn(device=v1.engine.device)
+        assert g1.captures == 1  # the worker's warm-up captured bucket 16
+        th = threading.Thread(target=serve)
+        th.start()
+        time.sleep(0.5)
+        cache.set(policies[-1])
+        deadline = time.monotonic() + 120
+        while mgr.active.revision == v1.revision \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)
+        stop.set()
+        th.join()
+    finally:
+        mgr.stop()
+    v2 = mgr.active
+    assert v2.revision > v1.revision and mgr.stats["swaps"] == 1
+    g2 = v2.engine.cps.device_fn(device=v2.engine.device)
+    assert g2.captures == 1 and g1.captures == 1
+    assert errors == []
+    assert v1.revision in served and v2.revision in served

@@ -132,6 +132,11 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner\n"
         "st = PipelinedScanner(sc).scan_chunks([[pod] * 3, [pod]])\n"
         "assert st['chunks'] == 2 and st['encode_fallback_chunks'] == 0\n"
+        "import kyverno_tpu_torch.serving, kyverno_tpu_torch.webhooks\n"
+        "import kyverno_tpu_torch.lifecycle\n"
+        "import kyverno_tpu_torch.cluster.policycache\n"
+        "import kyverno_tpu_torch.observability.events\n"
+        "import kyverno_tpu_torch.observability.verification\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"
