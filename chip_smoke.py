@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
         [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
-        [--seed 0]
+        [--reports-n 100000] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -90,8 +90,9 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 10. the pipelined background scan: phase 5's snapshot through
    ``tpu/pipeline.py:PipelinedScanner`` in chunks of the tile, (a) fed
    by an encode thread, (b) by an encoder pool of min(8, cpu_count - 2)
-   worker processes, (c) cold and then warm in a columnar store (a
-   temporary directory) with the encode cache on: resources/s,
+   worker processes, (c) its first 4 tiles cold and then warm in a
+   columnar store (a temporary directory) with the encode cache on
+   (cut from all 13 for the time limit): resources/s,
    ``encode_s``, ``encode_wait_s``, ``device_s``, ``host_s`` and
    ``overlap_ratio`` of each; each table equals phase 5's, the pool
    encodes every chunk (no bypass, no infra failure, no worker that
@@ -129,6 +130,50 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    and ``graph_check`` (replay == eager == plain twins at every bucket;
    the kernels timed at 64 alone, the admission path's row of the
    ``graphs`` lines).
+12. incremental reports and the background scan service
+   (``cluster/scanner.py``, ``reports/``): bench.py's soak (config #17)
+   at 100,000 lean Pods in 16 namespaces (``--reports-n``; the bench's
+   1,000,000 cut for the time limit), the 18 PSS policies in a
+   ``PolicyCache``, a journaled ``ReportStore`` in a temporary
+   directory (the bench's journal cap, 1 GiB), the flight recorder
+   sampling 0.001 and the shadow verifier at rate 1.0. (a) the fill, ``scan_once(full=True)``, 10 churn ticks
+   of 2,000 (``random.Random(1729)``: 80 % re-revisioned upserts, 10 %
+   adds, 10 % deletes), an unchanged tick; (b) 5 churn ticks under the
+   bench's ambient faults (``tpu.dispatch`` p 0.01, ``reports.fold`` and
+   ``reports.journal`` p 0.005); (c) the store closed (a compaction
+   of every row, timed) and reopened; (d) a fresh store, the verdict
+   cache emptied, a new service's full scan.
+   Each tick prints its dirty count, chunks, wall time, the pipeline's
+   ``encode_s`` / ``device_s`` / ``host_s`` / ``overlap_ratio`` and the
+   report side (the service's report callback, timed by wrapping the
+   pipeline's ``on_result``; in it the aggregator's ``put``, the
+   store's ``apply`` and the flight records, each wrapped), its folds,
+   journal records and RSS; then recoveries by reason, the step graph's
+   keys. Gates: the unchanged tick does no fold and no journal record;
+   the digest equals ``rebuild()`` after (a) and (b); the reopened
+   digest equals the closed one; (d)'s digest equals the churned
+   store's; the verifier checks at least one record and finds no
+   divergence; no scan-freshness breach; the store's rows of 2,048
+   seeded live uids (every live uid of the last tick among them; its
+   deleted ones absent) equal a CPU ``ShardedScanner`` (plain twins)
+   scan's; no kernel error; at most four graph keys for the step.
+13. policy-set analysis (``analysis/``): bench.py's analyze config, PSS
+   plus ``tests/golden/analysis/seeded_anomalies.yaml`` in one
+   ``TorchEngine``, ``analyze_engine(tile=256)`` cold and warm:
+   witnesses, tiles, anomalies by kind, confirm checked / confirmed /
+   refuted, each phase's seconds and the program's graph keys. Gates:
+   every anomaly class found, none refuted, none outside the seeded
+   policies; the report and the verdict table equal a CPU engine's
+   (plain twins); the clean corpus gives no anomaly on the card. Then
+   the lifecycle's lint under traffic: phase 11 (c)'s manager and
+   pipeline (buckets 16 / 32 / 64 warmed) with ``analyze_on_swap``, 8
+   threads submitting, a policy added so the worker swaps and lints:
+   the lint's seconds and outcome, latency p50 / p99 before, during and
+   after it, each admission bucket's eager runs, captures and replays
+   before and after it, the captures by thread. Gates: every answer
+   equals a CPU engine's rows under the revision its flush pinned; the
+   lint's outcome is ``ok``; no admission bucket's graph is evicted or
+   captured again after the lint.
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -180,10 +225,12 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9, 10 and 11; phase
-6's lines come last (the kernels line gives launches by path, the
-admission path's from part (a), and each kernel's launches and trace
-time in one flush at each admission bucket).
+Phases 7 and 8 run after phase 5, then phases 9 to 13; phase 6's
+lines come last (the kernels line gives launches by path, the admission
+path's from part (a), the reports tick path's from phase 12 (a)'s churn
+ticks, the analysis tile path's from phase 13's warm run, and each
+kernel's launches and trace time in one flush at each admission
+bucket).
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -276,6 +323,10 @@ DENSE_K3_MAX = 1065
 TENANT_GLOBS = ([f"tenant-{i:05d}-*-prod" for i in range(3200)]
                 + [f"t{i:03d}-??-*" for i in range(64)])
 TENANT_SPLIT = (2997, 267)
+# phase 10 (c): tiles of the snapshot through the columnar store (its
+# cold fill cut from the whole snapshot's 13 tiles to keep the run
+# within its limit)
+COLUMNAR_CHUNKS = 4
 
 
 def say(phase: str, msg: str) -> None:
@@ -3351,19 +3402,23 @@ def pipeline_phase(torch, kernels, scanner, eng, feed, dense_res, dense_ops,
               f"{s5['encode_s']:.3f}, device_s {s5['device_s']:.3f}, host_s "
               f"{s5['host_s']:.3f} {tag}")
 
-    def run(label, pool=None, depth=2):
+    def run(label, pool=None, depth=2, k=None):
+        # the first k chunks (all by default)
+        sub = chunks[:k]
+        m = sum(len(c) for c in sub)
         ladder_reset()
         out = {}
         t0 = time.perf_counter()
         st = PipelinedScanner(scanner, depth=depth,
                               encode_pool=pool).scan_chunks(
-            chunks, operations=op_chunks,
+            sub, operations=op_chunks[:k],
             on_result=lambda i, r: out.__setitem__(i, r.verdicts))
         wall = time.perf_counter() - t0
-        if sorted(out) != list(range(len(chunks))):
+        if sorted(out) != list(range(len(sub))):
             raise AssertionError(f"pipelined {label}: chunks {sorted(out)}")
-        table = np.concatenate([out[i] for i in range(len(chunks))], axis=1)
-        if table.shape != want.shape or not (table == want).all():
+        table = np.concatenate([out[i] for i in range(len(sub))], axis=1)
+        if table.shape != want[:, :m].shape \
+                or not (table == want[:, :m]).all():
             raise AssertionError(f"pipelined {label}: verdicts differ from "
                                  "phase 5's scan_stream")
         if st["encode_fallback_chunks"]:
@@ -3371,12 +3426,12 @@ def pipeline_phase(torch, kernels, scanner, eng, feed, dense_res, dense_ops,
                                  f"{st['encode_fallback_chunks']} chunks "
                                  "fell back to the serial scan")
         paths = [t["path"] for t in st["timeline"]]
-        if paths != ["device"] * len(chunks):
+        if paths != ["device"] * len(sub):
             raise AssertionError(f"pipelined {label}: chunk paths {paths}")
         per = [t["encode_s"] for t in st["timeline"]]
-        say("10", f"pipelined scan, {label}: {n} resources in "
-                  f"{len(chunks)} chunks of {tile}: {wall:.3f} s, "
-                  f"{n / wall:.1f} resources/s, encode_s "
+        say("10", f"pipelined scan, {label}: {m} resources in "
+                  f"{len(sub)} chunks of {tile}: {wall:.3f} s, "
+                  f"{m / wall:.1f} resources/s, encode_s "
                   f"{st['encode_s']:.3f}, encode_wait_s "
                   f"{st['encode_wait_s']:.3f}, device_s "
                   f"{st['device_s']:.3f}, host_s {st['host_s']:.3f}, "
@@ -3450,10 +3505,15 @@ def pipeline_phase(torch, kernels, scanner, eng, feed, dense_res, dense_ops,
     try:
         tcache.configure(0, cache_caps[1])
         configure_store(directory=tmp, enabled=True)
-        run("(c) columnar store, cold (fills the store)")
+        # the first COLUMNAR_CHUNKS tiles: the store's cold fill is cut
+        # to keep the whole run within its limit
+        cut = (f"the first {COLUMNAR_CHUNKS} of {len(chunks)} tiles, cut "
+               f"for the time limit")
+        run(f"(c) columnar store, cold (fills the store; {cut})",
+            k=COLUMNAR_CHUNKS)
         walks = reg.encode_json_walks.value()
         segs = reg.encode_diff_segments.value()
-        run("(c) columnar store, warm rescan")
+        run(f"(c) columnar store, warm rescan ({cut})", k=COLUMNAR_CHUNKS)
         dw = reg.encode_json_walks.value() - walks
         ds = reg.encode_diff_segments.value() - segs
         say("10", f"warm rescan: {dw} JSON walks, {ds} segment encodes")
@@ -4113,6 +4173,714 @@ def admission_phase(torch, kernels, seed, tag, n_requests=20000,
         global_faults.disarm()
 
 
+# bench.py's soak (config #17): namespaces of its lean Pods, churn per
+# tick, and its churn mix (80 % re-revisioned upserts, 10 % adds, 10 %
+# deletes, random.Random(1729))
+SOAK_NAMESPACES = 16
+SOAK_CHURN = 2000
+# the bench's journal cap (BENCH_SOAK_JOURNAL_MAX): at the store's
+# default of 4 MiB, a store of the soak's size rewrites every row every
+# few thousand folds (PERF.md §6)
+SOAK_JOURNAL_MAX = 1 << 30
+# graph keys the soak's step may hold: a program keeps at most this many
+# graphs (tpu/graphs.py:MAX_GRAPHS)
+STEP_MAX_KEYS = 4
+# phase 13: admission requests before the policy's add (twice as many
+# after the lint)
+LINT_REQUESTS = 1000
+# the golden analysis fixtures (bench.py's analyze config)
+ANALYSIS_DIR = os.path.join(HERE, "tests", "golden", "analysis")
+
+
+def soak_pod(i, rev=0):
+    """bench.py:2349's lean Pod: 1 in 9 privileged, 16 namespaces."""
+    sc = {"securityContext": {"privileged": True}} if i % 9 == 0 else {}
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"soak-{i}",
+                         "namespace": f"ns{i % SOAK_NAMESPACES}",
+                         "uid": f"soak-u{i}", "labels": {"rev": str(rev)}},
+            "spec": {"containers": [{"name": "c", "image": "nginx", **sc}]}}
+
+
+def rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return round(int(line.split()[1]) / 1024.0, 1)
+    return 0.0
+
+
+class Timed:
+    """A callable wrapped to sum its seconds and calls."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.s = 0.0
+        self.n = 0
+
+    def __call__(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t0
+            self.n += 1
+
+    def take(self):
+        out = (self.s, self.n)
+        self.s, self.n = 0.0, 0
+        return out
+
+
+def key_label(key) -> str:
+    """A step graph's key, short: its lanes' distinct shapes."""
+    shapes = sorted({s for _, s, _ in key})
+    return "/".join("x".join(map(str, s)) for s in shapes)
+
+
+def step_keys(g) -> dict:
+    """{key label: eager runs, captures, replays} of a graphed step (an
+    empty dict for an eager one)."""
+    return {key_label(k): dict(v) for k, v in
+            getattr(g, "key_counts", {}).items()}
+
+
+def report_rows(result, ci):
+    """The scan service's report rows of one column (cluster/scanner.py
+    report()): (policy, rule, result) of every matched rule."""
+    from kyverno_tpu_torch.cluster.scanner import _CODE_TO_RESULT
+    from kyverno_tpu_torch.serving import resource_verdicts
+    from kyverno_tpu_torch.tpu.evaluator import NOT_MATCHED
+
+    return [[p, r, _CODE_TO_RESULT.get(code, "error")]
+            for (p, r), code in resource_verdicts(result, ci)
+            if code != NOT_MATCHED]
+
+
+def bucket_counts(g) -> dict:
+    """``key_counts_by_bucket`` of a graphed program (an empty dict for
+    an eager one or none)."""
+    return key_counts_by_bucket(g) if hasattr(g, "key_counts") else {}
+
+
+def reports_phase(torch, kernels, tag, n, cache_caps, seed):
+    """Phase 12: incremental reports and the background scan service on
+    the card, bench.py's soak (config #17) at ``n`` lean Pods: (a) the
+    fill, a full scan, 10 churn ticks of 2,000, an unchanged tick; (b)
+    5 churn ticks under the bench's ambient faults; (c) the store closed
+    and reopened; (d) a full recompute by a new service into a fresh
+    store. Returns the launches of (a)'s churn ticks."""
+    import gc
+    import shutil
+    import tempfile
+
+    from kyverno_tpu_torch.cluster import (BackgroundScanService,
+                                           ClusterSnapshot, PolicyCache)
+    from kyverno_tpu_torch.cluster.columnar import reset_store
+    from kyverno_tpu_torch.observability.analytics import global_slo
+    from kyverno_tpu_torch.observability.flightrecorder import (global_flight,
+                                                                policyset_key)
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+    from kyverno_tpu_torch.observability.verification import global_verifier
+    from kyverno_tpu_torch.parallel.sharding import ShardedScanner
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.reports import (configure_reports,
+                                           get_report_store, reset_reports)
+    from kyverno_tpu_torch.resilience.faults import global_faults
+    from kyverno_tpu_torch.tpu import cache as tcache
+    from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner
+
+    t_phase = time.perf_counter()
+    ladder_reset()
+    reset_store()
+    tcache.configure(*cache_caps)  # the service's default: caches on
+    kerr0 = reg.kernel_errors.value()
+    rdir = tempfile.mkdtemp(prefix="chip-smoke-reports-")
+    sample_rate0 = global_flight.sample_rate
+    real_chunks = PipelinedScanner.scan_chunks
+    pstats = []
+
+    def scan_chunks(self, chunks, namespace_labels=None, operations=None,
+                    on_result=None, content_hashes=None):
+        # the pipeline's own split, with its on_result (the service's
+        # report callback) timed: the report side of a tick
+        rep = Timed(on_result) if on_result is not None else None
+        st = real_chunks(self, chunks, namespace_labels, operations,
+                         on_result=rep, content_hashes=content_hashes)
+        pstats.append(dict(st, report_s=rep.s if rep else 0.0))
+        return st
+
+    PipelinedScanner.scan_chunks = scan_chunks
+    flight = global_flight.record_scan_chunk = Timed(
+        global_flight.record_scan_chunk)
+    try:
+        global_slo.reset()
+        global_flight.reset()
+        global_verifier.reset()
+        store = configure_reports(directory=rdir,
+                                  journal_max_bytes=SOAK_JOURNAL_MAX)
+        global_flight.configure(sample_rate=0.001)
+        global_verifier.configure(rate=1.0)
+        cache = PolicyCache()
+        for p in load_pss_policies():
+            cache.set(p)
+        snap = ClusterSnapshot()
+        t0 = time.perf_counter()
+        for i in range(n):
+            snap.upsert(soak_pod(i))
+        t_fill = time.perf_counter() - t0
+        svc = BackgroundScanService(snap, cache)
+        put = svc.aggregator.put = Timed(svc.aggregator.put)
+        apply = store.apply = Timed(store.apply)
+        say("12", f"bench.py soak (config #17) at {n} lean Pods in "
+                  f"{SOAK_NAMESPACES} namespaces (1 in 9 privileged; the "
+                  f"bench's 1,000,000 cut for the time limit, --reports-n); "
+                  f"fill {t_fill:.3f} s {tag}")
+
+        def tick(label, full=False):
+            pstats.clear()
+            put.take()
+            apply.take()
+            flight.take()
+            f0 = reg.reports_fold_ops.value()
+            j0 = reg.reports_journal_records.value()
+            hits0 = svc.stats["verdict_cache_hits"]
+            t0 = time.perf_counter()
+            count = svc.scan_once(full=full)
+            wall = time.perf_counter() - t0
+            gc.collect()
+            row = {"label": label, "dirty": count, "wall_s": wall,
+                   "chunks": sum(s["chunks"] for s in pstats),
+                   "cache_hits": svc.stats["verdict_cache_hits"] - hits0,
+                   "folds": int(reg.reports_fold_ops.value() - f0),
+                   "journal_records": int(
+                       reg.reports_journal_records.value() - j0),
+                   "put_s": put.take()[0], "apply_s": apply.take()[0],
+                   "flight_s": flight.take()[0], "rss_mb": rss_mb()}
+            for k in ("encode_s", "device_s", "host_s", "report_s"):
+                row[k] = sum(s[k] for s in pstats)
+            row["overlap_ratio"] = (pstats[-1]["overlap_ratio"]
+                                    if pstats else 0.0)
+            say("12", f"{label}: dirty {count}, chunks {row['chunks']}, "
+                      f"{wall:.3f} s; encode_s {row['encode_s']:.3f}, "
+                      f"device_s {row['device_s']:.3f}, host_s "
+                      f"{row['host_s']:.3f} (report side {row['report_s']:.3f}"
+                      f": aggregator put {row['put_s']:.3f}, store apply "
+                      f"{row['apply_s']:.3f}, flight records "
+                      f"{row['flight_s']:.3f}), overlap_ratio "
+                      f"{row['overlap_ratio']}; verdict-cache hits "
+                      f"{row['cache_hits']}, folds {row['folds']}, journal "
+                      f"records {row['journal_records']}, RSS "
+                      f"{row['rss_mb']} MB {tag}")
+            return row
+
+        rng = random.Random(1729)
+        state = {"next": n, "last": set()}
+
+        def churn(rev):
+            # bench.py bench_soak's churn loop (live_max stays n, as there)
+            touched = set()
+            for _ in range(SOAK_CHURN):
+                roll = rng.random()
+                if roll < 0.8:
+                    i = rng.randrange(n)
+                    snap.upsert(soak_pod(i, rev=rev))
+                elif roll < 0.9:
+                    i = state["next"]
+                    snap.upsert(soak_pod(i))
+                    state["next"] += 1
+                else:
+                    i = rng.randrange(n)
+                    if snap.get(f"soak-u{i}") is not None:
+                        snap.delete(f"soak-u{i}")
+                touched.add(f"soak-u{i}")
+            state["last"] = touched
+
+        def digest_gate(label):
+            d = store.digest()
+            if store.rebuild() != d:
+                raise AssertionError(f"({label}): the delta-folded digest "
+                                     f"differs from rebuild()")
+            return d
+
+        # -- (a) the full scan, churn with no fault, an unchanged tick
+        full = tick("(a) full scan", full=True)
+        say("12", f"(a) full scan: {full['dirty']} resources in "
+                  f"{full['wall_s']:.3f} s, "
+                  f"{full['dirty'] / full['wall_s']:.1f} resources/s {tag}")
+        ticks = []
+        kernels.reset_launches()
+        for k in range(10):
+            churn(k + 1)
+            ticks.append(tick(f"(a) churn tick {k + 1}"))
+        launches = dict(kernels.LAUNCHES)
+        for name in SCAN_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the reports tick path never launched "
+                                     f"{name}")
+        ladder_check("12")
+        f0 = reg.reports_fold_ops.value()
+        j0 = reg.reports_journal_records.value()
+        zero = tick("(a) unchanged tick")
+        if zero["dirty"] or reg.reports_fold_ops.value() != f0 \
+                or reg.reports_journal_records.value() != j0:
+            raise AssertionError(f"(a) the unchanged tick did report work: "
+                                 f"{zero}")
+        d_a = digest_gate("a")
+        steady = [t["wall_s"] for t in ticks[2:]]
+        say("12", f"(a) churn ticks 3-10 (past the step's eager run and "
+                  f"capture at the tick's bucket): median "
+                  f"{statistics.median(steady):.3f} s, max {max(steady):.3f} "
+                  f"s; ticks 1-2 {ticks[0]['wall_s']:.3f}, "
+                  f"{ticks[1]['wall_s']:.3f} s; the unchanged tick "
+                  f"{zero['wall_s']:.4f} s, 0 folds, 0 journal records; "
+                  f"digest == rebuild() {tag}")
+
+        # -- (b) churn under the bench's ambient faults
+        global_faults.arm("tpu.dispatch", mode="raise", p=0.01, seed=7)
+        global_faults.arm("reports.fold", mode="raise", p=0.005, seed=11)
+        global_faults.arm("reports.journal", mode="raise", p=0.005, seed=13)
+        try:
+            for k in range(5):
+                churn(11 + k)
+                ticks.append(tick(f"(b) churn tick {k + 1} under faults"))
+        finally:
+            global_faults.disarm()
+        d_b = digest_gate("b")
+        recov = {r: int(reg.reports_recoveries.value({"reason": r})) for r in
+                 ("short_header", "truncated_record", "checksum", "decode",
+                  "duplicate", "snapshot", "replay", "append_error")}
+        st = store.state()
+        fallbacks = {r: reg.breaker_fallback.value({"reason": r})
+                     for r in ("error", "open")}
+        say("12", f"(b) under faults: digest == rebuild(); folds "
+                  f"{int(reg.reports_fold_ops.value())}, fold skips "
+                  f"{int(reg.reports_fold_skipped.value())}, rebuilds "
+                  f"{int(reg.reports_rebuilds.value())}, journal records "
+                  f"{int(reg.reports_journal_records.value())}, journal bytes "
+                  f"{st['journal_bytes']}, compactions {st['compactions']}, "
+                  f"seq {st['seq']}, live rows {st['resources']}; recoveries "
+                  f"by reason {recov}; breaker fallbacks {fallbacks}")
+        g = svc._scanner._step
+        keys = step_keys(g)
+        say("12", f"step graph keys (eager runs, captures, replays): {keys}")
+        if len(keys) > STEP_MAX_KEYS:
+            raise AssertionError(f"the step held {len(keys)} graph keys")
+
+        # -- the rows against the plain twins: a seeded sample of 2,048
+        # live uids with every uid of the last tick
+        live = {uid for uid, _, _ in snap.items()}
+        last = sorted(state["last"] & live)
+        rest = sorted(live - set(last))
+        sample = last + random.Random(seed).sample(
+            rest, max(0, min(len(rest), 2048 - len(last))))
+        gone = sorted(state["last"] - live)
+        t0 = time.perf_counter()
+        # the verdict cache is keyed by content, not by device: off, or
+        # the CPU scan would answer from the card's columns
+        tcache.configure(0, 0)
+        cpu = ShardedScanner(svc._scanner.cps.policies, device="cpu",
+                             data_sources=svc._configmap_sources())
+        res = cpu.scan([snap.get(u) for u in sample], snap.namespace_labels())
+        ps_key = policyset_key(svc._get_pipeline(svc._scanner).engine)
+        bad = [u for ci, u in enumerate(sample)
+               if store._rows.get(u) is None
+               or store._rows[u][0] != snap.hash_of(u)
+               or store._rows[u][1] != ps_key
+               or store._rows[u][5] != report_rows(res, ci)]
+        bad += [u for u in gone if u in store._rows]
+        tcache.configure(*cache_caps)
+        if bad:
+            raise AssertionError(f"{len(bad)} store rows differ from the "
+                                 f"plain twins' (first {bad[:5]})")
+        say("12", f"the store's rows of {len(sample)} uids ({len(last)} of "
+                  f"the last tick, {len(gone)} deleted in it and absent) "
+                  f"equal a CPU ShardedScanner (plain twins) scan's "
+                  f"({time.perf_counter() - t0:.3f} s)")
+
+        global_verifier.drain(timeout=120.0)
+        vst = global_verifier.state()["stats"]
+        fst = global_flight.state()["stats"]
+        breached = list(global_slo.state().get("breached", []))
+        say("12", f"shadow verification (rate 1.0, flight recorder at "
+                  f"0.001, {fst['captured']} captured): checked "
+                  f"{vst['checked']}, divergences {vst['divergences']}; SLOs "
+                  f"breached {breached}")
+        if vst["divergences"] or not vst["checked"]:
+            raise AssertionError(f"shadow verification: {vst}")
+        if "scan_freshness" in breached:
+            raise AssertionError("the scan-freshness SLO was breached")
+
+        # -- (c) close (one compaction: every row to the snapshot), reopen
+        t0 = time.perf_counter()
+        store.close()
+        t_close = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = configure_reports(directory=rdir,
+                                  journal_max_bytes=SOAK_JOURNAL_MAX)
+        if store.digest() != d_b:
+            raise AssertionError("(c) the reopened store's digest differs")
+        say("12", f"(c) closed (a compaction of "
+                  f"{store.state()['resources']} rows) in {t_close:.3f} s, "
+                  f"reopened in {time.perf_counter() - t0:.3f} s: digest "
+                  f"equal {tag}")
+
+        # -- (d) a full recompute on the card into a fresh store
+        ladder_reset()
+        reset_reports()
+        tcache.global_verdict_cache.clear()
+        fresh = configure_reports()
+        svc2 = BackgroundScanService(snap, cache)
+        t0 = time.perf_counter()
+        count = svc2.scan_once(full=True)
+        wall = time.perf_counter() - t0
+        ladder_check("12")
+        if fresh.digest() != store.digest():
+            raise AssertionError("(d) the full recompute's digest differs "
+                                 "from the churned store's")
+        say("12", f"(d) a new service's full recompute: {count} resources in "
+                  f"{wall:.3f} s ({count / wall:.1f} /s): digest equals the "
+                  f"churned store's; its step's keys "
+                  f"{step_keys(svc2._scanner._step)} {tag}")
+        rss = [full["rss_mb"]] + [t["rss_mb"] for t in ticks]
+        say("12", f"RSS MB after the full scan and each churn tick: {rss}")
+        kerr = reg.kernel_errors.value() - kerr0
+        if kerr:
+            raise AssertionError(f"{kerr} kernel errors in the phase")
+        global_verifier.configure(rate=0.0)
+        global_verifier.stop()
+        say("12", f"phase 12 in {time.perf_counter() - t_phase:.3f} s")
+        return {"launches": launches, "ticks": ticks, "full": full}
+    finally:
+        PipelinedScanner.scan_chunks = real_chunks
+        del global_flight.record_scan_chunk
+        global_flight.configure(sample_rate=sample_rate0)
+        global_faults.disarm()
+        reset_reports()
+        tcache.configure(0, 0)
+        shutil.rmtree(rdir, ignore_errors=True)
+
+
+def analysis_view(report):
+    """An AnalysisReport less its timings: anomalies (with evidence),
+    counts, rule rows and the rest of its stats."""
+    doc = report.to_dict()
+    doc["stats"] = {k: v for k, v in doc["stats"].items()
+                    if k not in ("synthesize_s", "evaluate_s", "classify_s",
+                                 "confirm_s", "witness_evals_per_s")}
+    doc["evidence"] = [a.evidence for a in report.anomalies]
+    return doc
+
+
+def load_fixture(name):
+    import yaml
+
+    from kyverno_tpu_torch.api.policy import ClusterPolicy, is_policy_document
+    from kyverno_tpu_torch.policy.autogen import expand_policy
+
+    with open(os.path.join(ANALYSIS_DIR, name)) as f:
+        return [expand_policy(ClusterPolicy.from_dict(d))
+                for d in yaml.safe_load_all(f)
+                if isinstance(d, dict) and is_policy_document(d)]
+
+
+def analysis_phase(torch, kernels, tag, seed, cache_caps):
+    """Phase 13: policy-set analysis on the card (bench.py's analyze
+    config: PSS plus the seeded anomalies, tile 256), cold and warm,
+    against a CPU engine's; the clean corpus; then the lifecycle's lint
+    under admission traffic (``LINT_REQUESTS`` before the policy's add,
+    twice as many after its lint). Returns the launches of the warm
+    run."""
+    import random as _random
+    import threading
+
+    from kyverno_tpu_torch.analysis import analyzer, global_analysis
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.cluster.policycache import PolicyCache
+    from kyverno_tpu_torch.lifecycle import PolicySetLifecycleManager
+    from kyverno_tpu_torch.lifecycle.manager import default_compile_fn
+    from kyverno_tpu_torch.observability.analytics import global_slo
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+    from kyverno_tpu_torch.observability.profiling import PATH_DEVICE
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.policy.autogen import expand_policy
+    from kyverno_tpu_torch.serving import AdmissionPipeline, BatchConfig
+    from kyverno_tpu_torch.tpu import cache as tcache
+    from kyverno_tpu_torch.tpu import graphs
+    from kyverno_tpu_torch.tpu.engine import TorchEngine
+    from kyverno_tpu_torch.tpu.flatten import EncodeConfig
+
+    t_phase = time.perf_counter()
+    ladder_reset()
+    tcache.configure(*cache_caps)  # bench.py's analyze: default caches
+    kerr0 = reg.kernel_errors.value()
+    real_eval = analyzer.evaluate_corpus
+    tables = []
+
+    def evaluate_corpus(engine, corpus, *a, **kw):
+        table, n = real_eval(engine, corpus, *a, **kw)
+        tables.append(table)
+        return table, n
+
+    captures = []
+    real_capture = graphs.GraphedProgram._capture
+
+    def capture(self, key, dev, lanes):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(self, key, dev, lanes)
+        finally:
+            captures.append((threading.current_thread().name, key[0][1][0],
+                             time.perf_counter() - t0, id(self)))
+
+    analyzer.evaluate_corpus = evaluate_corpus
+    graphs.GraphedProgram._capture = capture
+    try:
+        seeded = load_fixture("seeded_anomalies.yaml")
+        policies = [expand_policy(p) for p in load_pss_policies()] + seeded
+        t0 = time.perf_counter()
+        eng = TorchEngine(policies)
+        g = eng.cps.device_fn(device=eng.device)
+        say("13", f"analysis engine: 18 PSS policies + {len(seeded)} seeded "
+                  f"(tests/golden/analysis/seeded_anomalies.yaml), "
+                  f"{len(eng.cps.rules)} rules, compiled in "
+                  f"{time.perf_counter() - t0:.3f} s {tag}")
+        reports = {}
+        launches = {}
+        for run in ("cold", "warm"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rep = analyzer.analyze_engine(eng, tile=256)
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            reports[run] = rep
+            st = rep.stats
+            say("13", f"analyze_engine {run}: {wall:.3f} s; witnesses "
+                      f"{st['witnesses']} {st['witnesses_by_intent']}, tiles "
+                      f"(device dispatches) {st['device_dispatches']}; "
+                      f"anomalies {rep.counts()}; confirm checked "
+                      f"{st['checked_cells']}, confirmed "
+                      f"{st['confirmed_cells']}, refuted {st['refuted']}; "
+                      f"phase s synthesize {st['synthesize_s']}, evaluate "
+                      f"{st['evaluate_s']}, classify {st['classify_s']}, "
+                      f"confirm {st['confirm_s']}; {st['witness_evals_per_s']}"
+                      f" witnesses/s; graph keys {step_keys(g)} {tag}")
+        for name in DENSE_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the analysis tile path never launched "
+                                     f"{name}")
+        ladder_check("13")
+        rep = reports["warm"]
+        counts = rep.counts()
+        seeded_names = {p.name for p in seeded}
+        stray = [a.to_dict() for a in rep.anomalies
+                 if a.policy not in seeded_names]
+        same = analysis_view(reports["cold"]) == analysis_view(rep)
+        if any(counts[k] < 1 for k in counts) or rep.stats["refuted"] \
+                or stray or not same:
+            raise AssertionError(f"analysis: counts {counts}, refuted "
+                                 f"{rep.stats['refuted']}, anomalies outside "
+                                 f"the seeded policies {stray[:3]}, cold == "
+                                 f"warm {same}")
+        # the same analysis on a CPU engine (plain twins; the verdict
+        # cache plays no part: evaluate_corpus scans uncached)
+        t0 = time.perf_counter()
+        cpu_rep = analyzer.analyze_engine(TorchEngine(cps=eng.cps,
+                                                      device="cpu"), tile=256)
+        if analysis_view(cpu_rep) != analysis_view(rep) \
+                or tables[-1].shape != tables[-2].shape \
+                or not (tables[-1] == tables[-2]).all():
+            raise AssertionError("analysis: the card's report or verdict "
+                                 "table differs from the CPU engine's")
+        say("13", f"the card's report (anomalies, counts, rule rows) and "
+                  f"verdict table {tables[-2].shape} equal a CPU TorchEngine "
+                  f"(plain twins) run's ({time.perf_counter() - t0:.3f} s)")
+        clean = TorchEngine(load_fixture("clean_corpus.yaml"))
+        crep = analyzer.analyze_engine(clean, tile=256)
+        if crep.anomalies or crep.stats["refuted"]:
+            raise AssertionError(f"clean corpus: {crep.counts()}")
+        say("13", f"clean corpus on the card: {crep.stats['witnesses']} "
+                  f"witnesses, {crep.stats['device_dispatches']} tiles, no "
+                  f"anomaly {tag}")
+
+        # -- the lifecycle's lint under admission traffic (phase 11 (c)'s
+        # lifecycle and pipeline, analyze_on_swap on)
+        tcache.configure(0, 0)
+        resources, _ = workload(2048, seed)
+        raw = load_pss_policies()
+        cache = PolicyCache()
+        for p in raw:
+            cache.set(p)
+        mgr = PolicySetLifecycleManager(cache, compile_fn=default_compile_fn(
+            encode_cfg=EncodeConfig(max_rows=128), warm=True,
+            warm_buckets=ADMISSION_BUCKETS))
+        mgr.analyze_on_swap = True
+        lints = []
+        real_lint = mgr.run_lint
+
+        def run_lint(force=False):
+            v = mgr.active
+            prog = v.engine.cps.device_fn(device=v.engine.device) \
+                if v is not None else None
+            kc0 = bucket_counts(prog)
+            t0 = time.perf_counter()
+            rep = real_lint(force)
+            t1 = time.perf_counter()
+            if v is not None:
+                lints.append({"revision": v.revision, "t0": t0, "t1": t1,
+                              "ok": rep is not None, "before": kc0,
+                              "after": bucket_counts(prog),
+                              "program": prog,
+                              "thread": threading.current_thread().name})
+            return rep
+
+        mgr.run_lint = run_lint
+        global_analysis.reset()
+        global_slo.reset()
+        mgr.start()
+        v1 = mgr.acquire()
+        cadm = Admission(resources)
+        cfg = BatchConfig(max_batch_size=64, max_wait_ms=2.0)
+        cfg.min_bucket = TorchEngine.MIN_BUCKET
+        cpipe = AdmissionPipeline(cadm, config=cfg,
+                                  version_provider=mgr.acquire)
+        pool = _random.Random(seed + 7).sample(range(len(resources)), 128)
+        answers, errors, lats = [], [], []
+        served = [0]
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def worker(wseed):
+            rng = _random.Random(wseed)
+            local, lat = [], []
+            while not stop.is_set():
+                t = time.perf_counter()
+                try:
+                    local.append(cpipe.submit(rng.choice(pool)))
+                    lat.append((t, time.perf_counter() - t))
+                except Exception as e:  # noqa: BLE001 - a gate below
+                    errors.append(f"{type(e).__name__}: {e}"[:300])
+                with lock:
+                    served[0] += 1
+            with lock:
+                answers.extend(local)
+                lats.extend(lat)
+
+        def wait_for(cond, what, limit=180.0):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > limit:
+                    raise AssertionError(f"lint under traffic: no {what} in "
+                                         f"{limit} s")
+                time.sleep(0.01)
+
+        wait_for(lambda: any(x["revision"] == v1.revision for x in lints),
+                 "lint of the first version")
+        threads = [threading.Thread(target=worker, args=(seed * 4000 + w,))
+                   for w in range(8)]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        wait_for(lambda: served[0] >= LINT_REQUESTS, "traffic")
+        cap0 = len(captures)
+        cache.set(ClusterPolicy.from_dict(admission_policy(
+            "admission-registry", "!evil.io/*")))
+        wait_for(lambda: mgr.active.revision > v1.revision, "swap")
+        v2 = mgr.active
+        wait_for(lambda: any(x["revision"] == v2.revision for x in lints),
+                 "lint of the new version")
+        lint = [x for x in lints if x["revision"] == v2.revision][-1]
+        after0 = served[0]
+        wait_for(lambda: served[0] >= after0 + 2 * LINT_REQUESTS,
+                 "traffic after the lint")
+        stop.set()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t_start
+        cpipe.stop()
+        mgr.stop()
+        if errors:
+            raise AssertionError(f"lint under traffic: {len(errors)} requests "
+                                 f"failed: {errors[:3]}")
+        kc_end = bucket_counts(lint["program"])
+        evicted = [b for b in ADMISSION_BUCKETS
+                   if not any(k[0][1][0] == b
+                              for k in lint["program"]._graphs)] \
+            if hasattr(lint["program"], "_graphs") else []
+        again = {b: kc_end.get(b, {}).get("captures", 0)
+                 - lint["after"].get(b, {}).get("captures", 0)
+                 for b in ADMISSION_BUCKETS}
+        # the lint tile's bucket is captured on the worker before the
+        # swap: the lint itself runs no bucket eagerly and captures none
+        in_lint = {b: {k: c[k] - lint["before"].get(b, {}).get(k, 0)
+                       for k in ("eager", "captures")}
+                   for b, c in lint["after"].items()}
+        in_lint = {b: d for b, d in in_lint.items() if any(d.values())}
+        windows = {"before": [l for t, l in lats if t < lint["t0"]],
+                   "during": [l for t, l in lats
+                              if lint["t0"] <= t <= lint["t1"]],
+                   "after": [l for t, l in lats if t > lint["t1"]]}
+        new_caps = captures[cap0:]
+        lint_rows = [(x["revision"], round(x["t1"] - x["t0"], 3), x["ok"])
+                     for x in lints]
+        say("13", f"lint under traffic: {served[0]} requests from 8 threads "
+                  f"in {wall:.3f} s; revisions {v1.revision} -> "
+                  f"{v2.revision}; the new version's lint "
+                  f"{lint['t1'] - lint['t0']:.3f} s on "
+                  f"{lint['thread']!r}, outcome "
+                  f"{'ok' if lint['ok'] else 'none'}; global_analysis runs "
+                  f"{global_analysis.runs}; lints (revision, s, ok) "
+                  f"{lint_rows} {tag}")
+        p99 = {k: pct_ms(v, 99) for k, v in windows.items()}
+        ratio = (f"{p99['during'] / p99['before']:.3f}"
+                 if windows["during"] and windows["before"] else "n/a")
+        say("13", "latency p50 / p99 ms, before / during / after the lint: "
+                  + ", ".join(f"{k} {pct_ms(v, 50):.3f} / {p99[k]:.3f}"
+                              f" ({len(v)})" for k, v in windows.items())
+                  + f"; p99 during / before {ratio}")
+        say("13", f"admission buckets' eager runs, captures, replays: before "
+                  f"the lint {lint['before']}, after it {lint['after']}, at "
+                  f"the end {kc_end}; live graphs "
+                  f"{getattr(lint['program'], 'live_graphs', 0)} (at most "
+                  f"{graphs.MAX_GRAPHS}); admission buckets evicted "
+                  f"{evicted}; captures again after the lint {again}; "
+                  f"eager runs or captures during the lint {in_lint}")
+        say("13", "captures from the policy's add on (thread, batch, s): "
+                  + str([(t, b, round(d, 3)) for t, b, d, _ in new_caps]))
+        if not lint["ok"] or global_analysis.runs.get("error"):
+            raise AssertionError(f"the lint's outcome: {lint['ok']}, runs "
+                                 f"{global_analysis.runs}")
+        if any(again.values()) or evicted:
+            raise AssertionError(f"the lint evicted admission graphs: "
+                                 f"{evicted}, captured again {again}")
+        if in_lint:
+            raise AssertionError(f"the lint ran or captured a bucket on the "
+                                 f"version it linted: {in_lint}")
+        t0 = time.perf_counter()
+        want = {}
+        asked = {i for _, i, _ in answers}
+        for rev, v in cadm.versions.items():
+            want[rev] = admission_reference(v.engine, resources, asked)
+        check_answers("lint under traffic", answers, want)
+        off = [f for f in cadm.flushes if f[3] != PATH_DEVICE]
+        if off:
+            raise AssertionError(f"{len(off)} flushes were not answered on "
+                                 f"the device: {off[:3]}")
+        say("13", f"{len(answers)} answers equal the CPU engine's rows under "
+                  f"the revision their flush pinned "
+                  f"({time.perf_counter() - t0:.3f} s); every flush on the "
+                  f"device")
+        kerr = reg.kernel_errors.value() - kerr0
+        if kerr:
+            raise AssertionError(f"{kerr} kernel errors in the phase")
+        say("13", f"phase 13 in {time.perf_counter() - t_phase:.3f} s")
+        return {"launches": launches}
+    finally:
+        analyzer.evaluate_corpus = real_eval
+        graphs.GraphedProgram._capture = real_capture
+        tcache.configure(0, 0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -4133,6 +4901,9 @@ def main() -> int:
                     help="requests in phase 11's steady admission")
     ap.add_argument("--adm-bulk", type=int, default=10000,
                     help="bulk requests in phase 11's mixed traffic")
+    ap.add_argument("--reports-n", type=int, default=100000,
+                    help="lean Pods in phase 12's soak (bench.py's "
+                         "1,000,000 cut for the time limit)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -4267,6 +5038,11 @@ def main() -> int:
     # phase 11: admission serving on the card
     adm = admission_phase(torch, kernels, args.seed + 30, tag,
                           n_requests=args.adm_requests, n_bulk=args.adm_bulk)
+    # phase 12: incremental reports and the background scan service
+    rep = reports_phase(torch, kernels, tag, args.reports_n, cache_caps,
+                        args.seed + 40)
+    # phase 13: policy-set analysis, and the lifecycle's lint under traffic
+    ana = analysis_phase(torch, kernels, tag, args.seed + 50, cache_caps)
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]
     gpaths = list(zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg))) + [
@@ -4288,6 +5064,8 @@ def main() -> int:
     # phase 6: the kernels line, then the device line
     by_path = dict(zip(PATHS, (dense, scan, tv, tt, leg)))
     by_path["admission"] = adm["launches"]
+    by_path["reports_tick"] = rep["launches"]
+    by_path["analysis_tile"] = ana["launches"]
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]

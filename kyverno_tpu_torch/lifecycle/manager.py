@@ -1,9 +1,10 @@
-# Copied from kyverno_tpu/lifecycle/manager.py, with three changes:
+# Copied from kyverno_tpu/lifecycle/manager.py, with four changes:
 # default_compile_fn builds a TorchEngine (on the card unless the caller
 # passes device="cpu"), its warm-up scans twice so the smallest bucket's
-# CUDA graph is captured on the compile-ahead worker, and start() does
-# not enable the XLA compile cache (the port builds its kernels once by
-# content hash).
+# CUDA graph is captured on the compile-ahead worker, with
+# analyze_on_swap set a version to promote also has its lint tile's
+# graph captured before the swap, and start() does not enable the XLA
+# compile cache (the port builds its kernels once by content hash).
 """Policy-set lifecycle manager — compile-ahead, atomic hot swap,
 per-policy quarantine, rollback under load.
 
@@ -188,11 +189,14 @@ class PolicySetLifecycleManager:
         # worker runs static analysis on the ACTIVE engine — no
         # recompile, no graph capture beyond the tile shape buckets — and
         # publishes anomalies via the OpLog / kyverno_analysis_*
-        # metrics / /debug/analysis. Probing-style priority: the lint
-        # runs strictly AFTER reconcile returns (the swap is already
-        # atomic and served) and aborts between tiles the moment a new
-        # mutation wakes the worker, so a large set's analysis never
-        # delays the next swap either.
+        # metrics / /debug/analysis. On the card the lint tile's bucket
+        # has its CUDA graph captured before the swap (_warm_lint), so
+        # the lint only replays the program the admission flushes
+        # share. Probing-style priority: the lint runs strictly AFTER
+        # reconcile returns (the swap is already atomic and served) and
+        # aborts between tiles the moment a new mutation wakes the
+        # worker, so a large set's analysis never delays the next swap
+        # either.
         self.analyze_on_swap = False
         self.lint_tile = 128
         self._linted_key: Optional[Tuple[str, Tuple[str, ...]]] = None
@@ -362,7 +366,19 @@ class PolicySetLifecycleManager:
 
     def _try_compile(self, policies: List[Any], quarantine: Dict[int, str]):
         global_faults.fire(SITE_POLICYSET_COMPILE)
-        return self._compile_fn(policies, quarantine)
+        engine = self._compile_fn(policies, quarantine)
+        if self.analyze_on_swap and not self._probing:
+            self._warm_lint(engine)
+        return engine
+
+    def _warm_lint(self, engine: Any) -> None:
+        """Capture the graph of the lint tile's bucket on a CUDA engine
+        before its version is promoted. A program runs one call at a
+        time, so the lint's first calls at a new bucket (an eager run,
+        then a capture) would otherwise hold every admission flush on
+        the version it lints."""
+        if getattr(getattr(engine, "device", None), "type", None) == "cuda":
+            engine.warm_buckets([engine.bucket_size(self.lint_tile)])
 
     def _compile_and_swap(self, snap: PolicySetSnapshot,
                           held: Dict[str, str], now: float,

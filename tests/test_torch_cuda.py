@@ -1780,3 +1780,147 @@ def test_lifecycle_swap_captures_while_another_thread_replays(cuda):
     assert g2.captures == 1 and g1.captures == 1
     assert errors == []
     assert v1.revision in served and v2.revision in served
+
+
+def test_lint_on_the_card_only_replays_warmed_buckets(cuda):
+    """A lifecycle manager with ``analyze_on_swap`` set and the
+    admission buckets 16 / 32 / 64 warmed by its compile_fn: its
+    version is promoted with the lint tile's bucket (128) captured too,
+    so the lint runs no bucket eagerly and captures none, every warmed
+    key stays live, and the lint's report equals a CPU engine's
+    analysis of the same set."""
+    from kyverno_tpu_torch.analysis import analyzer, global_analysis
+    from kyverno_tpu_torch.cluster.policycache import PolicyCache
+    from kyverno_tpu_torch.lifecycle import PolicySetLifecycleManager
+    from kyverno_tpu_torch.lifecycle.manager import default_compile_fn
+    from kyverno_tpu_torch.tpu.flatten import EncodeConfig
+
+    def by_bucket(g):
+        out = {}
+        for key, n in g.key_counts.items():
+            b = key[0][1][0]
+            out[b] = {k: out.get(b, {}).get(k, 0) + v for k, v in n.items()}
+        return out
+
+    cache = PolicyCache()
+    for p in load_pss_policies():
+        cache.set(p)
+    mgr = PolicySetLifecycleManager(cache, compile_fn=default_compile_fn(
+        encode_cfg=EncodeConfig(max_rows=128), warm=True,
+        warm_buckets=(16, 32, 64), device=cuda))
+    mgr.analyze_on_swap = True
+    global_analysis.reset()
+    v = mgr.acquire()
+    g = v.engine.cps.device_fn(device=v.engine.device)
+    before = by_bucket(g)
+    assert {b: c["captures"] for b, c in before.items()} == \
+        {16: 1, 32: 1, 64: 1, 128: 1}
+    rep = mgr.run_lint()
+    after = by_bucket(g)
+    assert rep is not None and global_analysis.runs["ok"] == 1
+    assert sorted(after) == [16, 32, 64, 128] and g.live_graphs == 4
+    for b in after:
+        assert after[b]["eager"] == before[b]["eager"]
+        assert after[b]["captures"] == before[b]["captures"]
+    assert after[128]["replays"] > before[128]["replays"]
+    cpu = analyzer.analyze_engine(TorchEngine(cps=v.engine.cps,
+                                              device="cpu"), tile=128)
+
+    def view(r):
+        doc = r.to_dict()
+        doc["stats"] = {k: x for k, x in doc["stats"].items()
+                        if not k.endswith("_s") and k != "witness_evals_per_s"}
+        return doc
+
+    assert view(rep) == view(cpu)
+
+
+def _soak_pods(n, rev=0):
+    """bench.py's soak Pods (1 in 9 privileged, 16 namespaces)."""
+    return [{"apiVersion": "v1", "kind": "Pod",
+             "metadata": {"name": f"soak-{i}", "namespace": f"ns{i % 16}",
+                          "uid": f"soak-u{i}", "labels": {"rev": str(rev)}},
+             "spec": {"containers": [{
+                 "name": "c", "image": "nginx",
+                 **({"securityContext": {"privileged": True}}
+                    if i % 9 == 0 else {})}]}}
+            for i in range(n)]
+
+
+def test_scan_tick_on_the_card_folds_the_cpu_digest(cuda):
+    """The background scan service on the card and on the CPU over the
+    same cluster and the same churn: after the full scan and after a
+    churn tick (upserts, adds, deletes), both report stores hold the
+    same digest, and the tick folded what moved."""
+    from kyverno_tpu_torch.cluster import (BackgroundScanService,
+                                           ClusterSnapshot, PolicyCache)
+    from kyverno_tpu_torch.reports import configure_reports, reset_reports
+
+    def run(device):
+        store = configure_reports()
+        cache = PolicyCache()
+        for p in load_pss_policies():
+            cache.set(p)
+        snap = ClusterSnapshot()
+        for pod in _soak_pods(600):
+            snap.upsert(pod)
+        svc = BackgroundScanService(snap, cache, device=device,
+                                    batch_size=256)
+        out = [svc.scan_once(full=True), store.digest()]
+        for pod in _soak_pods(700, rev=1)[::5]:
+            snap.upsert(pod)
+        for i in range(3, 600, 37):
+            snap.delete(f"soak-u{i}")
+        out += [svc.scan_once(), store.digest(), store.summary()]
+        reset_reports()
+        return out
+
+    try:
+        got, want = run(cuda), run("cpu")
+    finally:
+        reset_reports()
+    assert got == want
+    assert got[0] == 600 and got[2] > 0 and got[4]["fail"] > 0
+
+
+def test_analyze_engine_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """analyze_engine on the card (PSS plus the seeded anomalies) and on
+    a CPU engine over the same compiled set: the same report, timings
+    aside, and the same verdict table."""
+    import os
+
+    import yaml
+
+    from kyverno_tpu_torch.analysis import analyzer
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+
+    path = os.path.join(os.path.dirname(__file__), "golden", "analysis",
+                        "seeded_anomalies.yaml")
+    with open(path) as f:
+        seeded = [expand_policy(ClusterPolicy.from_dict(d))
+                  for d in yaml.safe_load_all(f) if isinstance(d, dict)]
+    eng = TorchEngine([expand_policy(p) for p in load_pss_policies()]
+                      + seeded, device=cuda)
+    tables = []
+    real = analyzer.evaluate_corpus
+
+    def evaluate_corpus(*a, **kw):
+        out = real(*a, **kw)
+        tables.append(out[0])
+        return out
+
+    monkeypatch.setattr(analyzer, "evaluate_corpus", evaluate_corpus)
+
+    def view(rep):
+        doc = rep.to_dict()
+        doc["stats"] = {k: v for k, v in doc["stats"].items()
+                        if not k.endswith("_s") and k != "witness_evals_per_s"}
+        return doc, [a.evidence for a in rep.anomalies]
+
+    reps = [analyzer.analyze_engine(e, tile=256)
+            for e in (eng, eng, TorchEngine(cps=eng.cps, device="cpu"))]
+    assert view(reps[0]) == view(reps[1]) == view(reps[2])
+    assert np.array_equal(tables[0], tables[2])
+    assert np.array_equal(tables[1], tables[2])
+    counts = reps[0].counts()
+    assert all(counts[k] >= 1 for k in counts) and reps[0].stats["refuted"] == 0

@@ -137,6 +137,9 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "import kyverno_tpu_torch.cluster.policycache\n"
         "import kyverno_tpu_torch.observability.events\n"
         "import kyverno_tpu_torch.observability.verification\n"
+        "import kyverno_tpu_torch.cluster, kyverno_tpu_torch.reports\n"
+        "import kyverno_tpu_torch.analysis, kyverno_tpu_torch.policy.validation\n"
+        "import kyverno_tpu_torch.cluster.scanner, kyverno_tpu_torch.cluster.webhookconfig\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"

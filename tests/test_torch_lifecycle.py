@@ -14,16 +14,20 @@
 - Through the pipeline's ``version_provider`` every flush pins one
   version, and each request's rows equal a scan under it.
 - ``PolicyDirWatcher`` on a temporary directory.
-- With ``analyze_on_swap`` False (the default) a swap never imports the
-  analysis package, which the port does not have yet."""
+- With ``analyze_on_swap`` False (the default) a swap never lints; the
+  lint itself resolves (tests/test_torch_analysis.py compares it).
+- With ``analyze_on_swap`` set, a CUDA engine of a version to promote
+  has its lint tile's bucket warmed before the swap, and no probe
+  compile or CPU engine is warmed (the lint then only replays on the
+  card; tests/test_torch_cuda.py checks that there)."""
 
 import concurrent.futures
 import copy
-import sys
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from kyverno_tpu.api.policy import ClusterPolicy as JPolicy
 from kyverno_tpu.cluster.policycache import PolicyCache as JPolicyCache
@@ -284,7 +288,69 @@ def test_watcher_thread_drives_a_worker_swap_without_analysis(tmp_path):
     finally:
         w.stop()
         mgr.stop()
-    assert "kyverno_tpu_torch.analysis" not in sys.modules
-    # the lint waits for the analysis package's port
-    with pytest.raises(ImportError):
-        mgr.run_lint(force=True)
+    from kyverno_tpu_torch.analysis import global_analysis
+
+    # no lint ran with analyze_on_swap False; asked for after stop(),
+    # it resolves and yields to the stopped manager (aborted, no report)
+    assert mgr.stats.get("lints", 0) == 0
+    assert global_analysis.report is None
+    assert global_analysis.runs == {"ok": 0, "aborted": 0, "error": 0}
+    assert mgr.run_lint(force=True) is None
+    assert global_analysis.runs == {"ok": 0, "aborted": 1, "error": 0}
+
+
+class _Engine:
+    """A compiled engine's stand-in: its device, its compiled set, and
+    each warm-up with the manager's active version at that moment."""
+
+    MIN_BUCKET = TorchEngine.MIN_BUCKET
+    bucket_size = TorchEngine.bucket_size
+
+    def __init__(self, device, cps, log, box):
+        self.device = torch.device(device)
+        self.cps = cps
+        self._log, self._box = log, box
+
+    def warm_buckets(self, buckets):
+        self._log.append((list(buckets), self._box[0].active))
+
+
+@pytest.mark.parametrize("device,analyze,lint_tile,want", [
+    ("cuda", True, 128, [128]),
+    ("cuda", True, 100, [128]),
+    ("cuda", False, 128, []),
+    ("cpu", True, 128, []),
+])
+def test_lint_tile_is_warmed_before_the_swap(device, analyze, lint_tile,
+                                             want):
+    log, box, compiled = [], [None], []
+
+    def compile_fn(policies, quarantine):
+        names = [p.name for i, p in enumerate(policies)
+                 if i not in quarantine]
+        compiled.append(names)
+        if "bad" in names:
+            raise RuntimeError("bad policy")
+        return _Engine(device, compile_policy_set(
+            policies, quarantine=quarantine), log, box)
+
+    cache = PolicyCache()
+    for name in ("a", "bad"):
+        cache.set(ClusterPolicy.from_dict(_pol_dict(name)))
+    mgr = PolicySetLifecycleManager(cache, compile_fn=compile_fn,
+                                    retry_policy=_fast(RetryPolicy))
+    box[0] = mgr
+    mgr.analyze_on_swap = analyze
+    mgr.lint_tile = lint_tile
+    v1 = mgr.acquire()
+    # the set, then each policy alone (probes), then the set without
+    # the quarantined policy: only the last is a version to promote
+    assert compiled == [["a", "bad"], ["a"], ["bad"], ["a"]]
+    assert [b for b, _ in log] == [want] * bool(want)
+    assert all(active is None for _, active in log)
+    cache.set(ClusterPolicy.from_dict(_pol_dict("b")))
+    v2 = mgr.acquire()
+    assert v2.revision > v1.revision
+    assert [b for b, _ in log] == [want] * (2 * bool(want))
+    assert all(active is v1 for _, active in log[1:])
+

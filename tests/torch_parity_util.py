@@ -29,10 +29,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def fresh_port_state():
-    """The port's verdict and encode caches, columnar store and rule
-    analytics are process-global, as the reference's are: every test
-    starts from empty ones (tests/conftest.py does the same for the JAX
-    package). Autouse in each test module that imports it."""
+    """The port's verdict and encode caches, columnar store, report
+    store, rule analytics and last static analysis are process-global,
+    as the reference's are: every test starts from empty ones
+    (tests/conftest.py does the same for the JAX package). Autouse in
+    each test module that imports it."""
+    from kyverno_tpu_torch.analysis import global_analysis
     from kyverno_tpu_torch.cluster.columnar import reset_store
     from kyverno_tpu_torch.observability.analytics import (
         global_pattern_cells, global_rule_stats, global_slo,
@@ -40,14 +42,20 @@ def fresh_port_state():
     from kyverno_tpu_torch.tpu.cache import (global_encode_cache,
                                              global_verdict_cache)
 
+    from kyverno_tpu_torch.reports import reset_reports
+
     global_verdict_cache.clear()
     global_encode_cache.clear()
     reset_store()
+    reset_reports()
+    global_analysis.reset()
     for acc in (global_rule_stats, global_starvation, global_slo,
                 global_pattern_cells):
         acc.reset()
     yield
     reset_store()
+    reset_reports()
+    global_analysis.reset()
 
 
 @pytest.fixture
