@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
         [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
-        [--reports-n 100000] [--seed 0]
+        [--reports-n 70000] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -132,7 +132,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``graphs`` lines).
 12. incremental reports and the background scan service
    (``cluster/scanner.py``, ``reports/``): bench.py's soak (config #17)
-   at 100,000 lean Pods in 16 namespaces (``--reports-n``; the bench's
+   at 70,000 lean Pods in 16 namespaces (``--reports-n``; the bench's
    1,000,000 cut for the time limit), the 18 PSS policies in a
    ``PolicyCache``, a journaled ``ReportStore`` in a temporary
    directory (the bench's journal cap, 1 GiB), the flight recorder
@@ -174,6 +174,24 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    equals a CPU engine's rows under the revision its flush pinned; the
    lint's outcome is ``ok``; no admission bucket's graph is evicted or
    captured again after the lint.
+14. the sharded scan on a mesh of CUDA devices (``parallel/``, one
+   process's devices; a card repeats when the machine has fewer cards
+   than the mesh has entries, and the phase prints how many are
+   distinct): phase 5's 100,000-resource snapshot in 8,192 tiles on
+   ``make_mesh()`` (every card) and on ``make_mesh_2d(2, 2, devs)``
+   (``devs`` = ``cuda:(i % count)`` for i < 4), each through
+   ``scan_stream`` (cold, then warm) and ``PipelinedScanner`` (an encode
+   thread), beside the one-device scanner's warm ``scan_stream``: every
+   table equal to the one-device table, the first tile's uint8 table and
+   counts equal to the one-device scanner's, every scan kernel launched
+   on every distinct device (``ShardedScanner.device_launches``); (b)
+   ``dryrun.dryrun_multichip(4, devs)``; (c) two in-process fleet
+   replicas (``fleet/``) on one ``LeaseStore``, their peer servers on
+   localhost, each a ``BackgroundScanService`` on the 2 x 2 mesh over
+   20,000 lean Pods with a report store of its own: the owned shards
+   partition the keyspace, the two stores' rows are a one-replica
+   store's, and after one replica leaves gracefully the other's takeover
+   rescan gives the one-replica store's digest. Both caches off.
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -225,12 +243,13 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9 to 13; phase 6's
+Phases 7 and 8 run after phase 5, then phases 9 to 14; phase 6's
 lines come last (the kernels line gives launches by path, the admission
 path's from part (a), the reports tick path's from phase 12 (a)'s churn
-ticks, the analysis tile path's from phase 13's warm run, and each
-kernel's launches and trace time in one flush at each admission
-bucket).
+ticks, the analysis tile path's from phase 13's warm run, the mesh scan
+path's from phase 14's warm ``scan_stream`` on the 2 x 2 mesh, with its
+launches by device, and each kernel's launches and trace time in one
+flush at each admission bucket).
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -241,6 +260,7 @@ and nothing of ``kyverno_tpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import random
@@ -2605,7 +2625,7 @@ def scan_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
     host, _ = scanner.encode(list(first) + [{}] * pad, None,
                              list(fops) + [""] * pad)
     t0 = time.perf_counter()
-    lanes = scanner.put(host)
+    lanes = scanner.put(host)[0]  # one device: one shard
     torch.cuda.synchronize()
     put_ms = (time.perf_counter() - t0) * 1e3
     v, c = scanner.step_jitted()(lanes)
@@ -4881,6 +4901,309 @@ def analysis_phase(torch, kernels, tag, seed, cache_caps):
         tcache.configure(0, 0)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded scan on a mesh of CUDA devices, the dry run, and
+# two fleet replicas behind the scan service
+
+# entries of the 2-axis mesh (make_mesh_2d(2, 2, devs)); a card repeats
+# when the machine has fewer
+MESH_ENTRIES = 4
+# Pods each fleet replica's scan service holds (bench.py's lean soak Pods)
+FLEET_N = 20000
+# the fleet's shards (fleet/shards.py's default)
+FLEET_SHARDS = 64
+
+
+def mesh_devices(torch, k: int):
+    """``k`` mesh entries over the visible cards: ``cuda:(i % count)``."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(k)]
+
+
+def mesh_scan(torch, kernels, label, sc, feed, one_table, one_s, tile, tag):
+    """Phase 14 (a) on one mesh: ``scan_stream`` over the snapshot cold
+    and warm, then ``PipelinedScanner`` (an encode thread), each table
+    equal to the one-device scan's; the first tile's device table and
+    counts equal the one-device scanner's. Returns the warm scan's
+    launches (all, and by device)."""
+    import numpy as np
+
+    from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner
+
+    resources, ops = feed["resources"], feed["ops"]
+    n = len(resources)
+    mesh = sc.mesh
+    shards = mesh.flat
+    distinct = mesh.distinct
+    say("14", f"{label}: mesh {mesh.shape} of {[str(d) for d in shards]}: "
+              f"{len(distinct)} distinct device(s) of "
+              f"{torch.cuda.device_count()} visible"
+              + (f"; {len(shards) - len(distinct)} entries name a card "
+                 "already in the mesh (the machine has fewer cards than "
+                 "the mesh has entries)"
+                 if len(distinct) < len(shards) else "")
+              + f"; tile {tile} -> shards of {sc.pad(tile) // mesh.size}")
+    ladder_reset()
+    t0 = time.perf_counter()
+    res, _ = sc.scan_stream(resources, tile=tile, operations=ops)
+    cold = time.perf_counter() - t0
+    if not np.array_equal(res.verdicts, one_table):
+        raise AssertionError(f"{label}: cold scan_stream differs from the "
+                             "one-device scan")
+    kernels.reset_launches()
+    for d in sc.device_launches.values():
+        d.clear()
+    t0 = time.perf_counter()
+    res, st = sc.scan_stream(resources, tile=tile, operations=ops)
+    warm = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    by_device = {d: dict(v) for d, v in sc.device_launches.items()}
+    if not np.array_equal(res.verdicts, one_table):
+        raise AssertionError(f"{label}: warm scan_stream differs from the "
+                             "one-device scan")
+    for d in distinct:
+        missing = [k for k in SCAN_KERNELS if not by_device[str(d)].get(k)]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched on {d}")
+    say("14", f"{label}: scan_stream {n} resources, tile {tile}: cold "
+              f"{cold:.3f} s, warm {warm:.3f} s, {n / warm:.1f} resources/s "
+              f"(one device warm {one_s:.3f} s, {n / one_s:.1f} /s), "
+              f"encode_s {st['encode_s']:.3f}, device_s "
+              f"{st['device_s']:.3f}, host_s {st['host_s']:.3f}; table equal "
+              f"to the one-device scan's {tag}")
+    say("14", f"{label}: warm scan's launches by device "
+              + json.dumps(by_device))
+    chunks = [resources[i:i + tile] for i in range(0, n, tile)]
+    op_chunks = [ops[i:i + tile] for i in range(0, n, tile)]
+    out = {}
+    t0 = time.perf_counter()
+    pst = PipelinedScanner(sc, encode_pool=None).scan_chunks(
+        chunks, operations=op_chunks,
+        on_result=lambda i, r: out.__setitem__(i, r.verdicts))
+    wall = time.perf_counter() - t0
+    table = np.concatenate([out[i] for i in range(len(chunks))], axis=1)
+    if not np.array_equal(table, one_table):
+        raise AssertionError(f"{label}: the pipelined scan differs from the "
+                             "one-device scan")
+    paths = [t["path"] for t in pst["timeline"]]
+    if paths != ["device"] * len(chunks):
+        raise AssertionError(f"{label}: pipelined chunk paths {paths}")
+    say("14", f"{label}: PipelinedScanner (encode thread) {n} resources in "
+              f"{len(chunks)} chunks: {wall:.3f} s, {n / wall:.1f} "
+              f"resources/s, overlap_ratio {pst['overlap_ratio']}; table "
+              f"equal {tag}")
+    first, fops = resources[:tile], ops[:tile]
+    return launches, by_device, sc.scan_device(first, operations=fops)
+
+
+@contextlib.contextmanager
+def as_replica(mgr, store):
+    """One in-process fleet replica's scan tick: ``mgr`` as the
+    process-global fleet the scan service consults and ``store`` as the
+    report store it folds into."""
+    from kyverno_tpu_torch.fleet import manager as fm
+    from kyverno_tpu_torch.reports import store as rstore
+
+    with fm._fleet_lock:
+        prev_fleet, fm._global_fleet = fm._global_fleet, mgr
+    with rstore._store_lock:
+        prev_store, rstore._store = rstore._store, store
+    try:
+        yield
+    finally:
+        with fm._fleet_lock:
+            fm._global_fleet = prev_fleet
+        with rstore._store_lock:
+            rstore._store = prev_store
+
+
+def fleet_check(torch, mesh, tag):
+    """Phase 14 (c): a one-replica scan service over ``FLEET_N`` Pods on
+    the mesh, then two in-process replicas on one ``LeaseStore`` (their
+    peer servers on localhost, ``listen_port=0``; ticks driven by hand),
+    each a service on the mesh over its own copy of the snapshot: the
+    owned shards partition the keyspace, the two report stores' rows are
+    the one-replica store's, and after one replica leaves gracefully the
+    other's takeover rescan gives the one-replica store's digest."""
+    from kyverno_tpu_torch.cluster import (BackgroundScanService,
+                                           ClusterSnapshot, PolicyCache)
+    from kyverno_tpu_torch.cluster.leaderelection import LeaseStore
+    from kyverno_tpu_torch.fleet import FleetConfig, FleetManager, shard_of
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.reports import ReportStore
+
+    policies = load_pss_policies()
+    pods = [soak_pod(i) for i in range(FLEET_N)]
+
+    def service():
+        snap, cache = ClusterSnapshot(), PolicyCache()
+        for p in policies:
+            cache.set(p)
+        for p in pods:
+            snap.upsert(p)
+        return BackgroundScanService(snap, cache, mesh=mesh), snap
+
+    def timed_scan(svc, full):
+        t0 = time.perf_counter()
+        n = svc.scan_once(full=full)
+        return n, time.perf_counter() - t0
+
+    one = ReportStore()
+    svc1, snap1 = service()
+    with as_replica(None, one):
+        n1, s1 = timed_scan(svc1, True)
+    if n1 != FLEET_N:
+        raise AssertionError(f"one replica scanned {n1} of {FLEET_N}")
+    want_rows, want_digest = dict(one._rows), one.digest()
+    say("14", f"(c) one replica: {n1} Pods in {s1:.3f} s "
+              f"({n1 / s1:.1f} /s), {len(want_rows)} report rows, digest "
+              f"{want_digest[:16]} {tag}")
+
+    leases = LeaseStore()
+    mgrs = [FleetManager(FleetConfig(
+        replica_id=rid, listen_port=0, lease_s=60.0,
+        heartbeat_interval_s=3600.0, num_shards=FLEET_SHARDS))
+        for rid in ("replica-a", "replica-b")]
+    a, b = mgrs
+    for m in mgrs:
+        m.membership.store = leases
+    a.add_peers(b.url)
+    b.add_peers(a.url)
+    try:
+        for m in mgrs:
+            m.start()
+        for _ in range(3):
+            for m in mgrs:
+                m.tick()
+        live = [m.membership.live() for m in mgrs]
+        if live != [["replica-a", "replica-b"]] * 2:
+            raise AssertionError(f"(c) membership {live}")
+        owned = [m.owned_view() for m in mgrs]
+        if owned[0] & owned[1] or owned[0] | owned[1] != \
+                frozenset(range(FLEET_SHARDS)):
+            raise AssertionError(f"(c) owned shards {owned} do not "
+                                 "partition the keyspace")
+        stores = [ReportStore(), ReportStore()]
+        svcs = [service()[0], service()[0]]
+        for m, svc, store, mine in zip(mgrs, svcs, stores, owned):
+            with as_replica(m, store):
+                n, s = timed_scan(svc, True)
+            want_n = sum(shard_of(u, FLEET_SHARDS) in mine
+                         for u, _, _ in snap1.items())
+            if n != want_n:
+                raise AssertionError(f"(c) {m.config.replica_id} scanned "
+                                     f"{n}, owns {want_n}")
+            say("14", f"(c) {m.config.replica_id}: {len(mine)} shards, "
+                      f"{n} Pods in {s:.3f} s, skipped_unowned "
+                      f"{svc.stats.get('skipped_unowned', 0)} {tag}")
+        ra, rb = stores[0]._rows, stores[1]._rows
+        if set(ra) & set(rb) or {**ra, **rb} != want_rows:
+            raise AssertionError("(c) the two replicas' report rows are "
+                                 "not the one replica's")
+        say("14", f"(c) the replicas' report rows ({len(ra)} + {len(rb)}) "
+                  "are the one-replica store's rows")
+        b.stop(leave=True)
+        a.tick()
+        if a.membership.live() != ["replica-a"] or \
+                a.owned_view() != frozenset(range(FLEET_SHARDS)):
+            raise AssertionError(f"(c) after the leave: live "
+                                 f"{a.membership.live()}, owned "
+                                 f"{len(a.owned_view())}")
+        with as_replica(a, stores[0]):
+            n, s = timed_scan(svcs[0], False)
+        if n != len(rb) or stores[0]._rows != want_rows \
+                or stores[0].digest() != want_digest:
+            raise AssertionError(f"(c) the takeover rescan ({n} Pods) does "
+                                 "not give the one-replica digest")
+        say("14", f"(c) replica-b left gracefully: replica-a took over "
+                  f"{FLEET_SHARDS - len(owned[0])} shards, rescanned {n} Pods "
+                  f"in {s:.3f} s; digest {stores[0].digest()[:16]} equals "
+                  f"the one-replica store's {tag}")
+    finally:
+        for m in mgrs:
+            m.stop(leave=False)
+
+
+def mesh_phase(torch, kernels, scanner, policies, feed, tile, tag):
+    """Phase 14: (a) the background scan's snapshot on two meshes,
+    ``make_mesh()`` (every CUDA device) and ``make_mesh_2d(2, 2, devs)``
+    with ``devs`` = ``cuda:(i % count)`` for i < 4, through
+    ``scan_stream`` and ``PipelinedScanner``, each table equal to the
+    one-device scanner's (its warm ``scan_stream``, timed beside them);
+    every scan kernel launches on every distinct device; (b) the dry run
+    ``dryrun_multichip(4, devs)``; (c) ``fleet_check`` on the 2 x 2
+    mesh. Both content caches off. Returns the 2 x 2 mesh's warm scan's
+    launches, all and by device."""
+    import numpy as np
+
+    from kyverno_tpu_torch.dryrun import dryrun_multichip
+    from kyverno_tpu_torch.observability.flightrecorder import global_flight
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+    from kyverno_tpu_torch.observability.verification import global_verifier
+    from kyverno_tpu_torch.parallel import (ShardedScanner, make_mesh,
+                                            make_mesh_2d)
+    from kyverno_tpu_torch.tpu import cache as tcache
+
+    t_phase = time.perf_counter()
+    tcache.configure(0, 0)
+    global_flight.reset()
+    global_verifier.reset()
+    kerr0 = reg.kernel_errors.value()
+    devs = mesh_devices(torch, MESH_ENTRIES)
+    resources, ops = feed["resources"], feed["ops"]
+    n = len(resources)
+    ladder_reset()
+    t0 = time.perf_counter()
+    base, _ = scanner.scan_stream(resources, tile=tile, operations=ops)
+    one_s = time.perf_counter() - t0
+    one_table = feed["verdicts"]
+    if not np.array_equal(base.verdicts, one_table):
+        raise AssertionError("the one-device scan_stream differs from "
+                             "phase 5's")
+    first, fops = resources[:tile], ops[:tile]
+    one_v, one_c = scanner.scan_device(first, operations=fops)
+    say("14", f"one device ({scanner.device}): scan_stream {n} resources "
+              f"warm {one_s:.3f} s, {n / one_s:.1f} resources/s {tag}")
+    out = {}
+    for label, mesh in (("make_mesh()", make_mesh()),
+                        ("make_mesh_2d(2, 2)", make_mesh_2d(2, 2, devs))):
+        t0 = time.perf_counter()
+        sc = ShardedScanner(policies, mesh=mesh)
+        say("14", f"{label}: compiled in {time.perf_counter() - t0:.3f} s")
+        launches, by_device, (v, c) = mesh_scan(
+            torch, kernels, label, sc, feed, one_table, one_s, tile, tag)
+        if not (np.array_equal(v, one_v) and np.array_equal(c, one_c)):
+            raise AssertionError(f"{label}: the first tile's device table "
+                                 "and counts differ from one device's")
+        say("14", f"{label}: the first tile's uint8 table and counts equal "
+                  "the one-device scanner's")
+        out[label] = (launches, by_device)
+        ladder_check("14")
+        del sc
+    t0 = time.perf_counter()
+    again, _ = scanner.scan_stream(resources, tile=tile, operations=ops)
+    again_s = time.perf_counter() - t0
+    if not np.array_equal(again.verdicts, one_table):
+        raise AssertionError("the one-device scan_stream differs from "
+                             "phase 5's")
+    say("14", f"one device again, after the meshes: warm {again_s:.3f} s, "
+              f"{n / again_s:.1f} resources/s (the spread of the one-device "
+              f"time within this call) {tag}")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_ENTRIES, devs)
+    say("14", f"(b) dryrun_multichip({MESH_ENTRIES}, {[str(d) for d in devs]})"
+              f": {json.dumps(dry)} in {time.perf_counter() - t0:.3f} s; "
+              "parity with one device, privileged Pods fail, scan_stream "
+              f"covers every resource, one leader {tag}")
+    fleet_check(torch, make_mesh_2d(2, 2, devs), tag)
+    kerr = reg.kernel_errors.value() - kerr0
+    if kerr:
+        raise AssertionError(f"{kerr} kernel errors in the phase")
+    ladder_check("14")
+    say("14", f"phase 14 in {time.perf_counter() - t_phase:.3f} s {tag}")
+    return out["make_mesh_2d(2, 2)"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -4901,9 +5224,10 @@ def main() -> int:
                     help="requests in phase 11's steady admission")
     ap.add_argument("--adm-bulk", type=int, default=10000,
                     help="bulk requests in phase 11's mixed traffic")
-    ap.add_argument("--reports-n", type=int, default=100000,
+    ap.add_argument("--reports-n", type=int, default=70000,
                     help="lean Pods in phase 12's soak (bench.py's "
-                         "1,000,000 cut for the time limit)")
+                         "1,000,000 cut for the time limit; 100,000 "
+                         "before phase 14 joined the run)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -4962,7 +5286,8 @@ def main() -> int:
     policies = [expand_policy(p) for p in load_pss_policies()]
     t0 = time.perf_counter()
     eng = TorchEngine(policies)
-    scanner = ShardedScanner(policies)
+    # the one-device scanner (phase 14 holds each mesh to it)
+    scanner = ShardedScanner(policies, device="cuda")
     say("4", f"compiled {len(policies)} PSS policies twice (engine, "
              f"scanner): coverage {eng.coverage()} in "
              f"{time.perf_counter() - t0:.3f} s {tag}")
@@ -4972,7 +5297,7 @@ def main() -> int:
     lanes = lanes_to_device(batch, eng.device)
     tile_res, tile_ops = workload(args.tile, args.seed + 4)
     tile_host, _ = scanner.encode(tile_res, None, tile_ops)
-    tile_lanes = scanner.put(tile_host)
+    tile_lanes = scanner.put(tile_host)[0]
     # the tenant set: PSS plus a policy whose namespace globs overflow
     # the DFA bank
     t0 = time.perf_counter()
@@ -5034,7 +5359,6 @@ def main() -> int:
     pipeline_phase(torch, kernels, scanner, eng, feed, resources, ops,
                    args.tile, cache_caps, tenant,
                    tenant_res[:args.tenant_batch], tag)
-    del feed
     # phase 11: admission serving on the card
     adm = admission_phase(torch, kernels, args.seed + 30, tag,
                           n_requests=args.adm_requests, n_bulk=args.adm_bulk)
@@ -5043,6 +5367,11 @@ def main() -> int:
                         args.seed + 40)
     # phase 13: policy-set analysis, and the lifecycle's lint under traffic
     ana = analysis_phase(torch, kernels, tag, args.seed + 50, cache_caps)
+    # phase 14: the sharded scan on a mesh of CUDA devices, the dry run,
+    # two fleet replicas behind the scan service
+    mesh_launches, mesh_by_device = mesh_phase(
+        torch, kernels, scanner, policies, feed, args.tile, tag)
+    del feed
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]
     gpaths = list(zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg))) + [
@@ -5066,6 +5395,7 @@ def main() -> int:
     by_path["admission"] = adm["launches"]
     by_path["reports_tick"] = rep["launches"]
     by_path["analysis_tile"] = ana["launches"]
+    by_path["mesh_scan"] = mesh_launches
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
@@ -5075,6 +5405,9 @@ def main() -> int:
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": n_launch,
                     "launches_by_path": per,
+                    "mesh_launches_by_device": {
+                        d: launches.get(name, 0)
+                        for d, launches in mesh_by_device.items()},
                     "admission_flush": {
                         str(b): {"launches": f["launches"].get(name, 0),
                                  "trace_ms": f["trace_ms"].get(name)}

@@ -1,6 +1,6 @@
-# Copied from kyverno_tpu/cluster/scanner.py, with one change: the service
-# takes device= (the card unless the caller passes "cpu") where the
-# reference takes mesh=, and passes it to ShardedScanner.
+# Copied from kyverno_tpu/cluster/scanner.py, with one addition: beside the
+# reference's mesh= the service takes device= (a one-entry mesh; "cpu" for
+# the plain path) and passes either to ShardedScanner.
 """Background scan service — the reports-controller hot loop on the card.
 
 Mirror of pkg/controllers/report/background (controller.go:247
@@ -58,14 +58,16 @@ class BackgroundScanService:
         snapshot: ClusterSnapshot,
         cache: PolicyCache,
         aggregator: Optional[ReportAggregator] = None,
-        device=None,
+        mesh=None,
         batch_size: int = 4096,
         exceptions=None,
+        device=None,
     ) -> None:
         self.snapshot = snapshot
         self.cache = cache
         self.exceptions = exceptions or []
         self.aggregator = aggregator or ReportAggregator()
+        self.mesh = mesh
         self.device = device
         self.batch_size = batch_size
         self.metrics = global_registry
@@ -168,7 +170,9 @@ class BackgroundScanService:
             from ..parallel.sharding import ShardedScanner
 
             _, policies = self.cache.snapshot()
-            self._scanner = ShardedScanner(policies, device=self.device,
+            # neither mesh= nor device=: make_mesh(), every CUDA device
+            self._scanner = ShardedScanner(policies, mesh=self.mesh,
+                                           device=self.device,
                                            exceptions=self.exceptions,
                                            data_sources=self._configmap_sources())
             self._scanner_rev = revision

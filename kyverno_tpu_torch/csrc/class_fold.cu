@@ -89,6 +89,19 @@ constexpr int kMaxWarps = 4;      // warps a block (the host picks 1, 2, 4)
 constexpr int kLoadGroup = 8;     // LOAD_GROUP in tpu/fold.py
 constexpr unsigned kFull = 0xffffffffu;
 
+// The shared-memory opt-in is an attribute of a device, so it is kept per
+// device ordinal (cudaGetDevice), never once a process.
+constexpr int kMaxDevices = 64;
+
+// the current device's ordinal, or -1 when it cannot be read or is past
+// kMaxDevices
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 enum Op {
   LOAD, CONST, NOT, AND, OR, EQC, NEC, EQ, WHERE, FNP, ANY, ALL, EXPAND,
   SCAN, SCANX, STORE, LOADJ
@@ -436,13 +449,16 @@ template <int IPL>
 int launch(const int4* code, int n_instr, int n_uniform, int n_lane,
            const Io& P, int N, int I, int J, int log2g, int warps,
            long long per_warp, cudaStream_t stream) {
-  static bool opted_in = false;  // one attribute per instantiation
-  if (!opted_in) {
+  // one attribute per instantiation and device
+  static bool opted_in[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         class_fold_kernel<IPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   const int per = 32 >> log2g;
   const long long warp_n = ((long long)N + per - 1) / per;

@@ -295,18 +295,26 @@ __global__ void __launch_bounds__(256) dfa_nonascii_kernel(
 
 constexpr int kNonasciiThreads = 256;
 
+// The shared-memory opt-in is an attribute of the current device, so it
+// is kept per device ordinal: a second card's first launch opts in again.
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-int allow_smem(Kernel kernel, bool* done) {
-  // once a process, outside any stream capture (the first launch)
-  if (*done) return 0;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (e == cudaSuccess) *done = true;
+int allow_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
+  // once a device, outside any stream capture (its first launch)
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (done[dev]) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess) done[dev] = true;
   return (int)e;
 }
 
-bool stride1_smem_set = false;
-bool fused_smem_set = false;
+bool stride1_smem_set[kMaxDevices] = {};
+bool fused_smem_set[kMaxDevices] = {};
 
 }  // namespace
 
@@ -316,7 +324,7 @@ extern "C" int dfa_scan_stride1(const void* bytes, const void* lens,
                                 int chunk, void* out, long long ostride,
                                 void* nonascii, void* stream) {
   if (smem_tile > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int rc = allow_smem(dfa_scan_stride1_kernel, &stride1_smem_set);
+  int rc = allow_smem(dfa_scan_stride1_kernel, stride1_smem_set);
   if (rc != 0) return rc;
   const dim3 grid((unsigned)((S + chunk - 1) / chunk), (unsigned)n_tiles);
   dfa_scan_stride1_kernel<<<grid, kThreads, (size_t)smem_tile,
@@ -335,7 +343,7 @@ extern "C" int dfa_scan_fused(const void* bytes, const void* lens,
                               void* stream) {
   const int smem = smem_tile + 4096;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  int rc = allow_smem(dfa_scan_fused_kernel, &fused_smem_set);
+  int rc = allow_smem(dfa_scan_fused_kernel, fused_smem_set);
   if (rc != 0) return rc;
   const dim3 grid((unsigned)((S + chunk - 1) / chunk), (unsigned)n_tiles);
   dfa_scan_fused_kernel<<<grid, kThreads, (size_t)smem,

@@ -59,6 +59,19 @@ constexpr int kSmemBudget = 200 * 1024;
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kMaxTile = 128;  // subjects a block stages at most
 
+// The shared-memory opt-in and the SM count are attributes of a device,
+// so they are kept per device ordinal (cudaGetDevice), never once a process.
+constexpr int kMaxDevices = 64;
+
+// the current device's ordinal, or -1 when it cannot be read or is past
+// kMaxDevices
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 // threads a block: 512 while the state fits a few registers
 template <int NW>
 __host__ __device__ constexpr int threads_for() { return NW <= 4 ? 512 : 256; }
@@ -261,12 +274,14 @@ Tiling tiling(long long S, int P, int C1, int W) {
   if (t.PT < 1) return t;
   // one wave: as many tiles as the card holds blocks, if that is no
   // fewer subjects a tile than every warp needs
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  static int sms_of[kMaxDevices] = {};
+  const int dev = current_device();
+  int sms = dev < 0 ? 0 : sms_of[dev];
+  if (dev >= 0 && sms == 0) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms_of[dev] = sms;
   }
+  if (sms < 1) sms = 1;
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, glob_pack_kernel<NW>, threads_for<NW>(), t.smem);
@@ -289,13 +304,15 @@ template <int NW>
 int launch(const uint8_t* bytes, const int32_t* lens, long long S, int W,
            const uint8_t* cmap, const void* tables, const int32_t* ms, int P,
            int C1, uint8_t* out, cudaStream_t stream) {
-  static bool opted_in = false;
-  if (!opted_in) {
+  static bool opted_in[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
         glob_pack_kernel<NW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   const Tiling tl = tiling<NW>(S, P, C1, W);
   if (tl.PT < 1) return (int)cudaErrorInvalidValue;

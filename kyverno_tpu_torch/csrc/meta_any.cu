@@ -60,6 +60,19 @@ constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may use
 constexpr int kHead = 8;          // _MA_HEAD in kernels.py
 constexpr unsigned kFull = 0xffffffffu;
 
+// The shared-memory opt-in is an attribute of a device, so it is kept per
+// device ordinal (cudaGetDevice), never once a process.
+constexpr int kMaxDevices = 64;
+
+// the current device's ordinal, or -1 when it cannot be read or is past
+// kMaxDevices
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 struct Planes {
   const uint8_t* p[kMaxPlanes];
   long long sn[kMaxPlanes];  // bytes between resources
@@ -245,13 +258,15 @@ extern "C" int meta_any(const void* tab, int tab_words,
     P.adj[s] = planes[3 * np + s] != 0;
   }
   if (N == 0) return 0;
-  static bool opted_in = false;
-  if (!opted_in) {
+  static bool opted_in[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
     cudaError_t e = cudaFuncSetAttribute(
         meta_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
-    opted_in = true;
+    opted_in[dev] = true;
   }
   // the table staged in shared memory when it fits beside the flags
   const long long staged_bytes = 4LL * tab_words + 4LL * R;

@@ -110,6 +110,19 @@ constexpr int kBatch = 4;         // uint8 lanes a batch (ROW_FOLD_BATCH)
 constexpr int kStages = 2;        // stages of a block's ring of fills
 constexpr unsigned kFull = 0xffffffffu;
 
+// The shared-memory opt-in is an attribute of a device, so it is kept per
+// device ordinal (cudaGetDevice), never once a process.
+constexpr int kMaxDevices = 64;
+
+// the current device's ordinal, or -1 when it cannot be read or is past
+// kMaxDevices
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 enum Op { LANE, HASH, CONST, NOT, AND, OR, WHERE, ANY, COUNT, STORE, BATCH };
 enum Cmp { NZ, EQ, NE, GT, LT };
 enum Ty { I32 = 1, F32 = 2 };  // a LANE group's 4-byte lane
@@ -718,11 +731,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 }
 
 cudaError_t opt_in() {
-  static bool opted_in = false;
-  if (opted_in) return cudaSuccess;
+  static bool opted_in[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (opted_in[dev]) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       row_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (e == cudaSuccess) opted_in = true;
+  if (e == cudaSuccess) opted_in[dev] = true;
   return e;
 }
 

@@ -39,6 +39,19 @@
 
 namespace {
 
+// The SM count is an attribute of a device, so it is kept per device
+// ordinal (cudaGetDevice), never once a process.
+constexpr int kMaxDevices = 64;
+
+// the current device's ordinal, or -1 when it cannot be read or is past
+// kMaxDevices
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
 constexpr int kMaxLanes = 40;
 constexpr int kThreads = 256;
 constexpr int kIssue = 32;  // gathers a thread issues before its stores
@@ -224,12 +237,14 @@ Kernel kernel_for(int width) {
 
 // The card's SMs x the blocks of this kernel an SM holds.
 int resident_blocks(Kernel k) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  static int sms_of[kMaxDevices] = {};
+  const int dev = current_device();
+  int sms = dev < 0 ? 0 : sms_of[dev];
+  if (dev >= 0 && sms == 0) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    sms_of[dev] = sms;
   }
+  if (sms < 1) sms = 1;
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, 0);
   return sms * (per_sm > 0 ? per_sm : 1);

@@ -133,13 +133,16 @@ _capture_counts = threading.local()
 
 def count_launch(name: str, n: int = 1) -> None:
     """Add ``n`` launches of ``name``: to the capturing thread's dict
-    while it records a graph (``counting_into``), else to ``LAUNCHES``."""
+    while it records a graph (``counting_into``), else to ``LAUNCHES``
+    and to the dicts the thread tallies into (``tallying_into``)."""
     sink = getattr(_capture_counts, "counts", None)
     if sink is not None:
         sink[name] = sink.get(name, 0) + n
         return
     with _count_lock:
         LAUNCHES[name] += n
+        for tally in getattr(_capture_counts, "tallies", ()):
+            tally[name] = tally.get(name, 0) + n
 
 
 @contextlib.contextmanager
@@ -151,6 +154,19 @@ def counting_into(counts: Dict[str, int]):
         yield counts
     finally:
         _capture_counts.counts = prev
+
+
+@contextlib.contextmanager
+def tallying_into(counts: Dict[str, int]):
+    """This thread's launches that run (those ``LAUNCHES`` counts) are
+    also added to ``counts`` meanwhile: the sharded step's launches by
+    device."""
+    prev = getattr(_capture_counts, "tallies", ())
+    _capture_counts.tallies = prev + (counts,)
+    try:
+        yield counts
+    finally:
+        _capture_counts.tallies = prev
 
 
 def reset_launches() -> None:
@@ -219,9 +235,24 @@ def build_all() -> Dict[str, str]:
         return {n: _libs[n]._name for n in SOURCES}
 
 
-def _call(fn: str, *args) -> None:
+def _on_current(fn: str, device) -> None:
+    """A launch goes to the current device's stream, and the kernel's
+    shared-memory opt-in and SM count are the current device's: its
+    tensors must lie there. Raises ``KernelError`` otherwise (the
+    caller enters ``torch.cuda.device(d)``; nothing switches quietly)."""
+    device = torch.device(device)
+    cur = torch.cuda.current_device()
+    if device.type != "cuda" or device.index != cur:
+        raise KernelError(f"CUDA kernel {fn}: its tensors are on {device}, "
+                          f"the current device is cuda:{cur}")
+
+
+def _call(fn: str, device, *args) -> None:
+    """Launch ``fn`` on the current stream of ``device``, which must be
+    the current device."""
     if fn not in _fns:
         build_all()
+    _on_current(fn, device)
     stream = torch.cuda.current_stream().cuda_stream
     rc = _fns[fn](*args, stream)
     if rc != 0:
@@ -234,6 +265,8 @@ def _check(t: torch.Tensor, name: str, dtype, device, ndim: Optional[int] = None
         raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, want {device}")
+    if t.device.type == "cuda":
+        _on_current(name, t.device)
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     if ndim is not None and t.ndim != ndim:
@@ -568,10 +601,10 @@ def _dfa_scan(kind: str, bytes_: torch.Tensor, lens: torch.Tensor,
         if tiles.pairs.shape[0] != 1024 or tiles.pitch <= 0:
             raise ValueError(f"fused_pairs of {tiles.pairs.shape[0]} entries,"
                              f" pitch {tiles.pitch}")
-        _call("dfa_scan_fused", *head, _ptr(tiles.pairs), tiles.pitch, chunk,
+        _call("dfa_scan_fused", dev, *head, _ptr(tiles.pairs), tiles.pitch, chunk,
               _ptr(out), out.stride(0), _ptr(na))
     else:
-        _call("dfa_scan_stride1", *head, chunk, _ptr(out), out.stride(0),
+        _call("dfa_scan_stride1", dev, *head, chunk, _ptr(out), out.stride(0),
               _ptr(na))
     count_launch(f"dfa_scan_{kind}")
     return out, na
@@ -606,7 +639,7 @@ def nonascii(bytes_: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     na = torch.empty((S,), dtype=torch.bool, device=dev)
     if S:
         bytes_ = _padded_rows(bytes_, 16)
-        _call("dfa_nonascii", _ptr(bytes_), _ptr(lens), S, W,
+        _call("dfa_nonascii", dev, _ptr(bytes_), _ptr(lens), S, W,
               bytes_.shape[1], _ptr(na))
         count_launch("nonascii")
     return na
@@ -768,7 +801,7 @@ def instance_count_many(preds: Sequence[torch.Tensor], scope: torch.Tensor,
             *[p.data_ptr() for p in preds], *[p.stride(0) for p in preds],
             *[o.data_ptr() for o in outs])
         any_mask = sum(1 << q for q, w in enumerate(wants) if w == "any")
-        _call("instance_count_many", ctypes.cast(args, _P), k, any_mask,
+        _call("instance_count_many", dev, ctypes.cast(args, _P), k, any_mask,
               _ptr(scope), N, R, n_inst)
         count_launch("instance_count")
     return outs
@@ -811,7 +844,7 @@ def instance_count2(pred: torch.Tensor, scope1: torch.Tensor,
         raise ValueError(f"instance_count2: out {tuple(out.shape)}, want "
                          f"({N}, {n_inst}, {n_inst})")
     if N:
-        _call("instance_count2", _ptr(pred), _ptr(scope1), _ptr(scope2),
+        _call("instance_count2", dev, _ptr(pred), _ptr(scope1), _ptr(scope2),
               _ptr(valid), N, R, n_inst, _ptr(out))
         count_launch("instance_count2")
     return out
@@ -872,7 +905,7 @@ def _verdict_counts(table: torch.Tensor, out8: Optional[torch.Tensor]
         aligned = table.data_ptr() % 16 == 0 and (
             out8 is None or out8.data_ptr() % 4 == 0)
         C, threads, vector = verdict_counts_plan(N, aligned)
-        _call("verdict_counts", _ptr(table), rules, N, _ptr(out), _ptr(out8),
+        _call("verdict_counts", table.device, _ptr(table), rules, N, _ptr(out), _ptr(out8),
               C, threads, int(vector))
     elif rules:
         out.zero_()
@@ -1052,7 +1085,7 @@ def vocab_gather(srcs: List[torch.Tensor], idx: torch.Tensor,
         dst_a = (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in o])
         fill_a = (ctypes.c_uint32 * n)(*[int(fills[i]) & 0xFFFFFFFF
                                          for i in o])
-        _call("vocab_gather", ctypes.cast(src_a, _P), ctypes.cast(dst_a, _P),
+        _call("vocab_gather", dev, ctypes.cast(src_a, _P), ctypes.cast(dst_a, _P),
               ctypes.cast(fill_a, _P), n, plan.n1, plan.chunks1, plan.chunks4,
               _ptr(idx), width, cells, V)
         count_launch("vocab_gather")
@@ -1087,7 +1120,7 @@ def vocab_gather_rows(svocab: Optional[torch.Tensor],
         lens = torch.empty(tuple(idx.shape), dtype=torch.int32, device=dev)
     cells = idx.numel()
     if cells and (rows is None or W):
-        _call("vocab_gather_rows", _ptr(svocab), _ptr(slen), _ptr(idx), width,
+        _call("vocab_gather_rows", dev, _ptr(svocab), _ptr(slen), _ptr(idx), width,
               cells, V, W, _ptr(rows), _ptr(lens))
         count_launch("vocab_gather_rows")
     return rows, lens
@@ -1147,7 +1180,7 @@ def hash_match(hi: torch.Tensor, lo: torch.Tensor, consts: torch.Tensor,
     out = torch.empty(tuple(hi.shape), dtype=torch.bool, device=dev)
     cells = hi.numel()
     if cells:
-        _call("hash_match", _ptr(hi), _ptr(lo), _ptr(valid), cells,
+        _call("hash_match", dev, _ptr(hi), _ptr(lo), _ptr(valid), cells,
               _ptr(consts), consts.shape[0], _ptr(out))
         count_launch("hash_match")
     return out
@@ -1214,7 +1247,7 @@ def pool_rows(plane: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"plane {tuple(plane.shape)} vs slot {tuple(slot.shape)}")
     out = torch.empty((N, R), dtype=torch.bool, device=dev)
     if N * R:
-        _call("pool_rows", _ptr(plane), plane.stride(0), plane.stride(1), K,
+        _call("pool_rows", dev, _ptr(plane), plane.stride(0), plane.stride(1), K,
               _ptr(slot), N, R, pool_rows_words(K), int(_pool_rows_vec(slot)),
               _ptr(out))
         count_launch("pool_rows")
@@ -1283,7 +1316,7 @@ def first_true_take(accept: torch.Tensor, pred: torch.Tensor,
                              f"({N},)")
     if N:
         lanes = first_true_take_form(R, accept.data_ptr() % 16 == 0)
-        _call("first_true_take", _ptr(accept), _ptr(pred), N, R, lanes,
+        _call("first_true_take", dev, _ptr(accept), _ptr(pred), N, R, lanes,
               _ptr(has), _ptr(val_ok))
         count_launch("first_true_take")
     return has, val_ok
@@ -1486,7 +1519,7 @@ def glob_nfa_pack(pack: GlobPack, bytes_: torch.Tensor,
     out = torch.empty((P,) + lead, dtype=torch.bool, device=dev)
     S = lens.numel()
     if S:
-        _call("glob_nfa_pack", _ptr(bytes_), _ptr(lens), S, bytes_.shape[-1],
+        _call("glob_nfa_pack", dev, _ptr(bytes_), _ptr(lens), S, bytes_.shape[-1],
               _ptr(cmap), _ptr(tables), _ptr(ms), P, pack.classes, pack.nw,
               _ptr(out))
         count_launch("glob_nfa")
@@ -1786,7 +1819,7 @@ def meta_any(table: MetaAnyTable, planes: Sequence[torch.Tensor],
               for p, em in zip(planes, table.entry_major)],
             *[int(not em and p.stride(1) == 1)
               for p, em in zip(planes, table.entry_major)])
-        _call("meta_any", _ptr(tab), int(tab.numel()), ctypes.cast(args, _P),
+        _call("meta_any", dev, _ptr(tab), int(tab.numel()), ctypes.cast(args, _P),
               k, _ptr(hashes[0]), _ptr(hashes[1]) if F > 1 else None,
               _ptr(is_ns), _ptr(nas[0]), _ptr(nas[1]), N, R, _ptr(hit),
               _ptr(conf))
@@ -2089,7 +2122,7 @@ def class_fold(code: FoldCode, ios: Sequence[torch.Tensor], N: int, I: int,
         *[t.data_ptr() for t in ios], *[s[0] for s in strides],
         *[s[1] for s in strides], *[s[2] for s in strides],
         *[int(_fold_vec(t, ipl)) for t in ios])
-    _call("class_fold", _ptr(code.on(dev)), len(code.rows), code.n_uniform,
+    _call("class_fold", dev, _ptr(code.on(dev)), len(code.rows), code.n_uniform,
           code.n_lane, ctypes.cast(io, _P), k, N, I, J,
           G.bit_length() - 1, ipl.bit_length() - 1,
           fold_block(code, N, I, G))
@@ -2374,7 +2407,7 @@ def row_fold(code: RowCode, ios: Sequence[torch.Tensor], N: int,
     args = (ctypes.c_longlong * 11)(
         plan["warps"], plan["T"], plan["grid"], *plan["layout"],
         plan["smem"], len(code.units), int(plan["rows"] > 0))
-    _call("row_fold", _ptr(code.on(dev)), len(code.rows), code.n_slots,
+    _call("row_fold", dev, _ptr(code.on(dev)), len(code.rows), code.n_slots,
           ctypes.cast(io, _P), k, code.n_in, N, R,
           row_lanes(R).bit_length() - 1, ctypes.cast(args, _P))
     count_launch("row_fold")
@@ -2428,11 +2461,13 @@ def _row_layout(code: RowCode, ins: Sequence[torch.Tensor], R: int,
 
 
 @functools.lru_cache(maxsize=4096)
-def _row_resident(threads: int, smem: int) -> int:
-    """The blocks of ``threads`` threads and ``smem`` bytes an SM of the
-    current device holds (the card's own count)."""
+def _row_resident(index: int, threads: int, smem: int) -> int:
+    """The blocks of ``threads`` threads and ``smem`` bytes an SM of CUDA
+    device ``index`` holds (the card's own count; ``index`` must be the
+    current device)."""
     out = ctypes.c_int(0)
-    _call("row_fold_occupancy", threads, smem, ctypes.byref(out))
+    _call("row_fold_occupancy", torch.device("cuda", index), threads, smem,
+          ctypes.byref(out))
     return out.value
 
 
@@ -2457,11 +2492,14 @@ def row_fold_plan(code: RowCode, ios: Sequence[torch.Tensor], N: int,
     per = 32 // row_lanes(R)
     ins = list(ios[:code.n_in])
     dev = ios[0].device if ios else torch.device("cpu")
+    index = None
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
     if sms is None:
-        if dev.type != "cuda":
+        if index is None:
             raise ValueError("row_fold_plan: give the SMs off a CUDA device")
-        sms = _sm_count(dev.index if dev.index is not None else
-                        torch.cuda.current_device())
+        sms = _sm_count(index)
     fits = []
     for w in ([warps] if warps else (1, 2, 4, 8)):
         if not 1 <= w <= ROW_FOLD_MAX_WARPS:
@@ -2481,7 +2519,7 @@ def row_fold_plan(code: RowCode, ios: Sequence[torch.Tensor], N: int,
     tiles = max(1, -(-N // (w * per)))
     resident = blocks = rounds = None
     if dev.type == "cuda":
-        resident = _row_resident(32 * w, smem)
+        resident = _row_resident(index, 32 * w, smem)
         blocks = max(1, min(grid or sms * resident, tiles))
         rounds = -(-tiles // blocks)
     return {"warps": w, "T": w * per, "tiles": tiles, "grid": blocks,

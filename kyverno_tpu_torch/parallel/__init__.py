@@ -1,5 +1,5 @@
-"""The tiled background scan over one CUDA device."""
+"""Device-mesh parallelism for the scan engine (one process's devices)."""
 
-from .sharding import ShardedScanner
+from .sharding import Mesh, ShardedScanner, make_mesh, make_mesh_2d
 
-__all__ = ["ShardedScanner"]
+__all__ = ["Mesh", "ShardedScanner", "make_mesh", "make_mesh_2d"]

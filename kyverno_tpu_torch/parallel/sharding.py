@@ -1,5 +1,6 @@
-"""The tiled background scan on one CUDA device — the port of
-kyverno_tpu/parallel/sharding.py:ShardedScanner on a one-device mesh.
+"""The tiled background scan over a mesh of devices — the port of
+kyverno_tpu/parallel/sharding.py (``make_mesh``, ``make_mesh_2d``,
+``ShardedScanner``).
 
 The scan workload is data-parallel over resources: every batch lane has
 a leading N axis and the compiled program is elementwise across it.
@@ -9,12 +10,29 @@ string table plus a (n, K) ``pool_sidx`` table. The device gathers the
 dense lanes it reads from them (``evaluator.LaneView``, kernel K5), so
 a tile moves a fraction of the dense form's bytes.
 
-The step is the program of ``evaluator.build_program`` over a LaneView;
-kernel K4 then takes the per-(rule, verdict-class) counts over every
-column and writes the uint8 verdict table in the same pass.
+A mesh (``Mesh``) is a grid of ``torch.device``s of ONE process, as the
+reference's is a grid of one process's JAX devices (its multi-host form
+runs under ``jax.distributed``; the port's ``torch.distributed`` comes
+with the serving entry points). Policies are replicated and resources
+shard: ``put`` splits every per-resource lane host-major into
+``mesh.size`` contiguous slices in the order of ``mesh.devices``, and
+copies the vocabulary lanes (``vocab_*``, ``pool_svocab``,
+``pool_slen``) once to each distinct device, all of a device's lanes in
+one pinned buffer and one copy. A mesh may name a device more than once
+(the CPU tests use ``["cpu"] * 8``; a one-GPU machine names ``cuda:0``
+more than once): each entry is one shard.
 
-On CUDA the step replays as one CUDA graph per shape bucket
-(``tpu/graphs.py``; the eager step is ``step_jitted().run``).
+Each distinct device has its own compiled program (``evaluator.
+build_program``; on CUDA one CUDA graph per shape bucket, ``tpu/
+graphs.py``). ``step`` runs each shard through its device's program
+inside ``torch.cuda.device(d)`` (the kernels launch on the current
+device's stream and raise ``KernelError`` for tensors elsewhere), shards
+of one device one after another; kernel K4 gives each shard's uint8
+verdict table and per-(rule, verdict-class) int32 counts, and the counts
+are summed on the mesh's first device (a peer copy of each shard's
+(rules, 7) counts, then one add: the counterpart of the reference's
+cross-device reduction). The tables are read back into one host array in
+mesh order.
 
 ``scan`` goes through the reference's resilience ladder: an encode
 failure quarantines the hostile resources through ``TorchEngine.scan``,
@@ -23,25 +41,27 @@ guarded dispatch of ``TorchEngine`` and answers the batch all-HOST, so
 the scalar engine completes it. ``scan_stream`` raises on either, as
 the reference's does.
 
-``n_devices`` is 1: the multi-GPU scanner (``torch.distributed``) is
-not ported yet. With a columnar store configured
-(``cluster.columnar.configure_store``) ``encode`` gathers a tile's rows
-from the store instead of walking its JSON; ``tpu/pipeline.py`` drives
-``encode`` and the step with the encode on a feed thread or the
-encoder pool.
+With a columnar store configured (``cluster.columnar.configure_store``)
+``encode`` gathers a tile's rows from the store instead of walking its
+JSON; ``tpu/pipeline.py`` drives ``encode`` and the step with the encode
+on a feed thread or the encoder pool.
 
-Entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"`` (every kernel replaced by its plain twin).
+Entry points run on the card: ``make_mesh()`` spans every CUDA device
+and raises without one (never a CPU fallback); ``device="cpu"`` (a
+one-entry CPU mesh) or a mesh of CPU entries runs every kernel's plain
+twin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..api.policy import ClusterPolicy
 from ..tpu.compiler import (CompiledPolicySet, compile_policy_set,
                             nonascii_families)
@@ -59,12 +79,125 @@ from ..tpu.flatten import EncodeConfig, encode_resources_vocab
 from ..tpu.metadata import encode_metadata
 
 
-class ShardedScanner:
-    """Compile once, evaluate resource tiles on one device.
+class Mesh:
+    """A grid of devices of one process — the port's counterpart of
+    ``jax.sharding.Mesh``: ``devices`` is an object ndarray of
+    ``torch.device`` (its shape is the mesh's), ``axis_names`` names its
+    axes, ``size`` counts its entries. A device may appear more than
+    once; each entry holds one shard."""
 
-    The step returns (verdicts, counts): the (rules, N) uint8 verdict
-    table plus the per-(rule, verdict-class) int32 totals over all N
-    columns — the scan-service summary used for report rollups.
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+        devices = np.asarray(devices, dtype=object)
+        if devices.ndim != len(tuple(axis_names)):
+            raise ValueError(f"a mesh of shape {devices.shape} needs "
+                             f"{devices.ndim} axis names, got {axis_names}")
+        if devices.size == 0:
+            raise ValueError("a mesh needs at least one device")
+        self.devices = devices
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def flat(self) -> List[torch.device]:
+        """The entries in mesh order (host-major on a 2-axis mesh): the
+        order of the shards."""
+        return list(self.devices.reshape(-1))
+
+    @property
+    def distinct(self) -> List[torch.device]:
+        """Each device once, in the order it first appears."""
+        out: List[torch.device] = []
+        for d in self.flat:
+            if d not in out:
+                out.append(d)
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Mesh({[str(d) for d in self.flat]}, shape {self.shape})")
+
+
+def _mesh_device(d) -> torch.device:
+    """A mesh entry: a CPU device, or a CUDA device with its index."""
+    dev = torch.device(d)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {dev}: no CUDA device is "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(f"mesh device {dev}: only "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported mesh device {dev}")
+    return dev
+
+
+def _devices(devices: Optional[Sequence]) -> List[torch.device]:
+    """The given devices, or every CUDA device (never the CPU)."""
+    if devices is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+            raise RuntimeError(
+                "make_mesh: no CUDA device is available; the default mesh "
+                "spans every CUDA device and never falls back to the CPU "
+                "(pass devices=, e.g. ['cpu'] * 8, for a CPU mesh)")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [_mesh_device(d) for d in devices]
+
+
+def _object_array(devices: List[torch.device]) -> np.ndarray:
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return arr
+
+
+def make_mesh(devices: Optional[Sequence] = None, axis: str = "data"
+              ) -> Mesh:
+    """A one-axis mesh over ``devices`` (default: every CUDA device)."""
+    return Mesh(_object_array(_devices(devices)), (axis,))
+
+
+def make_mesh_2d(
+    hosts: int,
+    per_host: int,
+    devices: Optional[Sequence] = None,
+    axes: Tuple[str, str] = ("hosts", "data"),
+) -> Mesh:
+    """Two-axis (hosts, devices-per-host) mesh — the multi-host shape:
+    the tile's resources shard host-major over both axes, so each host
+    owns a contiguous range, and the verdict-count reduction crosses
+    both (kyverno_tpu/parallel/sharding.py:make_mesh_2d)."""
+    devices = _devices(devices)
+    if len(devices) < hosts * per_host:
+        raise ValueError(
+            f"need {hosts * per_host} devices for a {hosts}x{per_host} mesh, "
+            f"have {len(devices)}")
+    arr = _object_array(devices[: hosts * per_host]).reshape(hosts, per_host)
+    return Mesh(arr, axes)
+
+
+def _on(dev: torch.device):
+    """``torch.cuda.device(dev)`` for a CUDA device; nothing for the
+    CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+class ShardedScanner:
+    """Compile once, evaluate resource tiles sharded across a mesh.
+
+    The step returns (verdicts, counts): each shard's (rules, N / size)
+    uint8 verdict table, in mesh order, plus the per-(rule,
+    verdict-class) int32 totals over every column of the mesh — the
+    scan-service summary used for report rollups.
     """
 
     NUM_CLASSES = 7  # evaluator.NUM_VERDICT_CLASSES (incl. HOST/CONFIRM)
@@ -72,13 +205,27 @@ class ShardedScanner:
     def __init__(
         self,
         policies: Sequence[ClusterPolicy],
+        mesh: Optional[Mesh] = None,
         device=None,
         encode_cfg: Optional[EncodeConfig] = None,
         meta_cfg=None,
         exceptions: Sequence = (),
         data_sources=None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("ShardedScanner: pass mesh= or device=, not both")
+        if mesh is None:
+            # device= is shorthand for a one-entry mesh
+            mesh = make_mesh() if device is None \
+                else make_mesh([resolve_device(device)])
+        self.mesh = mesh
+        # resources shard over ALL mesh axes jointly, host-major
+        self.axes: Tuple[str, ...] = tuple(mesh.axis_names)
+        self.axis = self.axes[0]
+        # the mesh's first device: the counts reduce there, and the
+        # scan's TorchEngine (assemble, the quarantining fallback) runs
+        # there
+        self.device = mesh.flat[0]
         self.cps: CompiledPolicySet = compile_policy_set(
             policies, encode_cfg, meta_cfg, data_sources)
         self.exceptions = list(exceptions)
@@ -89,14 +236,22 @@ class ShardedScanner:
         self._vbucket = 1024
         self._sbucket = 256
         self._rbucket = min(64, self.cps.encode_cfg.max_rows)
-        step = build_program(
-            self.cps.device_programs, self.cps.encode_cfg.max_instances,
-            dfa=self.cps.dfa, verdicts_u8=True,
-            nfa_globs=self.cps.nfa_globs,
-            na_families=nonascii_families(self.cps.dfa,
-                                          self.cps.device_programs,
-                                          self.cps.nfa_globs))
-        self._step = graphed(step, self.device)
+        # one program per distinct device (its K6 constants, K9 packs,
+        # K10 tables and tapes live on that device), graphed on CUDA
+        na = nonascii_families(self.cps.dfa, self.cps.device_programs,
+                               self.cps.nfa_globs)
+        self._steps: Dict[torch.device, Any] = {}
+        for dev in mesh.distinct:
+            step = build_program(
+                self.cps.device_programs, self.cps.encode_cfg.max_instances,
+                dfa=self.cps.dfa, verdicts_u8=True,
+                nfa_globs=self.cps.nfa_globs, na_families=na)
+            self._steps[dev] = graphed(step, dev)
+        self._step = self._steps[self.device]
+        # each distinct device's kernel launches in the step (replays
+        # count the launches they stand for), by kernel name
+        self.device_launches: Dict[str, Dict[str, int]] = {
+            str(d): {} for d in mesh.distinct}
         # recording run: which compact lanes does THIS program read?
         # encode() drops everything else before transfer (meta lanes a
         # policy set never touches are most of the per-resource bytes)
@@ -126,14 +281,20 @@ class ShardedScanner:
         self._meta_need = {k[len("meta_"):] for k in used if k.startswith("meta_")}
         return used
 
+    # vocabulary lanes are replicated; everything else leads with N and
+    # shards across the mesh
+    @staticmethod
+    def _replicated_key(k: str) -> bool:
+        return k.startswith("vocab_") or k in ("pool_svocab", "pool_slen")
+
     @property
     def n_devices(self) -> int:
-        return 1
+        return self.mesh.size
 
     def pad(self, n: int) -> int:
         """The batch size ``n`` resources actually evaluate at: the
         power-of-two batch bucket (encode/tasks.py encode_vocab_host),
-        rounded to the device multiple (1)."""
+        rounded to the mesh multiple."""
         b = 16
         while b < n:
             b *= 2
@@ -177,11 +338,66 @@ class ShardedScanner:
         return host, n
 
     def put(self, batch: Dict[str, Any],
-            keep: Optional[list] = None) -> Dict[str, torch.Tensor]:
-        """Place a host batch on the device in ONE asynchronous copy
-        from pinned memory (``engine.lanes_to_device``); ``keep``
-        receives the pinned buffer."""
-        return lanes_to_device(batch, self.device, keep)
+            keep: Optional[list] = None) -> List[Dict[str, torch.Tensor]]:
+        """Place a host batch on the mesh: one lane dict a mesh entry,
+        in mesh order. Each per-resource lane is split into
+        ``mesh.size`` contiguous slices; the vocabulary lanes go once to
+        each distinct device. A device's lanes (the replicated ones and
+        its shards') travel in ONE asynchronous copy from one pinned
+        buffer (``engine.lanes_to_device``); ``keep`` receives the
+        pinned buffers."""
+        shards = self.mesh.flat
+        n = next((len(v) for k, v in batch.items()
+                  if not self._replicated_key(k)), 0)
+        if n % len(shards):
+            raise ValueError(f"put: a batch of {n} does not split over "
+                             f"{len(shards)} mesh entries")
+        per = n // len(shards)
+        out: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(shards)
+        for dev in self.mesh.distinct:
+            mine = [i for i, d in enumerate(shards) if d == dev]
+            lanes = {k: v for k, v in batch.items() if self._replicated_key(k)}
+            for i in mine:
+                for k, v in batch.items():
+                    if not self._replicated_key(k):
+                        lanes[f"{i}/{k}"] = v[i * per:(i + 1) * per]
+            with _on(dev):
+                on = lanes_to_device(lanes, dev, keep)
+            for i in mine:
+                out[i] = {k: on[k] if self._replicated_key(k)
+                          else on[f"{i}/{k}"] for k in batch}
+        return out
+
+    def step(self, shards: List[Dict[str, torch.Tensor]]
+             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """The mesh's step over ``put``'s shards: each through its
+        device's program inside ``torch.cuda.device(d)`` (nothing waits
+        for a device). Returns each shard's uint8 (rules, N / size)
+        table, in mesh order, and the int32 (rules, 7) counts over every
+        column, summed on the mesh's first device."""
+        verdicts, counts = [], []
+        for dev, lanes in zip(self.mesh.flat, shards):
+            # the first device's program is ``_step`` (step_jitted())
+            prog = self._step if dev == self.device else self._steps[dev]
+            with _on(dev), kernels.tallying_into(
+                    self.device_launches[str(dev)]):
+                v, c = prog(lanes)
+            verdicts.append(v)
+            counts.append(c)
+        if len(counts) == 1:
+            return verdicts, counts[0]
+        with _on(self.device):
+            total = torch.stack([c.to(self.device, non_blocking=True)
+                                 for c in counts]).sum(dim=0,
+                                                       dtype=torch.int32)
+        return verdicts, total
+
+    @staticmethod
+    def table(verdicts: List[torch.Tensor]) -> np.ndarray:
+        """The shards' tables read back into one host array, in mesh
+        order (waits for the devices)."""
+        parts = [v.cpu().numpy() for v in verdicts]
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
 
     def scan_device(self, resources, namespace_labels=None, operations=None
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -190,8 +406,8 @@ class ShardedScanner:
         resources exceeding encode caps, and host-fallback rules are
         absent — use scan() for the complete, resolved result."""
         batch, n = self.encode(resources, namespace_labels, operations)
-        verdicts, counts = self._step(self.put(batch))
-        return verdicts.cpu().numpy()[:, :n], counts.cpu().numpy()
+        verdicts, counts = self.step(self.put(batch))
+        return self.table(verdicts)[:, :n], counts.cpu().numpy()
 
     def _engine(self) -> TorchEngine:
         return TorchEngine(cps=self.cps, device=self.device,
@@ -212,12 +428,13 @@ class ShardedScanner:
         try:
             batch, n = self.encode(resources, namespace_labels, operations)
         except Exception:
-            return eng.scan(resources, namespace_labels, operations)
+            with _on(self.device):
+                return eng.scan(resources, namespace_labels, operations)
         D = len(self.cps.device_programs)
 
         def run():
-            v, c = self._step(self.put(batch))
-            v = v.cpu().numpy()
+            vs, c = self.step(self.put(batch))
+            v = self.table(vs)
             # the step's counts are the rule analytics' source: drop
             # the pad columns and stash them for the assemble() below
             eng.set_pending_counts(c.cpu().numpy().astype(np.int64)
@@ -253,8 +470,9 @@ class ShardedScanner:
                  "host_cells": 0, "tiles": 0, "tile": tile}
         eng = self._engine() if complete_host else None
         tables: List[np.ndarray] = []
-        # (device verdicts, pinned buffers, tile slice, n_valid)
-        pending: List[Tuple[torch.Tensor, list, slice, int]] = []
+        # (each shard's device verdicts, pinned buffers, tile slice,
+        # n_valid)
+        pending: List[Tuple[List[torch.Tensor], list, slice, int]] = []
         # every tile span is an explicit child of one scan-level span
         scan_span = global_tracer.start_span(
             "scan_stream", resources=n, tile=tile)
@@ -266,7 +484,7 @@ class ShardedScanner:
             with global_profiler.phase(PHASE_READBACK), \
                     global_tracer.span("scan_device_wait", parent=scan_ctx,
                                        tile=nv):
-                table = dv.cpu().numpy()[:, :nv]  # waits for the device
+                table = self.table(dv)[:, :nv]  # waits for the devices
             dt = time.perf_counter() - t0
             stats["device_s"] += dt
             global_starvation.record(busy_s=dt)
@@ -311,7 +529,7 @@ class ShardedScanner:
                 with global_profiler.phase(PHASE_DISPATCH), \
                         global_tracer.span("scan_dispatch", parent=scan_ctx,
                                            tile=nv):
-                    verdicts, _ = self._step(self.put(batch, pinned))
+                    verdicts, _ = self.step(self.put(batch, pinned))
                 pending.append((verdicts, pinned, sl, nv))
                 stats["tiles"] += 1
                 while len(pending) > max(in_flight, 1):
@@ -344,9 +562,10 @@ class ShardedScanner:
         return ScanResult(verdicts=total, rules=rules), stats
 
     def step_jitted(self):
-        """The step: device lanes -> ((rules, N) uint8 verdicts, (rules,
-        7) int32 counts over every column), asynchronous on CUDA —
-        nothing in it waits for the device. (The reference's jitted
-        step: on CUDA a ``GraphedProgram``, whose ``run`` is the eager
-        step; on the CPU the eager step.)"""
+        """The program of the mesh's first device: one shard's lanes ->
+        ((rules, n) uint8 verdicts, (rules, 7) int32 counts over its
+        columns), asynchronous on CUDA — nothing in it waits for the
+        device (on CUDA a ``GraphedProgram``, whose ``run`` is the eager
+        program; on the CPU the eager program). ``step`` runs the
+        mesh."""
         return self._step

@@ -132,6 +132,12 @@ class GraphedProgram:
         if len(devs) != 1 or next(iter(devs)).type != "cuda":
             raise ValueError(f"GraphedProgram: lanes on {sorted(map(str, devs))}"
                              f"; only CUDA lanes are graphed (call .run)")
+        dev = next(iter(devs))
+        if dev.index != torch.cuda.current_device():
+            # a capture and a replay run on the current device's stream
+            raise kernels.KernelError(
+                f"GraphedProgram: lanes on {dev}, the current device is "
+                f"cuda:{torch.cuda.current_device()}")
         key = self.key(lanes)
         with self._lock:
             n = self.key_counts.setdefault(
@@ -142,7 +148,7 @@ class GraphedProgram:
                     self._seen.add(key)
                     n["eager"] += 1
                     return self.run(lanes)
-                g = self._capture(key, next(iter(devs)), lanes)
+                g = self._capture(key, dev, lanes)
                 n["captures"] += 1
             self._graphs.move_to_end(key)
             g.load(lanes)

@@ -1,5 +1,6 @@
 # Copied from kyverno_tpu/tpu/pipeline.py; a chunk's launch and readback
-# are the port's own (_launch, _wait: CUDA copies, a graph replay, an event).
+# are the port's own (_launch, _wait: CUDA copies, a graph replay on each
+# shard's device, an event a device).
 """Pipelined scan — overlap host encode, device execute, and host
 completion across consecutive chunks (the port of
 kyverno_tpu/tpu/pipeline.py on CUDA streams).
@@ -20,11 +21,13 @@ Structure (double buffer, depth-bounded):
   queue, so encode can run at most ``depth`` chunks ahead —
   backpressure, not unbounded memory);
 - the dispatching thread, the only one that makes CUDA calls, launches
-  chunk k (``_launch``: the batch packed into its own pinned buffer and
-  copied to the device, the step's CUDA graph replayed, the verdicts
-  and counts copied back into the slot's own pinned buffers, an event
-  recorded — nothing waits) and only then drains chunk k-1: the wait
-  on k-1's event overlaps the device executing k, and the host
+  chunk k (``_launch``: the batch packed into pinned buffers and copied
+  to the mesh's devices, each shard's CUDA graph replayed on its
+  device, each shard's verdicts copied back into its own block of the
+  slot's pinned buffer and the counts into another, an event recorded
+  on each distinct device — nothing waits) and only then drains chunk
+  k-1: the wait on k-1's events overlaps the devices executing k, and
+  the host
   completion + report-row generation for k-1 (the ``on_result``
   callback) overlaps it too. A slot holds its buffers until its event
   has fired; the step's graph returns clones of its outputs, so a
@@ -99,43 +102,59 @@ def scanner_encode_profile(scanner, ns_labels=None) -> Dict[str, Any]:
 class _Slot:
     """One launched chunk: the step's verdicts and counts (on the CPU
     the tensors themselves; on CUDA the slot's own pinned host buffers,
-    filled by asynchronous copies), the pinned input buffer and the
-    device tensors the copies read, held until ``event`` has fired."""
+    filled by asynchronous copies: the verdicts as (shards, rules,
+    N / shards), a shard's table a contiguous block), the pinned input
+    buffers and the device tensors the copies read, held until every
+    one of ``events`` (one a distinct device) has fired."""
 
-    __slots__ = ("verdicts", "counts", "keep", "event")
+    __slots__ = ("verdicts", "counts", "keep", "events")
 
-    def __init__(self, verdicts, counts, keep, event):
+    def __init__(self, verdicts, counts, keep, events):
         self.verdicts, self.counts = verdicts, counts
-        self.keep, self.event = keep, event
+        self.keep, self.events = keep, events
 
 
 def _launch(scanner, batch: Dict[str, Any]) -> _Slot:
-    """Enqueue one chunk on the current stream and return at once: the
-    copy in from the batch's pinned buffer, the step (a CUDA graph
-    replay), the copies of its verdicts and counts into pinned buffers
-    of this slot alone, and an event after them. Called on the
-    dispatching thread only."""
+    """Enqueue one chunk on the mesh's devices' current streams and
+    return at once: the copies in from the batch's pinned buffers, the
+    step (each shard's CUDA graph replayed on its device), the copy of
+    each shard's verdicts into its block of one pinned buffer, of the
+    counts (on the mesh's first device) into another, and an event on
+    each distinct device after its copies. Called on the dispatching
+    thread only."""
     import torch
 
     keep: list = []
-    v, c = scanner._step(scanner.put(batch, keep))
-    if v.device.type != "cuda":
-        return _Slot(v, c, keep, None)
-    vh = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+    vs, c = scanner.step(scanner.put(batch, keep))
+    if c.device.type != "cuda":
+        return _Slot(vs[0] if len(vs) == 1 else torch.cat(vs, dim=1), c,
+                     keep, None)
+    mesh = scanner.mesh
+    vh = torch.empty((len(vs),) + tuple(vs[0].shape), dtype=vs[0].dtype,
+                     pin_memory=True)
     ch = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
-    vh.copy_(v, non_blocking=True)
-    ch.copy_(c, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return _Slot(vh, ch, keep + [v, c], event)
+    for i, (dev, v) in enumerate(zip(mesh.flat, vs)):
+        with torch.cuda.device(dev):
+            vh[i].copy_(v, non_blocking=True)
+    events = []
+    for dev in mesh.distinct:
+        with torch.cuda.device(dev):
+            if dev == c.device:
+                ch.copy_(c, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            events.append(event)
+    return _Slot(vh, ch, keep + vs + [c], events)
 
 
 def _wait(slot: _Slot) -> Tuple[np.ndarray, np.ndarray]:
-    """The slot's (verdicts, counts) on the host, once its event has
-    fired."""
-    if slot.event is not None:
-        slot.event.synchronize()
+    """The slot's (verdicts, counts) on the host, once all its events
+    have fired; the shards' blocks are read back in mesh order."""
+    for event in slot.events or ():
+        event.synchronize()
     v, c = slot.verdicts.numpy(), slot.counts.numpy()
+    if v.ndim == 3:
+        v = v.transpose(1, 0, 2).reshape(v.shape[1], -1)
     slot.keep = None
     return v, c
 

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -209,8 +210,13 @@ def k4_plans(torch, kernels, cs, table, u8):
                        device=table.device) if u8 else None
     got = {}
     for C, threads in K4_PLANS:
+        # the tree's _call takes the launch's device where its kernel
+        # state is kept per device; an older tree's does not
+        dev = (table.device,) if "device" in inspect.signature(
+            kernels._call).parameters else ()
+
         def k4(t=table):
-            kernels._call("verdict_counts", kernels._ptr(t), rules, n,
+            kernels._call("verdict_counts", *dev, kernels._ptr(t), rules, n,
                           kernels._ptr(out), kernels._ptr(out8), C, threads,
                           1)
 

@@ -618,8 +618,8 @@ def test_verdict_counts_refused_launch_raises_kernel_error(cuda):
     out = torch.empty((2, 7), dtype=torch.int32, device=cuda)
     kernels.build_all()
     with pytest.raises(kernels.KernelError):  # 2,048 threads a block
-        kernels._call("verdict_counts", kernels._ptr(table), 2, 64,
-                      kernels._ptr(out), None, 1, 2048, 1)
+        kernels._call("verdict_counts", table.device, kernels._ptr(table),
+                      2, 64, kernels._ptr(out), None, 1, 2048, 1)
     # nothing sticky: the next launch runs
     assert torch.equal(kernels.verdict_counts(table).cpu(),
                        kernels.verdict_counts_plain(table.cpu()))
@@ -1075,7 +1075,8 @@ def test_deferred_counts_and_anchor_replay_equals_eager(cuda, monkeypatch):
 def test_step_replay_equals_eager_and_plain(cuda):
     from kyverno_tpu_torch.tpu.evaluator import build_program
 
-    sc = ShardedScanner([expand_policy(p) for p in load_pss_policies()])
+    sc = ShardedScanner([expand_policy(p) for p in load_pss_policies()],
+                        device=cuda)
     plain = build_program(sc.cps.device_programs,
                           sc.cps.encode_cfg.max_instances, dfa=sc.cps.dfa,
                           plain=True, verdicts_u8=True,
@@ -1083,7 +1084,7 @@ def test_step_replay_equals_eager_and_plain(cuda):
 
     def lanes_of(seed):
         host, _ = sc.encode(_pss_pods(100, seed) + [{}] * 28)
-        return sc.put(host)
+        return sc.put(host)[0]  # a one-entry mesh: one shard
 
     _replay_equals_eager(sc.step_jitted(), plain, lanes_of)
 
@@ -1924,3 +1925,87 @@ def test_analyze_engine_on_the_card_equals_the_cpu(cuda, monkeypatch):
     assert np.array_equal(tables[1], tables[2])
     counts = reps[0].counts()
     assert all(counts[k] >= 1 for k in counts) and reps[0].stats["refuted"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the sharded scan on a mesh of CUDA devices (a device may repeat)
+
+
+def _mesh_devices(k):
+    """``k`` mesh entries over the visible cards (``cuda:0`` repeats on
+    a one-card machine)."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(k)]
+
+
+def test_mesh_on_the_card_equals_one_device(cuda):
+    """A 2-entry and a 2 x 2 mesh give the one-device scanner's table
+    and counts exactly (scan_device, scan_stream, PipelinedScanner), and
+    every kernel of the step launches on every distinct device."""
+    from kyverno_tpu_torch.parallel import make_mesh, make_mesh_2d
+    from kyverno_tpu_torch.tpu.pipeline import PipelinedScanner
+
+    policies = [expand_policy(p) for p in load_pss_policies()]
+    one = ShardedScanner(policies, device=cuda)
+    pods = _pss_pods(300, 7)
+    want_v, want_c = one.scan_device(pods)
+    want_s, _ = one.scan_stream(pods, tile=128)
+    for mesh in (make_mesh(_mesh_devices(2)),
+                 make_mesh_2d(2, 2, _mesh_devices(4))):
+        sc = ShardedScanner(policies, mesh=mesh)
+        for _ in range(3):  # eager run, capture, replay
+            v, c = sc.scan_device(pods)
+            assert np.array_equal(v, want_v) and np.array_equal(c, want_c)
+        got, stats = sc.scan_stream(pods, tile=128)
+        assert stats["tiles"] == 3
+        assert np.array_equal(got.verdicts, want_s.verdicts)
+        out = {}
+        PipelinedScanner(sc).scan_chunks(
+            [pods[:128], pods[128:256], pods[256:]],
+            on_result=lambda i, r: out.__setitem__(i, r))
+        assert np.array_equal(np.concatenate(
+            [out[i].verdicts for i in range(3)], axis=1), want_s.verdicts)
+        for d in mesh.distinct:
+            got_l = sc.device_launches[str(d)]
+            for name in ("vocab_gather", "hash_match", "class_fold",
+                         "row_fold", "verdict_counts_u8"):
+                assert got_l.get(name, 0) > 0, (d, name)
+
+
+def test_kernels_on_a_second_device_after_the_first(cuda, monkeypatch):
+    """K1 (tiles past 48 KB of shared memory), K11 and K12 launch on
+    cuda:1 after cuda:0 (each device opts in to its shared memory), and a
+    launch whose tensors are off the current device raises."""
+    from kyverno_tpu_torch.tpu import fold
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    globs, bank = _tenant_bank(monkeypatch)
+    ids = bank.families["ns"]
+    byt, lens = _tenant_lane(globs, 1024)
+    want = tdfa.bank_match(bank, ids, byt, lens)
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        with torch.cuda.device(dev):
+            assert max(g.smem for g in tdfa.scan_groups(bank, ids, dev)) \
+                > 48 << 10
+            got = tdfa.bank_match(bank, ids, byt.to(dev), lens.to(dev))
+            assert torch.equal(got.cpu(), want)
+            N, I = 1500, 16
+            tape, outs = _fold_tape(dev, 3, N, I)
+            comp = tape.cache.get(tape.code, tuple(o.vid for o in outs), I)
+            got_f, want_f = ([torch.empty(o.shape, device=dev,
+                                          dtype=torch.bool if o.dtype ==
+                                          fold.BOOL else torch.int32)
+                              for o in outs] for _ in range(2))
+            fold.run_segments(comp, tape.inputs, got_f, False, (N, I, I))
+            fold.run_segments(comp, tape.inputs, want_f, True, (N, I, I))
+            torch.cuda.synchronize()
+            for g, w in zip(got_f, want_f):
+                assert torch.equal(g.cpu(), w.cpu())
+            rt, routs = _row_flush(dev, 4, 4096, 256)
+            _row_launches(rt, routs, 4096, 256, dev)
+    hi = torch.zeros((64, 8), dtype=torch.int32, device="cuda:1")
+    consts = kernels.hash_consts([(1, 2)], "cuda:1")
+    with torch.cuda.device(0):
+        with pytest.raises(kernels.KernelError, match="current device"):
+            kernels.hash_match(hi, hi, consts)

@@ -140,6 +140,12 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "import kyverno_tpu_torch.cluster, kyverno_tpu_torch.reports\n"
         "import kyverno_tpu_torch.analysis, kyverno_tpu_torch.policy.validation\n"
         "import kyverno_tpu_torch.cluster.scanner, kyverno_tpu_torch.cluster.webhookconfig\n"
+        "from kyverno_tpu_torch.parallel import make_mesh, make_mesh_2d\n"
+        "m = ShardedScanner(eng.cps.policies, mesh=make_mesh_2d(1, 2, ['cpu'] * 2))\n"
+        "assert (m.scan([pod] * 3).verdicts == sc.scan([pod] * 3).verdicts).all()\n"
+        "import kyverno_tpu_torch.fleet, kyverno_tpu_torch.parallel\n"
+        "import kyverno_tpu_torch.dryrun, kyverno_tpu_torch.cli.flight\n"
+        "import kyverno_tpu_torch.cluster.leaderelection\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"

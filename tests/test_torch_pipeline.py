@@ -215,7 +215,7 @@ def test_the_launch_holds_its_buffers_until_the_readback():
     _, ts = _scanners()
     batch, n = ts.encode(_pods(8))
     slot = tpipeline._launch(ts, batch)
-    assert slot.event is None and slot.keep is not None
+    assert slot.events is None and slot.keep is not None
     v, c = tpipeline._wait(slot)
     assert slot.keep is None
     assert v.shape[1] >= n and c.shape == (v.shape[0], 7)

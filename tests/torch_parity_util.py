@@ -30,10 +30,11 @@ torch.set_num_threads(1)
 @pytest.fixture(autouse=True)
 def fresh_port_state():
     """The port's verdict and encode caches, columnar store, report
-    store, rule analytics and last static analysis are process-global,
-    as the reference's are: every test starts from empty ones
-    (tests/conftest.py does the same for the JAX package). Autouse in
-    each test module that imports it."""
+    store, rule analytics, last static analysis and fleet manager are
+    process-global, as the reference's are: every test starts from
+    empty ones and leaves no fleet behind (tests/conftest.py does the
+    same for the JAX package). Autouse in each test module that imports
+    it."""
     from kyverno_tpu_torch.analysis import global_analysis
     from kyverno_tpu_torch.cluster.columnar import reset_store
     from kyverno_tpu_torch.observability.analytics import (
@@ -56,6 +57,14 @@ def fresh_port_state():
     reset_store()
     reset_reports()
     global_analysis.reset()
+    # the fleet manager is process-global like the caches: a test that
+    # configures a replica must not leak its membership, peer breakers
+    # or the verdict cache's fan-out hook into the next test
+    from kyverno_tpu_torch.fleet import get_fleet, reset_fleet
+
+    if get_fleet() is not None:
+        reset_fleet()
+    global_verdict_cache.on_put = None
 
 
 @pytest.fixture
