@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (kyverno_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--n 16384] [--scan-n 100000] [--tile 8192]
+    python3 chip_smoke.py [--n 16384] [--scan-n 50000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
         [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
-        [--reports-n 70000] [--seed 0]
+        [--reports-n 40000] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -53,7 +53,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    program (median of 5) and readback. The stride-1 scan entry runs on
    the same path with ``KYVERNO_TPU_DFA_STRIDE=1``;
 5. the background scan path: ``ShardedScanner(PSS).scan_stream`` over
-   a 100,000-resource snapshot in 8,192-resource tiles (the vocabulary
+   a 50,000-resource snapshot (``--scan-n``) in 8,192-resource tiles
+   (the vocabulary
    form): its coverage, stats and resources/s, its launch counts, the
    first tile against the dense ``TorchEngine``, the step against the
    plain-twin step, 257 resources against the CPU scanner, the
@@ -90,7 +91,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 10. the pipelined background scan: phase 5's snapshot through
    ``tpu/pipeline.py:PipelinedScanner`` in chunks of the tile, (a) fed
    by an encode thread, (b) by an encoder pool of min(8, cpu_count - 2)
-   worker processes, (c) its first 4 tiles cold and then warm in a
+   worker processes, (c) its first 2 tiles cold and then warm in a
    columnar store (a temporary directory) with the encode cache on
    (cut from all 13 for the time limit): resources/s,
    ``encode_s``, ``encode_wait_s``, ``device_s``, ``host_s`` and
@@ -106,14 +107,14 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    EncodeConfig(max_rows=128))``, its buckets 16, 32 and 64 warmed twice
    each (the eager run, then the capture), both content caches off;
    ``AdmissionPipeline`` over the admission server's evaluator core.
-   (a) bench.py's config #5: 20,000 requests (``--adm-requests``; the
+   (a) bench.py's config #5: 10,000 requests (``--adm-requests``; the
    bench's 50,000 cut for the time limit) from 64 threads over 2,048
    seeded resources, the flight recorder at its default sampling and
    the shadow verifier at rate 0.1: requests/s, latency p50 / p99 /
    p99.9, flushes by bucket and reason, the mean batch, eager runs,
    captures and replays by bucket (one capture each); (b) bench.py's
    mixed traffic (its ``BatchConfig``, a one-resource scan as the
-   scalar fallback): 200 unloaded critical requests, then 10,000 bulk
+   scalar fallback): 200 unloaded critical requests, then 5,000 bulk
    (``--adm-bulk``; the bench's 20,000 cut) from 32 threads beside 400
    critical at 2 ms spacing: critical p99 unloaded and loaded, bulk
    shed, hedges and their winners; (c) a ``PolicySetLifecycleManager``
@@ -132,7 +133,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``graphs`` lines).
 12. incremental reports and the background scan service
    (``cluster/scanner.py``, ``reports/``): bench.py's soak (config #17)
-   at 70,000 lean Pods in 16 namespaces (``--reports-n``; the bench's
+   at 40,000 lean Pods in 16 namespaces (``--reports-n``; the bench's
    1,000,000 cut for the time limit), the 18 PSS policies in a
    ``PolicyCache``, a journaled ``ReportStore`` in a temporary
    directory (the bench's journal cap, 1 GiB), the flight recorder
@@ -177,7 +178,7 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
 14. the sharded scan on a mesh of CUDA devices (``parallel/``, one
    process's devices; a card repeats when the machine has fewer cards
    than the mesh has entries, and the phase prints how many are
-   distinct): phase 5's 100,000-resource snapshot in 8,192 tiles on
+   distinct): phase 5's snapshot in 8,192 tiles on
    ``make_mesh()`` (every card) and on ``make_mesh_2d(2, 2, devs)``
    (``devs`` = ``cuda:(i % count)`` for i < 4), each through
    ``scan_stream`` (cold, then warm) and ``PipelinedScanner`` (an encode
@@ -192,6 +193,36 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    partition the keyspace, the two stores' rows are a one-replica
    store's, and after one replica leaves gracefully the other's takeover
    rescan gives the one-replica store's digest. Both caches off.
+15. the admission webhook server and its entry points
+   (``webhooks/server.py``, ``cli/serve.py``, ``cli/apply.py``): (a) a
+   ``ControlPlane`` on the card with ``--batching`` and
+   ``--mutate-batching`` over PSS (Audit), a mutate policy, a
+   digest-only verifyImages policy and an Enforce policy answers 2,048
+   seeded AdmissionReviews over HTTP
+   (``/validate``, ``/mutate`` and one PSS policy's fine-grained path)
+   from 4 client threads of another process (``http_load``; fewer
+   than the server's accept backlog of 5):
+   requests/s, p50, p99 with and without the requests that overlap a
+   bucket's eager run or capture, the requests of 1 s or more, the
+   eager runs and captures by thread and batch, then its scan service
+   over a 512 resource snapshot, and the launches of the traffic and the
+   scan. Gates: a seeded 256 of the answers, some of them denied, and
+   the admission report rows of their resources (the Audit verdicts)
+   equal a CPU ``Handlers``' (plain twins; their columns computed first
+   in three batched CPU scans and taken from the verdict cache,
+   ``cpu_prewarm``), the rows hold both passes and failures, the scan's
+   rows equal a CPU scan service's, every validate
+   and mutate-triage flush ran on the card, every kernel of the dense
+   and scan paths launched; (b) bench.py's ``churn`` config (32
+   workers, 8 s, the churned policy re-set every 50 ms, ``BatchConfig
+   (64, 2.0, 30,000, 120)``): requests/s, p50 / p99, swaps, revisions
+   served, the eager runs and captures by thread; gates: no error, no
+   kernel error, at least one swap; (c) ``python -m kyverno_tpu_torch
+   serve`` as a process (ready, one ``/validate``, ``/metrics``,
+   SIGTERM exits 0) and ``apply --engine tpu`` against ``--engine
+   scalar`` on one resource directory (the same exit code, summary and
+   failing (policy, rule, resource) rows). Both caches off in (a) and
+   (b).
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -243,13 +274,14 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9 to 14; phase 6's
+Phases 7 and 8 run after phase 5, then phases 9 to 15; phase 6's
 lines come last (the kernels line gives launches by path, the admission
 path's from part (a), the reports tick path's from phase 12 (a)'s churn
 ticks, the analysis tile path's from phase 13's warm run, the mesh scan
 path's from phase 14's warm ``scan_stream`` on the 2 x 2 mesh, with its
-launches by device, and each kernel's launches and trace time in one
-flush at each admission bucket).
+launches by device, the server path's from phase 15 (a)'s traffic and
+scan, and each kernel's launches and trace time in one flush at each
+admission bucket).
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -346,7 +378,24 @@ TENANT_SPLIT = (2997, 267)
 # phase 10 (c): tiles of the snapshot through the columnar store (its
 # cold fill cut from the whole snapshot's 13 tiles to keep the run
 # within its limit)
-COLUMNAR_CHUNKS = 4
+COLUMNAR_CHUNKS = 2
+
+
+class PhaseClock:
+    """Wall seconds of each phase of ``main`` (from its mark to the next),
+    printed with the kernels line: what to cut first when the run nears
+    its limit."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._at = None
+
+    def mark(self, phase) -> None:
+        now = time.perf_counter()
+        if self._at is not None:
+            name, t0 = self._at
+            self.seconds[name] = round(now - t0, 3)
+        self._at = None if phase is None else (phase, now)
 
 
 def say(phase: str, msg: str) -> None:
@@ -5204,11 +5253,828 @@ def mesh_phase(torch, kernels, scanner, policies, feed, tile, tag):
     return out["make_mesh_2d(2, 2)"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the admission webhook server and its entry points on the card
+# (webhooks/server.py, cli/serve.py, cli/apply.py, python -m
+# kyverno_tpu_torch)
+
+# (a): PSS (Audit), a mutate policy, a digest-only verifyImages policy (no
+# attestor, so no registry: its validate side fails an image without a
+# digest) and an Enforce policy (about half of the seeded Pods and their
+# controllers run an image from evil.io, and are denied) behind a
+# ControlPlane with --batching and --mutate-batching
+SERVER_POLICIES = (
+    {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+     "metadata": {"name": "add-team-label"},
+     "spec": {"rules": [{
+         "name": "team",
+         "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+         "mutate": {"patchStrategicMerge": {"metadata": {
+             "labels": {"+(team)": "core"}}}}}]}},
+    {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+     "metadata": {"name": "image-digests"},
+     "spec": {"validationFailureAction": "Audit", "rules": [{
+         "name": "digest",
+         "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+         "verifyImages": [{"imageReferences": ["*"], "verifyDigest": True,
+                           "mutateDigest": False, "required": False}]}]}},
+    {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+     "metadata": {"name": "trusted-registries"},
+     "spec": {"validationFailureAction": "Enforce", "rules": [{
+         "name": "registry",
+         "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+         "validate": {"message": "images from evil.io are not allowed",
+                      "pattern": {"spec": {"containers": [
+                          {"image": "!evil.io/*"}]}}}}]}},
+)
+# the fine-grained path of (a): one PSS policy's own webhook
+SERVER_FINEGRAINED = "/validate/fail/finegrained/disallow-privileged-containers"
+SERVER_REQUESTS = 2048  # (a)'s AdmissionReviews over HTTP
+SERVER_CHECKED = 256  # (a)'s reviews held against the CPU's answers
+# (a)'s HTTP clients, one connection a request: fewer than the server's
+# accept backlog (socketserver's default of 5). More concurrent connects
+# overflow the accept queue: TCP retries a dropped one after 1 s, or the
+# connection is reset and the request fails
+SERVER_CLIENTS = 4
+# bench.py's churn config (bench_churn): 32 workers for 8 s, the churn
+# policy re-set every 50 ms, BatchConfig(64, 2.0, 30,000, 120)
+CHURN_WORKERS = 32
+CHURN_SECONDS = 8.0
+CHURN_EVERY_S = 0.05
+
+
+def churn_policy(i: int) -> dict:
+    """bench.py's churned policy at revision ``i``."""
+    return {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": "churned"},
+            "spec": {"validationFailureAction": "Enforce", "rules": [{
+                "name": "r",
+                "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+                "validate": {"message": f"v{i}", "pattern": {
+                    "spec": {"containers": [{"=(securityContext)": {
+                        "=(privileged)": "true" if i % 2 else "false"}}]}}},
+            }]}}
+
+
+def churn_snapshot(n: int, seed: int = 0):
+    """bench.py's ``make_snapshot``: Pods with varied security settings."""
+    rng = random.Random(seed)
+    out = []
+    for i in range(n):
+        containers = []
+        for c in range(rng.randint(1, 3)):
+            sc = {}
+            if rng.random() < 0.3:
+                sc["privileged"] = rng.choice([True, False])
+            if rng.random() < 0.4:
+                sc["allowPrivilegeEscalation"] = rng.choice([True, False])
+            if rng.random() < 0.3:
+                sc["runAsNonRoot"] = rng.choice([True, False])
+            if rng.random() < 0.3:
+                sc["seccompProfile"] = {"type": rng.choice(
+                    ["RuntimeDefault", "Unconfined", "Localhost"])}
+            if rng.random() < 0.2:
+                sc["capabilities"] = {"add": rng.sample(
+                    ["CHOWN", "KILL", "SYS_ADMIN", "NET_RAW"],
+                    k=rng.randint(1, 2))}
+            if rng.random() < 0.15:
+                sc["capabilities"] = {"drop": ["ALL"]}
+            containers.append({
+                "name": f"c{c}", "image": rng.choice(["nginx:1.25",
+                                                      "redis:7"]),
+                **({"securityContext": sc} if sc else {}),
+                "resources": {"limits": {"memory": rng.choice(
+                    ["256Mi", "1Gi", "4Gi"])}},
+                **({"ports": [{"containerPort": 80 + c,
+                               **({"hostPort": 8080}
+                                  if rng.random() < 0.1 else {})}]}
+                   if rng.random() < 0.3 else {}),
+            })
+        spec = {"containers": containers}
+        if rng.random() < 0.2:
+            spec["hostNetwork"] = rng.choice([True, False])
+        if rng.random() < 0.3:
+            spec["volumes"] = [{"name": "v", rng.choice(
+                ["emptyDir", "configMap", "hostPath", "secret"]): {}}]
+        if rng.random() < 0.3:
+            spec["securityContext"] = {"runAsUser": rng.choice([0, 1000])}
+        meta = {"name": f"pod-{i}",
+                "namespace": rng.choice(["default", "prod", "dev"]),
+                "labels": {"app": f"app-{i % 17}"}}
+        if rng.random() < 0.1:
+            meta["annotations"] = {
+                "container.apparmor.security.beta.kubernetes.io/c0":
+                    rng.choice(["runtime/default", "localhost/p1",
+                                "unconfined"])}
+        out.append({"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+                    "spec": spec})
+    return out
+
+
+class ServerTrace:
+    """The phase's device program calls and admission flushes: every
+    ``GraphedProgram`` call's thread, batch, kind (eager run, capture,
+    replay) and interval; every validate flush's dispatch path and
+    every mutate-triage flush's device batches, read on the flusher's
+    thread (the dispatch path is kept per thread)."""
+
+    def __init__(self):
+        import threading
+
+        self.calls = []
+        self.flushes = []
+        self.lock = threading.Lock()
+
+    def install(self):
+        import threading
+
+        from kyverno_tpu_torch.observability.profiling import \
+            last_dispatch_path
+        from kyverno_tpu_torch.tpu import graphs
+        from kyverno_tpu_torch.webhooks import server
+
+        trace = self
+        self._saved = (graphs.GraphedProgram.__call__,
+                       server.Handlers._evaluate_padded,
+                       server.Handlers._triage_padded)
+        real_call, real_eval, real_triage = self._saved
+
+        def call(gp, lanes):
+            key = gp.key(lanes)
+            before = dict(gp.key_counts.get(key, {}))
+            t0 = time.perf_counter()
+            try:
+                return real_call(gp, lanes)
+            finally:
+                t1 = time.perf_counter()
+                after = gp.key_counts.get(key, {})
+                kind = next((k for k in ("captures", "eager")
+                             if after.get(k, 0) > before.get(k, 0)),
+                            "replays")
+                with trace.lock:
+                    trace.calls.append((threading.current_thread().name,
+                                        key[0][1][0], kind, t0, t1))
+
+        def evaluate(h, payloads, pinned=None):
+            out = real_eval(h, payloads, pinned)
+            dev = None if pinned is None else pinned.engine.device.type
+            with trace.lock:
+                trace.flushes.append(("validate", len(payloads),
+                                      last_dispatch_path("none"), dev))
+            return out
+
+        def triage(h, payloads, pinned=None):
+            eng = None if pinned is None else pinned.engine
+            d0 = None if eng is None else (eng.triage_dispatches,
+                                           eng.triage_encode_fallbacks)
+            out = real_triage(h, payloads, pinned)
+            path = "none"
+            if eng is not None:
+                d1 = (eng.triage_dispatches, eng.triage_encode_fallbacks)
+                path = "device" if d1[0] > d0[0] and d1[1] == d0[1] \
+                    else "host"
+            with trace.lock:
+                trace.flushes.append(("triage", len(payloads), path,
+                                      None if eng is None
+                                      else eng.device.type))
+            return out
+
+        graphs.GraphedProgram.__call__ = call
+        server.Handlers._evaluate_padded = evaluate
+        server.Handlers._triage_padded = triage
+
+    def uninstall(self):
+        from kyverno_tpu_torch.tpu import graphs
+        from kyverno_tpu_torch.webhooks import server
+
+        (graphs.GraphedProgram.__call__, server.Handlers._evaluate_padded,
+         server.Handlers._triage_padded) = self._saved
+
+    def firsts(self, since: float):
+        """(thread, batch, kind, s) of the eager runs and captures since
+        ``since``."""
+        return [(t, b, k, round(t1 - t0, 3)) for t, b, k, t0, t1 in self.calls
+                if t0 >= since and k != "replays"]
+
+    def busy(self, since: float):
+        """Intervals of the eager runs and captures since ``since``."""
+        return [(t0, t1) for _, _, k, t0, t1 in self.calls
+                if t0 >= since and k != "replays"]
+
+
+# phase 15 (a)'s load generator: a process of its own, so that the
+# server's interpreter (its GIL) runs only the server's work. Arguments:
+# the reviews' file, the answers' file, the port, the client threads.
+# One connection a request; each answer is [status, body, t0, t1] on the
+# system-wide monotonic clock (``time.perf_counter``), which the
+# server's process reads too.
+HTTP_CLIENT = r"""
+import concurrent.futures, http.client, json, sys, time
+src, dst, port, clients = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    int(sys.argv[4])
+with open(src) as f:
+    reqs = json.load(f)
+
+def post(pr):
+    path, body = pr
+    data = json.dumps(body)
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, data,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+    finally:
+        conn.close()
+    return [resp.status, raw.decode(), t0, time.perf_counter()]
+
+with concurrent.futures.ThreadPoolExecutor(max_workers=clients) as ex:
+    out = list(ex.map(post, reqs))
+with open(dst, "w") as f:
+    json.dump(out, f)
+"""
+
+
+def http_load(port: int, reviews, clients: int):
+    """(status, response, t0, t1) of each (path, review) of ``reviews``,
+    posted by ``HTTP_CLIENT`` in a process of its own from ``clients``
+    threads."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-load-") as d:
+        src, dst = os.path.join(d, "in.json"), os.path.join(d, "out.json")
+        with open(src, "w") as f:
+            json.dump(reviews, f)
+        subprocess.run([sys.executable, "-c", HTTP_CLIENT, src, dst,
+                        str(port), str(clients)], check=True, timeout=1200)
+        with open(dst) as f:
+            out = json.load(f)
+    return [(st, json.loads(b) if st == 200 else b, t0, t1)
+            for st, b, t0, t1 in out]
+
+
+def http_post(port: int, path: str, body) -> tuple:
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    t1 = time.perf_counter()
+    return resp.status, json.loads(data) if resp.status == 200 else data, \
+        t0, t1
+
+
+def http_get(port: int, path: str) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def server_reviews(n: int, seed: int):
+    """(path, AdmissionReview) pairs: ``workload``'s resources and
+    operations (an UPDATE carries its old object, a DELETE only its old
+    object) spread over /validate, /mutate and the fine-grained path."""
+    resources, ops = workload(n, seed)
+    rng = random.Random(seed)
+    out = []
+    for i, (res, op) in enumerate(zip(resources, ops)):
+        op = op or "CREATE"
+        req = {"uid": f"s{i}", "operation": op,
+               "namespace": res["metadata"]["namespace"],
+               "userInfo": {"username": rng.choice(
+                   ["alice", "system:serviceaccount:ci:deployer"]),
+                   "groups": ["dev"]}}
+        if op == "DELETE":
+            req["oldObject"] = res
+        else:
+            req["object"] = res
+            if op == "UPDATE":
+                req["oldObject"] = res
+        path = ("/validate", "/mutate", SERVER_FINEGRAINED)[i % 3]
+        out.append((path, {"apiVersion": "admission.k8s.io/v1",
+                           "kind": "AdmissionReview", "request": req}))
+    return out
+
+
+def cpu_prewarm(h, reviews) -> dict:
+    """Put into the verdict cache (which must be on) the CPU engine's
+    columns for ``reviews``: the validate scans, the mutate triage, and
+    the patched objects of the composed validate leg, in three batched
+    scans on ``h``'s own compiled version. The patched objects are
+    predicted by ``h``'s host mutate engine over the set's mutate
+    policies (the server's own loop when it has no compiled version).
+    ``h`` (CPU ``Handlers``) then answers every review itself, taking
+    those columns from the cache; a patched object the prediction missed
+    is scanned by ``h``. Returns the resources of each scan."""
+    from kyverno_tpu_torch.cluster.policycache import PolicyType
+    from kyverno_tpu_torch.tpu.engine import build_scan_context
+    from kyverno_tpu_torch.webhooks.server import (AdmissionPayload,
+                                                   _payload_from_request)
+
+    _, eng = h._engine()
+    nsmap = h.snapshot.namespace_labels() if h.snapshot else {}
+    need = h._need_roles()
+    val, tri, pat = [], [], []
+    for path, rv in reviews:
+        p = _payload_from_request(rv["request"], h.snapshot, need)
+        if path != "/mutate":
+            val.append(p)
+            continue
+        tri.append(p)
+        patched = p.resource
+        for policy in h.cache.get_policies(
+                PolicyType.MUTATE, kind=patched.get("kind"),
+                namespace=p.namespace):
+            out = h.scalar.mutate(build_scan_context(
+                policy, patched, nsmap.get(p.namespace, {}), p.operation,
+                p.info))
+            if out.patched_resource is not None:
+                patched = out.patched_resource
+        if patched != p.resource:
+            pat.append(AdmissionPayload(patched, p.operation, p.info,
+                                        p.namespace, old=p.old,
+                                        dry_run=p.dry_run))
+    for group in (val, pat):
+        if group:
+            eng.scan([p.old if (p.operation == "DELETE" and p.old)
+                      else p.resource for p in group], nsmap,
+                     operations=[p.operation for p in group],
+                     admission_infos=[p.info for p in group])
+    if tri:
+        eng.triage_mutate([p.resource for p in tri], nsmap,
+                          operations=[p.operation for p in tri],
+                          admission_infos=[p.info for p in tri])
+    return {"validate": len(val), "triage": len(tri), "patched": len(pat)}
+
+
+def admission_report_rows(agg, uids) -> dict:
+    """Each of ``uids``' rows in the aggregator ``agg``, without their
+    timestamps, in a fixed order."""
+    import dataclasses
+
+    out = {}
+    for uid in uids:
+        rows = agg._per_resource.get(uid)
+        if rows is not None:
+            out[uid] = sorted(tuple(v for k, v in dataclasses.asdict(r).items()
+                                    if k != "timestamp") for r in rows)
+    return out
+
+
+def p99_without(lats, spans, busy) -> tuple:
+    """(p99 ms, requests left out) of the requests whose span overlaps
+    no eager run or capture."""
+    keep = [lat for lat, (a, b) in zip(lats, spans)
+            if not any(a < e and s < b for s, e in busy)]
+    return pct_ms(keep, 99), len(lats) - len(keep)
+
+
+def server_phase(torch, kernels, seed, tag):
+    """Phase 15: the admission webhook server on the card. (a) a
+    ``ControlPlane`` (``--batching --mutate-batching``) answering
+    seeded AdmissionReviews over HTTP, held against a CPU ``Handlers``,
+    then its scan service over a snapshot; (b) bench.py's churn config;
+    (c) ``python -m kyverno_tpu_torch serve`` and ``apply`` as
+    processes. Returns the server path's launches (of (a))."""
+    import concurrent.futures
+    import copy
+    import signal
+    import socket
+    import tempfile
+    import threading
+
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.cli.serve import ControlPlane
+    from kyverno_tpu_torch.cluster import (BackgroundScanService,
+                                           ClusterSnapshot, PolicyCache,
+                                           ReportAggregator)
+    from kyverno_tpu_torch.cluster.snapshot import resource_uid
+    from kyverno_tpu_torch.config import Configuration, Toggles
+    from kyverno_tpu_torch.engine.match import RequestInfo
+    from kyverno_tpu_torch.observability.analytics import global_slo
+    from kyverno_tpu_torch.observability.metrics import global_registry
+    from kyverno_tpu_torch.observability.profiling import PATH_DEVICE
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.serving import BatchConfig
+    from kyverno_tpu_torch.tpu import cache as tcache
+    from kyverno_tpu_torch.webhooks import build_handlers
+    from kyverno_tpu_torch.webhooks.server import AdmissionPayload
+
+    t_phase = time.perf_counter()
+    ladder_reset()
+    tcache.configure(0, 0)  # every flush reaches the program
+    kerr0 = global_registry.kernel_errors.value()
+    tri_fb0 = global_registry.mutate_triage.value({"outcome": "fallback"})
+    policies = list(load_pss_policies()) + [
+        ClusterPolicy.from_dict(copy.deepcopy(d)) for d in SERVER_POLICIES]
+    trace = ServerTrace()
+    trace.install()
+    try:
+        # -- (a) the ControlPlane on the card, over HTTP
+        global_slo.reset()
+        cfg = BatchConfig(max_batch_size=64, max_wait_ms=2.0)
+        t0 = time.perf_counter()
+        cp = ControlPlane(policies, port=0, metrics_port=0, batching=True,
+                          mutate_batching=True, batch_config=cfg)
+        cp.start(scan_interval=3600)
+        while cp.lifecycle.active is None:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("(a): no compiled version in 300 s")
+            time.sleep(0.05)
+        eng = cp.lifecycle.active.engine
+        start_s = time.perf_counter() - t0
+        if eng.device.type != "cuda":
+            raise AssertionError(f"(a): the server's engine is on {eng.device}")
+        say("15", f"(a) ControlPlane(--batching --mutate-batching) on "
+                  f"{eng.device}: {len(policies)} policies (18 PSS, a "
+                  f"mutate policy, a digest-only verifyImages policy, an "
+                  f"Enforce policy), "
+                  f"coverage {eng.coverage()}, mutate "
+                  f"{eng.mutate_coverage()}; compiled and warmed on the "
+                  f"lifecycle worker in {start_s:.3f} s; calls before "
+                  f"traffic {trace.firsts(0.0)} {tag}")
+        reviews = server_reviews(SERVER_REQUESTS, seed)
+        kernels.reset_launches()
+        t_traffic = time.perf_counter()
+        answers = http_load(cp.admission.port, reviews, SERVER_CLIENTS)
+        wall = max(a[3] for a in answers) - min(a[2] for a in answers)
+        bad = [(i, a[0]) for i, a in enumerate(answers) if a[0] != 200]
+        if bad:
+            raise AssertionError(f"(a): {len(bad)} requests failed: {bad[:3]}")
+        lats = [a[3] - a[2] for a in answers]
+        spans = [(a[2], a[3]) for a in answers]
+        busy = trace.busy(t_traffic)
+        p99_clean, n_over = p99_without(lats, spans, busy)
+        # a connect that finds the server's accept queue full is retried
+        # by the client's TCP after 1 s
+        over_1s = sum(lat >= 1.0 for lat in lats)
+        # the admission reports the card's verdicts wrote, read before the
+        # scan service writes its own
+        pick = sorted(random.Random(seed + 2).sample(range(SERVER_REQUESTS),
+                                                     SERVER_CHECKED))
+        uids = [resource_uid(reviews[i][1]["request"].get("object")
+                             or reviews[i][1]["request"]["oldObject"])
+                for i in pick]
+        card_adm = admission_report_rows(cp.aggregator, uids)
+        pst = cp.handlers.pipeline.state()["stats"]
+        mst = cp.handlers.mutate_pipeline.state()["stats"]
+        denied = sum(not a[1]["response"]["allowed"] for a in answers)
+        patched = sum("patch" in a[1]["response"] for a in answers)
+        say("15", f"(a) {SERVER_REQUESTS} AdmissionReviews over HTTP from "
+                  f"{SERVER_CLIENTS} client threads of another process (/validate, /mutate, {SERVER_FINEGRAINED}) in "
+                  f"{wall:.3f} s: {SERVER_REQUESTS / wall:.1f} requests/s; "
+                  f"latency p50 {pct_ms(lats, 50):.3f} ms, p99 "
+                  f"{pct_ms(lats, 99):.3f} ms, p99 without the "
+                  f"{n_over} requests that overlap an eager run or capture "
+                  f"{p99_clean:.3f} ms; {over_1s} requests took 1 s or more; "
+                  f"denied {denied}, patched {patched} {tag}")
+        say("15", f"(a) validate pipeline: flushes by bucket "
+                  f"{pst['flushes_by_bucket']}, by reason "
+                  f"{pst['flush_reasons']}, shed {pst['shed']}, expired "
+                  f"{pst['expired']}, hedges {pst['hedges']}; mutate "
+                  f"pipeline: flushes by bucket {mst['flushes_by_bucket']}, "
+                  f"shed {mst['shed']}, expired {mst['expired']}, hedges "
+                  f"{mst['hedges']}")
+        say("15", "(a) eager runs and captures during traffic (thread, "
+                  f"batch, kind, s): {trace.firsts(t_traffic)}")
+        # its scan service over a snapshot of other resources
+        scan_res = [dict(r, metadata=dict(r["metadata"], name=f"s{i}"))
+                    for i, r in enumerate(workload(512, seed + 1)[0])]
+        mport = cp.metrics_server.server_address[1]
+        for r in scan_res:
+            code, _, _, _ = http_post(mport, "/snapshot/upsert", r)
+            if code != 200:
+                raise AssertionError(f"(a): snapshot upsert {code}")
+        t0 = time.perf_counter()
+        code, scan_out, _, _ = http_post(mport, "/scan", {"full": True})
+        scan_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if code != 200 or scan_out["scanned"] < len(scan_res):
+            raise AssertionError(f"(a): /scan {code} {scan_out}")
+        say("15", f"(a) scan service: {scan_out['scanned']} resources "
+                  f"scanned on the card in {scan_s:.3f} s {tag}")
+        say("15", f"(a) launches (the traffic and the scan) {launches}")
+        for name in DENSE_KERNELS + SCAN_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"the server path never launched {name}")
+        code, metrics = http_get(mport, "/metrics")
+        rcode, ready = http_get(mport, "/readyz")
+        if code != 200 or b"# TYPE" not in metrics or rcode != 200:
+            raise AssertionError(f"(a): /metrics {code}, /readyz {rcode}")
+        card_rows = {uid: sorted((r.policy, r.rule, r.result) for r in rows)
+                     for uid, rows in cp.aggregator._per_resource.items()}
+        # the card's flushes (the CPU Handlers' below are not)
+        flushes = list(trace.flushes)
+        # the card's answers and admission reports against a CPU Handlers'
+        # over the same set
+        t0 = time.perf_counter()
+        cache = PolicyCache()
+        for p in policies:
+            cache.set(p)
+        # the plain program is thousands of small operations: one torch
+        # thread, and budgets no CPU flush can overrun (an expiry would
+        # be an answer of its own)
+        threads0 = torch.get_num_threads()
+        torch.set_num_threads(1)
+        tcache.configure(1 << 16, 0)
+        cpu_agg = ReportAggregator()
+        cpu = build_handlers(cache, ClusterSnapshot(), cpu_agg,
+                             configuration=Configuration(),
+                             toggles=Toggles(), batching=True,
+                             mutate_batching=True,
+                             batch_config=BatchConfig(
+                                 max_batch_size=64, max_wait_ms=2.0,
+                                 deadline_ms=3_600_000.0,
+                                 eval_grace_s=3600.0),
+                             request_timeout_s=3600.0, device="cpu")
+
+        def cpu_answer(i):
+            path, rv = reviews[i]
+            rv = copy.deepcopy(rv)
+            if path == "/mutate":
+                out = cpu.mutate(rv)
+            elif path == "/validate":
+                out = cpu.validate(rv)
+            else:
+                out = cpu.validate(rv, "fail", policy_key=(
+                    "", path.rsplit("/", 1)[1]))
+            return json.loads(json.dumps(out))
+
+        warmed = cpu_prewarm(cpu, [reviews[i] for i in pick])
+        warm_s = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(pick)) as ex:
+            want = list(ex.map(cpu_answer, pick))
+        cpu.pipeline.stop()
+        cpu.mutate_pipeline.stop()
+        cpu.batcher.stop()
+        cpu_s = time.perf_counter() - t0
+        diff = [i for i, w in zip(pick, want) if answers[i][1] != w]
+        if diff:
+            raise AssertionError(f"(a): {len(diff)} of {len(pick)} answers "
+                                 f"differ from the CPU Handlers' (first "
+                                 f"{diff[:3]}: {answers[diff[0]][1]} vs "
+                                 f"{want[pick.index(diff[0])]})")
+        # the Enforce policy denies some of them, and the Audit verdicts
+        # are in the reports: both must show, and equal the CPU's
+        n_denied = sum(not answers[i][1]["response"]["allowed"] for i in pick)
+        cpu_adm = admission_report_rows(cpu_agg, uids)
+        adm_diff = [u for u in uids if card_adm.get(u) != cpu_adm.get(u)]
+        results = {}
+        for rows in card_adm.values():
+            for row in rows:
+                results[row[2]] = results.get(row[2], 0) + 1
+        if not n_denied or adm_diff or not results.get("fail") \
+                or not results.get("pass"):
+            raise AssertionError(
+                f"(a): {n_denied} of {len(pick)} answers denied; "
+                f"{len(adm_diff)} of {len(uids)} resources' admission "
+                f"reports differ from the CPU Handlers' (first "
+                f"{adm_diff[:1]}: {card_adm.get(adm_diff[0]) if adm_diff else ''} "
+                f"vs {cpu_adm.get(adm_diff[0]) if adm_diff else ''}); the "
+                f"card's rows by result {results}")
+        # the scan service's rows against a CPU service over the same set
+        snap = ClusterSnapshot()
+        for r in scan_res:
+            snap.upsert(r)
+        agg = ReportAggregator()
+        tcache.configure(0, 0)
+        BackgroundScanService(snap, cache, agg, device="cpu").scan_once(
+            full=True)
+        torch.set_num_threads(threads0)
+        cpu_rows = {uid: sorted((r.policy, r.rule, r.result) for r in rows)
+                    for uid, rows in agg._per_resource.items()}
+        scan_diff = [u for u in cpu_rows if card_rows.get(u) != cpu_rows[u]]
+        if not cpu_rows or scan_diff:
+            raise AssertionError(f"(a): {len(scan_diff)} of {len(cpu_rows)} "
+                                 f"scanned resources' rows differ from the "
+                                 f"CPU scan service's")
+        say("15", f"(a) {len(pick)} of the answers ({n_denied} denied) and "
+                  f"the admission reports of their {len(card_adm)} "
+                  f"resources (rows by result {results}) equal a CPU "
+                  f"Handlers' (plain twins; {cpu_s:.3f} s, of which "
+                  f"{warm_s:.3f} s "
+                  f"the batched CPU scans that put their columns into the "
+                  f"verdict cache first: {warmed}), and the scan's rows of "
+                  f"{len(cpu_rows)} resources a CPU scan service's "
+                  f"({time.perf_counter() - t0:.3f} s in all)")
+        off = [f for f in flushes if (f[0] == "validate" and f[2] != PATH_DEVICE)
+               or (f[0] == "triage" and f[2] != "device") or f[3] != "cuda"]
+        if off or not flushes:
+            raise AssertionError(f"(a): {len(off)} of {len(flushes)} flushes "
+                                 f"were not answered on the card: {off[:3]}")
+        say("15", f"(a) every flush on the card: "
+                  f"{sum(f[0] == 'validate' for f in flushes)} validate, "
+                  f"{sum(f[0] == 'triage' for f in flushes)} mutate triage")
+        cp.stop()
+
+        # -- (b) bench.py's churn config
+        global_slo.reset()
+        cache = PolicyCache()
+        for p in load_pss_policies():
+            cache.set(p)
+        cache.set(ClusterPolicy.from_dict(churn_policy(0)))
+        h = build_handlers(cache, batching=True, batch_config=BatchConfig(
+            max_batch_size=64, max_wait_ms=2.0, deadline_ms=30_000.0,
+            eval_grace_s=120.0))
+        h.lifecycle.start()
+        pods = churn_snapshot(512, seed=13)
+        t0 = time.perf_counter()
+        while h.lifecycle.active is None:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("(b): no compiled version in 300 s")
+            time.sleep(0.05)
+        h.pipeline.submit(AdmissionPayload(pods[0], "CREATE", RequestInfo(),
+                                           "default"))
+        stop = threading.Event()
+        c_lats, served, errors = [], set(), []
+        lock = threading.Lock()
+
+        def worker(wseed):
+            rng = random.Random(wseed)
+            local, local_served = [], set()
+            while not stop.is_set():
+                payload = AdmissionPayload(rng.choice(pods), "CREATE",
+                                           RequestInfo(), "default")
+                t = time.perf_counter()
+                try:
+                    rows = h.pipeline.submit(payload)
+                except Exception as e:  # noqa: BLE001 - a gate below
+                    errors.append(f"{type(e).__name__}: {e}"[:300])
+                    continue
+                local.append(time.perf_counter() - t)
+                local_served.add(getattr(rows, "revision", -1))
+            with lock:
+                c_lats.extend(local)
+                served.update(local_served)
+
+        def mutator():
+            i = 0
+            while not stop.is_set():
+                i += 1
+                cache.set(ClusterPolicy.from_dict(churn_policy(i)))
+                stop.wait(CHURN_EVERY_S)
+
+        threads = [threading.Thread(target=worker, args=(seed * 5000 + w,))
+                   for w in range(CHURN_WORKERS)]
+        mut = threading.Thread(target=mutator)
+        t_churn = time.perf_counter()
+        for th in threads:
+            th.start()
+        mut.start()
+        time.sleep(CHURN_SECONDS)
+        stop.set()
+        for th in threads + [mut]:
+            th.join()
+        c_wall = time.perf_counter() - t_churn
+        cst = dict(h.pipeline.stats)
+        life = dict(h.lifecycle.stats)
+        h.lifecycle.stop()
+        h.pipeline.stop()
+        h.batcher.stop()
+        kerr = global_registry.kernel_errors.value() - kerr0
+        if errors or kerr or life["swaps"] < 1:
+            raise AssertionError(f"(b): {len(errors)} errors {errors[:3]}, "
+                                 f"{kerr} kernel errors, {life['swaps']} "
+                                 f"swaps")
+        busy = trace.busy(t_churn)
+        say("15", f"(b) churn (bench.py's config: {CHURN_WORKERS} workers, "
+                  f"{CHURN_SECONDS:g} s, the churned policy re-set every "
+                  f"{1e3 * CHURN_EVERY_S:g} ms, BatchConfig(64, 2.0, "
+                  f"30,000, 120)) over bench.py's 512 Pods: {len(c_lats)} "
+                  f"requests in {c_wall:.3f} s, {len(c_lats) / c_wall:.1f} "
+                  f"requests/s; p50 {pct_ms(c_lats, 50):.3f} ms, p99 "
+                  f"{pct_ms(c_lats, 99):.3f} ms; cache revisions "
+                  f"{cache.revision}, swaps {life['swaps']}, compile "
+                  f"failures {life['compile_failures']}, revisions served "
+                  f"{len(served)}; shed {cst['shed']}, expired "
+                  f"{cst['expired']}, flushes by bucket "
+                  f"{cst['flushes_by_bucket']} {tag}")
+        by = {}
+        for t, b, k, _ in trace.firsts(t_churn):
+            by[(t, b, k)] = by.get((t, b, k), 0) + 1
+        say("15", f"(b) eager runs and captures during churn by (thread, "
+                  f"batch, kind): {by}; {len(busy)} in all")
+
+        # -- (c) the entry points as processes
+        with socket.socket() as s1, socket.socket() as s2:
+            s1.bind(("127.0.0.1", 0))
+            s2.bind(("127.0.0.1", 0))
+            sport, smport = s1.getsockname()[1], s2.getsockname()[1]
+        pss_dir = os.path.join(HERE, "kyverno_tpu_torch", "policies", "pss")
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+        res_dir = os.path.join(tmp, "resources")
+        os.makedirs(res_dir)
+        import yaml
+
+        docs, _ = workload(256, seed + 3)
+        with open(os.path.join(res_dir, "resources.yaml"), "w") as f:
+            yaml.safe_dump_all(docs, f, sort_keys=False)
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        serve = subprocess.Popen(
+            [sys.executable, "-m", "kyverno_tpu_torch", "serve", pss_dir,
+             "--port", str(sport), "--metrics-port", str(smport),
+             "--batching", "--scan-interval", "3600"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        applies = {e: subprocess.Popen(
+            [sys.executable, "-m", "kyverno_tpu_torch", "apply", pss_dir,
+             "--resource", res_dir, "--engine", e, "--output-json",
+             "--audit-warn"], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE) for e in ("tpu", "scalar")}
+        try:
+            ready = None
+            while time.perf_counter() - t0 < 300:
+                if serve.poll() is not None:
+                    raise AssertionError(f"(c): serve exited "
+                                         f"{serve.returncode}: "
+                                         f"{serve.stdout.read()[-2000:]}")
+                try:
+                    code, body = http_get(smport, "/readyz")
+                    if code == 200:
+                        ready = json.loads(body)
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            ready_s = time.perf_counter() - t0
+            if not ready or not ready.get("ready"):
+                raise AssertionError(f"(c): serve not ready: {ready}")
+            rv = server_reviews(1, seed + 4)[0][1]
+            code, out, a, b = http_post(sport, "/validate", rv)
+            mcode, body = http_get(smport, "/metrics")
+            if code != 200 or out["response"]["uid"] != "s0" \
+                    or mcode != 200 or b"# TYPE" not in body:
+                raise AssertionError(f"(c): /validate {code} {out}, "
+                                     f"/metrics {mcode}")
+        finally:
+            serve.send_signal(signal.SIGTERM)
+            try:
+                rc = serve.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                serve.kill()
+                serve.wait()
+                raise AssertionError("(c): serve did not stop on SIGTERM")
+        if rc != 0:
+            raise AssertionError(f"(c): serve exited {rc} on SIGTERM: "
+                                 f"{serve.stdout.read()[-2000:]}")
+        outs = {}
+        for e, p in applies.items():
+            so, se = p.communicate(timeout=600)
+            if p.returncode not in (0, 1):
+                raise AssertionError(f"(c): apply --engine {e} exited "
+                                     f"{p.returncode}: {se[-2000:]}")
+            doc = json.loads(so.decode().strip().splitlines()[-1])
+            outs[e] = (p.returncode, doc["summary"], {
+                k: sorted((x["policy"], x["rule"], x["resource"])
+                          for x in doc[k]) for k in ("failures", "warnings")})
+        if outs["tpu"] != outs["scalar"]:
+            raise AssertionError(f"(c): apply --engine tpu and --engine "
+                                 f"scalar differ: {outs['tpu'][:2]} vs "
+                                 f"{outs['scalar'][:2]}")
+        say("15", f"(c) python -m kyverno_tpu_torch serve (PSS, --batching): "
+                  f"ready in {ready_s:.3f} s (a process's start, the import, "
+                  f"the compile and the worker's warm), one /validate "
+                  f"answered in {1e3 * (b - a):.3f} ms, /metrics served, "
+                  f"SIGTERM -> exit 0; apply --engine tpu and --engine "
+                  f"scalar over {len(docs)} resources agree (exit "
+                  f"{outs['tpu'][0]}, {outs['tpu'][1]}) {tag}")
+
+        kerr = global_registry.kernel_errors.value() - kerr0
+        tri_fb = global_registry.mutate_triage.value(
+            {"outcome": "fallback"}) - tri_fb0
+        if kerr or tri_fb:
+            raise AssertionError(f"{kerr} kernel errors, {tri_fb} triage "
+                                 f"fallbacks in the phase")
+        # the flushes' dispatch paths are the flusher's; one more scan
+        # through the ladder on this thread for ladder_check's
+        eng.scan(workload(16, seed)[0])
+        ladder_check("15")
+        say("15", f"phase 15 in {time.perf_counter() - t_phase:.3f} s")
+        return {"launches": launches}
+    finally:
+        trace.uninstall()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
                     help="resources in the dense-path scan")
-    ap.add_argument("--scan-n", type=int, default=100000,
+    ap.add_argument("--scan-n", type=int, default=50000,
                     help="resources in the background scan's snapshot")
     ap.add_argument("--tile", type=int, default=8192,
                     help="resources per background-scan tile")
@@ -5224,10 +6090,9 @@ def main() -> int:
                     help="requests in phase 11's steady admission")
     ap.add_argument("--adm-bulk", type=int, default=10000,
                     help="bulk requests in phase 11's mixed traffic")
-    ap.add_argument("--reports-n", type=int, default=70000,
+    ap.add_argument("--reports-n", type=int, default=40000,
                     help="lean Pods in phase 12's soak (bench.py's "
-                         "1,000,000 cut for the time limit; 100,000 "
-                         "before phase 14 joined the run)")
+                         "1,000,000 cut for the time limit)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -5319,6 +6184,8 @@ def main() -> int:
     tenant_lanes = lanes_to_device(tenant.encode(tpadded)[0], tenant.device)
     torch.cuda.synchronize()
 
+    phase_s = PhaseClock()
+    phase_s.mark("3")
     # phase 3: every kernel against its plain twin on the card
     results = {}
     check_dfa(torch, kernels, dfa_mod, lanes["pool"], lanes["pool_len"],
@@ -5337,41 +6204,55 @@ def main() -> int:
                    args.tenant_batch, results)
     del lanes, tile_lanes, tenant_lanes
 
+    phase_s.mark("4")
     # phase 4: the dense path through the user's entry point
     dense, g_dense = dense_phase(torch, kernels, eng, policies, resources,
                                  ops, padded, pops, args.n, tag, results)
+    phase_s.mark("5")
     # phase 5: the background scan through the user's entry point
     scan, g_step, feed = scan_phase(torch, kernels, scanner, policies,
                                     args.scan_n, args.tile, args.seed + 10,
                                     tag)
+    phase_s.mark("7")
     # phase 7: the tenant set's scan and triage
     tv, tt, g_tv, g_tt = tenant_phase(torch, kernels, tenant, tenant_res,
                                       args.tenant_batch, tenant_compile_s,
                                       tag)
+    phase_s.mark("8")
     # phase 8: bench.py's mutate leg
     leg, g_leg = mutate_leg_phase(torch, kernels, args.mutate_n,
                                   args.mutate_tile, tag)
+    phase_s.mark("9")
     # phase 9: the guarded dispatch ladder under faults
     fault_phase(torch, kernels, eng, scanner, tenant, resources, ops,
                 tenant_res, tag)
+    phase_s.mark("10")
     # phase 10: the pipelined background scan, the encoder pool and the
     # caches (the only phase that turns them on)
     pipeline_phase(torch, kernels, scanner, eng, feed, resources, ops,
                    args.tile, cache_caps, tenant,
                    tenant_res[:args.tenant_batch], tag)
+    phase_s.mark("11")
     # phase 11: admission serving on the card
     adm = admission_phase(torch, kernels, args.seed + 30, tag,
                           n_requests=args.adm_requests, n_bulk=args.adm_bulk)
+    phase_s.mark("12")
     # phase 12: incremental reports and the background scan service
     rep = reports_phase(torch, kernels, tag, args.reports_n, cache_caps,
                         args.seed + 40)
+    phase_s.mark("13")
     # phase 13: policy-set analysis, and the lifecycle's lint under traffic
     ana = analysis_phase(torch, kernels, tag, args.seed + 50, cache_caps)
+    phase_s.mark("14")
     # phase 14: the sharded scan on a mesh of CUDA devices, the dry run,
     # two fleet replicas behind the scan service
     mesh_launches, mesh_by_device = mesh_phase(
         torch, kernels, scanner, policies, feed, args.tile, tag)
     del feed
+    phase_s.mark("15")
+    # phase 15: the admission webhook server and its entry points
+    srv = server_phase(torch, kernels, args.seed + 60, tag)
+    phase_s.mark(None)
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]
     gpaths = list(zip(PATHS, (g_dense, g_step, g_tv, g_tt, g_leg))) + [
@@ -5396,6 +6277,7 @@ def main() -> int:
     by_path["reports_tick"] = rep["launches"]
     by_path["analysis_tile"] = ana["launches"]
     by_path["mesh_scan"] = mesh_launches
+    by_path["server"] = srv["launches"]
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
@@ -5543,6 +6425,8 @@ def main() -> int:
                  f"{r['eager_ms']:.4f} ms; with the non-ASCII flag "
                  f"{r['flag_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
                  f"bound {b_ms:.6f} ms ({b_by}) {tag}")
+    say("6", f"seconds by phase (3 includes the workloads' encode): "
+             f"{phase_s.seconds}")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

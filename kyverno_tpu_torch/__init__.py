@@ -11,9 +11,13 @@ scan, dense lanes, completed on the scalar engine) and
 ``kyverno_tpu_torch.parallel.ShardedScanner`` (the tiled background
 scan over the vocabulary form), which ``tpu.pipeline.PipelinedScanner``
 drives with its encode on a feed thread or an ``encode.EncoderPool`` of
-spawned worker processes. They run on ``device="cuda"`` unless
-the caller asks for ``device="cpu"``, where every kernel is replaced by
-its plain PyTorch twin.
+spawned worker processes; above them, the AdmissionReview webhook
+server (``webhooks.build_handlers``, ``webhooks.AdmissionServer``) and
+the command line, ``python -m kyverno_tpu_torch`` (``apply``, ``serve``,
+``flight-dump``, ``replay``, ``version``). They run on
+``device="cuda"`` unless the caller asks for ``device="cpu"``
+(``--device cpu`` on the command line), where every kernel is replaced
+by its plain PyTorch twin.
 
 This package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``kyverno_tpu``.

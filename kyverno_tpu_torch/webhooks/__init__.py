@@ -1,7 +1,8 @@
-"""Admission front end of the port (a part of ``kyverno_tpu/webhooks``):
-the micro-batcher. ``server.py`` (the AdmissionReview HTTP server and its
-handlers) is not ported yet; it comes with the mutate pipeline."""
+# Copied from kyverno_tpu/webhooks/__init__.py.
+"""Admission server: AdmissionReview handling + micro-batched device
+validation on the card (pkg/webhooks equivalent)."""
 
 from .batcher import MicroBatcher
+from .server import AdmissionServer, build_handlers
 
-__all__ = ["MicroBatcher"]
+__all__ = ["AdmissionServer", "MicroBatcher", "build_handlers"]

@@ -2009,3 +2009,109 @@ def test_kernels_on_a_second_device_after_the_first(cuda, monkeypatch):
     with torch.cuda.device(0):
         with pytest.raises(kernels.KernelError, match="current device"):
             kernels.hash_match(hi, hi, consts)
+
+
+def test_admission_handlers_on_the_card_equal_the_cpu(cuda):
+    """``Handlers`` on the card (batching and mutate batching: every
+    flush a device scan or triage) answer a seeded batch of reviews
+    exactly as ``Handlers(device="cpu")`` does, over PSS (Audit), a
+    mutate policy, a digest-only verifyImages policy and an Enforce
+    policy: the same answers, some of them denied, and the same
+    admission report rows (where the Audit verdicts go)."""
+    import base64
+    import concurrent.futures
+    import copy
+    import json
+
+    from kyverno_tpu_torch.api.policy import ClusterPolicy
+    from kyverno_tpu_torch.cluster import (ClusterSnapshot, PolicyCache,
+                                           ReportAggregator)
+    from kyverno_tpu_torch.webhooks import build_handlers
+
+    docs = [{"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+             "metadata": {"name": "add-label"},
+             "spec": {"rules": [{
+                 "name": "team",
+                 "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+                 "mutate": {"patchStrategicMerge": {"metadata": {
+                     "labels": {"+(team)": "core"}}}}}]}},
+            {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+             "metadata": {"name": "digests"},
+             "spec": {"rules": [{
+                 "name": "r",
+                 "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+                 "verifyImages": [{"imageReferences": ["*"],
+                                   "verifyDigest": True,
+                                   "mutateDigest": False,
+                                   "required": False}]}]}},
+            {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+             "metadata": {"name": "trusted-registries"},
+             "spec": {"validationFailureAction": "Enforce", "rules": [{
+                 "name": "registry",
+                 "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+                 "validate": {"message": "no images from evil.io",
+                              "pattern": {"spec": {"containers": [
+                                  {"image": "!evil.io/*"}]}}}}]}}]
+
+    from kyverno_tpu_torch.serving import BatchConfig
+
+    def handlers(device):
+        cache = PolicyCache()
+        for p in load_pss_policies():
+            cache.set(p)
+        for d in docs:
+            cache.set(ClusterPolicy.from_dict(copy.deepcopy(d)))
+        # budgets no CPU flush can overrun: an expiry is an answer too
+        return build_handlers(
+            cache, ClusterSnapshot(), ReportAggregator(), batching=True,
+            mutate_batching=True,
+            batch_config=BatchConfig(max_batch_size=64, max_wait_ms=2.0,
+                                     deadline_ms=3_600_000.0,
+                                     eval_grace_s=3600.0),
+            request_timeout_s=3600.0, device=device)
+
+    reviews = [{"request": {"uid": f"u{i}", "operation": "CREATE",
+                            "namespace": pod["metadata"]["namespace"],
+                            "object": pod}}
+               for i, pod in enumerate(_admission_pods(24, 17))]
+
+    def answers(h):
+        def one(rv):
+            outs = [h.validate(copy.deepcopy(rv)), h.mutate(copy.deepcopy(rv))]
+            for o in outs:
+                r = o["response"]
+                if "patch" in r:
+                    r["patch"] = json.loads(base64.b64decode(r["patch"]))
+            return outs
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(reviews)) as ex:
+            return list(ex.map(one, reviews))
+
+    def rows(agg):
+        return {uid: sorted((r.policy, r.rule, r.result, r.message,
+                             r.resource_kind, r.resource_name,
+                             r.resource_namespace) for r in rs)
+                for uid, rs in agg._per_resource.items()}
+
+    out, reports = {}, {}
+    threads = torch.get_num_threads()
+    for device in ("cuda", "cpu"):
+        h = handlers(device)
+        # the plain program is thousands of small operations
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        try:
+            out[device] = answers(h)
+            reports[device] = rows(h.aggregator)
+            if device == "cuda":
+                assert h.lifecycle.active.engine.device.type == "cuda"
+        finally:
+            torch.set_num_threads(threads)
+            h.pipeline.stop()
+            h.mutate_pipeline.stop()
+            h.batcher.stop()
+    assert out["cuda"] == out["cpu"]
+    assert any("patch" in o[1]["response"] for o in out["cuda"])
+    assert any(not o[0]["response"]["allowed"] for o in out["cuda"])
+    assert reports["cuda"] == reports["cpu"]
+    results = {r[2] for rs in reports["cuda"].values() for r in rs}
+    assert {"pass", "fail"} <= results

@@ -146,6 +146,37 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
         "import kyverno_tpu_torch.fleet, kyverno_tpu_torch.parallel\n"
         "import kyverno_tpu_torch.dryrun, kyverno_tpu_torch.cli.flight\n"
         "import kyverno_tpu_torch.cluster.leaderelection\n"
+        "import kyverno_tpu_torch.images, kyverno_tpu_torch.engine.manifests\n"
+        "import kyverno_tpu_torch.utils.jsonpatch, kyverno_tpu_torch.engine.userinfo\n"
+        "import kyverno_tpu_torch.config, kyverno_tpu_torch.globalcontext\n"
+        "import kyverno_tpu_torch.vap, kyverno_tpu_torch.cluster.lifecycle\n"
+        "import kyverno_tpu_torch.pss, kyverno_tpu_torch.webhooks.server\n"
+        "import kyverno_tpu_torch.cli.apply, kyverno_tpu_torch.cli.serve\n"
+        "import kyverno_tpu_torch.cli.__main__, kyverno_tpu_torch.__main__\n"
+        "from kyverno_tpu_torch.api.policy import ClusterPolicy\n"
+        "from kyverno_tpu_torch.cluster import PolicyCache, ClusterSnapshot\n"
+        "from kyverno_tpu_torch.webhooks import AdmissionServer, build_handlers\n"
+        "pc = PolicyCache()\n"
+        "pc.set(ClusterPolicy.from_dict({'apiVersion': 'kyverno.io/v1',"
+        " 'kind': 'ClusterPolicy', 'metadata': {'name': 'iv'}, 'spec': {'rules':"
+        " [{'name': 'r', 'match': {'any': [{'resources': {'kinds': ['Pod']}}]},"
+        " 'verifyImages': [{'imageReferences': ['*'], 'verifyDigest': True,"
+        " 'mutateDigest': False, 'required': False}]}]}}))\n"
+        "for p in eng.cps.policies[:3]: pc.set(p)\n"
+        "h = build_handlers(pc, ClusterSnapshot(), batching=True,"
+        " mutate_batching=True, device='cpu')\n"
+        "rv = {'request': {'uid': 'u', 'operation': 'CREATE', 'namespace': 'd',"
+        " 'object': pod}}\n"
+        "assert h.validate(rv)['response']['uid'] == 'u'\n"
+        "assert h.mutate(rv)['response']['uid'] == 'u'\n"
+        "assert h.debug_state()['perf_caches']['xla_cache_dir'] is None\n"
+        "h.pipeline.stop(); h.mutate_pipeline.stop(); h.batcher.stop()\n"
+        "from kyverno_tpu_torch.cli.__main__ import build_parser\n"
+        "build_parser()\n"
+        "import pkgutil, importlib, kyverno_tpu_torch\n"
+        "for mi in pkgutil.walk_packages(kyverno_tpu_torch.__path__,"
+        " 'kyverno_tpu_torch.'):\n"
+        "    importlib.import_module(mi.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'kyverno_tpu.')) or m == 'kyverno_tpu')\n"
         "print('BAD', bad)\n"
@@ -156,6 +187,54 @@ def test_port_loads_no_jax_and_nothing_of_the_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
+
+
+def test_port_imports_resolve_inside_the_port():
+    """Every import statement of the port, the ones inside functions
+    included: a relative import names a module of the port that exists
+    and the names it takes from it, and no import names ``jax`` or
+    ``kyverno_tpu``. Reading the source finds the lazy imports that no
+    run reaches."""
+    import ast
+    import importlib
+
+    root = os.path.join(REPO, "kyverno_tpu_torch")
+    bad = []
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+            pkg = rel[:-len(".__init__")] if f == "__init__.py" \
+                else rel.rpartition(".")[0]
+            for node in ast.walk(ast.parse(open(path).read())):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and not node.level:
+                    names = [node.module or ""]
+                elif isinstance(node, ast.ImportFrom):
+                    parts = pkg.split(".")[:len(pkg.split(".")) - node.level + 1]
+                    target = ".".join(parts + ([node.module]
+                                               if node.module else []))
+                    try:
+                        mod = importlib.import_module(target)
+                    except ImportError as e:
+                        bad.append((path, node.lineno, target, str(e)))
+                        continue
+                    for a in node.names:
+                        if a.name != "*" and not hasattr(mod, a.name):
+                            try:
+                                importlib.import_module(f"{target}.{a.name}")
+                            except ImportError:
+                                bad.append((path, node.lineno, target, a.name))
+                    continue
+                else:
+                    continue
+                for n in names:
+                    if n.split(".")[0] in ("jax", "jaxlib", "kyverno_tpu"):
+                        bad.append((path, node.lineno, n, "forbidden"))
+    assert bad == []
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

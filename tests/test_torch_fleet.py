@@ -13,7 +13,11 @@ reference's) against the JAX package's, on the CPU.
 - the port's scan service under a fleet: it scans only the shards it
   owns and takes over a dead peer's; two replicas' report stores
   together hold the one-replica store's rows, and after a graceful
-  leave the survivor's takeover rescan gives its digest.
+  leave the survivor's takeover rescan gives its digest;
+- the admission server under a fleet (the reference's tests of
+  ``webhooks/server.py`` with the fleet, on ``Handlers(device="cpu")``):
+  a local miss served from a peer's cache at submit, one trace across
+  both replicas, and the ``/debug/fleet`` route.
 
 No test races a lease: the leases of the threaded tests are 2 s or
 longer (the reference's 0.5-1 s leases expire under a loaded host) and
@@ -656,6 +660,116 @@ def test_flight_records_tagged_with_replica_id():
                                 lease_s=LEASE_S, heartbeat_interval_s=0.2))
     try:
         assert rec.to_dict()["replica"] == "tag-1"
+    finally:
+        reset_fleet()
+    assert get_fleet() is None
+
+
+# ---------------------------------------------------------------------------
+# the admission server under a fleet (the reference's tests that waited on
+# webhooks/server.py): the port's handlers run with device="cpu"
+
+
+@contextmanager
+def _fleet_admission(prefix):
+    """A batching ``Handlers`` with its lifecycle worker running, a warm
+    peer holding one admission's verdict column, and the local replica
+    peered with it after the local cache was emptied."""
+    from kyverno_tpu_torch.engine.match import RequestInfo
+    from kyverno_tpu_torch.webhooks import build_handlers
+    from kyverno_tpu_torch.webhooks.server import AdmissionPayload
+
+    cache = PolicyCache()
+    cache.set(_pol())
+    h = build_handlers(cache, batching=True, device="cpu")
+    h.lifecycle.start()
+    peer = _mgr(prefix + "b")
+    try:
+        assert _wait(lambda: h.lifecycle.active is not None, timeout=120)
+        pod = _pods(1)[0]
+        payload = AdmissionPayload(pod, "CREATE", RequestInfo(), "default")
+        r1 = h.pipeline.submit(payload)  # computes + populates local
+        eng = h.lifecycle.active.engine
+        key = eng.verdict_cache_keys([pod], {}, ["CREATE"],
+                                     [RequestInfo()])[0]
+        col = global_verdict_cache.peek(key)
+        assert col is not None
+        # move the column to the PEER and cold-start the local cache
+        peer.cache.put(key, col, fanout=False)
+        global_verdict_cache.clear()
+        peer.start()
+        local = configure_fleet(FleetConfig(
+            replica_id=prefix + "a", listen_port=0, lease_s=LEASE_S,
+            heartbeat_interval_s=0.1, num_shards=N_SHARDS))
+        local.rows_provider = lambda: len(eng.cps.rules)
+        local.add_peers(peer.url)
+        peer.add_peers(local.url)
+        assert _wait(lambda: len(local.membership.live()) == 2)
+        yield h, payload, r1, peer
+    finally:
+        reset_fleet()
+        peer.stop(leave=False)
+        h.lifecycle.stop()
+        h.pipeline.stop()
+        h.batcher.stop()
+
+
+def test_admission_submit_serves_from_peer_cache():
+    with _fleet_admission("w") as (h, payload, r1, peer):
+        h0 = reg.fleet_peer_fetch.value({"peer": "wb", "outcome": "hit"})
+        hits0 = h.pipeline.stats.get("cache_hits", 0)
+        r2 = h.pipeline.submit(payload)
+        assert list(r2) == list(r1), "peer-served verdicts bit-identical"
+        assert h.pipeline.stats.get("cache_hits", 0) == hits0 + 1, \
+            "peer hit must resolve at submit (no flush)"
+        assert reg.fleet_peer_fetch.value(
+            {"peer": "wb", "outcome": "hit"}) == h0 + 1
+
+
+def test_peer_served_admission_is_one_connected_trace():
+    """An admission served from a PEER's cache is one trace across both
+    replicas: the caller's admission.submit root and the peer's
+    fleet.rpc.fetch share a trace id, and the cached-path flight record
+    carries it."""
+    from kyverno_tpu_torch.observability.tracing import global_tracer
+
+    flights = []
+    with _fleet_admission("t") as (h, payload, r1, peer):
+        h.pipeline._flight = lambda *a, **kw: flights.append((a, kw))
+        n0 = len(global_tracer.finished("admission.submit"))
+        r2 = h.pipeline.submit(payload)
+        assert list(r2) == list(r1)
+        roots = global_tracer.finished("admission.submit")
+        assert len(roots) == n0 + 1
+        root = roots[-1]
+        assert _wait(lambda: any(
+            s.name == "fleet.rpc.fetch"
+            for s in global_tracer.trace(root.trace_id))), \
+            [s.name for s in global_tracer.trace(root.trace_id)]
+        fetch = [s for s in global_tracer.trace(root.trace_id)
+                 if s.name == "fleet.rpc.fetch"][0]
+        assert fetch.attributes["replica"] == "tb"
+        assert flights, "cached path must record a flight"
+        args, _kw = flights[-1]
+        assert args[2] == "cached" and args[4] == root.trace_id, args
+
+
+def test_debug_fleet_route_and_state_block():
+    from kyverno_tpu_torch.webhooks.server import handle_debug_path
+
+    # no fleet: enabled false, never starts one
+    code, body, ctype = handle_debug_path("/debug/fleet")
+    assert code == 200 and json.loads(body) == {"enabled": False}
+    configure_fleet(FleetConfig(replica_id="dz", listen_port=0,
+                                lease_s=LEASE_S, heartbeat_interval_s=0.2,
+                                num_shards=N_SHARDS))
+    try:
+        code, body, ctype = handle_debug_path("/debug/fleet")
+        doc = json.loads(body)
+        assert doc["enabled"] is True
+        assert doc["membership"]["replica_id"] == "dz"
+        assert doc["shards"]["owned_count"] == N_SHARDS  # alone = all
+        assert "breakers" in doc["peering"]
     finally:
         reset_fleet()
     assert get_fleet() is None
