@@ -223,6 +223,23 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    scalar`` on one resource directory (the same exit code, summary and
    failing (policy, rule, resource) rows). Both caches off in (a) and
    (b).
+16. the CLI and the background controllers (``cli/analyze.py``,
+   ``cli/test.py``, ``cli/chainsaw.py`` over ``background/`` and
+   ``cluster/cleanup.py``, ``cli/report.py``, ``cli/lint.py``), each
+   command a ``python -m kyverno_tpu_torch`` process, all started
+   together: (a) ``analyze`` of bench.py's analyze corpus (PSS plus the
+   seeded anomalies, tile 256) on the card, in this process (with
+   ``--fail-on any``, its launches counted) and as a process with no
+   ``--device``, each report (timings aside) and exit code equal to a
+   ``--device cpu`` process's of the same command; (b) ``test
+   tests/cli-tests`` exits 0 with the in-process run's output; (c)
+   ``chainsaw`` over a tree the phase writes (``CHAINSAW_SCENARIOS``:
+   generate from data with ``synchronize`` and the trigger deleted,
+   generate by clone, mutate-existing, a scheduled
+   ``ClusterCleanupPolicy``, an Enforce denial checked with an ``error``
+   step): every scenario passes; (d) ``report --rebuild-check`` on phase
+   12's journal directory and ``lint --json`` on the port exit 0, the
+   lint's findings all in the port's baseline.
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -274,13 +291,14 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9 to 15; phase 6's
+Phases 7 and 8 run after phase 5, then phases 9 to 16; phase 6's
 lines come last (the kernels line gives launches by path, the admission
 path's from part (a), the reports tick path's from phase 12 (a)'s churn
 ticks, the analysis tile path's from phase 13's warm run, the mesh scan
 path's from phase 14's warm ``scan_stream`` on the 2 x 2 mesh, with its
 launches by device, the server path's from phase 15 (a)'s traffic and
-scan, and each kernel's launches and trace time in one flush at each
+scan, the analyze_cli path's from phase 16 (a)'s ``analyze`` in this
+process, and each kernel's launches and trace time in one flush at each
 admission bucket).
 
 Every number is printed with the card's name and power limit. Without
@@ -4338,7 +4356,9 @@ def reports_phase(torch, kernels, tag, n, cache_caps, seed):
     fill, a full scan, 10 churn ticks of 2,000, an unchanged tick; (b)
     5 churn ticks under the bench's ambient faults; (c) the store closed
     and reopened; (d) a full recompute by a new service into a fresh
-    store. Returns the launches of (a)'s churn ticks."""
+    store. Returns the launches of (a)'s churn ticks and the journal
+    directory, which phase 16 reads and which is removed at exit."""
+    import atexit
     import gc
     import shutil
     import tempfile
@@ -4365,6 +4385,7 @@ def reports_phase(torch, kernels, tag, n, cache_caps, seed):
     tcache.configure(*cache_caps)  # the service's default: caches on
     kerr0 = reg.kernel_errors.value()
     rdir = tempfile.mkdtemp(prefix="chip-smoke-reports-")
+    atexit.register(shutil.rmtree, rdir, ignore_errors=True)
     sample_rate0 = global_flight.sample_rate
     real_chunks = PipelinedScanner.scan_chunks
     pstats = []
@@ -4619,7 +4640,8 @@ def reports_phase(torch, kernels, tag, n, cache_caps, seed):
         global_verifier.configure(rate=0.0)
         global_verifier.stop()
         say("12", f"phase 12 in {time.perf_counter() - t_phase:.3f} s")
-        return {"launches": launches, "ticks": ticks, "full": full}
+        return {"launches": launches, "ticks": ticks, "full": full,
+                "dir": rdir}
     finally:
         PipelinedScanner.scan_chunks = real_chunks
         del global_flight.record_scan_chunk
@@ -4627,7 +4649,10 @@ def reports_phase(torch, kernels, tag, n, cache_caps, seed):
         global_faults.disarm()
         reset_reports()
         tcache.configure(0, 0)
-        shutil.rmtree(rdir, ignore_errors=True)
+
+
+ANALYSIS_TIMINGS = ("synthesize_s", "evaluate_s", "classify_s", "confirm_s",
+                    "witness_evals_per_s")
 
 
 def analysis_view(report):
@@ -4635,8 +4660,7 @@ def analysis_view(report):
     counts, rule rows and the rest of its stats."""
     doc = report.to_dict()
     doc["stats"] = {k: v for k, v in doc["stats"].items()
-                    if k not in ("synthesize_s", "evaluate_s", "classify_s",
-                                 "confirm_s", "witness_evals_per_s")}
+                    if k not in ANALYSIS_TIMINGS}
     doc["evidence"] = [a.evidence for a in report.anomalies]
     return doc
 
@@ -6070,6 +6094,376 @@ def server_phase(torch, kernels, seed, tag):
         trace.uninstall()
 
 
+def analysis_json(out: str) -> dict:
+    """``analyze --json``'s report less its timings."""
+    doc = json.loads(out.strip().splitlines()[-1])
+    doc["stats"] = {k: v for k, v in doc["stats"].items()
+                    if k not in ANALYSIS_TIMINGS}
+    return doc
+
+
+def cli_phase(torch, kernels, tag, reports_dir):
+    """Phase 16: the CLI and the background controllers. Every command
+    runs as ``python -m kyverno_tpu_torch`` in a process of its own, all
+    started together; ``analyze`` (on the card, no ``--device``) and
+    ``test`` also run in this process. Returns the launches of the
+    in-process ``analyze``."""
+    import concurrent.futures
+    import io
+    import shutil
+    import tempfile
+
+    from kyverno_tpu_torch.cli.__main__ import main as cli_main
+    from kyverno_tpu_torch.cli.chainsaw import run_tree
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+
+    t_phase = time.perf_counter()
+    ladder_reset()
+    kerr0 = reg.kernel_errors.value()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cli-")
+    procs = {}
+    try:
+        # bench.py's analyze corpus: PSS plus the seeded anomalies
+        corpus = os.path.join(tmp, "analyze")
+        os.makedirs(corpus)
+        pss = os.path.join(HERE, "kyverno_tpu_torch", "policies", "pss")
+        for name in sorted(os.listdir(pss)):
+            shutil.copy(os.path.join(pss, name), corpus)
+        shutil.copy(os.path.join(ANALYSIS_DIR, "seeded_anomalies.yaml"),
+                    corpus)
+        tree = os.path.join(tmp, "chainsaw")
+        scenarios = write_chainsaw_tree(tree)
+        ana = ["analyze", corpus, "--json", "--tile", "256"]
+        commands = {
+            "analyze (card)": ana,
+            "analyze --fail-on any (cpu)": ana + ["--fail-on", "any",
+                                                 "--device", "cpu"],
+            "analyze (cpu)": ana + ["--device", "cpu"],
+            "test": ["test", "tests/cli-tests"],
+            "chainsaw": ["chainsaw", tree],
+            "report": ["report", reports_dir, "--rebuild-check"],
+            "lint": ["lint", "--json"],
+        }
+        env = dict(os.environ, PYTHONPATH=HERE)
+        # the plain program is thousands of small operations: one
+        # thread each for the CPU runs, which share the cores
+        cpu_env = dict(env, OMP_NUM_THREADS="1")
+        t0 = time.perf_counter()
+        for label, argv in commands.items():
+            procs[label] = subprocess.Popen(
+                [sys.executable, "-m", "kyverno_tpu_torch", *argv], cwd=HERE,
+                env=cpu_env if "(cpu)" in label else env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(p):
+            out, err = p.communicate(timeout=600)
+            return p.returncode, out, err, time.perf_counter() - t0
+
+        pool = concurrent.futures.ThreadPoolExecutor(len(procs))
+        waits = {label: pool.submit(finish, p) for label, p in procs.items()}
+        pool.shutdown(wait=False)
+
+        def in_process(argv):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(argv)
+            return rc, out.getvalue()
+
+        # -- (a) analyze on the card, in this process, counted
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        rc_card, out_card = in_process(ana + ["--fail-on", "any"])
+        card_s = time.perf_counter() - t1
+        launches = dict(kernels.LAUNCHES)
+        ladder_check("16")
+        # -- (b) test and (c) chainsaw, in this process
+        rc_test, out_test = in_process(
+            ["test", os.path.join(HERE, "tests", "cli-tests")])
+        rows = run_tree(tree)
+
+        done = {label: w.result() for label, w in waits.items()}
+        for label, (rc, out, err, _) in done.items():
+            if rc not in (0, 1) or (rc == 1 and not label.startswith(
+                    "analyze --fail-on")):
+                raise AssertionError(f"16: {label} exited {rc}: "
+                                     f"{(out + err)[-2000:]}")
+
+        card = analysis_json(out_card)
+        counts = card["counts"]
+        for name in DENSE_KERNELS:
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"16: analyze on the card never "
+                                     f"launched {name}: {launches}")
+        want = {"in-process, --fail-on any": (
+                    (rc_card, card), done["analyze --fail-on any (cpu)"]),
+                "process": (
+                    (done["analyze (card)"][0],
+                     analysis_json(done["analyze (card)"][1])),
+                    done["analyze (cpu)"])}
+        for what, (got, cpu) in want.items():
+            if got != (cpu[0], analysis_json(cpu[1])):
+                raise AssertionError(f"16 (a): analyze on the card "
+                                     f"({what}) differs from --device cpu: "
+                                     f"exit {got[0]} vs {cpu[0]}, counts "
+                                     f"{got[1]['counts']} vs "
+                                     f"{analysis_json(cpu[1])['counts']}")
+        if rc_card != 1 or done["analyze (card)"][0] != 0 \
+                or any(counts[k] < 1 for k in counts):
+            raise AssertionError(f"16 (a): exits {rc_card} / "
+                                 f"{done['analyze (card)'][0]}, counts "
+                                 f"{counts}")
+        st = card["stats"]
+        say("16", f"(a) analyze on the card (PSS + seeded anomalies, tile "
+                  f"256): {card_s:.3f} s in this process (the compile, the "
+                  f"eager runs and captures included), witnesses "
+                  f"{st['witnesses']}, tiles {st['device_dispatches']}, "
+                  f"anomalies {counts}, exit {rc_card} with --fail-on any; "
+                  f"the process (no --device) exit "
+                  f"{done['analyze (card)'][0]} in "
+                  f"{done['analyze (card)'][3]:.3f} s; both equal --device "
+                  f"cpu's report and exit ({done['analyze (cpu)'][3]:.3f} s, "
+                  f"{done['analyze --fail-on any (cpu)'][3]:.3f} s); "
+                  f"launches {({k: v for k, v in launches.items() if v})} "
+                  f"{tag}")
+        # -- (b) test
+        rc, out, _, s = done["test"]
+        if rc != 0 or rc_test != 0 or out != out_test \
+                or "0 failed" not in out:
+            raise AssertionError(f"16 (b): test exited {rc} (in-process "
+                                 f"{rc_test}): {out[-1000:]}")
+        say("16", f"(b) test tests/cli-tests: exit 0 in {s:.3f} s, "
+                  f"{out.strip().splitlines()[-1]!r}, output equal to the "
+                  f"in-process run's")
+        # -- (c) chainsaw
+        rc, out, _, s = done["chainsaw"]
+        want_lines = [f"PASS  {rel}" for rel in scenarios]
+        if rc != 0 or out.splitlines() != want_lines \
+                or rows != [(rel, "pass", "") for rel in scenarios]:
+            raise AssertionError(f"16 (c): chainsaw exited {rc}: {out} "
+                                 f"(in-process rows {rows})")
+        say("16", f"(c) chainsaw: {len(scenarios)} scenarios "
+                  f"({', '.join(scenarios)}) pass, in the process (exit 0, "
+                  f"{s:.3f} s) and in this one")
+        # -- (d) report and lint
+        rc, out, _, s = done["report"]
+        if rc != 0 or "rebuild-check: identical" not in out:
+            raise AssertionError(f"16 (d): report --rebuild-check exited "
+                                 f"{rc}: {out[-1000:]}")
+        say("16", f"(d) report {os.path.basename(reports_dir)} (phase 12's "
+                  f"journal directory) --rebuild-check: exit 0 in {s:.3f} s; "
+                  f"{out.splitlines()[0]}")
+        rc, out, _, s = done["lint"]
+        doc = json.loads(out)
+        if rc != 0 or doc["findings"] or doc["exit"] != 0 \
+                or not all(f.get("baseline_reason")
+                           for f in doc["baselined"]):
+            raise AssertionError(f"16 (d): lint exited {rc}: "
+                                 f"{doc['findings'][:5]}")
+        say("16", f"(d) lint --json: exit 0 in {s:.3f} s, no finding, "
+                  f"{len(doc['baselined'])} baselined (each with its reason, "
+                  f"kyverno_tpu_torch/devtools/lint_baseline.json)")
+        kerr = reg.kernel_errors.value() - kerr0
+        if kerr:
+            raise AssertionError(f"{kerr} kernel errors in the phase")
+        say("16", f"phase 16 in {time.perf_counter() - t_phase:.3f} s")
+        return {"launches": launches}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 16 (c): the chainsaw scenarios the phase writes. Each is
+# {file name: documents} and its steps, in the chainsaw Test schema the
+# runner (cli/chainsaw.py) replays; every one must report pass.
+DENIED = [{"check": {"($error != null)": True}}]
+
+
+def _ns(name, labels=None):
+    meta = {"name": name}
+    if labels:
+        meta["labels"] = labels
+    return {"apiVersion": "v1", "kind": "Namespace", "metadata": meta}
+
+
+def _cpol(name, rules, **spec):
+    return {"apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": name}, "spec": {**spec, "rules": rules}}
+
+
+def _ready(kind, name):
+    return {"apiVersion": "kyverno.io/v1", "kind": kind,
+            "metadata": {"name": name},
+            "status": {"conditions": [{"reason": "Succeeded",
+                                       "status": "True", "type": "Ready"}]}}
+
+
+def _pod(name, ns="default", labels=None, privileged=None):
+    c = {"name": "c", "image": "nginx:1.25"}
+    if privileged is not None:
+        c["securityContext"] = {"privileged": privileged}
+    meta = {"name": name, "namespace": ns}
+    if labels:
+        meta["labels"] = labels
+    return {"apiVersion": "v1", "kind": "Pod", "metadata": meta,
+            "spec": {"containers": [c]}}
+
+
+CHAINSAW_SCENARIOS = {
+    "generate/data-sync": ({
+        "policy.yaml": [_cpol("gen-netpol", [{
+            "name": "default-deny",
+            "match": {"any": [{"resources": {"kinds": ["Namespace"]}}]},
+            "generate": {
+                "apiVersion": "networking.k8s.io/v1",
+                "kind": "NetworkPolicy", "name": "default-deny",
+                "namespace": "{{request.object.metadata.name}}",
+                "synchronize": True,
+                "data": {"spec": {"podSelector": {},
+                                  "policyTypes": ["Ingress"]}}}}])],
+        "policy-assert.yaml": [_ready("ClusterPolicy", "gen-netpol")],
+        "namespace.yaml": [_ns("gen-ns")],
+        "netpol.yaml": [{"apiVersion": "networking.k8s.io/v1",
+                         "kind": "NetworkPolicy",
+                         "metadata": {"name": "default-deny",
+                                      "namespace": "gen-ns"},
+                         "spec": {"policyTypes": ["Ingress"]}}],
+    }, [
+        [{"apply": {"file": "policy.yaml"}},
+         {"assert": {"file": "policy-assert.yaml"}}],
+        [{"apply": {"file": "namespace.yaml"}},
+         {"assert": {"file": "netpol.yaml"}}],
+        [{"delete": {"ref": {"apiVersion": "v1", "kind": "Namespace",
+                             "name": "gen-ns"}}},
+         {"error": {"file": "netpol.yaml"}}],
+    ]),
+    "generate/clone": ({
+        "source.yaml": [{"apiVersion": "v1", "kind": "Secret",
+                         "metadata": {"name": "regcred",
+                                      "namespace": "default"},
+                         "type": "Opaque", "data": {"token": "c2VjcmV0"}}],
+        "policy.yaml": [_cpol("clone-regcred", [{
+            "name": "clone",
+            "match": {"any": [{"resources": {"kinds": ["Namespace"]}}]},
+            "generate": {
+                "apiVersion": "v1", "kind": "Secret", "name": "regcred",
+                "namespace": "{{request.object.metadata.name}}",
+                "synchronize": True,
+                "clone": {"namespace": "default", "name": "regcred"}}}])],
+        "policy-assert.yaml": [_ready("ClusterPolicy", "clone-regcred")],
+        "namespace.yaml": [_ns("clone-ns")],
+        "cloned.yaml": [{"apiVersion": "v1", "kind": "Secret",
+                         "metadata": {"name": "regcred",
+                                      "namespace": "clone-ns"},
+                         "data": {"token": "c2VjcmV0"}}],
+    }, [
+        [{"apply": {"file": "source.yaml"}},
+         {"apply": {"file": "policy.yaml"}},
+         {"assert": {"file": "policy-assert.yaml"}}],
+        [{"apply": {"file": "namespace.yaml"}},
+         {"assert": {"file": "cloned.yaml"}}],
+    ]),
+    "mutate-existing/label-secrets": ({
+        "setup.yaml": [_ns("mx"),
+                       {"apiVersion": "v1", "kind": "Secret",
+                        "metadata": {"name": "s1", "namespace": "mx"},
+                        "data": {"k": "dg=="}}],
+        "policy.yaml": [_cpol("label-secrets", [{
+            "name": "mark",
+            "match": {"any": [{"resources": {
+                "kinds": ["ConfigMap"], "names": ["trigger"]}}]},
+            "mutate": {
+                "targets": [{"apiVersion": "v1", "kind": "Secret",
+                             "namespace": "{{request.object.metadata.namespace}}"}],
+                "patchStrategicMerge": {"metadata": {"labels": {
+                    "audited": "true"}}}}}])],
+        "policy-assert.yaml": [_ready("ClusterPolicy", "label-secrets")],
+        "trigger.yaml": [{"apiVersion": "v1", "kind": "ConfigMap",
+                          "metadata": {"name": "trigger", "namespace": "mx"},
+                          "data": {"go": "1"}}],
+        "secret-assert.yaml": [{"apiVersion": "v1", "kind": "Secret",
+                                "metadata": {"name": "s1", "namespace": "mx",
+                                             "labels": {"audited": "true"}}}],
+    }, [
+        [{"apply": {"file": "setup.yaml"}},
+         {"apply": {"file": "policy.yaml"}},
+         {"assert": {"file": "policy-assert.yaml"}}],
+        [{"apply": {"file": "trigger.yaml"}},
+         {"assert": {"file": "secret-assert.yaml"}}],
+    ]),
+    "cleanup/scheduled": ({
+        "pods.yaml": [_pod("sweep-me", labels={"cleanup": "yes"}),
+                      _pod("keep-me", labels={"cleanup": "no"})],
+        "cleanup-policy.yaml": [{
+            "apiVersion": "kyverno.io/v2beta1",
+            "kind": "ClusterCleanupPolicy",
+            "metadata": {"name": "sweep-labelled"},
+            "spec": {"schedule": "*/1 * * * *",
+                     "match": {"any": [{"resources": {
+                         "kinds": ["Pod"], "selector": {
+                             "matchLabels": {"cleanup": "yes"}}}}]}}}],
+        "cleanup-assert.yaml": [{"apiVersion": "kyverno.io/v2beta1",
+                                 "kind": "ClusterCleanupPolicy",
+                                 "metadata": {"name": "sweep-labelled"}}],
+        "swept.yaml": [{"apiVersion": "v1", "kind": "Pod",
+                        "metadata": {"name": "sweep-me",
+                                     "namespace": "default"}}],
+        "kept.yaml": [{"apiVersion": "v1", "kind": "Pod",
+                       "metadata": {"name": "keep-me",
+                                    "namespace": "default"}}],
+    }, [
+        [{"apply": {"file": "pods.yaml"}},
+         {"apply": {"file": "cleanup-policy.yaml"}},
+         {"assert": {"file": "cleanup-assert.yaml"}}],
+        [{"error": {"file": "swept.yaml"}},
+         {"assert": {"file": "kept.yaml"}}],
+    ]),
+    "validate/enforce-denial": ({
+        "policy.yaml": [_cpol("no-privileged", [{
+            "name": "privileged",
+            "match": {"any": [{"resources": {"kinds": ["Pod"]}}]},
+            "validate": {"message": "privileged containers are forbidden",
+                         "pattern": {"spec": {"containers": [{
+                             "=(securityContext)": {
+                                 "=(privileged)": "false"}}]}}}}],
+            validationFailureAction="Enforce", background=True)],
+        "policy-assert.yaml": [_ready("ClusterPolicy", "no-privileged")],
+        "bad-pod.yaml": [_pod("bad", privileged=True)],
+        "good-pod.yaml": [_pod("good", privileged=False)],
+    }, [
+        [{"apply": {"file": "policy.yaml"}},
+         {"assert": {"file": "policy-assert.yaml"}}],
+        [{"apply": {"file": "bad-pod.yaml", "expect": DENIED}},
+         {"error": {"file": "bad-pod.yaml"}}],
+        [{"apply": {"file": "good-pod.yaml"}},
+         {"assert": {"file": "good-pod.yaml"}}],
+    ]),
+}
+
+
+def write_chainsaw_tree(root: str) -> list:
+    """Writes ``CHAINSAW_SCENARIOS`` under ``root`` (one directory a
+    scenario: its files and its ``chainsaw-test.yaml``); returns the
+    scenario directories relative to ``root``, sorted."""
+    import yaml
+
+    for rel, (files, steps) in CHAINSAW_SCENARIOS.items():
+        d = os.path.join(root, rel)
+        os.makedirs(d, exist_ok=True)
+        for name, docs in files.items():
+            with open(os.path.join(d, name), "w") as f:
+                yaml.safe_dump_all(docs, f, sort_keys=False)
+        test = {"apiVersion": "chainsaw.kyverno.io/v1alpha1", "kind": "Test",
+                "metadata": {"name": rel.replace("/", "-")},
+                "spec": {"steps": [{"name": f"step-{i}", "try": ops}
+                                   for i, ops in enumerate(steps)]}}
+        with open(os.path.join(d, "chainsaw-test.yaml"), "w") as f:
+            yaml.safe_dump(test, f, sort_keys=False)
+    return sorted(CHAINSAW_SCENARIOS)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--n", type=int, default=16384,
@@ -6252,6 +6646,9 @@ def main() -> int:
     phase_s.mark("15")
     # phase 15: the admission webhook server and its entry points
     srv = server_phase(torch, kernels, args.seed + 60, tag)
+    phase_s.mark("16")
+    # phase 16: the CLI and the background controllers
+    cli = cli_phase(torch, kernels, tag, rep["dir"])
     phase_s.mark(None)
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]
@@ -6278,6 +6675,7 @@ def main() -> int:
     by_path["analysis_tile"] = ana["launches"]
     by_path["mesh_scan"] = mesh_launches
     by_path["server"] = srv["launches"]
+    by_path["analyze_cli"] = cli["launches"]
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]

@@ -13,8 +13,8 @@ scan over the vocabulary form), which ``tpu.pipeline.PipelinedScanner``
 drives with its encode on a feed thread or an ``encode.EncoderPool`` of
 spawned worker processes; above them, the AdmissionReview webhook
 server (``webhooks.build_handlers``, ``webhooks.AdmissionServer``) and
-the command line, ``python -m kyverno_tpu_torch`` (``apply``, ``serve``,
-``flight-dump``, ``replay``, ``version``). They run on
+the command line, ``python -m kyverno_tpu_torch`` (``apply``,
+``analyze``, ``serve`` and the reference's other commands). They run on
 ``device="cuda"`` unless the caller asks for ``device="cpu"``
 (``--device cpu`` on the command line), where every kernel is replaced
 by its plain PyTorch twin.

@@ -1,10 +1,8 @@
-# Copied from kyverno_tpu/cli/__main__.py, with the commands the port has:
-# apply, serve, flight-dump, replay and version. The others join as the
-# slices that port them land (ROADMAP.md, queue A4).
+# Copied from kyverno_tpu/cli/__main__.py, with the port's description.
 """CLI entry: python -m kyverno_tpu_torch.cli <command>.
 
-Command surface mirrors cmd/cli/kubectl-kyverno/commands: apply, serve,
-version, and the flight recorder's flight-dump and replay.
+Command surface mirrors cmd/cli/kubectl-kyverno/commands: apply, test,
+jp, serve, version, json scan, fix, create, docs, oci.
 """
 
 from __future__ import annotations
@@ -12,9 +10,16 @@ from __future__ import annotations
 import argparse
 import sys
 
+from . import analyze as analyze_cmd
 from . import apply as apply_cmd
+from . import chainsaw as chainsaw_cmd
 from . import flight as flight_cmd
+from . import jp as jp_cmd
+from . import lint as lint_cmd
+from . import report as report_cmd
 from . import serve as serve_cmd
+from . import test as test_cmd
+from . import tools as tools_cmd
 
 VERSION = "0.4.0"
 
@@ -48,8 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
     apply_cmd.add_parser(sub)
+    analyze_cmd.add_parser(sub)
+    lint_cmd.add_parser(sub)
+    jp_cmd.add_parser(sub)
+    test_cmd.add_parser(sub)
     serve_cmd.add_parser(sub)
+    report_cmd.add_parser(sub)
+    tools_cmd.add_parsers(sub)
     flight_cmd.add_parsers(sub)
+    chainsaw_cmd.add_parser(sub)
     v = sub.add_parser("version", help="print version")
     v.set_defaults(func=_version)
     return parser

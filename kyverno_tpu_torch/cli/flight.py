@@ -1,7 +1,6 @@
 # Copied from kyverno_tpu/cli/flight.py, with TorchEngine (on the card
 # unless the caller passes an engine) where replay_capture builds a
-# TpuEngine, and flight-dump's GET inlined (the reference borrows it
-# from cli/tools, which the port does not have yet).
+# TpuEngine.
 """`flight-dump` and `replay` — the flight recorder's CLI surface.
 
 flight-dump pulls the in-memory ring off a running serve process
@@ -76,20 +75,11 @@ def add_parsers(sub: argparse._SubParsersAction) -> None:
 
 
 def _fetch_flight(host: str, port: int, last: int) -> Dict[str, Any]:
-    # the GET `kyverno-tpu top` makes against the same debug router
-    import http.client
+    # same helper `kyverno-tpu top` uses against the same debug router
+    from .tools import _http_get_json
 
-    path = f"/debug/flight?last={last}"
-    conn = http.client.HTTPConnection(host, port, timeout=30.0)
-    try:
-        conn.request("GET", path)
-        resp = conn.getresponse()
-        body = resp.read()
-    finally:
-        conn.close()
-    if resp.status >= 400:
-        raise RuntimeError(f"GET {path} -> {resp.status}")
-    return json.loads(body)
+    return _http_get_json(host, port, f"/debug/flight?last={last}",
+                          timeout=30.0)
 
 
 def run_flight_dump(args: argparse.Namespace) -> int:

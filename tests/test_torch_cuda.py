@@ -2115,3 +2115,49 @@ def test_admission_handlers_on_the_card_equal_the_cpu(cuda):
     assert reports["cuda"] == reports["cpu"]
     results = {r[2] for rs in reports["cuda"].values() for r in rs}
     assert {"pass", "fail"} <= results
+
+
+# ---------------------------------------------------------------------------
+# the command line on the card
+
+
+@pytest.mark.parametrize("fail_on", [None, "any"])
+def test_analyze_command_on_the_card_equals_cpu(cuda, fail_on, capsys,
+                                                tmp_path):
+    """``python -m kyverno_tpu_torch analyze`` with no ``--device`` runs
+    on the card and launches the dense kernels there; its JSON report
+    (timings aside) and exit code equal ``--device cpu``'s."""
+    import json
+    import os
+    import shutil
+
+    from kyverno_tpu_torch.cli.__main__ import main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pss = os.path.join(os.path.dirname(here), "kyverno_tpu_torch",
+                       "policies", "pss")
+    for name in os.listdir(pss):
+        shutil.copy(os.path.join(pss, name), tmp_path)
+    shutil.copy(os.path.join(here, "golden", "analysis",
+                             "seeded_anomalies.yaml"), tmp_path)
+    argv = ["analyze", str(tmp_path), "--json"] + (
+        ["--fail-on", fail_on] if fail_on else [])
+
+    def view(out):
+        doc = json.loads(out.strip().splitlines()[-1])
+        doc["stats"] = {k: v for k, v in doc["stats"].items()
+                        if not k.endswith("_s") and k != "witness_evals_per_s"}
+        return doc
+
+    kernels.reset_launches()
+    rc_card = main(argv)
+    launches = dict(kernels.LAUNCHES)
+    card = view(capsys.readouterr().out)
+    rc_cpu = main(argv + ["--device", "cpu"])
+    cpu = view(capsys.readouterr().out)
+    assert (rc_card, card) == (rc_cpu, cpu)
+    assert rc_card == (1 if fail_on else 0)
+    assert all(card["counts"][k] >= 1 for k in card["counts"])
+    for name in ("dfa_scan_fused", "verdict_counts", "class_fold",
+                 "row_fold"):
+        assert launches.get(name, 0) > 0, (name, launches)

@@ -8,8 +8,8 @@ lifecycle}``) against the JAX package's, on the CPU (tolerance: exact).
   function of tests/test_serve.py, test_webhooks.py,
   test_webhook_lifecycle.py, test_vap.py, test_vap_generate.py and
   test_userinfo_rbac.py runs from the same source with its imports
-  pointed at ``kyverno_tpu_torch`` (``utils/tlsutil``, not ported, stays
-  the reference's: it only writes the certificate files) and every
+  pointed at ``kyverno_tpu_torch`` (the port's ``utils/tlsutil``'s
+  ``CertRenewer`` against the port's server among them) and every
   ``build_handlers`` / ``ControlPlane`` given ``device="cpu"``. The
   reference's own run of them is in their own files.
 - ``ControlPlane`` side by side: the same snapshot upserts, scans,
@@ -60,10 +60,8 @@ def _on_cpu(fn):
 
 def _port_source(src):
     """The reference test module's source with its imports pointed at the
-    port (the certificate helper stays the reference's) and the device
-    engines' constructors given device="cpu"."""
-    src = re.sub(r"\bkyverno_tpu\.(?!utils\.tlsutil)", "kyverno_tpu_torch.",
-                 src)
+    port and the device engines' constructors given device="cpu"."""
+    src = re.sub(r"\bkyverno_tpu\.", "kyverno_tpu_torch.", src)
     for name in ("build_handlers", "ControlPlane"):
         src = re.sub(rf"(?<![\w.]){name}\(", f"_on_cpu({name})(", src)
     return src

@@ -5,12 +5,24 @@ The corpora of the JAX parity modules are taken as those modules build
 them: a module's test function runs with ``TpuEngine.scan`` wrapped so
 that every scan it makes is recorded (engine, resources, namespace
 labels, operations, user infos, and the ScanResult it returned) and
-then carried out as before."""
+then carried out as before.
+
+The JAX package's own test modules also run against the port:
+``port_test_module`` executes one with its imports pointed at
+``kyverno_tpu_torch``, ``scenario_params`` lists its test functions
+(expanded over their ``parametrize`` marks) and ``run_port_scenario``
+calls one with its fixtures resolved."""
 
 from __future__ import annotations
 
+import ast
 import copy
-from typing import Any, Dict, List, Optional
+import functools
+import inspect
+import os
+import re
+import types
+from typing import Any, Dict, List, Optional, Tuple
 
 import jax
 import numpy as np
@@ -273,3 +285,99 @@ def port_lanes_cpu(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     from kyverno_tpu_torch.tpu.engine import lanes_to_device
 
     return lanes_to_device(batch, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's own test functions, run against the port
+
+_TESTS = os.path.dirname(os.path.abspath(__file__))
+_PYTEST_FIXTURES = {"tmp_path", "capsys", "monkeypatch", "request"}
+
+
+@functools.lru_cache(maxsize=None)
+def port_test_module(name: str, rewrites: Tuple[Tuple[str, str], ...] = ()):
+    """tests/<name>.py executed with every ``kyverno_tpu.`` pointed at
+    ``kyverno_tpu_torch.`` and then each (pattern, replacement) of
+    ``rewrites`` applied to its source: the reference test's scenarios,
+    run against the port. One module object per (name, rewrites)."""
+    path = os.path.join(_TESTS, f"{name}.py")
+    src = re.sub(r"\bkyverno_tpu\.", "kyverno_tpu_torch.", open(path).read())
+    for pattern, repl in rewrites:
+        src = re.sub(pattern, repl, src)
+    mod = types.ModuleType(f"port_{name}")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+def scenario_params(name: str, skip: Tuple[str, ...] = ()) -> List[Any]:
+    """One pytest param (module name, function name, its parametrize
+    arguments) for each test function of tests/<name>.py not in
+    ``skip``, expanded over its ``parametrize`` marks."""
+    out = []
+    tree = ast.parse(open(os.path.join(_TESTS, f"{name}.py")).read())
+    for node in tree.body:
+        if not (isinstance(node, ast.FunctionDef)
+                and node.name.startswith("test_") and node.name not in skip):
+            continue
+        cases = [({}, "")]
+        for deco in node.decorator_list:
+            if (isinstance(deco, ast.Call)
+                    and getattr(deco.func, "attr", "") == "parametrize"):
+                names = [n.strip() for n in
+                         ast.literal_eval(deco.args[0]).split(",")]
+                values = ast.literal_eval(deco.args[1])
+                cases = [({**kw, **dict(zip(names, v if len(names) > 1
+                                            else (v,)))},
+                          f"{tag}[{'-'.join(map(str, v if len(names) > 1 else (v,)))}]")
+                         for kw, tag in cases for v in values]
+        for kw, tag in cases:
+            out.append(pytest.param(name, node.name, kw,
+                                    id=f"{name}::{node.name}{tag}"))
+    return out
+
+
+def run_port_scenario(module, name: str, params: Dict[str, Any],
+                      request) -> None:
+    """Call ``module.<name>`` with ``params`` and its other arguments
+    resolved as pytest would: pytest's own fixtures from ``request``,
+    the module's fixtures (function scope) by calling them, generator
+    fixtures torn down after the call."""
+    cache: Dict[str, Any] = dict(params)
+    teardown = []
+
+    def resolve(arg):
+        if arg in cache:
+            return cache[arg]
+        if arg in _PYTEST_FIXTURES:
+            value = request.getfixturevalue(arg)
+        else:
+            fx = getattr(module, arg)
+            fn = getattr(fx, "_get_wrapped_function", lambda: fx)()
+            value = fn(**{a: resolve(a)
+                          for a in inspect.signature(fn).parameters})
+            if inspect.isgenerator(value):
+                teardown.append(value)
+                value = next(value)
+        cache[arg] = value
+        return value
+
+    fn = getattr(module, name)
+    try:
+        fn(**{a: resolve(a) for a in inspect.signature(fn).parameters})
+    finally:
+        for gen in reversed(teardown):
+            next(gen, None)
+
+
+def port_cli_main(argv=None) -> int:
+    """The port's ``python -m kyverno_tpu_torch`` entry, with
+    ``--device cpu`` added to the commands that take it (``apply``,
+    ``analyze``) unless the caller named a device or asked for help."""
+    from kyverno_tpu_torch.cli.__main__ import main
+
+    argv = list(argv or [])
+    if argv and argv[0] in ("apply", "analyze") and "--device" not in argv \
+            and not {"-h", "--help"} & set(argv):
+        argv += ["--device", "cpu"]
+    return main(argv)
