@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--n 16384] [--scan-n 50000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
         [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
-        [--reports-n 40000] [--seed 0]
+        [--reports-n 40000] [--xproc-n 16384] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -240,6 +240,24 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    step): every scenario passes; (d) ``report --rebuild-check`` on phase
    12's journal directory and ``lint --json`` on the port exit 0, the
    lint's findings all in the port's baseline.
+17. the mesh across processes (``parallel/sharding.py`` over
+   ``torch.distributed``, gloo): (a) two rank processes (``python3
+   chip_smoke.py xproc-rank``; ``MASTER_ADDR``, ``MASTER_PORT``,
+   ``WORLD_SIZE=2``, ``RANK``), both on ``cuda:0``, each a
+   ``ShardedScanner(PSS, mesh=make_mesh_2d(2, 1))`` over the first
+   16,384 (``--xproc-n``) of phase 14's snapshot: a cold and a warm
+   ``scan_stream``, one ``scan`` of the first tile and its
+   ``scan_device``; every rank's tables and counts equal this process's
+   one-device scan, bit for bit, and every scan kernel launched on
+   every rank in the warm scan (each rank's launches printed); (b) two
+   ``python -m kyverno_tpu_torch serve --distributed`` processes of the
+   same environment and policies (PSS) and a single ``serve``, all on
+   the card: both ranks log ``distributed_initialized`` with ``hosts=2``
+   and ``per_host=1``, the same 1,024 ``/snapshot/upsert`` calls go to
+   all three, one ``/scan`` to both ranks at once: each rank's summary
+   equals the single ``serve``'s. Every child runs under a hard
+   timeout; one that exits nonzero, times out or disagrees fails the
+   run.
 
 On every path (dense, step, tenant scan, tenant triage, mutate leg) the
 program runs as one CUDA graph per shape bucket (``tpu/graphs.py``): the
@@ -291,15 +309,16 @@ are reset before each phase; after each phase but the fault phase the
 script fails unless no ``breaker_fallback`` was counted, the last
 dispatch went to the device and the breaker is closed.
 
-Phases 7 and 8 run after phase 5, then phases 9 to 16; phase 6's
+Phases 7 and 8 run after phase 5, then phases 9 to 17; phase 6's
 lines come last (the kernels line gives launches by path, the admission
 path's from part (a), the reports tick path's from phase 12 (a)'s churn
 ticks, the analysis tile path's from phase 13's warm run, the mesh scan
 path's from phase 14's warm ``scan_stream`` on the 2 x 2 mesh, with its
 launches by device, the server path's from phase 15 (a)'s traffic and
 scan, the analyze_cli path's from phase 16 (a)'s ``analyze`` in this
-process, and each kernel's launches and trace time in one flush at each
-admission bucket).
+process, the xproc path's from phase 17 (a)'s warm ``scan_stream``,
+summed over its two ranks, and each kernel's launches and trace time in
+one flush at each admission bucket).
 
 Every number is printed with the card's name and power limit. Without
 CUDA, or without the ``kyverno_tpu_torch`` package beside this file, it
@@ -6275,6 +6294,296 @@ def cli_phase(torch, kernels, tag, reports_dir):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh across processes (parallel/sharding.py on
+# torch.distributed) and serve --distributed
+
+XPROC_N = 16384  # of phase 14's snapshot (its 50,000 cut for the time limit)
+XPROC_SERVE_N = 1024  # (b)'s snapshot upserts
+XPROC_CHILD_S = 300  # each child's hard limit, seconds
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def xproc_rank(argv) -> int:
+    """Phase 17 (a)'s rank: ``python3 chip_smoke.py xproc-rank DIR
+    SCAN_N N TILE SEED`` with ``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE`` and ``RANK`` set. Joins the gloo world, builds
+    ``ShardedScanner(PSS, mesh=make_mesh_2d(2, 1))`` (this rank's row:
+    its CUDA device) and scans the first N of phase 14's snapshot
+    (``workload(SCAN_N, SEED)``): ``scan_stream`` cold, then warm with
+    the launches counted from 0, ``scan`` of the first tile and its
+    ``scan_device``. Writes the tables and counts to ``DIR/rankR.npz``
+    and its launches and times to ``DIR/rankR.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from kyverno_tpu_torch import kernels
+    from kyverno_tpu_torch.observability.metrics import global_registry as reg
+    from kyverno_tpu_torch.parallel.sharding import (ShardedScanner,
+                                                     make_mesh_2d)
+    from kyverno_tpu_torch.policies import load_pss_policies
+    from kyverno_tpu_torch.policy.autogen import expand_policy
+    from kyverno_tpu_torch.tpu import cache as tcache
+
+    out, scan_n, n, tile, seed = (argv[0], int(argv[1]), int(argv[2]),
+                                  int(argv[3]), int(argv[4]))
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "gloo", init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
+                             f"{os.environ['MASTER_PORT']}"),
+        world_size=int(os.environ["WORLD_SIZE"]), rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    kernels.build_all()
+    tcache.configure(0, 0)
+    mesh = make_mesh_2d(2, 1, timeout_s=120)
+    sc = ShardedScanner([expand_policy(p) for p in load_pss_policies()],
+                        mesh=mesh)
+    resources, ops = workload(scan_n, seed)
+    resources, ops = resources[:n], ops[:n]
+    info = {"mesh": repr(mesh), "local": mesh.local,
+            "setup_s": time.perf_counter() - t0}
+    arrays = {}
+    ladder_reset()
+    t0 = time.perf_counter()
+    res, _ = sc.scan_stream(resources, tile=tile, operations=ops)
+    info["cold_s"] = time.perf_counter() - t0
+    arrays["cold"] = res.verdicts
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res, st = sc.scan_stream(resources, tile=tile, operations=ops)
+    info["warm_s"] = time.perf_counter() - t0
+    info["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    info["stats"] = {k: st[k] for k in ("encode_s", "device_s", "host_s",
+                                        "tiles", "tile")}
+    arrays["warm"] = res.verdicts
+    arrays["scan"] = sc.scan(resources[:tile], operations=ops[:tile]).verdicts
+    arrays["device_v"], arrays["device_c"] = sc.scan_device(
+        resources[:tile], operations=ops[:tile])
+    info["fallbacks"] = {r: reg.breaker_fallback.value({"reason": r})
+                         for r in ("error", "open")}
+    info["kernel_errors"] = reg.kernel_errors.value()
+    info["failed"] = mesh.failed
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    print(f"rank {rank}: launches of the warm scan_stream "
+          + json.dumps(info["launches"]), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _serve_events(path):
+    out = []
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass  # a line being written
+    return out
+
+
+def xproc_phase(torch, kernels, scanner, policies, scan_n, n, tile, seed,
+                tag):
+    """Phase 17: (a) two rank processes scan the first ``n`` of phase
+    14's snapshot on ``make_mesh_2d(2, 1)`` across them (``xproc_rank``),
+    each table and the counts equal to this process's one-device scan;
+    (b) two ``serve --distributed`` ranks and a single ``serve`` over
+    the same snapshot, their ``/scan`` summaries equal. All five
+    processes start together. Returns the warm scan's launches summed
+    over the ranks."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-xproc-")
+    procs = {}
+    try:
+        env = dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+                   WORLD_SIZE="2")
+        a_port, b_port = _free_port(), _free_port()
+        # each child's output goes to a file of its own (a pipe nobody
+        # reads could fill and stall it)
+        outs = {}
+
+        def output(label):
+            outs[label] = os.path.join(tmp, label.replace(" ", "_") + ".out")
+            return open(outs[label], "w")
+
+        def tail(label):
+            with open(outs[label]) as f:
+                return f.read()[-3000:]
+
+        for r in (0, 1):
+            with output(f"rank {r}") as f:
+                procs[f"rank {r}"] = subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "xproc-rank", tmp, str(scan_n), str(n), str(tile),
+                     str(seed)], cwd=HERE,
+                    env=dict(env, MASTER_PORT=str(a_port), RANK=str(r)),
+                    stdout=f, stderr=subprocess.STDOUT)
+        pfile = os.path.join(tmp, "pss.yaml")
+        pss = os.path.join(HERE, "kyverno_tpu_torch", "policies", "pss")
+        with open(pfile, "w") as f:
+            f.write("\n---\n".join(
+                open(os.path.join(pss, name)).read().strip()
+                for name in sorted(os.listdir(pss))) + "\n")
+        logs = {}
+        for label in ("serve rank 0", "serve rank 1", "serve"):
+            logs[label] = os.path.join(tmp, label.replace(" ", "_") + ".jsonl")
+            argv = [sys.executable, "-m", "kyverno_tpu_torch", "serve", pfile,
+                    "--port", "0", "--metrics-port", "0", "--scan-interval",
+                    "3600", "--no-reports", "--no-columnar", "--log-file",
+                    logs[label]]
+            penv = dict(os.environ, PYTHONPATH=HERE)
+            if label != "serve":
+                argv.append("--distributed")
+                penv = dict(env, MASTER_PORT=str(b_port), RANK=label[-1])
+            with output(label) as f:
+                procs[label] = subprocess.Popen(
+                    argv, cwd=HERE, env=penv, stdout=f,
+                    stderr=subprocess.STDOUT)
+
+        # (a)'s reference meanwhile: this process's one-device scanner
+        resources, ops = workload(scan_n, seed)
+        resources, ops = resources[:n], ops[:n]
+        say("17", f"(a) {n} of phase 14's {scan_n} resources (cut for the "
+                  f"time limit), tile {tile}; (b) {XPROC_SERVE_N} upserts")
+        ladder_reset()
+        one, _ = scanner.scan_stream(resources, tile=tile, operations=ops)
+        one_scan = scanner.scan(resources[:tile], operations=ops[:tile])
+        one_v, one_c = scanner.scan_device(resources[:tile],
+                                           operations=ops[:tile])
+        ladder_check("17")
+
+        # (b): wait for the three servers, upsert, scan
+        deadline = time.monotonic() + XPROC_CHILD_S
+        started = {}
+        while len(started) < 3:
+            for label in logs:
+                if procs[label].poll() is not None:
+                    raise AssertionError(f"17 (b): {label} exited "
+                                         f"{procs[label].returncode}: "
+                                         f"{tail(label)}")
+                for e in _serve_events(logs[label]):
+                    if e.get("event") == "serve_started":
+                        started[label] = e["metrics_port"]
+            if time.monotonic() > deadline:
+                raise AssertionError("17 (b): the servers did not start "
+                                     f"within {XPROC_CHILD_S} s")
+            time.sleep(0.2)
+        for r in (0, 1):
+            init = [e for e in _serve_events(logs[f"serve rank {r}"])
+                    if e.get("event", "").startswith("distributed_")]
+            if [(e["event"], e.get("hosts"), e.get("per_host"))
+                    for e in init] != [("distributed_initialized", 2, 1)]:
+                raise AssertionError(f"17 (b): serve rank {r} logged {init}")
+        say("17", "(b) both serve --distributed ranks logged "
+                  "distributed_initialized hosts=2 per_host=1")
+        docs = workload(XPROC_SERVE_N, seed + 1)[0]
+
+        def upsert(label):
+            for d in docs:
+                st, body, _, _ = http_post(started[label],
+                                           "/snapshot/upsert", d)
+                if st != 200:
+                    raise AssertionError(f"17 (b): {label} upsert {st}")
+
+        def scan(label):
+            st, body, t0, t1 = http_post(started[label], "/scan", {})
+            if st != 200:
+                raise AssertionError(f"17 (b): {label} /scan {st}: {body}")
+            return body, t1 - t0
+
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            list(pool.map(upsert, started))
+            ranks = list(pool.map(scan, ("serve rank 0", "serve rank 1")))
+            single = scan("serve")
+        for r, (body, s) in enumerate(ranks):
+            if (body["scanned"], body["summary"]) != (single[0]["scanned"],
+                                                     single[0]["summary"]):
+                raise AssertionError(f"17 (b): serve rank {r}'s scan "
+                                     f"{body} differs from the single "
+                                     f"serve's {single[0]}")
+        say("17", f"(b) /scan on both ranks at once: {ranks[0][0]['scanned']}"
+                  f" resources, {ranks[0][1]:.3f} s / {ranks[1][1]:.3f} s; "
+                  f"the single serve {single[1]:.3f} s; each summary "
+                  f"{ranks[0][0]['summary']} equal to the single serve's "
+                  f"{tag}")
+
+        # (a): the ranks' tables, counts and launches
+        for r in (0, 1):
+            p = procs[f"rank {r}"]
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"17 (a): rank {r} did not finish "
+                                     f"within {XPROC_CHILD_S} s")
+            if p.returncode != 0:
+                raise AssertionError(f"17 (a): rank {r} exited "
+                                     f"{p.returncode}: {tail(f'rank {r}')}")
+        launches = {}
+        for r in (0, 1):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info = json.load(f)
+            got = np.load(os.path.join(tmp, f"rank{r}.npz"))
+            for what, want in (("cold", one.verdicts), ("warm", one.verdicts),
+                               ("scan", one_scan.verdicts),
+                               ("device_v", one_v), ("device_c", one_c)):
+                if got[what].dtype != want.dtype \
+                        or not np.array_equal(got[what], want):
+                    raise AssertionError(f"17 (a): rank {r}'s {what} "
+                                         "differs from one process's")
+            if any(info["fallbacks"].values()) or info["kernel_errors"] \
+                    or info["failed"]:
+                raise AssertionError(f"17 (a): rank {r}: fallbacks "
+                                     f"{info['fallbacks']}, kernel errors "
+                                     f"{info['kernel_errors']}, mesh "
+                                     f"{info['failed']}")
+            missing = [k for k in SCAN_KERNELS if not info["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"17 (a): {missing} never launched on "
+                                     f"rank {r}")
+            for k, v in info["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            say("17", f"(a) rank {r} {info['mesh']}: setup "
+                      f"{info['setup_s']:.3f} s, scan_stream cold "
+                      f"{info['cold_s']:.3f} s, warm {info['warm_s']:.3f} s "
+                      f"({n / info['warm_s']:.1f} resources/s; stats "
+                      f"{json.dumps(info['stats'])}); tables and counts "
+                      f"equal to one process's; launches of the warm scan "
+                      f"{json.dumps(info['launches'])} {tag}")
+        say("17", f"phase 17 in {time.perf_counter() - t_phase:.3f} s {tag}")
+        return {"launches": launches}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in procs.values():
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # phase 16 (c): the chainsaw scenarios the phase writes. Each is
 # {file name: documents} and its steps, in the chainsaw Test schema the
 # runner (cli/chainsaw.py) replays; every one must report pass.
@@ -6487,6 +6796,9 @@ def main() -> int:
     ap.add_argument("--reports-n", type=int, default=40000,
                     help="lean Pods in phase 12's soak (bench.py's "
                          "1,000,000 cut for the time limit)")
+    ap.add_argument("--xproc-n", type=int, default=XPROC_N,
+                    help="resources of phase 14's snapshot that phase 17 "
+                         "(a) scans on the mesh across processes")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -6649,6 +6961,10 @@ def main() -> int:
     phase_s.mark("16")
     # phase 16: the CLI and the background controllers
     cli = cli_phase(torch, kernels, tag, rep["dir"])
+    phase_s.mark("17")
+    # phase 17: the mesh across processes and serve --distributed
+    xproc = xproc_phase(torch, kernels, scanner, policies, args.scan_n,
+                        args.xproc_n, args.tile, args.seed + 10, tag)
     phase_s.mark(None)
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]
@@ -6676,6 +6992,7 @@ def main() -> int:
     by_path["mesh_scan"] = mesh_launches
     by_path["server"] = srv["launches"]
     by_path["analyze_cli"] = cli["launches"]
+    by_path["xproc"] = xproc["launches"]
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         r = results[name]
@@ -6833,4 +7150,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["xproc-rank"]:
+        sys.exit(xproc_rank(sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,8 @@
 # Copied from kyverno_tpu/cli/serve.py. The control plane runs its
 # engines on the card (device=, --device cpu for the plain path);
 # --xla-cache-dir is kept and logs that the port has no compile cache;
-# --distributed brings up torch.distributed and refuses a world size
-# above 1.
+# --distributed brings up torch.distributed (gloo) and, at a world size
+# above 1, the cross-process mesh the background scan shards over.
 """`serve` — run the admission + scan control plane in one process.
 
 The deployment-unit equivalent (cmd/kyverno + cmd/reports-controller):
@@ -261,7 +261,8 @@ def add_parser(sub: argparse._SubParsersAction) -> None:
     # fleet (fleet/): multi-replica scan sharding with lease-based
     # failover and peered verdict caches. Process-level replicas run
     # the whole chaos story on CPU; --distributed brings up
-    # torch.distributed (its cross-process mesh is not ported yet).
+    # torch.distributed and shards the background scan over the
+    # processes' (hosts, per_host) mesh.
     p.add_argument("--fleet-listen", type=int, default=None, metavar="PORT",
                    help="run the localhost fleet peer protocol on PORT "
                         "(membership heartbeats, verdict-cache fetch/"
@@ -291,12 +292,15 @@ def add_parser(sub: argparse._SubParsersAction) -> None:
                         "seconds are rejected as stale by the leader's "
                         "aggregation fold (0 disables the age check)")
     p.add_argument("--distributed", action="store_true",
-                   help="bring up torch.distributed from MASTER_ADDR, "
-                        "MASTER_PORT, WORLD_SIZE and RANK (nccl on the "
-                        "card, gloo on the CPU); without that env, or at "
-                        "world size 1, this logs and continues single-"
-                        "host; a world size above 1 is refused (the "
-                        "cross-process mesh is not ported yet)")
+                   help="bring up torch.distributed (gloo) from "
+                        "MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK; "
+                        "at a world size above 1 the background scan "
+                        "shards over a (hosts=world size, per_host=this "
+                        "process's devices) mesh and its verdict counts "
+                        "reduce across every process (every rank must "
+                        "serve the same snapshot); without that env, or "
+                        "at world size 1, this logs and continues "
+                        "single-host")
     p.add_argument("--dfa-state-budget", type=int, default=None, metavar="N",
                    help="per-pattern DFA state budget for device-side "
                         "string matching: exact tables up to N states, "
@@ -584,23 +588,20 @@ def _metrics_server(cp: "ControlPlane", port: int) -> ThreadingHTTPServer:
     return ThreadingHTTPServer(("127.0.0.1", port), _Req)
 
 
-class DistributedNotPorted(RuntimeError):
-    """serve --distributed at a world size above 1: the cross-process
-    mesh is not part of the port yet, and serve must not run
-    single-host silently in its place."""
-
-
 _DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
 def _init_distributed(device=None):
     """serve --distributed: initialize torch.distributed from
-    MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK (backend nccl on the
-    card, gloo on the CPU). Returns None: without that environment it
-    logs ``distributed_init_skipped``, at world size 1
-    ``distributed_single_host``, and any other failure
-    ``distributed_init_failed``, each continuing single-host. A world
-    size above 1 raises DistributedNotPorted before any rendezvous."""
+    MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK (backend gloo: the
+    mesh's collectives run on host tensors, and one card may hold
+    several ranks) and, at a world size above 1, build the 2-D (hosts,
+    data) mesh from parallel/sharding.py across the processes: hosts is
+    the world size, per_host this process's device count (its CUDA
+    devices, or 1 for ``device="cpu"``). Returns the mesh or None;
+    without that environment it logs ``distributed_init_skipped``, at
+    world size 1 ``distributed_single_host``, and any other failure
+    ``distributed_init_failed``, each continuing single-host."""
     from ..observability.log import global_oplog
 
     env = {k: os.environ.get(k) for k in _DIST_ENV}
@@ -611,33 +612,34 @@ def _init_distributed(device=None):
                                 f"environment")
         return None
     try:
-        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
-    except ValueError as e:
-        global_oplog.emit("distributed_init_failed", level="warn",
-                          error=str(e)[:200])
-        return None
-    if world > 1:
-        raise DistributedNotPorted(
-            f"serve --distributed at world size {world}: the cross-process "
-            f"mesh is not ported yet; run one serve per card (the fleet "
-            f"layer, --fleet-listen) instead")
-    try:
+        import datetime
+
         import torch
         import torch.distributed as dist
 
+        from ..parallel.sharding import XPROC_TIMEOUT_S, make_mesh_2d
         from ..tpu.engine import resolve_device
 
+        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
         dev = resolve_device(device)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = "gloo"
         if not dist.is_initialized():
             dist.init_process_group(
                 backend,
                 init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                world_size=world, rank=rank)
-        global_oplog.emit("distributed_single_host", backend=backend,
-                          devices=(torch.cuda.device_count()
-                                   if dev.type == "cuda" else 1))
-        return None
+                world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=XPROC_TIMEOUT_S))
+        hosts = dist.get_world_size()
+        per_host = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if hosts <= 1:
+            global_oplog.emit("distributed_single_host", backend=backend,
+                              devices=per_host)
+            return None
+        mesh = make_mesh_2d(hosts, per_host,
+                            devices=None if dev.type == "cuda" else ["cpu"])
+        global_oplog.emit("distributed_initialized", hosts=hosts,
+                          per_host=per_host)
+        return mesh
     except Exception as e:  # noqa: BLE001
         global_oplog.emit("distributed_init_failed", level="warn",
                           error=str(e)[:200])
@@ -788,17 +790,12 @@ def run(args: argparse.Namespace) -> int:
         return 2
     mesh = None
     if args.distributed:
-        # torch.distributed from the standard env. No env or world size
-        # 1 logs and stays single-host; a larger world is refused until
-        # the cross-process mesh is ported
-        try:
-            mesh = _init_distributed(args.device)
-        except DistributedNotPorted as e:
-            print(str(e), file=sys.stderr)
-            from ..encode import shutdown_pool
-
-            shutdown_pool()
-            return 2
+        # torch.distributed from the standard env; at a world size above
+        # 1 the background scan shards over the processes' mesh.
+        # Anything short of a working topology logs and stays
+        # single-host — the fleet layer above is what carries the
+        # process-level story either way.
+        mesh = _init_distributed(args.device)
     exporter = None
     if args.trace_export:
         from ..observability.tracing import (OTLPJsonFileExporter,

@@ -1,6 +1,8 @@
-# Copied from kyverno_tpu/cluster/scanner.py, with one addition: beside the
+# Copied from kyverno_tpu/cluster/scanner.py, with two additions: beside the
 # reference's mesh= the service takes device= (a one-entry mesh; "cpu" for
-# the plain path) and passes either to ShardedScanner.
+# the plain path) and passes either to ShardedScanner; and on a mesh that
+# spans processes the ranks agree on what goes through the mesh
+# (_mesh_common) and scan ticks run one at a time.
 """Background scan service — the reports-controller hot loop on the card.
 
 Mirror of pkg/controllers/report/background (controller.go:247
@@ -75,6 +77,9 @@ class BackgroundScanService:
         self._scanned: Dict[str, Tuple[str, int]] = {}  # guarded-by: _lock
         self._dirty: Set[str] = set()                   # guarded-by: _lock
         self._lock = threading.Lock()
+        # a mesh across processes: one tick at a time (every rank enters
+        # the same collectives in the same order)
+        self._tick_lock = threading.Lock()
         self._scanner = None
         self._scanner_rev = -1
         self._pipeline = None
@@ -188,13 +193,48 @@ class BackgroundScanService:
 
     # -- the scan loop body
 
+    @property
+    def _cross_process(self) -> bool:
+        return bool(getattr(self.mesh, "cross_process", False))
+
     def scan_once(self, full: bool = False) -> int:
         """Scan dirty (or all, when full/revision changed) resources.
         Returns the number of resources evaluated. Under a fleet
         (fleet/manager.py) the keyspace is sharded: this replica scans
         ONLY the shards it owns, and shards just taken over from a
         dead replica force-rescan (the dead owner's reports died with
-        it — clean-skip bookkeeping must not hide that)."""
+        it — clean-skip bookkeeping must not hide that). On a mesh
+        across processes each rank's i-th tick pairs with every other
+        rank's i-th tick."""
+        if not self._cross_process:
+            return self._scan_once(full)
+        with self._tick_lock:
+            return self._scan_once(full)
+
+    def _mesh_common(self, miss, miss_keys):
+        """On a mesh across processes every rank must put the same
+        resources, in the same order, through the mesh's collectives:
+        the (uid, content hash) pairs that every rank missed, in rank
+        0's order. Returns those entries and their cache keys, and the
+        rest of this rank's misses (another rank served them from its
+        own verdict cache, or had them clean), which it scans alone.
+        When the mesh has failed, everything goes through it (its steps
+        then answer through the scalar engine at once)."""
+        from ..parallel.sharding import MeshPeerFailed
+
+        pairs = [(uid, h) for uid, _, h in miss]
+        try:
+            common = self.mesh.common(pairs)
+        except MeshPeerFailed:
+            common = pairs
+        at = {p: i for i, p in enumerate(pairs)}
+        take = [at[p] for p in common]
+        shared = set(take)
+        alone = [i for i in range(len(miss)) if i not in shared]
+        return ([miss[i] for i in take], [miss_keys[i] for i in take],
+                [miss[i] for i in alone], [miss_keys[i] for i in alone])
+
+    def _scan_once(self, full: bool = False) -> int:
         revision = self.cache.revision
         # ONE dep-movement decision per tick: it drives both the full
         # rescan (stale verdicts) and the recompile, so a configmap
@@ -248,7 +288,7 @@ class BackgroundScanService:
                 todo.append((uid, res, h))
             else:
                 self.stats["skipped_clean"] += 1
-        if not todo:
+        if not todo and not self._cross_process:
             # a clean tick is still a completed scan: freshness resets
             # (fleet: by the oldest owned shard, not unconditionally)
             try:
@@ -400,6 +440,16 @@ class BackgroundScanService:
                 miss, miss_keys = still, still_keys
                 self.stats["fleet_peer_hits"] = \
                     self.stats.get("fleet_peer_hits", 0) + len(peer_cols)
+        if self._cross_process:
+            miss, miss_keys, alone, alone_keys = self._mesh_common(
+                miss, miss_keys)
+            if alone:
+                # this rank's own misses: its engine alone, no collective
+                result = eng.scan([r for (_, r, _) in alone], ns_labels)
+                report(alone, result, evaluated=True)
+                for ci, key in enumerate(alone_keys):
+                    if key is not None:
+                        vc.put(key, result.verdicts[:, ci])
         if hit_entries:
             hit_table = np.stack(hit_cols, axis=1)
             report(hit_entries, ScanResult(verdicts=hit_table, rules=rules))

@@ -5,7 +5,11 @@ entry():                the one-device program of the flagship workload
                         (the compiled PSS policy set) and example lanes.
 dryrun_multichip(n, devices=None):
                         build an n-entry 2-axis mesh of devices of this
-                        process, run the FULL sharded scan step on it
+                        one process (as the reference's dry run does;
+                        a mesh across processes is ``make_mesh_2d``
+                        under torch.distributed, which ``serve
+                        --distributed`` builds), run the FULL sharded
+                        scan step on it
                         (resources sharded over both axes, policies and
                         vocabulary lanes replicated, the verdict-count
                         reduction crossing devices) on tiny shapes, and

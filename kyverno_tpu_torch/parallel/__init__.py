@@ -1,4 +1,5 @@
-"""Device-mesh parallelism for the scan engine (one process's devices)."""
+"""Device-mesh parallelism for the scan engine (one process's devices, or
+a (hosts, per_host) mesh across the processes of torch.distributed)."""
 
 from .sharding import Mesh, ShardedScanner, make_mesh, make_mesh_2d
 

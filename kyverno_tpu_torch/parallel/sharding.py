@@ -10,17 +10,15 @@ string table plus a (n, K) ``pool_sidx`` table. The device gathers the
 dense lanes it reads from them (``evaluator.LaneView``, kernel K5), so
 a tile moves a fraction of the dense form's bytes.
 
-A mesh (``Mesh``) is a grid of ``torch.device``s of ONE process, as the
-reference's is a grid of one process's JAX devices (its multi-host form
-runs under ``jax.distributed``; the port's ``torch.distributed`` comes
-with the serving entry points). Policies are replicated and resources
-shard: ``put`` splits every per-resource lane host-major into
-``mesh.size`` contiguous slices in the order of ``mesh.devices``, and
-copies the vocabulary lanes (``vocab_*``, ``pool_svocab``,
-``pool_slen``) once to each distinct device, all of a device's lanes in
-one pinned buffer and one copy. A mesh may name a device more than once
-(the CPU tests use ``["cpu"] * 8``; a one-GPU machine names ``cuda:0``
-more than once): each entry is one shard.
+A mesh (``Mesh``) is a grid of ``torch.device``s, as the reference's is
+a grid of JAX devices. Policies are replicated and resources shard:
+``put`` splits every per-resource lane host-major into ``mesh.size``
+contiguous slices in the order of ``mesh.flat``, and copies the
+vocabulary lanes (``vocab_*``, ``pool_svocab``, ``pool_slen``) once to
+each distinct device, all of a device's lanes in one pinned buffer and
+one copy. A mesh may name a device more than once (the CPU tests use
+``["cpu"] * 8``; a one-GPU machine names ``cuda:0`` more than once):
+each entry is one shard.
 
 Each distinct device has its own compiled program (``evaluator.
 build_program``; on CUDA one CUDA graph per shape bucket, ``tpu/
@@ -33,6 +31,29 @@ are summed on the mesh's first device (a peer copy of each shard's
 (rules, 7) counts, then one add: the counterpart of the reference's
 cross-device reduction). The tables are read back into one host array in
 mesh order.
+
+The mesh may span processes, as the reference's does under
+``jax.distributed``: with ``torch.distributed`` initialized at a world
+size W above 1, ``make_mesh_2d(W, per_host)`` gives row r of the grid to
+rank r (its CUDA devices, or ``devices=``). Every rank runs the same
+scan on the same resources: it encodes the whole tile, ``put`` places
+its own shards only, ``step`` runs them and sums their counts, then one
+``all_reduce`` sums the (rules, 7) counts over the ranks, and ``table``
+gathers every rank's shard tables, so each rank holds the whole (rules,
+N) table in mesh order. The collectives run on host tensors over a gloo
+group of the mesh's own, with an explicit timeout
+(``XPROC_TIMEOUT_S``): the scan reads its results back to the host
+anyway, and one card may hold several ranks, which NCCL refuses. Every
+rank enters each tile's collectives in the same order: a rank that
+cannot run its part (its encode failed, its breaker is open, its
+program raised) joins the tile's first collective with a failure flag
+(``skip_step``), so every rank's step raises ``MeshPeerFailed`` and the
+tile takes the guarded dispatch's all-HOST answer. The first collective
+also checks that the ranks agree on the tile's width and the compiled
+policy set. A collective that fails (a peer that never joins, within
+the timeout) marks the mesh failed; every later step on it raises at
+once. The lane-shape buckets need no agreement: they shape a rank's own
+lanes only, never what crosses ranks.
 
 ``scan`` goes through the reference's resilience ladder: an encode
 failure quarantines the hostile resources through ``TorchEngine.scan``,
@@ -55,7 +76,9 @@ twin.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import time
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,14 +102,33 @@ from ..tpu.flatten import EncodeConfig, encode_resources_vocab
 from ..tpu.metadata import encode_metadata
 
 
+# the default timeout of a cross-process mesh's collectives, in seconds:
+# a peer that does not join a collective within it fails the collective
+XPROC_TIMEOUT_S = 60.0
+
+
+class MeshPeerFailed(RuntimeError):
+    """A collective of a cross-process mesh did not give the tile's
+    result: a rank flagged a failure of its own part of the step, the
+    ranks disagreed on the tile, or the collective itself failed (a
+    peer that never joined, within the group's timeout)."""
+
+
 class Mesh:
-    """A grid of devices of one process — the port's counterpart of
+    """A grid of devices — the port's counterpart of
     ``jax.sharding.Mesh``: ``devices`` is an object ndarray of
     ``torch.device`` (its shape is the mesh's), ``axis_names`` names its
     axes, ``size`` counts its entries. A device may appear more than
-    once; each entry holds one shard."""
+    once; each entry holds one shard.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``ranks`` (the grid's shape) names the process of each entry; a
+    mesh of one process has no ``group``. A cross-process mesh carries
+    its gloo ``group``: ``local`` lists this process's entries, and a
+    peer's entries carry this process's device labels (each rank names
+    its own devices)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: Optional[np.ndarray] = None, group=None):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(tuple(axis_names)):
             raise ValueError(f"a mesh of shape {devices.shape} needs "
@@ -95,6 +137,20 @@ class Mesh:
             raise ValueError("a mesh needs at least one device")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.ranks = (np.zeros(devices.shape, dtype=np.int64) if ranks is None
+                      else np.asarray(ranks, dtype=np.int64).reshape(
+                          devices.shape))
+        self.group = group
+        if group is None:
+            self.rank, self.world = 0, 1
+        else:
+            import torch.distributed as dist
+
+            self.rank = dist.get_rank(group)
+            self.world = dist.get_world_size(group)
+        # why the mesh's process group failed, once one of its
+        # collectives did
+        self.failed: Optional[str] = None
 
     @property
     def size(self) -> int:
@@ -105,22 +161,116 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def cross_process(self) -> bool:
+        return self.group is not None
+
+    @property
     def flat(self) -> List[torch.device]:
         """The entries in mesh order (host-major on a 2-axis mesh): the
         order of the shards."""
         return list(self.devices.reshape(-1))
 
     @property
+    def local(self) -> List[int]:
+        """The flat indices of this process's entries, in mesh order."""
+        return [i for i, r in enumerate(self.ranks.reshape(-1))
+                if r == self.rank]
+
+    @property
+    def local_devices(self) -> List[torch.device]:
+        """This process's entries, in mesh order: the shards it runs."""
+        flat = self.flat
+        return [flat[i] for i in self.local]
+
+    @property
     def distinct(self) -> List[torch.device]:
-        """Each device once, in the order it first appears."""
+        """Each of this process's devices once, in the order it first
+        appears."""
         out: List[torch.device] = []
-        for d in self.flat:
+        for d in self.local_devices:
             if d not in out:
                 out.append(d)
         return out
 
     def __repr__(self) -> str:
-        return (f"Mesh({[str(d) for d in self.flat]}, shape {self.shape})")
+        ranks = (f", ranks {self.ranks.reshape(-1).tolist()}"
+                 if self.cross_process else "")
+        return (f"Mesh({[str(d) for d in self.flat]}, shape "
+                f"{self.shape}{ranks})")
+
+    # -- the collectives of a cross-process mesh (host tensors, gloo)
+
+    def _collective(self, fn):
+        if self.failed is not None:
+            raise MeshPeerFailed("the mesh's process group failed earlier: "
+                                 + self.failed)
+        try:
+            return fn()
+        except Exception as e:
+            self.failed = f"{type(e).__name__}: {e}"[:300]
+            raise MeshPeerFailed("a collective of the mesh failed: "
+                                 + self.failed) from e
+
+    def check_tile(self, ok: bool, width: int, rows: int, key: int) -> None:
+        """The first collective of every tile: one ``all_reduce(SUM)`` of
+        a failure flag and each rank's (tile width, rules, policy-set
+        key) in its own slot. Raises MeshPeerFailed on every rank when
+        any rank failed its part or the ranks disagree."""
+        import torch.distributed as dist
+
+        head = torch.zeros(1 + 3 * self.world, dtype=torch.int64)
+        head[0] = 0 if ok else 1
+        head[1 + 3 * self.rank:4 + 3 * self.rank] = torch.tensor(
+            [width, rows, key], dtype=torch.int64)
+        self._collective(lambda: dist.all_reduce(head, group=self.group))
+        if int(head[0]):
+            raise MeshPeerFailed(f"{int(head[0])} of {self.world} ranks "
+                                 "could not run their part of the step")
+        per = head[1:].view(self.world, 3)
+        if bool((per != per[0]).any()):
+            raise MeshPeerFailed("the ranks disagree on the tile (width, "
+                                 f"rules, policy set): {per.tolist()}")
+
+    def reduce_counts(self, counts: np.ndarray) -> np.ndarray:
+        """One ``all_reduce(SUM)`` of the (rules, 7) int32 counts."""
+        import torch.distributed as dist
+
+        t = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32))
+        self._collective(lambda: dist.all_reduce(t, group=self.group))
+        return t.numpy()
+
+    def gather_table(self, part: Optional[np.ndarray], rows: int,
+                     width: int) -> np.ndarray:
+        """Every rank's (rules, width) uint8 shard table, concatenated
+        in rank order (host-major: rank r's columns follow rank r-1's).
+        ``part`` None: this rank could not read its table back; it
+        joins with a failure flag and every rank raises."""
+        import torch.distributed as dist
+
+        buf = torch.zeros(1 + rows * width, dtype=torch.uint8)
+        if part is None:
+            buf[0] = 1
+        else:
+            buf[1:] = torch.from_numpy(
+                np.ascontiguousarray(part, dtype=np.uint8).reshape(-1))
+        out = [torch.empty_like(buf) for _ in range(self.world)]
+        self._collective(lambda: dist.all_gather(out, buf, group=self.group))
+        if any(int(o[0]) for o in out):
+            raise MeshPeerFailed("a rank could not read its shard table "
+                                 "back")
+        return np.concatenate([o[1:].numpy().reshape(rows, width)
+                               for o in out], axis=1)
+
+    def common(self, items: List[Any]) -> List[Any]:
+        """The items every rank holds, in rank 0's order (one
+        ``all_gather_object``): what every rank then scans alike."""
+        import torch.distributed as dist
+
+        lists: List[Any] = [None] * self.world
+        self._collective(lambda: dist.all_gather_object(
+            lists, list(items), group=self.group))
+        held = [set(x) for x in lists[1:]]
+        return [x for x in lists[0] if all(x in h for h in held)]
 
 
 def _mesh_device(d) -> torch.device:
@@ -170,12 +320,38 @@ def make_mesh_2d(
     per_host: int,
     devices: Optional[Sequence] = None,
     axes: Tuple[str, str] = ("hosts", "data"),
+    timeout_s: Optional[float] = None,
 ) -> Mesh:
     """Two-axis (hosts, devices-per-host) mesh — the multi-host shape:
     the tile's resources shard host-major over both axes, so each host
     owns a contiguous range, and the verdict-count reduction crosses
-    both (kyverno_tpu/parallel/sharding.py:make_mesh_2d)."""
+    both (kyverno_tpu/parallel/sharding.py:make_mesh_2d).
+
+    With ``torch.distributed`` initialized at a world size above 1 the
+    hosts are its processes: ``hosts`` must equal the world size, and
+    row r is rank r's first ``per_host`` devices (every CUDA device, or
+    ``devices=``). Every rank must call it, in the same order: it makes
+    the mesh's gloo group, whose collectives time out after
+    ``timeout_s`` (default ``XPROC_TIMEOUT_S``)."""
     devices = _devices(devices)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        world = dist.get_world_size()
+        if hosts != world:
+            raise ValueError(f"a mesh across processes has one row a "
+                             f"process: hosts {hosts}, world size {world}")
+        if len(devices) < per_host:
+            raise ValueError(f"need {per_host} devices a host for a "
+                             f"{hosts}x{per_host} mesh, have {len(devices)}")
+        row = devices[:per_host]
+        arr = _object_array(row * hosts).reshape(hosts, per_host)
+        ranks = np.repeat(np.arange(hosts), per_host).reshape(hosts, per_host)
+        timeout_s = XPROC_TIMEOUT_S if timeout_s is None else timeout_s
+        group = dist.new_group(list(range(world)), backend="gloo",
+                               timeout=datetime.timedelta(seconds=timeout_s))
+        return Mesh(arr, axes, ranks=ranks, group=group)
     if len(devices) < hosts * per_host:
         raise ValueError(
             f"need {hosts * per_host} devices for a {hosts}x{per_host} mesh, "
@@ -222,10 +398,10 @@ class ShardedScanner:
         # resources shard over ALL mesh axes jointly, host-major
         self.axes: Tuple[str, ...] = tuple(mesh.axis_names)
         self.axis = self.axes[0]
-        # the mesh's first device: the counts reduce there, and the
-        # scan's TorchEngine (assemble, the quarantining fallback) runs
-        # there
-        self.device = mesh.flat[0]
+        # this process's first device of the mesh: the counts reduce
+        # there, and the scan's TorchEngine (assemble, the quarantining
+        # fallback) runs there
+        self.device = mesh.local_devices[0]
         self.cps: CompiledPolicySet = compile_policy_set(
             policies, encode_cfg, meta_cfg, data_sources)
         self.exceptions = list(exceptions)
@@ -339,13 +515,14 @@ class ShardedScanner:
 
     def put(self, batch: Dict[str, Any],
             keep: Optional[list] = None) -> List[Dict[str, torch.Tensor]]:
-        """Place a host batch on the mesh: one lane dict a mesh entry,
-        in mesh order. Each per-resource lane is split into
-        ``mesh.size`` contiguous slices; the vocabulary lanes go once to
-        each distinct device. A device's lanes (the replicated ones and
-        its shards') travel in ONE asynchronous copy from one pinned
-        buffer (``engine.lanes_to_device``); ``keep`` receives the
-        pinned buffers."""
+        """Place a host batch on this process's entries of the mesh: one
+        lane dict an entry (``mesh.local_devices``), in mesh order. Each
+        per-resource lane is split into ``mesh.size`` contiguous slices,
+        of which this process's entries take theirs; the vocabulary
+        lanes go once to each distinct device. A device's lanes (the
+        replicated ones and its shards') travel in ONE asynchronous copy
+        from one pinned buffer (``engine.lanes_to_device``); ``keep``
+        receives the pinned buffers."""
         shards = self.mesh.flat
         n = next((len(v) for k, v in batch.items()
                   if not self._replicated_key(k)), 0)
@@ -353,20 +530,42 @@ class ShardedScanner:
             raise ValueError(f"put: a batch of {n} does not split over "
                              f"{len(shards)} mesh entries")
         per = n // len(shards)
-        out: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(shards)
+        local = self.mesh.local
+        out: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(local)
         for dev in self.mesh.distinct:
-            mine = [i for i, d in enumerate(shards) if d == dev]
+            mine = [j for j, i in enumerate(local) if shards[i] == dev]
             lanes = {k: v for k, v in batch.items() if self._replicated_key(k)}
-            for i in mine:
+            for j in mine:
+                i = local[j]
                 for k, v in batch.items():
                     if not self._replicated_key(k):
-                        lanes[f"{i}/{k}"] = v[i * per:(i + 1) * per]
+                        lanes[f"{j}/{k}"] = v[i * per:(i + 1) * per]
             with _on(dev):
                 on = lanes_to_device(lanes, dev, keep)
-            for i in mine:
-                out[i] = {k: on[k] if self._replicated_key(k)
-                          else on[f"{i}/{k}"] for k in batch}
+            for j in mine:
+                out[j] = {k: on[k] if self._replicated_key(k)
+                          else on[f"{j}/{k}"] for k in batch}
         return out
+
+    def _tile_key(self) -> int:
+        """The compiled set's identity as a 31-bit number, which the
+        ranks of a cross-process mesh compare at every tile."""
+        return zlib.crc32(self.cps.cache_key().encode()) & 0x7FFFFFFF
+
+    def skip_step(self) -> None:
+        """Join, with a failure flag, the first collective of a tile
+        that this rank does not run (its encode failed, its breaker is
+        open, a fault fired before the step): every peer's ``step`` then
+        raises ``MeshPeerFailed`` and answers the tile without the
+        device, and the ranks stay in step. Nothing on a mesh of one
+        process."""
+        if not self.mesh.cross_process:
+            return
+        try:
+            self.mesh.check_tile(False, 0, len(self.cps.device_programs),
+                                 self._tile_key())
+        except MeshPeerFailed:
+            pass
 
     def step(self, shards: List[Dict[str, torch.Tensor]]
              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -374,30 +573,72 @@ class ShardedScanner:
         device's program inside ``torch.cuda.device(d)`` (nothing waits
         for a device). Returns each shard's uint8 (rules, N / size)
         table, in mesh order, and the int32 (rules, 7) counts over every
-        column, summed on the mesh's first device."""
-        verdicts, counts = [], []
-        for dev, lanes in zip(self.mesh.flat, shards):
-            # the first device's program is ``_step`` (step_jitted())
-            prog = self._step if dev == self.device else self._steps[dev]
-            with _on(dev), kernels.tallying_into(
-                    self.device_launches[str(dev)]):
-                v, c = prog(lanes)
-            verdicts.append(v)
-            counts.append(c)
-        if len(counts) == 1:
-            return verdicts, counts[0]
-        with _on(self.device):
-            total = torch.stack([c.to(self.device, non_blocking=True)
-                                 for c in counts]).sum(dim=0,
-                                                       dtype=torch.int32)
-        return verdicts, total
+        column, summed on the mesh's first device.
 
-    @staticmethod
-    def table(verdicts: List[torch.Tensor]) -> np.ndarray:
+        On a cross-process mesh the shards are this rank's, and the
+        counts are read back and summed over the ranks (``check_tile``
+        then ``reduce_counts``): the counts returned are a host tensor.
+        A rank whose own part raises still joins, with a failure flag."""
+        verdicts, counts = [], []
+        try:
+            for dev, lanes in zip(self.mesh.local_devices, shards):
+                # the first device's program is ``_step`` (step_jitted())
+                prog = self._step if dev == self.device else self._steps[dev]
+                with _on(dev), kernels.tallying_into(
+                        self.device_launches[str(dev)]):
+                    v, c = prog(lanes)
+                verdicts.append(v)
+                counts.append(c)
+            if len(counts) == 1:
+                total = counts[0]
+            else:
+                with _on(self.device):
+                    total = torch.stack(
+                        [c.to(self.device, non_blocking=True)
+                         for c in counts]).sum(dim=0, dtype=torch.int32)
+            if self.mesh.cross_process:
+                local = total.cpu().numpy()
+        except BaseException:
+            self.skip_step()
+            raise
+        if not self.mesh.cross_process:
+            return verdicts, total
+        width = sum(int(v.shape[1]) for v in verdicts) * self.mesh.world
+        self.mesh.check_tile(True, width, len(self.cps.device_programs),
+                             self._tile_key())
+        return verdicts, torch.from_numpy(self.mesh.reduce_counts(local))
+
+    def _put_step(self, batch: Dict[str, Any], keep: Optional[list] = None
+                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """``step(put(batch))``; a ``put`` that raises still joins the
+        tile's first collective (``skip_step``)."""
+        try:
+            shards = self.put(batch, keep)
+        except BaseException:
+            self.skip_step()
+            raise
+        return self.step(shards)
+
+    def table(self, verdicts: List[torch.Tensor]) -> np.ndarray:
         """The shards' tables read back into one host array, in mesh
-        order (waits for the devices)."""
-        parts = [v.cpu().numpy() for v in verdicts]
-        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        order (waits for the devices). On a cross-process mesh every
+        rank's shard tables are gathered (``gather_table``), so each
+        rank returns the whole table."""
+        try:
+            parts = [v.cpu().numpy() for v in verdicts]
+        except BaseException:
+            if self.mesh.cross_process:
+                try:
+                    self.mesh.gather_table(
+                        None, int(verdicts[0].shape[0]),
+                        sum(int(v.shape[1]) for v in verdicts))
+                except MeshPeerFailed:
+                    pass
+            raise
+        local = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+        if not self.mesh.cross_process:
+            return local
+        return self.mesh.gather_table(local, local.shape[0], local.shape[1])
 
     def scan_device(self, resources, namespace_labels=None, operations=None
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -405,8 +646,12 @@ class ShardedScanner:
         counts over the padded batch). Verdicts may contain HOST(5) for
         resources exceeding encode caps, and host-fallback rules are
         absent — use scan() for the complete, resolved result."""
-        batch, n = self.encode(resources, namespace_labels, operations)
-        verdicts, counts = self.step(self.put(batch))
+        try:
+            batch, n = self.encode(resources, namespace_labels, operations)
+        except BaseException:
+            self.skip_step()
+            raise
+        verdicts, counts = self._put_step(batch)
         return self.table(verdicts)[:, :n], counts.cpu().numpy()
 
     def _engine(self) -> TorchEngine:
@@ -423,17 +668,23 @@ class ShardedScanner:
         An encode failure quarantines the hostile resources through
         TorchEngine.scan; a device failure (raised, injected, or
         wrong-shaped) trips the shared breaker in the engine's guarded
-        dispatch and the whole batch completes on the scalar engine."""
+        dispatch and the whole batch completes on the scalar engine. On
+        a cross-process mesh a rank that does not reach the step joins
+        its collectives with a failure flag (``skip_step``): every rank
+        then answers through the scalar engine."""
         eng = self._engine()
         try:
             batch, n = self.encode(resources, namespace_labels, operations)
         except Exception:
+            self.skip_step()
             with _on(self.device):
                 return eng.scan(resources, namespace_labels, operations)
         D = len(self.cps.device_programs)
+        stepped = []
 
         def run():
-            vs, c = self.step(self.put(batch))
+            stepped.append(True)
+            vs, c = self._put_step(batch)
             v = self.table(vs)
             # the step's counts are the rule analytics' source: drop
             # the pad columns and stash them for the assemble() below
@@ -442,6 +693,9 @@ class ShardedScanner:
             return v[:, :n].astype(np.int32)
 
         table = eng.guarded_dispatch(run, (D, n))
+        if not stepped:
+            # the breaker was open or a fault fired before the step
+            self.skip_step()
         if table is None:
             table = np.full((D, len(resources)), HOST, dtype=np.int32)
         return eng.assemble(table, resources, namespace_labels, operations)
@@ -516,7 +770,11 @@ class ShardedScanner:
                     ops = None
                     if operations:
                         ops = list(operations[sl]) + [""] * (tile - nv)
-                    batch, _ = self.encode(padded, namespace_labels, ops)
+                    try:
+                        batch, _ = self.encode(padded, namespace_labels, ops)
+                    except BaseException:
+                        self.skip_step()
+                        raise
                 enc_dt = time.perf_counter() - t0
                 stats["encode_s"] += enc_dt
                 if not pending:
@@ -529,7 +787,7 @@ class ShardedScanner:
                 with global_profiler.phase(PHASE_DISPATCH), \
                         global_tracer.span("scan_dispatch", parent=scan_ctx,
                                            tile=nv):
-                    verdicts, _ = self.step(self.put(batch, pinned))
+                    verdicts, _ = self._put_step(batch, pinned)
                 pending.append((verdicts, pinned, sl, nv))
                 stats["tiles"] += 1
                 while len(pending) > max(in_flight, 1):

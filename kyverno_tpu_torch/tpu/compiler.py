@@ -14,7 +14,13 @@ The compiled set carries the verdict-cache identity (``cache_key``),
 the analytics identities (``policy_spec_hashes``) and the bank-size
 gauges (``publish_dfa_gauges``). ``quarantine=`` takes the policies the
 lifecycle manager (lifecycle/manager.py) quarantined out of lowering.
-Not ported: the observability spans.
+
+The compile is observable as the reference's is: ``compile_policy_set``
+runs in the profiler's compile phase under a ``policy_set_compile``
+span, each program build under ``xla_jit_build`` (validate) or
+``xla_jit_build_mutate`` (the reference's span names, which dashboards
+and traces key on), and every ``device_fn`` lookup counts on
+``kyverno_tpu_compile_cache_total{outcome=hit|miss}``.
 """
 
 from __future__ import annotations
@@ -255,13 +261,29 @@ class CompiledPolicySet:
         ``plain``), returning (verdict table, per-rule verdict-class
         counts) — evaluator.build_program. With a CUDA ``device`` (and
         not ``plain``) the program replays as one CUDA graph per shape
-        bucket (``tpu/graphs.py``); the eager program is its ``run``."""
+        bucket (``tpu/graphs.py``); the eager program is its ``run``.
+
+        Every call is one lookup on ``kyverno_tpu_compile_cache_total``:
+        a miss when it builds the program (in the compile phase, under an
+        ``xla_jit_build`` span), else a hit. A graph's capture at a new
+        shape bucket is not a build: it is the replay's first call, as a
+        new shape is for the reference's jit."""
+        from ..observability.metrics import global_registry
+        from ..observability.profiling import PHASE_COMPILE, global_profiler
+        from ..observability.tracing import global_tracer
+
         if plain not in self._fns:
-            self._fns[plain] = build_program(
-                self.device_programs, self.encode_cfg.max_instances,
-                dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs,
-                na_families=nonascii_families(
-                    self.dfa, self.device_programs, self.nfa_globs))
+            global_registry.compile_cache.inc({"outcome": "miss"})
+            with global_profiler.phase(PHASE_COMPILE), \
+                    global_tracer.span("xla_jit_build",
+                                       programs=len(self.device_programs)):
+                self._fns[plain] = build_program(
+                    self.device_programs, self.encode_cfg.max_instances,
+                    dfa=self.dfa, plain=plain, nfa_globs=self.nfa_globs,
+                    na_families=nonascii_families(
+                        self.dfa, self.device_programs, self.nfa_globs))
+        else:
+            global_registry.compile_cache.inc({"outcome": "hit"})
         return graphed(self._fns[plain], device, plain)
 
     @property
@@ -276,14 +298,23 @@ class CompiledPolicySet:
         per compiled set (and per ``plain``): the same shape contract
         as device_fn minus the analytics counts, so it returns the
         int32 verdict table alone. Graphed on a CUDA ``device`` as
-        ``device_fn`` is."""
+        ``device_fn`` is. The build runs in the compile phase under an
+        ``xla_jit_build_mutate`` span; a lookup is not counted on
+        ``kyverno_tpu_compile_cache_total`` (nor is the reference's)."""
+        from ..observability.profiling import PHASE_COMPILE, global_profiler
+        from ..observability.tracing import global_tracer
+
         if plain not in self._mutate_fns:
-            self._mutate_fns[plain] = build_program(
-                self.mutate_programs, self.encode_cfg.max_instances,
-                with_counts=False, dfa=self.dfa, plain=plain,
-                nfa_globs=self.mutate_nfa_globs,
-                na_families=nonascii_families(
-                    self.dfa, self.mutate_programs, self.mutate_nfa_globs))
+            with global_profiler.phase(PHASE_COMPILE), \
+                    global_tracer.span("xla_jit_build_mutate",
+                                       programs=len(self.mutate_programs)):
+                self._mutate_fns[plain] = build_program(
+                    self.mutate_programs, self.encode_cfg.max_instances,
+                    with_counts=False, dfa=self.dfa, plain=plain,
+                    nfa_globs=self.mutate_nfa_globs,
+                    na_families=nonascii_families(
+                        self.dfa, self.mutate_programs,
+                        self.mutate_nfa_globs))
         return graphed(self._mutate_fns[plain], device, plain)
 
     def coverage(self) -> Tuple[int, int]:
@@ -369,7 +400,28 @@ def compile_policy_set(
     the error string; their rules skip lowering entirely and become
     host-fallback entries, so the rest of the set still runs on the
     device while the quarantined policy degrades to the scalar oracle
-    (per-rule ERROR when even the oracle cannot evaluate it)."""
+    (per-rule ERROR when even the oracle cannot evaluate it).
+
+    The compile runs in the profiler's compile phase under a
+    ``policy_set_compile`` span (attributes ``policies`` and
+    ``quarantined``), as the reference's does."""
+    from ..observability.profiling import PHASE_COMPILE, global_profiler
+    from ..observability.tracing import global_tracer
+
+    with global_profiler.phase(PHASE_COMPILE), \
+            global_tracer.span("policy_set_compile", policies=len(policies),
+                               quarantined=len(quarantine or ())):
+        return _compile_policy_set(policies, encode_cfg, meta_cfg,
+                                   data_sources, quarantine)
+
+
+def _compile_policy_set(
+    policies: Sequence[ClusterPolicy],
+    encode_cfg: Optional[EncodeConfig] = None,
+    meta_cfg: Optional[MetaConfig] = None,
+    data_sources=None,
+    quarantine: Optional[Dict[int, str]] = None,
+) -> CompiledPolicySet:
     encode_cfg = encode_cfg or EncodeConfig()
     meta_cfg = meta_cfg or MetaConfig()
     quarantine = dict(quarantine or {})

@@ -31,7 +31,13 @@ Structure (double buffer, depth-bounded):
   completion + report-row generation for k-1 (the ``on_result``
   callback) overlaps it too. A slot holds its buffers until its event
   has fired; the step's graph returns clones of its outputs, so a
-  slot's table survives the next replay. Feed threads and the pool's
+  slot's table survives the next replay. On a mesh across processes
+  the launch holds this rank's shards (the counts already summed over
+  the ranks by the step) and the readback gathers every rank's tables
+  (``ShardedScanner.table``); a chunk this rank cannot launch (its
+  encode failed, its breaker is open) still joins the chunk's first
+  collective, failed (``ShardedScanner.skip_step``), so the ranks stay
+  in step. Feed threads and the pool's
   reader threads make no CUDA call: one during a graph capture on the
   dispatching thread would break it.
 
@@ -105,13 +111,16 @@ class _Slot:
     filled by asynchronous copies: the verdicts as (shards, rules,
     N / shards), a shard's table a contiguous block), the pinned input
     buffers and the device tensors the copies read, held until every
-    one of ``events`` (one a distinct device) has fired."""
+    one of ``events`` (one a distinct device) has fired. On a mesh
+    across processes ``verdicts`` is this rank's shards and ``gather``
+    reads every rank's tables back."""
 
-    __slots__ = ("verdicts", "counts", "keep", "events")
+    __slots__ = ("verdicts", "counts", "keep", "events", "gather")
 
-    def __init__(self, verdicts, counts, keep, events):
+    def __init__(self, verdicts, counts, keep, events, gather=None):
         self.verdicts, self.counts = verdicts, counts
         self.keep, self.events = keep, events
+        self.gather = gather
 
 
 def _launch(scanner, batch: Dict[str, Any]) -> _Slot:
@@ -125,15 +134,19 @@ def _launch(scanner, batch: Dict[str, Any]) -> _Slot:
     import torch
 
     keep: list = []
-    vs, c = scanner.step(scanner.put(batch, keep))
+    vs, c = scanner._put_step(batch, keep)
+    mesh = scanner.mesh
+    if mesh.cross_process:
+        # the counts are already summed over the ranks; the tables are
+        # gathered at the readback (``_wait``)
+        return _Slot(vs, c, keep, None, gather=scanner.table)
     if c.device.type != "cuda":
         return _Slot(vs[0] if len(vs) == 1 else torch.cat(vs, dim=1), c,
                      keep, None)
-    mesh = scanner.mesh
     vh = torch.empty((len(vs),) + tuple(vs[0].shape), dtype=vs[0].dtype,
                      pin_memory=True)
     ch = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
-    for i, (dev, v) in enumerate(zip(mesh.flat, vs)):
+    for i, (dev, v) in enumerate(zip(mesh.local_devices, vs)):
         with torch.cuda.device(dev):
             vh[i].copy_(v, non_blocking=True)
     events = []
@@ -149,7 +162,12 @@ def _launch(scanner, batch: Dict[str, Any]) -> _Slot:
 
 def _wait(slot: _Slot) -> Tuple[np.ndarray, np.ndarray]:
     """The slot's (verdicts, counts) on the host, once all its events
-    have fired; the shards' blocks are read back in mesh order."""
+    have fired; the shards' blocks are read back in mesh order. On a
+    mesh across processes every rank's tables are gathered."""
+    if slot.gather is not None:
+        v = slot.gather(slot.verdicts)
+        slot.keep = None
+        return v, slot.counts.numpy()
     for event in slot.events or ():
         event.synchronize()
     v, c = slot.verdicts.numpy(), slot.counts.numpy()
@@ -519,6 +537,10 @@ class PipelinedScanner:
                     global_starvation.record(starved_s=waited)
                 done += 1
                 if payload is None:
+                    # a cross-process mesh's peers are launching this
+                    # chunk: join its first collective, failed, before
+                    # the in-flight readbacks (their launch order)
+                    self.scanner.skip_step()
                     # keep result ordering: everything in flight lands
                     # before the fallback chunk's rows are emitted
                     while inflight:
@@ -527,11 +549,19 @@ class PipelinedScanner:
                     continue
                 batch, n, poison = payload
                 t0 = time.perf_counter()
+                launched = []
+
+                def launch():
+                    launched.append(True)
+                    return _launch(self.scanner, batch)
+
                 with global_profiler.phase(PHASE_DISPATCH), \
                         global_tracer.span("scan_dispatch",
                                            parent=scan_ctx, tile=n):
-                    handle = eng.guarded_launch(
-                        lambda: _launch(self.scanner, batch))
+                    handle = eng.guarded_launch(launch)
+                if not launched:
+                    # the breaker was open or a fault fired first
+                    self.scanner.skip_step()
                 stats["device_s"] += time.perf_counter() - t0
                 inflight.append((idx, handle, n, poison))
                 # double buffer: with chunk k launched, the readback +

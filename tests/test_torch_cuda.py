@@ -19,6 +19,7 @@ from kyverno_tpu_torch.tpu import dfa as tdfa
 from kyverno_tpu_torch.parallel.sharding import ShardedScanner
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
+from torch_port_state import fresh_port_state  # noqa: F401 - autouse
 from torch_kernel_cases import (MIX_SOURCES, accented_subjects, meta_any_mix,
                                 random_row_tape, row_lanes)
 

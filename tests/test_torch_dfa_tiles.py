@@ -24,6 +24,7 @@ from kyverno_tpu_torch import kernels
 from kyverno_tpu_torch.tpu import dfa as tdfa
 from kyverno_tpu_torch.tpu.convert import bank_from_numpy, bank_to_numpy
 
+from torch_parity_util import fresh_port_state  # noqa: F401 - autouse
 from test_torch_dfa import _banks, _corpus, _pack
 
 CM_PITCH = 260

@@ -12,6 +12,8 @@ from kyverno_tpu_torch.policy.autogen import expand_policy
 from kyverno_tpu_torch.tpu import graphs
 from kyverno_tpu_torch.tpu.engine import TorchEngine
 
+from torch_parity_util import fresh_port_state  # noqa: F401 - autouse
+
 
 def test_no_graph_for_the_cpu_or_the_plain_program(monkeypatch):
     def refuse(self, run):

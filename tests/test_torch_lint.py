@@ -27,6 +27,7 @@ import pytest
 
 from kyverno_tpu.devtools import lintcore as ref_lint
 from kyverno_tpu_torch.devtools import check_imports, lintcore
+from torch_parity_util import fresh_port_state  # noqa: F401 - autouse
 from torch_parity_util import (port_test_module, run_port_scenario,
                                scenario_params)
 

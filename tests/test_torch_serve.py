@@ -14,8 +14,9 @@ lifecycle}``) against the JAX package's, on the CPU (tolerance: exact).
   reference's own run of them is in their own files.
 - ``ControlPlane`` side by side: the same snapshot upserts, scans,
   reports, admission reviews and metric families.
-- ``_init_distributed``: no environment, world size 1 (gloo), world
-  size 2 (refused; ``serve --distributed`` exits 2).
+- ``_init_distributed``: no environment, world size 1 (gloo), a world
+  size that is no number (single-host). World size 2 is in
+  tests/test_torch_xproc.py.
 - ``apply --output-json`` over the PSS set and a seeded resource
   directory, ``--engine tpu`` and ``--engine scalar``: the port's output
   equals the reference's.
@@ -328,28 +329,18 @@ def test_init_distributed_single_host_with_gloo(oplog, monkeypatch):
             dist.destroy_process_group()
 
 
-def test_init_distributed_refuses_a_larger_world(oplog, monkeypatch):
+def test_init_distributed_with_a_bad_world_size_continues_single_host(
+        oplog, monkeypatch):
     import torch.distributed as dist
 
-    from kyverno_tpu_torch.cli.__main__ import main
-    from kyverno_tpu_torch.cli.serve import (DistributedNotPorted,
-                                             _init_distributed)
+    from kyverno_tpu_torch.cli.serve import _init_distributed
 
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     monkeypatch.setenv("MASTER_PORT", str(_free_port()))
-    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("WORLD_SIZE", "two")
     monkeypatch.setenv("RANK", "0")
-    with pytest.raises(DistributedNotPorted, match="not ported"):
-        _init_distributed("cpu")
-    assert not dist.is_initialized()
-    policy = os.path.join(ROOT, "kyverno_tpu_torch", "policies", "pss",
-                          sorted(os.listdir(os.path.join(
-                              ROOT, "kyverno_tpu_torch", "policies",
-                              "pss")))[0])
-    rc = main(["serve", policy, "--distributed", "--device", "cpu",
-               "--port", "0", "--metrics-port", "0", "--no-reports",
-               "--no-columnar"])
-    assert rc == 2
+    assert _init_distributed("cpu") is None
+    assert [e for e, _ in oplog.events] == ["distributed_init_failed"]
     assert not dist.is_initialized()
 
 

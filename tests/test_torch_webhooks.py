@@ -473,7 +473,8 @@ def test_http_round_trip_equal_reference(pair):
 
 def _keys(doc, depth=2):
     """The key tree of ``doc`` to ``depth``; the phase breakdown's keys
-    are the phases that ran (the reference also times its jit), not a
+    are the phases that have run in the process (the profiler is
+    process-global, and neither package's test state resets it), not a
     schema."""
     if not isinstance(doc, dict) or depth == 0:
         return None

@@ -39,44 +39,9 @@ from kyverno_tpu_torch.tpu.engine import TorchEngine, class_counts
 # which matters when several test workers share the cores.
 torch.set_num_threads(1)
 
-@pytest.fixture(autouse=True)
-def fresh_port_state():
-    """The port's verdict and encode caches, columnar store, report
-    store, rule analytics, last static analysis and fleet manager are
-    process-global, as the reference's are: every test starts from
-    empty ones and leaves no fleet behind (tests/conftest.py does the
-    same for the JAX package). Autouse in each test module that imports
-    it."""
-    from kyverno_tpu_torch.analysis import global_analysis
-    from kyverno_tpu_torch.cluster.columnar import reset_store
-    from kyverno_tpu_torch.observability.analytics import (
-        global_pattern_cells, global_rule_stats, global_slo,
-        global_starvation)
-    from kyverno_tpu_torch.tpu.cache import (global_encode_cache,
-                                             global_verdict_cache)
-
-    from kyverno_tpu_torch.reports import reset_reports
-
-    global_verdict_cache.clear()
-    global_encode_cache.clear()
-    reset_store()
-    reset_reports()
-    global_analysis.reset()
-    for acc in (global_rule_stats, global_starvation, global_slo,
-                global_pattern_cells):
-        acc.reset()
-    yield
-    reset_store()
-    reset_reports()
-    global_analysis.reset()
-    # the fleet manager is process-global like the caches: a test that
-    # configures a replica must not leak its membership, peer breakers
-    # or the verdict cache's fan-out hook into the next test
-    from kyverno_tpu_torch.fleet import get_fleet, reset_fleet
-
-    if get_fleet() is not None:
-        reset_fleet()
-    global_verdict_cache.on_put = None
+# the port's process-global state, reset around each test of a module
+# that imports fresh_port_state (tests/conftest.py resets the reference's)
+from torch_port_state import fresh_port_state, reset_port_state  # noqa: E402,F401
 
 
 @pytest.fixture
