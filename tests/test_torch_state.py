@@ -70,12 +70,45 @@ def test_reset_port_state_leaves_every_global_fresh(tmp_path):
     assert len(global_verdict_cache) == 0 and get_store() is None
 
 
-def _imported(fn_node) -> set:
-    """(module, name) of every ``from M import name`` inside a function."""
-    out = set()
+def _imported(fn_node) -> dict:
+    """name -> module of every ``from M import name`` inside a function."""
+    out = {}
     for node in ast.walk(fn_node):
         if isinstance(node, ast.ImportFrom) and node.module:
-            out.update((node.module, a.name) for a in node.names)
+            out.update((a.name, node.module) for a in node.names)
+    return out
+
+
+def _resets(fn_node) -> set:
+    """(module, name, action) of what a function does to the globals it
+    imports: ``name()`` is action ``()``, ``name.attr(...)`` is ``attr``
+    and ``name.attr = ...`` is ``=attr``. A loop variable over a tuple of
+    imported names stands for each of them."""
+    imported = _imported(fn_node)
+    alias = {}
+    for node in ast.walk(fn_node):
+        if (isinstance(node, ast.For) and isinstance(node.target, ast.Name)
+                and isinstance(node.iter, ast.Tuple)):
+            alias[node.target.id] = [e.id for e in node.iter.elts
+                                     if isinstance(e, ast.Name)]
+
+    def names(expr):
+        if not isinstance(expr, ast.Name):
+            return []
+        return [n for n in alias.get(expr.id, [expr.id]) if n in imported]
+
+    out = set()
+    for node in ast.walk(fn_node):
+        if isinstance(node, ast.Call):
+            f = node.func
+            out |= {(imported[n], n, "()") for n in names(f)}
+            if isinstance(f, ast.Attribute):
+                out |= {(imported[n], n, f.attr) for n in names(f.value)}
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Attribute):
+                    out |= {(imported[n], n, "=" + t.attr)
+                            for n in names(t.value)}
     return out
 
 
@@ -89,21 +122,22 @@ def _autouse(fn) -> bool:
 
 
 def test_reset_covers_every_reference_reset():
-    """Each JAX-package global that an autouse fixture of
-    tests/conftest.py resets has its port counterpart in
-    ``reset_port_state``: a reset added on the reference's side cannot
-    be missed on the port's again."""
+    """Each reset that an autouse fixture of tests/conftest.py does to a
+    JAX-package global (a call of it, a method called on it, an
+    attribute set on it) ``reset_port_state`` does to the port's
+    counterpart: a reset added on the reference's side cannot be missed
+    on the port's again."""
     with open(os.path.join(TESTS, "conftest.py")) as f:
         conftest = ast.parse(f.read())
     ref = set()
     for node in conftest.body:
         if isinstance(node, ast.FunctionDef) and _autouse(node):
-            ref |= {(m, n) for m, n in _imported(node)
+            ref |= {(m, n, a) for m, n, a in _resets(node)
                     if m.split(".")[0] == "kyverno_tpu"}
-    assert len(ref) >= 14, ref
+    assert len(ref) >= 16, ref
     port_fn = ast.parse(inspect.getsource(torch_port_state.reset_port_state))
-    port = _imported(port_fn)
-    missing = sorted((m, n) for m, n in ref
-                     if ("kyverno_tpu_torch" + m[len("kyverno_tpu"):], n)
+    port = _resets(port_fn)
+    missing = sorted((m, n, a) for m, n, a in ref
+                     if ("kyverno_tpu_torch" + m[len("kyverno_tpu"):], n, a)
                      not in port)
     assert not missing, f"reset_port_state lacks {missing}"

@@ -10,7 +10,9 @@ its lane buckets alone; the scan service must give every rank the
 reference's reports although rank 0 alone served a third of the
 snapshot from its verdict cache; a peer that never joins must fail the
 collective within the mesh's timeout, and ``scan`` then answers through
-the scalar engine, equal to the reference's. ``serve --distributed`` at
+the scalar engine, equal to the reference's, as it does when one rank
+alone fails before the step (its encode, a fault) and the ranks stay in
+step. ``serve --distributed`` at
 a world size of 2 brings the mesh up in both processes and their
 ``/scan`` summaries equal the reference service's. Tolerance: exact."""
 
@@ -148,6 +150,26 @@ def test_every_rank_equals_the_reference(ranks, reference, what):
     for r in ranks:
         assert r[what].dtype == want.dtype
         assert np.array_equal(r[what], want)
+
+
+def test_a_rank_alone_failing_before_the_step_keeps_the_ranks_in_step(
+        ranks, reference):
+    """Rank 1's encode raises in one ``scan`` and a ``tpu.dispatch``
+    fault fires before its step in the next: it joins the tile failed,
+    every rank answers through the scalar engine, and the ranks' next
+    step still pairs up."""
+    res = _api_resources()
+    want = reference.scan(copy.deepcopy(res)).verdicts
+    wv, wc = reference.scan_device(copy.deepcopy(res))
+    for r in ranks:
+        assert np.array_equal(r["skew_encode"], want)
+        assert np.array_equal(r["skew_fault"], want)
+        assert np.array_equal(r["skew_v"], wv)
+        assert np.array_equal(r["skew_c"], wc)
+        assert r["skew_failed"] is None
+    # rank 0 met the failure flag in both steps; rank 1's own encode
+    # failure went to its engine alone, its fault to the scalar engine
+    assert [r["skew_fallbacks"] for r in ranks] == [2, 1]
 
 
 def _reference_service():

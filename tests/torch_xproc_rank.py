@@ -9,6 +9,9 @@ only (never JAX or the JAX package):
 - ``api``: ``ShardedScanner`` on ``make_mesh_2d(2, 4, ["cpu"] * 4)``:
   ``scan_device``, ``scan``, a cold then a warm ``scan_stream``. Rank 1
   first grows its lane buckets, a choice of its own.
+- ``skew``: rank 1 alone fails before the step, once by its encode
+  raising in ``scan``, once by a ``tpu.dispatch`` fault; then a
+  ``scan_device``.
 - ``service``: ``BackgroundScanService`` on the same mesh, where rank
   0 alone has a third of the resources in its verdict cache.
 - ``alone``: rank 1 never joins; rank 0's ``scan`` meets the mesh's
@@ -40,6 +43,8 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
                                                      make_mesh_2d)
     from kyverno_tpu_torch.policies import load_pss_policies
     from kyverno_tpu_torch.policy.autogen import expand_policy
+    from kyverno_tpu_torch.resilience.breaker import tpu_breaker
+    from kyverno_tpu_torch.resilience.faults import global_faults
     from kyverno_tpu_torch.tpu.engine import TorchEngine
 
     with open(os.path.join(out, "input.json")) as f:
@@ -65,6 +70,32 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
         got, stats = scanner.scan_stream(copy.deepcopy(resources), tile=32)
         arrays[f"stream_{tag}"] = got.verdicts
         info[f"stream_{tag}_tiles"] = stats["tiles"]
+
+    # -- skew: rank 1 alone does not reach the step
+    fallbacks0 = sum(global_registry.breaker_fallback._values.values())
+    real = scanner.encode
+    if rank == 1:
+        calls = []
+
+        def encode(*a, **kw):
+            calls.append(1)
+            if len(calls) == 1:
+                raise ValueError("rank 1's encode fails alone")
+            return real(*a, **kw)
+
+        scanner.encode = encode
+    arrays["skew_encode"] = scanner.scan(copy.deepcopy(resources)).verdicts
+    scanner.encode = real
+    if rank == 1:
+        global_faults.arm("tpu.dispatch", mode="raise", count=1)
+    arrays["skew_fault"] = scanner.scan(copy.deepcopy(resources)).verdicts
+    global_faults.disarm()
+    tpu_breaker().reset()
+    arrays["skew_v"], arrays["skew_c"] = scanner.scan_device(
+        copy.deepcopy(resources))
+    info["skew_failed"] = mesh.failed
+    info["skew_fallbacks"] = (
+        sum(global_registry.breaker_fallback._values.values()) - fallbacks0)
 
     # -- service
     snap, cache = ClusterSnapshot(), PolicyCache()
