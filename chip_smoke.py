@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--n 16384] [--scan-n 50000] [--tile 8192]
         [--tenant-n 16384] [--tenant-batch 1024] [--mutate-n 4000]
         [--mutate-tile 1024] [--adm-requests 20000] [--adm-bulk 10000]
-        [--reports-n 40000] [--xproc-n 16384] [--seed 0]
+        [--reports-n 40000] [--seed 0]
 
 Phases, each printed as it runs; any failure raises and exits nonzero:
 
@@ -244,8 +244,8 @@ Phases, each printed as it runs; any failure raises and exits nonzero:
    ``torch.distributed``, gloo): (a) two rank processes (``python3
    chip_smoke.py xproc-rank``; ``MASTER_ADDR``, ``MASTER_PORT``,
    ``WORLD_SIZE=2``, ``RANK``), both on ``cuda:0``, each a
-   ``ShardedScanner(PSS, mesh=make_mesh_2d(2, 1))`` over the first
-   16,384 (``--xproc-n``) of phase 14's snapshot: a cold and a warm
+   ``ShardedScanner(PSS, mesh=make_mesh_2d(2, 1))`` over all of phase
+   14's snapshot (``--scan-n``): a cold and a warm
    ``scan_stream``, one ``scan`` of the first tile and its
    ``scan_device``; every rank's tables and counts equal this process's
    one-device scan, bit for bit, and every scan kernel launched on
@@ -6298,7 +6298,6 @@ def cli_phase(torch, kernels, tag, reports_dir):
 # phase 17: the mesh across processes (parallel/sharding.py on
 # torch.distributed) and serve --distributed
 
-XPROC_N = 16384  # of phase 14's snapshot (its 50,000 cut for the time limit)
 XPROC_SERVE_N = 1024  # (b)'s snapshot upserts
 XPROC_CHILD_S = 300  # each child's hard limit, seconds
 
@@ -6313,10 +6312,10 @@ def _free_port() -> int:
 
 def xproc_rank(argv) -> int:
     """Phase 17 (a)'s rank: ``python3 chip_smoke.py xproc-rank DIR
-    SCAN_N N TILE SEED`` with ``MASTER_ADDR``, ``MASTER_PORT``,
+    SCAN_N TILE SEED`` with ``MASTER_ADDR``, ``MASTER_PORT``,
     ``WORLD_SIZE`` and ``RANK`` set. Joins the gloo world, builds
     ``ShardedScanner(PSS, mesh=make_mesh_2d(2, 1))`` (this rank's row:
-    its CUDA device) and scans the first N of phase 14's snapshot
+    its CUDA device) and scans phase 14's snapshot
     (``workload(SCAN_N, SEED)``): ``scan_stream`` cold, then warm with
     the launches counted from 0, ``scan`` of the first tile and its
     ``scan_device``. Writes the tables and counts to ``DIR/rankR.npz``
@@ -6336,8 +6335,8 @@ def xproc_rank(argv) -> int:
     from kyverno_tpu_torch.policy.autogen import expand_policy
     from kyverno_tpu_torch.tpu import cache as tcache
 
-    out, scan_n, n, tile, seed = (argv[0], int(argv[1]), int(argv[2]),
-                                  int(argv[3]), int(argv[4]))
+    out, scan_n, tile, seed = (argv[0], int(argv[1]), int(argv[2]),
+                               int(argv[3]))
     rank = int(os.environ["RANK"])
     t0 = time.perf_counter()
     dist.init_process_group(
@@ -6351,7 +6350,6 @@ def xproc_rank(argv) -> int:
     sc = ShardedScanner([expand_policy(p) for p in load_pss_policies()],
                         mesh=mesh)
     resources, ops = workload(scan_n, seed)
-    resources, ops = resources[:n], ops[:n]
     info = {"mesh": repr(mesh), "local": mesh.local,
             "setup_s": time.perf_counter() - t0}
     arrays = {}
@@ -6372,7 +6370,7 @@ def xproc_rank(argv) -> int:
     arrays["device_v"], arrays["device_c"] = sc.scan_device(
         resources[:tile], operations=ops[:tile])
     info["fallbacks"] = {r: reg.breaker_fallback.value({"reason": r})
-                         for r in ("error", "open")}
+                         for r in ("error", "open", "mesh_peer")}
     info["kernel_errors"] = reg.kernel_errors.value()
     info["failed"] = mesh.failed
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
@@ -6396,10 +6394,9 @@ def _serve_events(path):
     return out
 
 
-def xproc_phase(torch, kernels, scanner, policies, scan_n, n, tile, seed,
-                tag):
-    """Phase 17: (a) two rank processes scan the first ``n`` of phase
-    14's snapshot on ``make_mesh_2d(2, 1)`` across them (``xproc_rank``),
+def xproc_phase(torch, kernels, scanner, policies, scan_n, tile, seed, tag):
+    """Phase 17: (a) two rank processes scan phase 14's snapshot (all
+    ``scan_n`` resources) on ``make_mesh_2d(2, 1)`` across them (``xproc_rank``),
     each table and the counts equal to this process's one-device scan;
     (b) two ``serve --distributed`` ranks and a single ``serve`` over
     the same snapshot, their ``/scan`` summaries equal. All five
@@ -6434,7 +6431,7 @@ def xproc_phase(torch, kernels, scanner, policies, scan_n, n, tile, seed,
             with output(f"rank {r}") as f:
                 procs[f"rank {r}"] = subprocess.Popen(
                     [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                     "xproc-rank", tmp, str(scan_n), str(n), str(tile),
+                     "xproc-rank", tmp, str(scan_n), str(tile),
                      str(seed)], cwd=HERE,
                     env=dict(env, MASTER_PORT=str(a_port), RANK=str(r)),
                     stdout=f, stderr=subprocess.STDOUT)
@@ -6462,9 +6459,8 @@ def xproc_phase(torch, kernels, scanner, policies, scan_n, n, tile, seed,
 
         # (a)'s reference meanwhile: this process's one-device scanner
         resources, ops = workload(scan_n, seed)
-        resources, ops = resources[:n], ops[:n]
-        say("17", f"(a) {n} of phase 14's {scan_n} resources (cut for the "
-                  f"time limit), tile {tile}; (b) {XPROC_SERVE_N} upserts")
+        say("17", f"(a) all {scan_n} of phase 14's resources (no cut), "
+                  f"tile {tile}; (b) {XPROC_SERVE_N} upserts")
         ladder_reset()
         one, _ = scanner.scan_stream(resources, tile=tile, operations=ops)
         one_scan = scanner.scan(resources[:tile], operations=ops[:tile])
@@ -6565,7 +6561,7 @@ def xproc_phase(torch, kernels, scanner, policies, scan_n, n, tile, seed,
             say("17", f"(a) rank {r} {info['mesh']}: setup "
                       f"{info['setup_s']:.3f} s, scan_stream cold "
                       f"{info['cold_s']:.3f} s, warm {info['warm_s']:.3f} s "
-                      f"({n / info['warm_s']:.1f} resources/s; stats "
+                      f"({scan_n / info['warm_s']:.1f} resources/s; stats "
                       f"{json.dumps(info['stats'])}); tables and counts "
                       f"equal to one process's; launches of the warm scan "
                       f"{json.dumps(info['launches'])} {tag}")
@@ -6796,9 +6792,6 @@ def main() -> int:
     ap.add_argument("--reports-n", type=int, default=40000,
                     help="lean Pods in phase 12's soak (bench.py's "
                          "1,000,000 cut for the time limit)")
-    ap.add_argument("--xproc-n", type=int, default=XPROC_N,
-                    help="resources of phase 14's snapshot that phase 17 "
-                         "(a) scans on the mesh across processes")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -6964,7 +6957,7 @@ def main() -> int:
     phase_s.mark("17")
     # phase 17: the mesh across processes and serve --distributed
     xproc = xproc_phase(torch, kernels, scanner, policies, args.scan_n,
-                        args.xproc_n, args.tile, args.seed + 10, tag)
+                        args.tile, args.seed + 10, tag)
     phase_s.mark(None)
     # each path's graph_check, and each admission bucket's
     b = ADMISSION_BUCKETS[-1]

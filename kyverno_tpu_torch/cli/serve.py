@@ -297,10 +297,16 @@ def add_parser(sub: argparse._SubParsersAction) -> None:
                         "at a world size above 1 the background scan "
                         "shards over a (hosts=world size, per_host=this "
                         "process's devices) mesh and its verdict counts "
-                        "reduce across every process (every rank must "
-                        "serve the same snapshot); without that env, or "
-                        "at world size 1, this logs and continues "
-                        "single-host")
+                        "reduce across every process. Every rank must "
+                        "serve the same snapshot and scan in step: send "
+                        "each /scan to every rank, as each rank's i-th "
+                        "scan pairs with every other rank's i-th. A scan "
+                        "that a peer does not join within 60 s fails the "
+                        "mesh for good (op-log mesh_failed, gauge "
+                        "kyverno_tpu_mesh_failed): later scans complete "
+                        "on the scalar engine until restart. Without "
+                        "that env, or at world size 1, this logs and "
+                        "continues single-host")
     p.add_argument("--dfa-state-budget", type=int, default=None, metavar="N",
                    help="per-pattern DFA state budget for device-side "
                         "string matching: exact tables up to N states, "

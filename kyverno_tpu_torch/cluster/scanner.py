@@ -1,8 +1,8 @@
-# Copied from kyverno_tpu/cluster/scanner.py, with two additions: beside the
-# reference's mesh= the service takes device= (a one-entry mesh; "cpu" for
-# the plain path) and passes either to ShardedScanner; and on a mesh that
-# spans processes the ranks agree on what goes through the mesh
-# (_mesh_common) and scan ticks run one at a time.
+# Copied from kyverno_tpu/cluster/scanner.py, with three additions: beside
+# the reference's mesh= the service takes device= (a one-entry mesh; "cpu"
+# for the plain path) and passes either to ShardedScanner; scan ticks run
+# one at a time; and on a mesh that spans processes the ranks agree on
+# what goes through the mesh (_mesh_common), a clean tick included.
 """Background scan service — the reports-controller hot loop on the card.
 
 Mirror of pkg/controllers/report/background (controller.go:247
@@ -77,8 +77,8 @@ class BackgroundScanService:
         self._scanned: Dict[str, Tuple[str, int]] = {}  # guarded-by: _lock
         self._dirty: Set[str] = set()                   # guarded-by: _lock
         self._lock = threading.Lock()
-        # a mesh across processes: one tick at a time (every rank enters
-        # the same collectives in the same order)
+        # one tick at a time (on a mesh across processes every rank
+        # enters the same collectives in the same order)
         self._tick_lock = threading.Lock()
         self._scanner = None
         self._scanner_rev = -1
@@ -203,11 +203,9 @@ class BackgroundScanService:
         (fleet/manager.py) the keyspace is sharded: this replica scans
         ONLY the shards it owns, and shards just taken over from a
         dead replica force-rescan (the dead owner's reports died with
-        it — clean-skip bookkeeping must not hide that). On a mesh
-        across processes each rank's i-th tick pairs with every other
-        rank's i-th tick."""
-        if not self._cross_process:
-            return self._scan_once(full)
+        it — clean-skip bookkeeping must not hide that). Ticks run one
+        at a time; on a mesh across processes each rank's i-th tick
+        pairs with every other rank's i-th tick."""
         with self._tick_lock:
             return self._scan_once(full)
 
@@ -288,7 +286,11 @@ class BackgroundScanService:
                 todo.append((uid, res, h))
             else:
                 self.stats["skipped_clean"] += 1
-        if not todo and not self._cross_process:
+        if not todo:
+            if self._cross_process:
+                # a clean rank still joins the tick's agreement: the
+                # mesh's peers then scan their misses alone
+                self._mesh_common([], [])
             # a clean tick is still a completed scan: freshness resets
             # (fleet: by the oldest owned shard, not unconditionally)
             try:

@@ -1,5 +1,6 @@
 # Copied from kyverno_tpu/observability/metrics.py (the port's
-# kernel_errors counter added; one comment reworded).
+# kernel_errors counter and mesh_failed gauge added; one comment
+# reworded).
 """Metrics — counters/gauges/histograms with Prometheus exposition.
 
 The reference instruments via OpenTelemetry with a Prometheus exporter
@@ -648,6 +649,13 @@ class MetricsRegistry:
             "kyverno_tpu_kernel_errors_total",
             "kernel build, load, launch or graph-capture failures raised "
             "to the caller")
+        # a mesh across processes whose process group failed (a peer
+        # that never joined a collective within the timeout): its scans
+        # answer through the scalar engine until the process restarts
+        # (parallel/sharding.py)
+        self.mesh_failed = self.gauge(
+            "kyverno_tpu_mesh_failed",
+            "1 when this process's cross-process mesh has failed")
         self.retry_attempts = self.counter(
             "kyverno_resilience_retry_total",
             "retried call outcomes by site (recovered counts extra attempts)")

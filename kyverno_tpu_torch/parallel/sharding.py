@@ -38,22 +38,26 @@ size W above 1, ``make_mesh_2d(W, per_host)`` gives row r of the grid to
 rank r (its CUDA devices, or ``devices=``). Every rank runs the same
 scan on the same resources: it encodes the whole tile, ``put`` places
 its own shards only, ``step`` runs them and sums their counts, then one
-``all_reduce`` sums the (rules, 7) counts over the ranks, and ``table``
-gathers every rank's shard tables, so each rank holds the whole (rules,
-N) table in mesh order. The collectives run on host tensors over a gloo
-group of the mesh's own, with an explicit timeout
-(``XPROC_TIMEOUT_S``): the scan reads its results back to the host
-anyway, and one card may hold several ranks, which NCCL refuses. Every
+``all_reduce`` (``check_tile``) carries the (rules, 7) counts with the
+tile's check, and ``table`` gathers every rank's shard tables, so each
+rank holds the whole (rules, N) table in mesh order. The collectives
+run on host tensors over a gloo group of the mesh's own, with an
+explicit timeout (``XPROC_TIMEOUT_S``): the scan reads its results back
+to the host anyway, and one card may hold several ranks, which NCCL
+refuses. Every
 rank enters each tile's collectives in the same order: a rank that
 cannot run its part (its encode failed, its breaker is open, its
 program raised) joins the tile's first collective with a failure flag
 (``skip_step``), so every rank's step raises ``MeshPeerFailed`` and the
-tile takes the guarded dispatch's all-HOST answer. The first collective
-also checks that the ranks agree on the tile's width and the compiled
-policy set. A collective that fails (a peer that never joins, within
-the timeout) marks the mesh failed; every later step on it raises at
-once. The lane-shape buckets need no agreement: they shape a rank's own
-lanes only, never what crosses ranks.
+tile takes the guarded dispatch's all-HOST answer without counting a
+failure on this rank's breaker (its card did its part). The first
+collective also checks that the ranks agree on the tile's width and the
+compiled policy set. A collective that fails (a peer that never joins,
+within the timeout) marks the mesh failed for good: it logs
+``mesh_failed`` on the op-log and sets ``kyverno_tpu_mesh_failed`` to 1,
+and every later step on it raises at once. The lane-shape buckets need
+no agreement: they shape a rank's own lanes only, never what crosses
+ranks.
 
 ``scan`` goes through the reference's resilience ladder: an encode
 failure quarantines the hostile resources through ``TorchEngine.scan``,
@@ -111,7 +115,8 @@ class MeshPeerFailed(RuntimeError):
     """A collective of a cross-process mesh did not give the tile's
     result: a rank flagged a failure of its own part of the step, the
     ranks disagreed on the tile, or the collective itself failed (a
-    peer that never joined, within the group's timeout)."""
+    peer that never joined, within the group's timeout). This rank's
+    own part ran: a failure of its own is raised as itself."""
 
 
 class Mesh:
@@ -208,36 +213,37 @@ class Mesh:
             return fn()
         except Exception as e:
             self.failed = f"{type(e).__name__}: {e}"[:300]
+            _mark_failed(self)
             raise MeshPeerFailed("a collective of the mesh failed: "
                                  + self.failed) from e
 
-    def check_tile(self, ok: bool, width: int, rows: int, key: int) -> None:
-        """The first collective of every tile: one ``all_reduce(SUM)`` of
-        a failure flag and each rank's (tile width, rules, policy-set
-        key) in its own slot. Raises MeshPeerFailed on every rank when
-        any rank failed its part or the ranks disagree."""
+    def check_tile(self, ok: bool, width: int, key: int,
+                   counts: np.ndarray) -> np.ndarray:
+        """The one ``all_reduce(SUM)`` of every tile's step: a failure
+        flag, each rank's (tile width, rules, policy-set key) in its own
+        slot, and the (rules, 7) counts. Returns the counts summed over
+        the ranks (int32); raises MeshPeerFailed on every rank when any
+        rank failed its part or the ranks disagree."""
         import torch.distributed as dist
 
-        head = torch.zeros(1 + 3 * self.world, dtype=torch.int64)
+        rows = counts.shape[0]
+        head = torch.zeros(1 + 3 * self.world + counts.size,
+                           dtype=torch.int64)
         head[0] = 0 if ok else 1
         head[1 + 3 * self.rank:4 + 3 * self.rank] = torch.tensor(
             [width, rows, key], dtype=torch.int64)
+        head[1 + 3 * self.world:] = torch.from_numpy(
+            np.ascontiguousarray(counts, dtype=np.int64).reshape(-1))
         self._collective(lambda: dist.all_reduce(head, group=self.group))
         if int(head[0]):
             raise MeshPeerFailed(f"{int(head[0])} of {self.world} ranks "
                                  "could not run their part of the step")
-        per = head[1:].view(self.world, 3)
+        per = head[1:1 + 3 * self.world].view(self.world, 3)
         if bool((per != per[0]).any()):
             raise MeshPeerFailed("the ranks disagree on the tile (width, "
                                  f"rules, policy set): {per.tolist()}")
-
-    def reduce_counts(self, counts: np.ndarray) -> np.ndarray:
-        """One ``all_reduce(SUM)`` of the (rules, 7) int32 counts."""
-        import torch.distributed as dist
-
-        t = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32))
-        self._collective(lambda: dist.all_reduce(t, group=self.group))
-        return t.numpy()
+        return head[1 + 3 * self.world:].numpy().astype(
+            np.int32).reshape(counts.shape)
 
     def gather_table(self, part: Optional[np.ndarray], rows: int,
                      width: int) -> np.ndarray:
@@ -271,6 +277,17 @@ class Mesh:
             lists, list(items), group=self.group))
         held = [set(x) for x in lists[1:]]
         return [x for x in lists[0] if all(x in h for h in held)]
+
+
+def _mark_failed(mesh: Mesh) -> None:
+    """A cross-process mesh's process group failed: say so on the
+    op-log and the ``kyverno_tpu_mesh_failed`` gauge (it stays failed
+    until the process restarts)."""
+    from ..observability.log import global_oplog
+
+    global_registry.mesh_failed.set(1.0)
+    global_oplog.emit("mesh_failed", level="error", rank=mesh.rank,
+                      world=mesh.world, error=mesh.failed)
 
 
 def _mesh_device(d) -> torch.device:
@@ -351,6 +368,7 @@ def make_mesh_2d(
         timeout_s = XPROC_TIMEOUT_S if timeout_s is None else timeout_s
         group = dist.new_group(list(range(world)), backend="gloo",
                                timeout=datetime.timedelta(seconds=timeout_s))
+        global_registry.mesh_failed.set(0.0)
         return Mesh(arr, axes, ranks=ranks, group=group)
     if len(devices) < hosts * per_host:
         raise ValueError(
@@ -562,8 +580,9 @@ class ShardedScanner:
         if not self.mesh.cross_process:
             return
         try:
-            self.mesh.check_tile(False, 0, len(self.cps.device_programs),
-                                 self._tile_key())
+            self.mesh.check_tile(False, 0, self._tile_key(), np.zeros(
+                (len(self.cps.device_programs), self.NUM_CLASSES),
+                dtype=np.int32))
         except MeshPeerFailed:
             pass
 
@@ -576,9 +595,9 @@ class ShardedScanner:
         column, summed on the mesh's first device.
 
         On a cross-process mesh the shards are this rank's, and the
-        counts are read back and summed over the ranks (``check_tile``
-        then ``reduce_counts``): the counts returned are a host tensor.
-        A rank whose own part raises still joins, with a failure flag."""
+        counts are read back and summed over the ranks (``check_tile``):
+        the counts returned are a host tensor. A rank whose own part
+        raises still joins, with a failure flag."""
         verdicts, counts = [], []
         try:
             for dev, lanes in zip(self.mesh.local_devices, shards):
@@ -604,9 +623,8 @@ class ShardedScanner:
         if not self.mesh.cross_process:
             return verdicts, total
         width = sum(int(v.shape[1]) for v in verdicts) * self.mesh.world
-        self.mesh.check_tile(True, width, len(self.cps.device_programs),
-                             self._tile_key())
-        return verdicts, torch.from_numpy(self.mesh.reduce_counts(local))
+        return verdicts, torch.from_numpy(self.mesh.check_tile(
+            True, width, self._tile_key(), local))
 
     def _put_step(self, batch: Dict[str, Any], keep: Optional[list] = None
                   ) -> Tuple[List[torch.Tensor], torch.Tensor]:

@@ -1035,15 +1035,25 @@ class TorchEngine:
 
     def _record_dispatch_failure(self, e: Exception) -> None:
         from ..observability.metrics import global_registry
+        from ..parallel.sharding import MeshPeerFailed
 
         # a stash from a dispatch that then failed validation must not
         # masquerade as truth for the all-HOST fallback table
         self._tls.pending_counts = None
-        self.breaker.record_failure()
+        reason = "error"
+        if isinstance(e, MeshPeerFailed):
+            # a peer of a cross-process mesh (or the collective between
+            # the ranks) failed, after this rank's card ran its part: a
+            # success for this card's breaker, which the admission path
+            # shares, and it ends a half-open probe
+            reason = "mesh_peer"
+            self.breaker.record_success()
+        else:
+            self.breaker.record_failure()
         set_dispatch_path(PATH_SCALAR_FALLBACK)
-        global_registry.breaker_fallback.inc({"reason": "error"})
+        global_registry.breaker_fallback.inc({"reason": reason})
         global_tracer.add_event(
-            "breaker_fallback", reason="error", breaker=self.breaker.name,
+            "breaker_fallback", reason=reason, breaker=self.breaker.name,
             breaker_state=self.breaker.state,
             error=f"{type(e).__name__}: {e}")
 

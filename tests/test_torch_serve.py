@@ -165,9 +165,11 @@ def _req(port, method, path, body=None):
     return resp.status, data
 
 
-# the port's registry has one family more: its kernels' build, load,
-# launch and capture failures (observability/metrics.py)
-PORT_ONLY_FAMILIES = {"kyverno_tpu_kernel_errors_total"}
+# the port's registry has two families more: its kernels' build, load,
+# launch and capture failures, and whether its mesh across processes
+# has failed (observability/metrics.py)
+PORT_ONLY_FAMILIES = {"kyverno_tpu_kernel_errors_total",
+                      "kyverno_tpu_mesh_failed"}
 
 
 def _families(text):

@@ -37,7 +37,10 @@ def test_reset_port_state_leaves_every_global_fresh(tmp_path):
                                                       storage_state)
     from kyverno_tpu_torch.tpu.cache import global_verdict_cache
 
-    # dirty each one
+    # dirty each one; the SLO before the flight recorder's spool
+    # directory, as a burn with one configured spools the ring on a
+    # thread of its own, whose op-log event could land after the reset
+    global_slo.record_scan(coverage=0.5)
     global_oplog.configure(path=str(tmp_path / "op.jsonl"))
     global_oplog.emit("dirty", n=1)
     storage_health("journal").record_error(
@@ -47,7 +50,6 @@ def test_reset_port_state_leaves_every_global_fresh(tmp_path):
     global_verifier.configure(rate=0.5, synchronous=True)
     global_verdict_cache.put(("k",), np.zeros(3, dtype=np.int32))
     configure_store(str(tmp_path / "col"))
-    global_slo.record_scan(coverage=0.5)
     assert global_oplog.state()["events_emitted"] >= 1
     assert {SURFACE_OPLOG, "journal"} <= set(storage_state())
     assert storage_state()["journal"]["state"] == "degraded"

@@ -8,11 +8,14 @@ counts must equal the reference's bit for bit, for ``scan_device``,
 ``scan`` and a cold and a warm ``scan_stream``, although rank 1 grew
 its lane buckets alone; the scan service must give every rank the
 reference's reports although rank 0 alone served a third of the
-snapshot from its verdict cache; a peer that never joins must fail the
+snapshot from its verdict cache, and a tick clean on one rank alone
+must keep the ranks in step; a peer that never joins must fail the
 collective within the mesh's timeout, and ``scan`` then answers through
 the scalar engine, equal to the reference's, as it does when one rank
 alone fails before the step (its encode, a fault) and the ranks stay in
-step. ``serve --distributed`` at
+step. A peer's failure counts on no rank's breaker but the failing
+one's; a failed mesh says so on the op-log and its gauge.
+``serve --distributed`` at
 a world size of 2 brings the mesh up in both processes and their
 ``/scan`` summaries equal the reference service's. Tolerance: exact."""
 
@@ -169,7 +172,12 @@ def test_a_rank_alone_failing_before_the_step_keeps_the_ranks_in_step(
         assert r["skew_failed"] is None
     # rank 0 met the failure flag in both steps; rank 1's own encode
     # failure went to its engine alone, its fault to the scalar engine
-    assert [r["skew_fallbacks"] for r in ranks] == [2, 1]
+    assert [r["skew_fallbacks"] for r in ranks] == [{"mesh_peer": 2},
+                                                    {"error": 1}]
+    # only rank 1's own fault counts on a breaker (the admission path
+    # shares it): rank 0's card did its part both times
+    assert [r["skew_breaker"] for r in ranks] == [["closed", 0],
+                                                  ["closed", 1]]
 
 
 def _reference_service():
@@ -196,13 +204,34 @@ def test_a_rank_local_cache_hit_keeps_the_ranks_in_step(ranks):
         assert got == want
 
 
+def test_a_tick_clean_on_one_rank_keeps_the_ranks_in_step(ranks, reference):
+    """Rank 0's tick is clean while rank 1's has one changed resource:
+    rank 0 still joins the tick's agreement, rank 1 scans its change
+    alone, and the next step pairs up."""
+    assert [r["clean_scanned"] for r in ranks] == [0, 1]
+    wv, wc = reference.scan_device(copy.deepcopy(_api_resources()))
+    for r in ranks:
+        assert np.array_equal(r["clean_v"], wv)
+        assert np.array_equal(r["clean_c"], wc)
+
+
 def test_a_peer_that_never_joins_fails_within_the_timeout(ranks, reference):
     rank0 = ranks[0]
     want = reference.scan(copy.deepcopy(_api_resources())).verdicts
     assert np.array_equal(rank0["alone"], want)
     assert rank0["alone_failed"] and "Timed out" in rank0["alone_failed"]
     assert TIMEOUT_S - 0.5 < rank0["alone_s"] < TIMEOUT_S + 30
-    assert rank0["alone_fallbacks"] >= 1
+    assert set(rank0["alone_fallbacks"]) == {"mesh_peer"}
+    assert rank0["alone_fallbacks"]["mesh_peer"] >= 1
+    # the peer's failure is not this card's: the breaker counts none
+    assert rank0["alone_breaker"] == ["closed", 0]
+    failed = [e for e in rank0["events"] if e["event"] == "mesh_failed"]
+    assert len(failed) == 1 and failed[0]["level"] == "error"
+    assert (failed[0]["rank"], failed[0]["world"]) == (0, 2)
+    assert "Timed out" in failed[0]["error"]
+    assert rank0["alone_gauge"] == 1.0
+    assert not [e for e in ranks[1]["events"]
+                if e["event"] == "mesh_failed"]
 
 
 # ---------------------------------------------------------------------------
@@ -240,26 +269,34 @@ def test_serve_distributed_world_two(tmp_path):
     policies.write_text(yaml.safe_dump_all(policy_docs()))
     port = _free_port()
     logs = [str(tmp_path / f"rank{r}.jsonl") for r in (0, 1)]
+    # serve mirrors its op-log to stderr: a file each, as a pipe nobody
+    # reads could fill and stall a rank
+    errs = [str(tmp_path / f"rank{r}.err") for r in (0, 1)]
+
+    def err(r):
+        with open(errs[r]) as f:
+            return f.read()[-4000:]
+
     procs = []
     for r in (0, 1):
         env = _child_env()
         env.update({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                     "WORLD_SIZE": "2", "RANK": str(r)})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "kyverno_tpu_torch", "serve",
-             str(policies), "--distributed", "--device", "cpu",
-             "--port", "0", "--metrics-port", "0", "--scan-interval",
-             "3600", "--no-reports", "--no-columnar", "--log-file",
-             logs[r]],
-            env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
-            stderr=subprocess.PIPE, text=True))
+        with open(errs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kyverno_tpu_torch", "serve",
+                 str(policies), "--distributed", "--device", "cpu",
+                 "--port", "0", "--metrics-port", "0", "--scan-interval",
+                 "3600", "--no-reports", "--no-columnar", "--log-file",
+                 logs[r]],
+                env=env, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=f))
     try:
         deadline = time.monotonic() + CHILD_S
         started = [None, None]
         while None in started:
             for r in (0, 1):
                 assert procs[r].poll() is None, \
-                    f"serve rank {r} exited:\n{procs[r].stderr.read()}"
+                    f"serve rank {r} exited:\n{err(r)}"
                 for e in _events(logs[r]):
                     if e.get("event") == "serve_started":
                         started[r] = e

@@ -10,6 +10,8 @@ conftest, on a machine without JAX) can import it too;
 
 from __future__ import annotations
 
+import threading
+
 import pytest
 
 
@@ -32,10 +34,13 @@ def reset_port_state() -> None:
     from kyverno_tpu_torch.tpu.cache import (global_encode_cache,
                                              global_verdict_cache)
 
-    # the fleet first: a live replica's threads may still write into
-    # the state reset below
+    # the fleet first, and the flight recorder's detached spools: their
+    # threads may still write into the state reset below
     if get_fleet() is not None:
         reset_fleet()
+    for t in threading.enumerate():
+        if t.name == "flight-spool":
+            t.join(timeout=5)
     global_verdict_cache.on_put = None
     global_verdict_cache.clear()
     global_encode_cache.clear()

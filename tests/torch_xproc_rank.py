@@ -11,11 +11,16 @@ only (never JAX or the JAX package):
   first grows its lane buckets, a choice of its own.
 - ``skew``: rank 1 alone fails before the step, once by its encode
   raising in ``scan``, once by a ``tpu.dispatch`` fault; then a
-  ``scan_device``.
+  ``scan_device``. Each rank's fallbacks by reason and its breaker.
 - ``service``: ``BackgroundScanService`` on the same mesh, where rank
-  0 alone has a third of the resources in its verdict cache.
+  0 alone has a third of the resources in its verdict cache; then a
+  tick that is clean on rank 0 and has one changed resource on rank 1,
+  and a ``scan_device``.
 - ``alone``: rank 1 never joins; rank 0's ``scan`` meets the mesh's
   timeout and answers through the scalar engine.
+
+Each rank's op-log goes to ``DIR/rank{RANK}.oplog.jsonl``; its events
+are written out with the rest.
 """
 
 from __future__ import annotations
@@ -34,10 +39,22 @@ import torch.distributed as dist
 torch.set_num_threads(1)
 
 
+def _fallbacks(registry) -> dict:
+    return {labels.get("reason"): v
+            for labels, v in registry.breaker_fallback.series()}
+
+
+def _since(registry, before: dict) -> dict:
+    now = _fallbacks(registry)
+    return {r: v - before.get(r, 0) for r, v in now.items()
+            if v != before.get(r, 0)}
+
+
 def main(out: str, rank: int, port: int, timeout_s: float) -> None:
     from kyverno_tpu_torch.api.policy import ClusterPolicy
     from kyverno_tpu_torch.cluster import (BackgroundScanService,
                                            ClusterSnapshot, PolicyCache)
+    from kyverno_tpu_torch.observability.log import global_oplog
     from kyverno_tpu_torch.observability.metrics import global_registry
     from kyverno_tpu_torch.parallel.sharding import (ShardedScanner,
                                                      make_mesh_2d)
@@ -49,6 +66,8 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
 
     with open(os.path.join(out, "input.json")) as f:
         doc = json.load(f)
+    oplog = os.path.join(out, f"rank{rank}.oplog.jsonl")
+    global_oplog.configure(path=oplog)
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -72,7 +91,7 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
         info[f"stream_{tag}_tiles"] = stats["tiles"]
 
     # -- skew: rank 1 alone does not reach the step
-    fallbacks0 = sum(global_registry.breaker_fallback._values.values())
+    fallbacks0 = _fallbacks(global_registry)
     real = scanner.encode
     if rank == 1:
         calls = []
@@ -90,12 +109,13 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
         global_faults.arm("tpu.dispatch", mode="raise", count=1)
     arrays["skew_fault"] = scanner.scan(copy.deepcopy(resources)).verdicts
     global_faults.disarm()
+    info["skew_breaker"] = [tpu_breaker().state,
+                            tpu_breaker()._consecutive_failures]
     tpu_breaker().reset()
     arrays["skew_v"], arrays["skew_c"] = scanner.scan_device(
         copy.deepcopy(resources))
     info["skew_failed"] = mesh.failed
-    info["skew_fallbacks"] = (
-        sum(global_registry.breaker_fallback._values.values()) - fallbacks0)
+    info["skew_fallbacks"] = _since(global_registry, fallbacks0)
 
     # -- service
     snap, cache = ClusterSnapshot(), PolicyCache()
@@ -118,6 +138,14 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
     info["service_results"] = {
         uid: sorted((r.policy, r.rule, r.result) for r in rows)
         for uid, rows in svc.aggregator._per_resource.items()}
+    # a clean tick on rank 0 beside one changed resource on rank 1
+    if rank == 1:
+        changed = copy.deepcopy(doc["service_docs"][-1])
+        changed["metadata"].setdefault("labels", {})["touched"] = "1"
+        snap.upsert(changed)
+    info["clean_scanned"] = svc.scan_once()
+    arrays["clean_v"], arrays["clean_c"] = scanner.scan_device(
+        copy.deepcopy(resources))
 
     # -- alone: rank 1 never joins another collective
     if rank == 1:
@@ -126,14 +154,17 @@ def main(out: str, rank: int, port: int, timeout_s: float) -> None:
                 and time.monotonic() < deadline:
             time.sleep(0.1)
     else:
-        before = global_registry.breaker_fallback._values.copy()
+        before = _fallbacks(global_registry)
         t0 = time.monotonic()
         arrays["alone"] = scanner.scan(copy.deepcopy(resources)).verdicts
         info["alone_s"] = time.monotonic() - t0
         info["alone_failed"] = mesh.failed
-        info["alone_fallbacks"] = (
-            sum(global_registry.breaker_fallback._values.values())
-            - sum(before.values()))
+        info["alone_fallbacks"] = _since(global_registry, before)
+        info["alone_breaker"] = [tpu_breaker().state,
+                                 tpu_breaker()._consecutive_failures]
+        info["alone_gauge"] = global_registry.mesh_failed.value()
+    with open(oplog) as f:
+        info["events"] = [json.loads(line) for line in f]
     np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
     tmp = os.path.join(out, f"rank{rank}.json.tmp")
     with open(tmp, "w") as f:
